@@ -1,0 +1,493 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+  device   the card (torch and ``nvidia-smi``), torch and CUDA versions;
+  build    nvcc builds every kernel of ``src/repro_torch/csrc`` for sm_90a;
+  kernels  each kernel against its plain PyTorch version on the card, at
+           the paper CNN's conv1/conv2/fc shapes, B in {1, 3, 8}, in the
+           number formats it sees (int8 must be bitwise);
+  serve    the launcher's CNN path and VisionEngine under qformat and int8
+           on the card, every request held against the same engine on the
+           CPU; the kernels' launch counts must match the batches served;
+  eager    PaperCNN.forward (conv_window) against the compiled plan
+           (fused_cwp) on the card, and against the CPU, in all 3 modes;
+  times    per kernel and shape, the median device time of 100 launches
+           at B = 8 and B = 1024, beside the plain version, one library
+           call for the same function, and the card's bound.
+
+Then the kernels line (one JSON object), the card's ``nvidia-smi`` name
+and power limit, and as the last line ``{"ok": true, "device": ...}``.
+Any failed check exits non-zero before that line. Without a GPU, or
+without the repository beside it, the script exits non-zero and prints
+no result. It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM data sheet (NVIDIA), dense: fp32 on CUDA cores, int8 tensor
+# cores, HBM3 bandwidth. Rates assume the full 700 W power limit.
+PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
+PEAK_BYTES = 3.35e12
+
+# every kernel of this slice: wrapper module, source, TPU kernel replaced
+KERNELS = {
+    "fused_cwp": ("src/repro_torch/csrc/fused_cwp.cu",
+                  "src/repro/kernels/fused_cwp/kernel.py:47"),
+    "conv_window": ("src/repro_torch/csrc/conv_window.cu",
+                    "src/repro/kernels/conv_window/kernel.py:46"),
+    "qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
+                "src/repro/kernels/qmatmul/kernel.py:25"),
+}
+# the paper CNN's stage shapes: (N, H, W, M, K) per conv, (K, N) for fc
+CONV1 = (1, 28, 28, 15, 3)
+CONV2 = (15, 13, 13, 20, 6)
+FC = (320, 10)
+# fp32 sums in another order than the plain version's matmul; |y| is
+# O(10) here and the reference itself moves by 3.8e-6 between orders
+TOL_FP32 = 1e-5
+QSTEP = 2.0 ** -8               # one Q8.8 lattice step
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ------------------------------------------------------------------ helpers
+
+def kernel_modules():
+    import repro_torch.kernels.conv_window.ops as cw
+    import repro_torch.kernels.fused_cwp.ops as fc
+    import repro_torch.kernels.qmatmul.ops as qm
+    return {"fused_cwp": fc, "conv_window": cw, "qmatmul": qm}
+
+
+def reset_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def counts() -> dict[str, int]:
+    return {k: mod.launches for k, mod in kernel_modules().items()}
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def bitwise(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def conv_inputs(gen, bsz, stage, mode, device):
+    """(x, w, b, scale) for one conv stage in one number format."""
+    import torch
+    from repro_torch.core.quantize import QFormat
+    from repro_torch.ops.impls import quantize_conv_int8, split_requant
+    n, h, w_, m, k = stage
+    x = torch.randn((bsz, n, h, w_), generator=gen)
+    w = torch.randn((m, n, k, k), generator=gen) * (n * k * k) ** -0.5
+    b = torch.randn((m,), generator=gen) * 0.1
+    scale = None
+    if mode == "qformat":
+        q = QFormat()
+        x, w, b = q.quantize(x), q.quantize(w), q.quantize(b)
+    elif mode == "int8":
+        x, w, scale = split_requant(*quantize_conv_int8(x, w))
+    return tuple(None if t is None else t.to(device) for t in (x, w, b, scale))
+
+
+def fc_inputs(gen, bsz, device):
+    import torch
+    from repro_torch.core.quantize import quantize_int8
+    xq = quantize_int8(torch.randn((bsz, FC[0]), generator=gen), axis=-1)
+    wq = quantize_int8(torch.randn(FC, generator=gen) * FC[0] ** -0.5, axis=0)
+    return tuple(t.to(device) for t in (xq.codes, wq.codes, xq.scale,
+                                        wq.scale))
+
+
+# ------------------------------------------------------------------- phases
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(),
+          f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0].strip()
+    info = {"phase": "device", "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "capability": list(torch.cuda.get_device_capability(0))}
+    emit(info)
+    return info
+
+
+def phase_build():
+    from repro_torch.kernels.build import SOURCES, build
+    t0 = time.perf_counter()
+    report = build()
+    seconds = time.perf_counter() - t0
+    libs = {}
+    for name in SOURCES:
+        r = report[name]
+        regs = [ln.strip() for ln in r["ptxas"].splitlines()
+                if "registers" in ln]
+        libs[name] = {"built": r["built"], "seconds": round(r["seconds"], 2),
+                      "ptxas": regs}
+    emit({"phase": "build", "seconds": round(seconds, 2), "libs": libs})
+
+
+def phase_kernels(device):
+    """Each kernel against its plain version on the same card inputs."""
+    import torch
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    from repro_torch.kernels.qmatmul.ops import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+
+    gen = torch.Generator().manual_seed(0)
+    cases = {k: [] for k in KERNELS}
+
+    def record(name, stage, bsz, mode, got, want):
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        exact = bitwise(got, want)
+        tol = 0.0 if mode == "int8" else TOL_FP32 * (1 + float(
+            want.abs().max()))
+        ok = exact if mode == "int8" else err <= tol
+        cases[name].append({"stage": stage, "B": bsz, "mode": mode,
+                            "max_abs": err, "bitwise": exact,
+                            "tolerance": tol, "ok": ok})
+        check(ok, f"{name} {stage} B={bsz} {mode}: kernel vs plain max_abs "
+                  f"{err} (bitwise={exact}, tolerance {tol})")
+
+    for bsz in (1, 3, 8):
+        for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
+            for mode in ("none", "qformat", "int8"):
+                x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
+                record("fused_cwp", stage, bsz, mode,
+                       fused_cwp(x, w, b, scale=s),
+                       fused_cwp_ref(x, w, b, scale=s))
+                # the eager int8 path passes no bias into the conv (the
+                # requant epilogue runs outside it)
+                cb = None if mode == "int8" else b
+                record("conv_window", stage, bsz, mode,
+                       conv_window(x, w, cb), conv2d_window_ref(x, w, cb))
+        xc, wc, xs, ws = fc_inputs(gen, bsz, device)
+        record("qmatmul", "fc", bsz, "int8", qmatmul(xc, wc, xs, ws),
+               qmatmul_ref(xc, wc, xs, ws))
+    parity = [{"name": k, "replaces": KERNELS[k][1],
+               "max_abs": max(c["max_abs"] for c in v),
+               "int8_bitwise": all(c["bitwise"] for c in v
+                                   if c["mode"] == "int8"),
+               "cases": v} for k, v in cases.items()]
+    emit({"phase": "kernels", "parity": parity})
+    return {p["name"]: p["max_abs"] for p in parity}
+
+
+def _compare_logits(mode, got: dict, want: dict) -> dict:
+    """Every request's logits, card vs CPU, to the parity table."""
+    import numpy as np
+    check(sorted(got) == sorted(want), f"{mode}: request ids differ")
+    worst, differing, labels_ok = 0.0, 0, True
+    for rid in want:
+        a = np.asarray(got[rid]["logits"], np.float64)
+        b = np.asarray(want[rid]["logits"], np.float64)
+        check(a.shape == b.shape == (10,) and np.isfinite(a).all()
+              and np.isfinite(b).all(),
+              f"{mode}: request {rid} logits {a} (card) / {b} (cpu) are "
+              f"not 10 finite values")
+        d = np.abs(a - b)
+        worst = max(worst, float(d.max()))
+        differing += int((d > 0).sum())
+        if mode == "none":
+            top2 = np.sort(b)[-2:]
+            if top2[1] - top2[0] > 1e-4:
+                labels_ok &= got[rid]["label"] == want[rid]["label"]
+    if mode == "int8":
+        ok = differing == 0
+    elif mode == "qformat":
+        ok = worst <= QSTEP
+    else:
+        ok = labels_ok and all(
+            np.allclose(got[r]["logits"], want[r]["logits"], rtol=TOL_FP32,
+                        atol=TOL_FP32) for r in want)
+    check(ok, f"serve {mode}: card vs CPU logits max_abs {worst}, "
+              f"{differing} differing elements")
+    return {"mode": mode, "requests": len(want), "max_abs": worst,
+            "differing_elements": differing}
+
+
+def phase_serve(device):
+    """The launcher's CNN path, then VisionEngine under qformat and int8,
+    each on the card and on the CPU with the same weights."""
+    import numpy as np
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import VisionEngine, VisionEngineConfig
+
+    out = []
+    argv = ["--arch", "mnist_cnn", "--capacity", "8", "--requests", "32"]
+    before = counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        eng, res = launcher.main(argv + ["--device", "cuda"])
+        _, res_cpu = launcher.main(argv + ["--device", "cpu"])
+    batches = eng.stats.steps + len(eng.buckets)        # served + prewarm
+    grew = {k: counts()[k] - before[k] for k in before}
+    check(grew["fused_cwp"] == 2 * batches and grew["qmatmul"] == 0,
+          f"launcher: launches {grew} for {batches} batches")
+    row = _compare_logits("none", res, res_cpu)
+    row.update(path="launcher", batches=batches, launches=grew)
+    out.append(row)
+
+    model = PaperCNN()
+    params = model.init(0, device="cpu")
+    rng = np.random.RandomState(2)
+    images = [rng.randn(*model.input_shape()[1:]).astype(np.float32)
+              for _ in range(32)]
+    for mode in ("qformat", "int8"):
+        results = {}
+        for dev in ("cuda", "cpu"):
+            before = counts()
+            e = VisionEngine(model, params, VisionEngineConfig(
+                batch=8, buckets="auto", policy=ExecPolicy(quant=mode),
+                device=dev))
+            for img in images:
+                e.submit(img)
+            results[dev] = e.run()
+            grew = {k: counts()[k] - before[k] for k in before}
+            if dev == "cuda":
+                batches = e.stats.steps + len(e.buckets)
+                want_q = batches if mode == "int8" else 0
+                check(grew["fused_cwp"] == 2 * batches
+                      and grew["qmatmul"] == want_q,
+                      f"engine {mode}: launches {grew} for {batches} "
+                      f"batches")
+                cuda_grew, cuda_batches = grew, batches
+            else:
+                check(not any(grew.values()),
+                      f"engine {mode} on cpu launched kernels: {grew}")
+        row = _compare_logits(mode, results["cuda"], results["cpu"])
+        row.update(path="engine", batches=cuda_batches, launches=cuda_grew)
+        out.append(row)
+    emit({"phase": "serve", "runs": out})
+
+
+def phase_eager(device):
+    """PaperCNN.forward (conv_window) vs the fused plan (fused_cwp) on the
+    card, and the card's forward vs the CPU's."""
+    import torch
+    from repro_torch.models.cnn import PaperCNN, PaperCNNConfig
+    from repro_torch.ops import ExecPolicy
+
+    gen = torch.Generator().manual_seed(3)
+    params = PaperCNN().init(0, device="cpu")
+    params_gpu = {k: ({kk: vv.to(device) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(device))
+                  for k, v in params.items()}
+    x = torch.randn((8, 1, 28, 28), generator=gen)
+    rows = []
+    for mode in ("none", "qformat", "int8"):
+        model = PaperCNN(PaperCNNConfig(policy=ExecPolicy(quant=mode)))
+        before = counts()
+        with torch.inference_mode():
+            eager = model.forward(params_gpu, x.to(device))
+            plan = model.compile(batch=8).bind(params_gpu)(x.to(device))
+            cpu = model.forward(params, x)
+        torch.cuda.synchronize()
+        grew = {k: counts()[k] - before[k] for k in before}
+        check(grew["conv_window"] == 2 and grew["fused_cwp"] == 2,
+              f"eager {mode}: launches {grew}")
+        e_vs_p, e_vs_cpu = max_abs(eager, plan), max_abs(eager.cpu(), cpu)
+        tol = {"none": TOL_FP32 * (1 + float(cpu.abs().max())),
+               "qformat": QSTEP, "int8": 0.0}[mode]
+        check(e_vs_p <= tol and e_vs_cpu <= tol,
+              f"eager {mode}: eager vs plan {e_vs_p}, card vs cpu "
+              f"{e_vs_cpu}, tolerance {tol}")
+        rows.append({"mode": mode, "eager_vs_plan_max_abs": e_vs_p,
+                     "eager_vs_plan_bitwise": bitwise(eager, plan),
+                     "card_vs_cpu_max_abs": e_vs_cpu, "launches": grew})
+    emit({"phase": "eager", "runs": rows})
+
+
+def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
+    """Median device time of ``reps`` calls of ``fn``, each between two
+    CUDA events, all queued behind a spin kernel so the host's launch
+    overhead never shows as device time. Returns (ms, queue_ran_dry)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    spin_done = torch.cuda.Event()
+    torch.cuda._sleep(int(4e8))                     # ~0.2 s of spinning
+    spin_done.record()
+    for e0, e1 in pairs:
+        e0.record()
+        fn()
+        e1.record()
+    dry = spin_done.query()                         # spin ended too soon
+    torch.cuda.synchronize()
+    return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs), dry
+
+
+def conv_work(bsz, stage, pooled: bool) -> tuple[float, float]:
+    """(bytes, fp32 operations) one conv stage call must move and do:
+    inputs read once, output written once."""
+    n, h, w, m, k = stage
+    ho, wo = h - k + 1, w - k + 1
+    out = bsz * m * (ho // 2) * (wo // 2) if pooled else bsz * m * ho * wo
+    nbytes = 4 * (bsz * n * h * w + m * n * k * k + 2 * m + out)
+    return nbytes, 2.0 * bsz * m * ho * wo * n * k * k
+
+
+def phase_times(device):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    from repro_torch.kernels.qmatmul.ops import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+
+    gen = torch.Generator().manual_seed(4)
+    rows = []
+    for bsz in (8, 1024):
+        for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
+            x, w, b, _ = conv_inputs(gen, bsz, shape, "none", device)
+            for name, kern, plain, lib, pooled in (
+                    ("fused_cwp", lambda: fused_cwp(x, w, b),
+                     lambda: fused_cwp_ref(x, w, b),
+                     lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2),
+                     True),
+                    ("conv_window", lambda: conv_window(x, w, b),
+                     lambda: conv2d_window_ref(x, w, b),
+                     lambda: F.conv2d(x, w, b), False)):
+                nbytes, ops = conv_work(bsz, shape, pooled)
+                rows.append(_time_row(name, stage, bsz, kern, plain, lib,
+                                      nbytes, ops / PEAK_FP32))
+        xc, wc, xs, ws = fc_inputs(gen, bsz, device)
+        k, n = FC
+        nbytes = bsz * k + k * n + 4 * (bsz + n + bsz * n)
+        rows.append(_time_row(
+            "qmatmul", "fc", bsz, lambda: qmatmul(xc, wc, xs, ws),
+            lambda: qmatmul_ref(xc, wc, xs, ws), None, nbytes,
+            2.0 * bsz * k * n / PEAK_INT8))
+    emit({"phase": "times", "peaks": {"fp32_flops": PEAK_FP32,
+                                      "int8_ops": PEAK_INT8,
+                                      "bytes_per_s": PEAK_BYTES},
+          "library_null_reason": {
+              "qmatmul": "torch._int_mm refuses N = 10 (it needs N a "
+                         "multiple of 8 and M > 16), and no other single "
+                         "PyTorch call is an int8 x int8 -> int32 GEMM"},
+          "rows": rows})
+    return rows
+
+
+def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s):
+    ms, dry = device_ms(kern)
+    plain_ms, plain_dry = device_ms(plain)
+    lib_ms, lib_dry = device_ms(lib) if lib is not None else (None, False)
+    bytes_s = nbytes / PEAK_BYTES
+    return {"name": name, "stage": stage, "B": bsz, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes_ms": bytes_s * 1e3, "operations_ms": ops_s * 1e3,
+            "queue_ran_dry": dry or plain_dry or lib_dry}
+
+
+def kernels_line(launches, max_err, rows) -> dict:
+    """The contract line: per kernel, the main path's launch count, its
+    parity error, and its time beside the bound for one served batch
+    (B = 8: both conv stages for the conv kernels, the fc for qmatmul)."""
+    out = []
+    for name, (source, replaces) in KERNELS.items():
+        mine = [r for r in rows if r["name"] == name and r["B"] == 8]
+        libs = [r["library_ms"] for r in mine]
+        bytes_ms = sum(r["bytes_ms"] for r in mine)
+        ops_ms = sum(r["operations_ms"] for r in mine)
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name],
+            "ms": sum(r["ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None if None in libs else sum(libs)})
+    return {"kernels": out}
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    # the reference pins fp32 precision: no TF32 in any fp32 contraction,
+    # the library yardsticks' cuDNN convolutions included
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    try:
+        info = phase_device()
+        phase_build()
+        max_err = phase_kernels(device)
+        reset_counts()                      # the main path starts here
+        phase_serve(device)
+        phase_eager(device)
+        launches = counts()
+        check(all(launches.values()),
+              f"a kernel of the main path never launched: {launches}")
+        rows = phase_times(device)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    emit(kernels_line(launches, max_err, rows))
+    print(info["nvidia_smi"])
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""``ArchSpec``: what ``--arch <id>`` resolves to (port of
+``repro.configs.base``, the fields the vision path reads)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+__all__ = ["ArchSpec"]
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                       # "cnn" for the vision workloads
+    build: Callable[[], Any]          # -> model instance
+    source: str                       # provenance note
+    notes: str = ""
+
+    def model(self):
+        return self.build()

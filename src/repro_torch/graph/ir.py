@@ -1,0 +1,222 @@
+"""Typed op-graph IR for the fusion graph compiler (DESIGN.md §8).
+
+Port of ``repro.graph.ir`` on a single device: the same frozen node
+dataclasses, ids, ``TensorSpec``s and ``ParamRef`` paths, so a port plan
+prints (``Graph.pretty``) exactly like the reference plan it mirrors. The
+reference's ``ShardingSpec`` and streaming ``tiling`` fields wait for the
+mesh and stream slices (ROADMAP §A.6, §A.10).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Iterator
+
+__all__ = ["TensorSpec", "ParamRef", "Node", "InputNode", "Conv2DNode",
+           "ReluNode", "MaxPool2Node", "FlattenNode", "DenseNode",
+           "QuantizeNode", "FusedConvBlockNode", "Graph"]
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Static shape + dtype of one value in the graph."""
+
+    shape: tuple[int, ...]
+    dtype: str = "float32"
+
+    def __str__(self) -> str:
+        return f"{self.dtype}[{','.join(map(str, self.shape))}]"
+
+
+@dataclass(frozen=True)
+class ParamRef:
+    """A path into the params dict, e.g. ``("conv1", "w")``."""
+
+    path: tuple[str, ...]
+    shape: tuple[int, ...]
+    dtype: str = "float32"
+
+    def fetch(self, params):
+        leaf = params
+        for key in self.path:
+            leaf = leaf[key]
+        return leaf
+
+    def __str__(self) -> str:
+        return "/".join(self.path)
+
+
+@dataclass(frozen=True)
+class Node:
+    """Base node: subclasses add op-specific static attributes."""
+
+    id: int
+    inputs: tuple[int, ...]
+    out: TensorSpec
+
+    @property
+    def op(self) -> str:
+        name = type(self).__name__
+        if name.endswith("Node"):
+            name = name[:-4]
+        return getattr(self, "_opname", name.lower())
+
+    def describe(self) -> str:
+        return ""
+
+    def pretty(self) -> str:
+        args = ", ".join(f"%{i}" for i in self.inputs)
+        extra = self.describe()
+        extra = f" {extra}" if extra else ""
+        return f"%{self.id} = {self.op}({args}){extra} -> {self.out}"
+
+
+@dataclass(frozen=True)
+class InputNode(Node):
+    pass
+
+
+@dataclass(frozen=True)
+class Conv2DNode(Node):
+    """VALID-padding conv2d + bias (paper C1/C3), weights by reference."""
+
+    w: ParamRef = None
+    b: ParamRef | None = None
+    stride: tuple[int, int] = (1, 1)
+
+    def describe(self) -> str:
+        return (f"w={self.w} k={self.w.shape[2]}x{self.w.shape[3]} "
+                f"s={self.stride[0]}x{self.stride[1]}"
+                + ("" if self.b is None else f" b={self.b}"))
+
+
+@dataclass(frozen=True)
+class ReluNode(Node):
+    pass
+
+
+@dataclass(frozen=True)
+class MaxPool2Node(Node):
+    """2×2/stride-2 max pool; ``odd`` per core.window.pool_output_size."""
+
+    odd: str = "raise"
+
+    def describe(self) -> str:
+        return f"odd={self.odd}"
+
+
+@dataclass(frozen=True)
+class FlattenNode(Node):
+    """(B, …) -> (B, prod(…)) — the conv→fc boundary."""
+
+
+@dataclass(frozen=True)
+class DenseNode(Node):
+    """x @ w + b through the policy-aware ``repro_torch.ops.dense``."""
+
+    w: ParamRef = None
+    b: ParamRef | None = None
+
+    def describe(self) -> str:
+        return f"w={self.w}" + ("" if self.b is None else f" b={self.b}")
+
+
+@dataclass(frozen=True)
+class QuantizeNode(Node):
+    """An explicit quantization point, inserted by the lowering pass.
+
+    ``kind``: ``qformat`` (snap to the Qm.n lattice), ``int8_conv_weight``
+    (per-output-channel int8 of a conv weight) or ``int8_act`` (per-tensor
+    int8 of an activation). ``constant`` marks weight quantizations, which
+    ``ExecutionPlan.bind`` folds once.
+    """
+
+    kind: str = "qformat"
+    int_bits: int = 8
+    frac_bits: int = 8
+    constant: bool = False
+    ref: ParamRef | None = None       # set when quantizing a weight directly
+
+    def describe(self) -> str:
+        fmt = (f" Q{self.int_bits}.{self.frac_bits}"
+               if self.kind == "qformat" else "")
+        src = f" ref={self.ref}" if self.ref is not None else ""
+        return f"kind={self.kind}{fmt}{src}" + \
+            (" const" if self.constant else "")
+
+
+@dataclass(frozen=True)
+class FusedConvBlockNode(Node):
+    """conv + bias + relu + 2×2/2 maxpool as ONE stage — the pre-pool
+    activation never exists as a whole tensor."""
+
+    _opname = "fused_conv_block"
+
+    w: ParamRef = None
+    b: ParamRef | None = None
+    stride: tuple[int, int] = (1, 1)
+    odd: str = "raise"
+
+    def describe(self) -> str:
+        return (f"w={self.w} k={self.w.shape[2]}x{self.w.shape[3]} "
+                f"s={self.stride[0]}x{self.stride[1]} odd={self.odd}")
+
+
+@dataclass(frozen=True)
+class Graph:
+    """An ordered (topological) operator graph with one input and one
+    output. Passes are Graph -> Graph; nodes are immutable."""
+
+    nodes: tuple[Node, ...]
+    input_id: int = 0
+    output_id: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "nodes", tuple(self.nodes))
+
+    def __iter__(self) -> Iterator[Node]:
+        return iter(self.nodes)
+
+    def __len__(self) -> int:
+        return len(self.nodes)
+
+    def node(self, nid: int) -> Node:
+        for n in self.nodes:
+            if n.id == nid:
+                return n
+        raise KeyError(f"no node %{nid} in graph")
+
+    def consumers(self, nid: int) -> list[Node]:
+        return [n for n in self.nodes if nid in n.inputs]
+
+    def ops(self) -> list[str]:
+        return [n.op for n in self.nodes]
+
+    def next_id(self) -> int:
+        return max(n.id for n in self.nodes) + 1
+
+    def validate(self) -> "Graph":
+        """Check topological order, id uniqueness, input/output wiring."""
+        seen: set[int] = set()
+        for n in self.nodes:
+            if n.id in seen:
+                raise ValueError(f"duplicate node id %{n.id}")
+            for i in n.inputs:
+                if i not in seen:
+                    raise ValueError(
+                        f"%{n.id} ({n.op}) consumes %{i} before definition")
+            seen.add(n.id)
+        if self.input_id not in seen or self.output_id not in seen:
+            raise ValueError("input/output id not in graph")
+        return self
+
+    def pretty(self) -> str:
+        return "\n".join(n.pretty() for n in self.nodes)
+
+    def replace_input(self, old: int, new: int) -> "Graph":
+        """Rewire every consumer of %old to read %new."""
+        nodes = tuple(
+            replace(n, inputs=tuple(new if i == old else i
+                                    for i in n.inputs))
+            for n in self.nodes)
+        out = new if self.output_id == old else self.output_id
+        return replace(self, nodes=nodes, output_id=out)

@@ -1,0 +1,68 @@
+"""Wrapper of the window conv CUDA kernel.
+
+Registered as the ``cuda`` backend of the ``conv2d`` op family
+(repro_torch.ops). On a CUDA tensor ``conv_window`` checks its arguments
+and launches ``csrc/conv_window.cu`` on the current stream, or raises; on
+a CPU tensor it runs the plain version (``ref.py``). ``launches`` counts
+kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import load
+from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
+from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+from repro_torch.ops.policy import ExecPolicy, current_policy
+from repro_torch.ops.tiling import block_threads, choose_conv_blocks
+
+__all__ = ["conv_window", "launches"]
+
+launches = 0
+
+
+@functools.cache
+def _launcher():
+    fn = load("conv_window").conv_window_launch
+    fn.argtypes = launch_args(4, 10)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def conv_window(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor | None = None, *,
+                stride: tuple[int, int] = (1, 1),
+                policy: ExecPolicy | None = None) -> torch.Tensor:
+    """x: (B,N,H,W) f32 · w: (M,N,Kh,Kw) f32 -> (B,M,Ho,Wo) f32, VALID
+    padding, ``+b`` (M,) when given."""
+    global launches
+    dev = x.device
+    check_tensor(x, "x", dtype=torch.float32, ndim=4, device=dev)
+    check_tensor(w, "w", dtype=torch.float32, ndim=4, device=dev)
+    bsz, n, h, wd = x.shape
+    m, n2, kh, kw = w.shape
+    if b is not None:
+        check_tensor(b, "b", dtype=torch.float32, ndim=1, device=dev)
+        if b.shape[0] != m:
+            raise ValueError(f"b has {b.shape[0]} entries for {m} output "
+                             f"channels")
+    sh, sw = stride
+    if n != n2 or h < kh or wd < kw or sh < 1 or sw < 1:
+        raise ValueError(f"conv shapes x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)} stride={tuple(stride)}")
+    if dev.type == "cpu":
+        return conv2d_window_ref(x, w, b, stride=tuple(stride))
+    ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
+    pol = policy if policy is not None else current_policy()
+    threads = block_threads("conv2d", choose_conv_blocks(bsz, m, ho, wo),
+                            pol.tile_overrides)
+    out = torch.empty((bsz, m, ho, wo), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    launch(_launcher(), "conv_window", dev, ptr(x), ptr(w), ptr(b), ptr(out),
+           bsz, n, h, wd, m, kh, kw, sh, sw, threads)
+    launches += 1
+    return out

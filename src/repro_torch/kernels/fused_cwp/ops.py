@@ -1,0 +1,76 @@
+"""Wrapper of the fused conv+requant+bias+relu+pool CUDA kernel.
+
+Registered as the ``cuda`` backend of the ``fused_conv_block`` op family
+(repro_torch.ops). On a CUDA tensor ``fused_cwp`` checks its arguments
+and launches ``csrc/fused_cwp.cu`` on the current stream, or raises; on a
+CPU tensor it runs the plain version (``ref.py``). ``launches`` counts
+kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import load
+from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
+from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+from repro_torch.ops.policy import ExecPolicy, current_policy
+from repro_torch.ops.tiling import block_threads, choose_fused_blocks
+
+__all__ = ["fused_cwp", "launches"]
+
+launches = 0
+
+
+@functools.cache
+def _launcher():
+    fn = load("fused_cwp").fused_cwp_launch
+    fn.argtypes = launch_args(5, 10)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_cwp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+              *, stride: tuple[int, int] = (1, 1),
+              scale: torch.Tensor | None = None,
+              policy: ExecPolicy | None = None) -> torch.Tensor:
+    """x: (B,N,H,W) f32 · w: (M,N,Kh,Kw) f32 -> (B,M,Ho/2,Wo/2) f32:
+    VALID conv, ``×scale`` (M,) when given (the int8 requant epilogue on
+    integer-valued codes), ``+b`` (M,) when given, relu, 2×2/2 max pool.
+    Needs even conv output dims."""
+    global launches
+    dev = x.device
+    check_tensor(x, "x", dtype=torch.float32, ndim=4, device=dev)
+    check_tensor(w, "w", dtype=torch.float32, ndim=4, device=dev)
+    bsz, n, h, wd = x.shape
+    m, n2, kh, kw = w.shape
+    for name, v in (("b", b), ("scale", scale)):
+        if v is not None:
+            check_tensor(v, name, dtype=torch.float32, ndim=1, device=dev)
+            if v.shape[0] != m:
+                raise ValueError(f"{name} has {v.shape[0]} entries for "
+                                 f"{m} output channels")
+    sh, sw = stride
+    if n != n2 or h < kh or wd < kw or sh < 1 or sw < 1:
+        raise ValueError(f"conv shapes x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)} stride={tuple(stride)}")
+    ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
+    if ho % 2 or wo % 2:
+        raise ValueError(
+            f"fused kernel needs even conv output dims, got {ho}x{wo}")
+    if dev.type == "cpu":
+        return fused_cwp_ref(x, w, b, tuple(stride), scale=scale)
+    pol = policy if policy is not None else current_policy()
+    threads = block_threads("fused_conv_block",
+                            choose_fused_blocks(bsz, m, ho, wo),
+                            pol.tile_overrides)
+    out = torch.empty((bsz, m, ho // 2, wo // 2), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    launch(_launcher(), "fused_cwp", dev, ptr(x), ptr(w), ptr(scale), ptr(b),
+           ptr(out), bsz, n, h, wd, m, kh, kw, sh, sw, threads)
+    launches += 1
+    return out

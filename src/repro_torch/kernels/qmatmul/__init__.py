@@ -1,0 +1,1 @@
+"""qmatmul: plain version (ref.py), CUDA wrapper (ops.py)."""

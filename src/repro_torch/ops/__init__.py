@@ -1,0 +1,15 @@
+"""The op registry, ExecPolicy and the public op entry points
+(DESIGN.md §7), ported from ``repro.ops``."""
+from repro_torch.ops.policy import (BACKENDS, QUANT_MODES, ExecPolicy,
+                                    current_policy, use_policy)
+from repro_torch.ops.registry import (REGISTRY, BackendUnavailableError,
+                                      dispatch, list_backends, list_ops,
+                                      register)
+from repro_torch.ops.impls import (conv2d, dense, fused_conv_block, qdense,
+                                   qmatmul, quantize_conv_int8, split_requant)
+
+__all__ = ["ExecPolicy", "use_policy", "current_policy", "BACKENDS",
+           "QUANT_MODES", "REGISTRY", "BackendUnavailableError", "dispatch",
+           "register", "list_ops", "list_backends", "conv2d",
+           "fused_conv_block", "qmatmul", "qdense", "dense",
+           "quantize_conv_int8", "split_requant"]

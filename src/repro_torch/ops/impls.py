@@ -1,0 +1,257 @@
+"""Backend registrations + the public op entry points (DESIGN.md §7).
+
+Port of ``repro.ops.impls`` for three op families, three backends each:
+
+  op               ref (oracle)          torch (plain)        cuda (kernel)
+  ---------------  --------------------  -------------------  ----------------
+  conv2d           paper-dataflow        im2col einsum        csrc/conv_window
+                   (windows → odd-even
+                   tree)
+  fused_conv_block unfused ref chain     im2col+relu+pool     csrc/fused_cwp
+  qmatmul          int32-exact sum       int32-exact sum      csrc/qmatmul
+
+Device priorities: on a CUDA tensor only ``cuda`` is auto-selected; on a
+CPU tensor the order is ``torch`` > ``cuda`` (whose wrapper then runs its
+plain version) > ``ref``, the JAX CPU order.
+
+Quantization (paper C4) is applied here, once, per ``ExecPolicy.quant``,
+exactly as in the reference: ``qformat`` snaps operands and results to
+the Qm.n lattice; ``int8`` contracts integer-valued f32 codes and applies
+the per-output-channel requant scale after the reduction; dense layers
+take the int8 datapath through ``qdense`` → ``qmatmul``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantize import QTensor, conv_epilogue, quantize_int8
+from repro_torch.core.window import conv2d_im2col, conv2d_ref, maxpool2
+from repro_torch.ops.policy import ExecPolicy, current_policy
+from repro_torch.ops.registry import dispatch, register
+
+__all__ = ["conv2d", "fused_conv_block", "qmatmul", "qdense", "dense",
+           "quantize_conv_int8", "split_requant"]
+
+# the reference pins fp32 matmul precision; the fp32 fc product that stays
+# on torch.matmul must not run in TF32 on the card
+torch.backends.cuda.matmul.allow_tf32 = False
+
+_PLAIN_CPU = {"cpu": 10}
+_REF_CPU = {"cpu": 1}
+_KERNEL = {"cuda": 30, "cpu": 5}
+
+
+# ---------------------------------------------------------------- conv2d
+
+@register("conv2d", "ref", priority=_REF_CPU)
+def _conv2d_ref(x, w, b=None, *, stride=(1, 1), policy=None):
+    return conv2d_ref(x, w, b, tuple(stride))
+
+
+@register("conv2d", "torch", priority=_PLAIN_CPU)
+def _conv2d_torch(x, w, b=None, *, stride=(1, 1), policy=None):
+    return conv2d_im2col(x, w, b, tuple(stride))
+
+
+def _f32(*ts) -> bool:
+    return all(t is None or t.dtype == torch.float32 for t in ts)
+
+
+def _conv2d_cuda_ok(x, w, b=None, *, stride=(1, 1), **_) -> bool:
+    return (x.ndim == 4 and w.ndim == 4 and x.shape[1] == w.shape[1]
+            and x.shape[2] >= w.shape[2] and x.shape[3] >= w.shape[3]
+            and _f32(x, w, b))
+
+
+@register("conv2d", "cuda", priority=_KERNEL, supports=_conv2d_cuda_ok)
+def _conv2d_cuda(x, w, b=None, *, stride=(1, 1), policy=None):
+    from repro_torch.kernels.conv_window.ops import conv_window
+    return conv_window(x.contiguous(), w.contiguous(),
+                       None if b is None else b.contiguous(),
+                       stride=tuple(stride), policy=policy)
+
+
+def _conv_quant_operands(pol: ExecPolicy, x, w, b):
+    """Quantize conv operands per the policy (paper C4), shared by the
+    ``conv2d`` and ``fused_conv_block`` entry points."""
+    if pol.quant == "qformat":
+        q = pol.qformat
+        return q.quantize(x), q.quantize(w), \
+            (None if b is None else q.quantize(b))
+    if pol.quant == "int8":
+        return quantize_conv_int8(x, w) + (b,)
+    return x, w, b
+
+
+def quantize_conv_int8(x, w) -> tuple[QTensor, QTensor]:
+    """Per-tensor activation QTensor + per-output-channel weight QTensor
+    (codes in the conv's (M, N, Kh, Kw) layout, scale flattened to (M,))."""
+    m = w.shape[0]
+    wq = quantize_int8(w.reshape(m, -1), axis=-1)
+    xq = quantize_int8(x, axis=None)
+    return xq, QTensor(wq.codes.reshape(w.shape), wq.scale.reshape(-1))
+
+
+def split_requant(x, w):
+    """Split int8 QTensor conv operands into (x_codes, w_codes, scale):
+    codes as integer-valued f32 (the η·127² < 2²⁴ contraction is exact in
+    fp32) and the per-output-channel requant factor sx·sw, shape (M,).
+    Non-QTensor operands pass through with scale None."""
+    if not (isinstance(x, QTensor) or isinstance(w, QTensor)):
+        return x, w, None
+    if not (isinstance(x, QTensor) and isinstance(w, QTensor)):
+        raise TypeError(
+            "int8 conv needs BOTH operands quantized: got "
+            f"x={type(x).__name__}, w={type(w).__name__}")
+    scale = (x.scale * w.scale).reshape(-1).to(torch.float32)
+    return (x.codes.to(torch.float32), w.codes.to(torch.float32), scale)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           *, stride: tuple[int, int] = (1, 1),
+           policy: ExecPolicy | None = None) -> torch.Tensor:
+    """x: (B, N, H, W) · w: (M, N, Kh, Kw) -> (B, M, Ho, Wo), VALID.
+
+    Under ``int8`` (or with QTensor operands, as compiled plans pass) the
+    backend contracts codes and the requant scale + bias apply outside it
+    as ``conv_epilogue``."""
+    pol = policy if policy is not None else current_policy()
+    x, w, b = _conv_quant_operands(pol, x, w, b)
+    x, w, scale = split_requant(x, w)
+    out = dispatch("conv2d", x, w, None if scale is not None else b,
+                   stride=stride, policy=pol)
+    if scale is not None:
+        out = conv_epilogue(out, scale, b)
+    if pol.quant == "qformat":
+        out = pol.qformat.quantize(out)
+    return out
+
+
+# ------------------------------------------------------ fused_conv_block
+
+@register("fused_conv_block", "ref", priority=_REF_CPU)
+def _fused_ref(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
+               policy=None):
+    if scale is None:
+        out = conv2d_ref(x, w, b, tuple(stride))
+    else:
+        out = conv_epilogue(conv2d_ref(x, w, None, tuple(stride)), scale, b)
+    return maxpool2(torch.relu(out), odd=odd)
+
+
+@register("fused_conv_block", "torch", priority=_PLAIN_CPU)
+def _fused_torch(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
+                 policy=None):
+    out = conv2d_im2col(x, w, None if scale is not None else b,
+                        tuple(stride))
+    if scale is not None:
+        out = conv_epilogue(out, scale, b)
+    return maxpool2(torch.relu(out), odd=odd)
+
+
+def _fused_cuda_ok(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
+                   **_) -> bool:
+    if not (_conv2d_cuda_ok(x, w, b, stride=stride) and _f32(scale)):
+        return False
+    ho = (x.shape[2] - w.shape[2]) // stride[0] + 1
+    wo = (x.shape[3] - w.shape[3]) // stride[1] + 1
+    # the kernel pools rows/cols in pairs; odd conv outputs take the
+    # ref/torch backends (which apply the explicit core.window odd modes)
+    return ho % 2 == 0 and wo % 2 == 0 and ho >= 2 and wo >= 2
+
+
+@register("fused_conv_block", "cuda", priority=_KERNEL,
+          supports=_fused_cuda_ok)
+def _fused_cuda(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
+                policy=None):
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    return fused_cwp(x.contiguous(), w.contiguous(),
+                     None if b is None else b.contiguous(),
+                     stride=tuple(stride),
+                     scale=None if scale is None else scale.contiguous(),
+                     policy=policy)
+
+
+def fused_conv_block(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None, *,
+                     stride: tuple[int, int] = (1, 1), odd: str = "raise",
+                     policy: ExecPolicy | None = None) -> torch.Tensor:
+    """conv + bias + relu + 2×2/2 maxpool as ONE op: (B, N, H, W) ·
+    (M, N, Kh, Kw) -> (B, M, Ho/2, Wo/2). Quantization matches ``conv2d``;
+    under ``int8`` the requant scale rides into the backend, since it
+    must apply before the in-kernel bias/relu/pool."""
+    pol = policy if policy is not None else current_policy()
+    x, w, b = _conv_quant_operands(pol, x, w, b)
+    x, w, scale = split_requant(x, w)
+    out = dispatch("fused_conv_block", x, w, b, stride=stride, odd=odd,
+                   scale=scale, policy=pol)
+    if pol.quant == "qformat":
+        out = pol.qformat.quantize(out)
+    return out
+
+
+# --------------------------------------------------------------- qmatmul
+
+def _qmatmul_plain(x_codes, w_codes, x_scale, w_scale, *, policy=None):
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    return qmatmul_ref(x_codes, w_codes, x_scale, w_scale)
+
+
+register("qmatmul", "ref", priority=_REF_CPU)(_qmatmul_plain)
+register("qmatmul", "torch", priority=_PLAIN_CPU)(_qmatmul_plain)
+
+
+def _qmatmul_cuda_ok(xc, wc, xs, ws, **_) -> bool:
+    return (xc.ndim == 2 and wc.ndim == 2 and xc.dtype == torch.int8
+            and wc.dtype == torch.int8)
+
+
+@register("qmatmul", "cuda", priority=_KERNEL, supports=_qmatmul_cuda_ok)
+def _qmatmul_cuda(x_codes, w_codes, x_scale, w_scale, *, policy=None):
+    from repro_torch.kernels.qmatmul.ops import qmatmul as qmatmul_kernel
+    return qmatmul_kernel(x_codes.contiguous(), w_codes.contiguous(),
+                          x_scale, w_scale, policy=policy)
+
+
+def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
+            x_scale: torch.Tensor, w_scale: torch.Tensor, *,
+            policy: ExecPolicy | None = None) -> torch.Tensor:
+    """(M,K) int8 · (K,N) int8 -> (M,N) f32. Scales: x (M,1)|scalar,
+    w (1,N)|scalar."""
+    return dispatch("qmatmul", x_codes, w_codes, x_scale, w_scale,
+                    policy=policy)
+
+
+def qdense(x: torch.Tensor, wq: QTensor, *,
+           policy: ExecPolicy | None = None) -> torch.Tensor:
+    """fp (…, K) · int8 (K, N) -> f32 (…, N): per-token activation quant,
+    per-output-channel weight scales, int32 accumulation."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    xq = quantize_int8(x2, axis=-1)             # per-row (per-token) scale
+    out = qmatmul(xq.codes, wq.codes, xq.scale, wq.scale, policy=policy)
+    return out.reshape(*lead, -1)
+
+
+# ----------------------------------------------------------------- dense
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+          policy: ExecPolicy | None = None) -> torch.Tensor:
+    """Policy-aware dense: fp (…, K) · (K, N) -> (…, N). ``int8`` runs the
+    int8 datapath (``qdense``); ``qformat`` keeps the whole affine op on
+    the Qm.n lattice; ``none`` is a plain fp32 matmul, as the reference's
+    einsum sits outside any kernel."""
+    pol = policy if policy is not None else current_policy()
+    if pol.quant == "int8":
+        if w.ndim != 2:
+            raise ValueError(
+                f"dense under quant='int8' needs a 2-D weight, got "
+                f"{tuple(w.shape)}; reshape or drop to quant='none'")
+        out = qdense(x, quantize_int8(w, axis=0), policy=pol)
+        return out if b is None else out + b
+    if pol.quant == "qformat":
+        q = pol.qformat
+        out = q.quantize(torch.matmul(q.quantize(x), q.quantize(w)))
+        return out if b is None else q.quantize(out + q.quantize(b))
+    out = torch.matmul(x, w)
+    return out if b is None else out + b

@@ -1,0 +1,82 @@
+"""ExecPolicy — the execution-policy layer of the op registry (DESIGN.md §7).
+
+Port of ``repro.ops.policy``. One immutable value carries
+
+  * ``backend`` — preferred registered backend (``"ref" | "torch" |
+    "cuda"``, the analogues of the JAX roster's ``ref | xla | pallas``)
+    or ``None`` for auto-selection by the registry's device priorities;
+  * ``quant``   — numeric format (``"none" | "qformat" | "int8"``, paper
+    C4) with its ``QFormat`` lattice;
+  * ``tiling``  — per-op launch-shape overrides (e.g. ``{"threads": 128}``
+    or namespaced ``{"conv2d.threads": 128}``), consulted before the
+    heuristics in ``repro_torch.ops.tiling``.
+
+The CUDA kernels have no interpret mode, so the JAX ``interpret`` field
+has no counterpart. Policies nest via ``use_policy`` (a contextvar).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from dataclasses import dataclass, field, replace
+from typing import Literal, Mapping
+
+from repro_torch.core.quantize import QFormat
+
+__all__ = ["ExecPolicy", "use_policy", "current_policy", "BACKENDS",
+           "QUANT_MODES"]
+
+BACKENDS = ("ref", "torch", "cuda")
+QUANT_MODES = ("none", "qformat", "int8")
+
+
+@dataclass(frozen=True)
+class ExecPolicy:
+    """How ops execute: backend preference, quantization, launch shape."""
+
+    backend: str | None = None
+    quant: Literal["none", "qformat", "int8"] = "none"
+    qformat: QFormat = field(default_factory=QFormat)
+    tiling: tuple[tuple[str, int], ...] = ()
+
+    def __post_init__(self):
+        if self.backend is not None and self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             f"expected one of {BACKENDS} or None")
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {self.quant!r}; "
+                             f"expected one of {QUANT_MODES}")
+        if isinstance(self.tiling, Mapping):
+            object.__setattr__(self, "tiling",
+                               tuple(sorted(self.tiling.items())))
+        else:
+            object.__setattr__(self, "tiling", tuple(self.tiling))
+
+    @property
+    def tile_overrides(self) -> dict[str, int]:
+        return dict(self.tiling)
+
+    def with_options(self, **overrides) -> "ExecPolicy":
+        return replace(self, **overrides)
+
+
+_ACTIVE: contextvars.ContextVar[ExecPolicy] = contextvars.ContextVar(
+    "repro_torch_exec_policy", default=ExecPolicy())
+
+
+def current_policy() -> ExecPolicy:
+    """The innermost active policy (``ExecPolicy()`` outside any block)."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def use_policy(policy: ExecPolicy | None = None, /, **overrides):
+    """Activate ``policy`` (or the current one with field ``overrides``)
+    for the dynamic extent of the block. Nests."""
+    base = policy if policy is not None else current_policy()
+    resolved = replace(base, **overrides) if overrides else base
+    token = _ACTIVE.set(resolved)
+    try:
+        yield resolved
+    finally:
+        _ACTIVE.reset(token)

@@ -1,0 +1,132 @@
+"""The CUDA kernels on the card: each against its plain version, and the
+dispatch rules on CUDA tensors.
+
+Every test here needs an NVIDIA GPU and skips without one. The file
+imports nothing of JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: int8 and qformat operands make every conv sum exact, so the
+kernels must agree bitwise with their plain versions; fp32 (``none``)
+sums run in another order, rtol = atol = 1e-5.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.quantize import QFormat, quantize_int8
+from repro_torch.kernels.conv_window import ops as cw_ops
+from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+from repro_torch.kernels.fused_cwp import ops as fc_ops
+from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+from repro_torch.kernels.qmatmul import ops as qm_ops
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+from repro_torch.models.cnn import PaperCNN
+from repro_torch.ops import (BackendUnavailableError, ExecPolicy, conv2d,
+                             fused_conv_block, qdense, quantize_conv_int8,
+                             split_requant)
+from repro_torch.serve import VisionEngine, VisionEngineConfig
+
+pytestmark = pytest.mark.cuda
+
+STAGES = {"conv1": (1, 28, 28, 15, 3), "conv2": (15, 13, 13, 20, 6)}
+MODES = ("none", "qformat", "int8")
+TOL_FP32 = 1e-5
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def _operands(stage, mode, bsz, device):
+    n, h, w_, m, k = STAGES[stage]
+    g = torch.Generator().manual_seed(bsz)
+    x = torch.randn((bsz, n, h, w_), generator=g)
+    w = torch.randn((m, n, k, k), generator=g) * (n * k * k) ** -0.5
+    b = torch.randn((m,), generator=g) * 0.1
+    s = None
+    if mode == "qformat":
+        q = QFormat()
+        x, w, b = q.quantize(x), q.quantize(w), q.quantize(b)
+    elif mode == "int8":
+        x, w, s = split_requant(*quantize_conv_int8(x, w))
+    return tuple(None if t is None else t.to(device) for t in (x, w, b, s))
+
+
+def _agree(mode, got, want):
+    torch.cuda.synchronize()
+    if mode == "none":
+        torch.testing.assert_close(got, want, rtol=TOL_FP32, atol=TOL_FP32)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("stage", sorted(STAGES))
+@pytest.mark.parametrize("mode", MODES)
+def test_conv_kernels_match_plain(card, mode, stage, bsz):
+    x, w, b, s = _operands(stage, mode, bsz, card)
+    before = (fc_ops.launches, cw_ops.launches)
+    fused = fc_ops.fused_cwp(x, w, b, scale=s)
+    cb = None if mode == "int8" else b
+    conv = cw_ops.conv_window(x, w, cb)
+    assert (fc_ops.launches, cw_ops.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    _agree(mode, fused, fused_cwp_ref(x, w, b, scale=s))
+    _agree(mode, conv, conv2d_window_ref(x, w, cb))
+
+
+@pytest.mark.parametrize("bsz", [1, 8, 1000])
+def test_qmatmul_matches_plain(card, bsz):
+    g = torch.Generator().manual_seed(bsz)
+    xq = quantize_int8(torch.randn((bsz, 320), generator=g), axis=-1)
+    wq = quantize_int8(torch.randn((320, 10), generator=g) * 0.05, axis=0)
+    args = [t.to(card) for t in (xq.codes, wq.codes, xq.scale, wq.scale)]
+    _agree("int8", qm_ops.qmatmul(*args), qmatmul_ref(*args))
+
+
+def test_auto_dispatch_reaches_the_kernels(card):
+    x, w, b, _ = _operands("conv2", "none", 2, card)
+    before = (fc_ops.launches, cw_ops.launches, qm_ops.launches)
+    fused_conv_block(x, w, b)
+    conv2d(x, w, b)
+    g = torch.Generator().manual_seed(0)
+    qdense(torch.randn((2, 320), generator=g).to(card),
+           quantize_int8(torch.randn((320, 10), generator=g).to(card),
+                         axis=0))
+    assert (fc_ops.launches, cw_ops.launches, qm_ops.launches) == \
+        tuple(c + 1 for c in before)
+
+
+def test_refused_call_raises_instead_of_falling_back(card):
+    x = torch.zeros((1, 15, 13, 13), device=card)
+    w = torch.zeros((20, 15, 5, 5), device=card)     # odd 9x9 conv output
+    with pytest.raises(BackendUnavailableError):
+        fused_conv_block(x, w, odd="drop")
+    with pytest.raises(ValueError):
+        cw_ops.conv_window(x, w.cpu())
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_vision_engine_on_card_matches_cpu(card, mode):
+    model = PaperCNN()
+    params = model.init(0, device="cpu")
+    rng = np.random.RandomState(0)
+    images = [rng.randn(1, 28, 28).astype(np.float32) for _ in range(11)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = VisionEngine(model, params, VisionEngineConfig(
+            batch=8, buckets="auto", policy=ExecPolicy(quant=mode),
+            device=dev))
+        for img in images:
+            eng.submit(img)
+        res = eng.run()
+        out[dev] = np.stack([res[i]["logits"] for i in range(11)])
+    if mode == "none":
+        np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=TOL_FP32,
+                                   atol=TOL_FP32)
+    else:
+        np.testing.assert_array_equal(out["cuda"], out["cpu"])

@@ -1,0 +1,316 @@
+"""The port's kernels against the JAX Pallas kernels, and their wrappers.
+
+Each kernel's plain PyTorch version (``kernels/*/ref.py``) is held
+against the Pallas kernel it replaces, run in interpret mode on the CPU
+as the JAX package's own tests run it, in every number format the kernel
+sees on the paper CNN. Tolerances, per mode:
+
+* int8  — bitwise: the convs contract integer-valued f32 codes
+  (η·127² < 2²⁴, so every summation order is exact) and ``qmatmul``
+  accumulates in int32. The one exception is the interpreted fused
+  kernel's epilogue (see ``test_fused_cwp_plain_matches_pallas``).
+* qformat — within one Q8.8 lattice step after the output snap: sums of
+  Q8.8 products are exact only while they fit 24 bits.
+* none  — rtol = atol = 1e-5: the fp32 sums run in another order than
+  the TPU kernel's contraction.
+
+The wrappers run their plain version on a CPU tensor and are checked
+here for argument validation and launch counting; the CUDA kernels
+themselves run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.conv_window.ops import conv2d_window as j_conv_window
+from repro.kernels.fused_cwp.ops import fused_conv_window as j_fused
+from repro.kernels.qmatmul.ops import qmatmul as j_qmatmul
+from repro.ops import ExecPolicy as JPolicy
+from repro.ops import quantize_conv_int8 as j_quantize_conv_int8
+from repro.ops import split_requant as j_split_requant
+from repro.ops.registry import REGISTRY as J_REGISTRY
+from repro_torch.core.quantize import QFormat, quantize_int8
+from repro_torch.kernels import build
+from repro_torch.kernels.conv_window import ops as cw_ops
+from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+from repro_torch.kernels.fused_cwp import ops as fc_ops
+from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+from repro_torch.kernels.qmatmul import ops as qm_ops
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+from repro_torch.ops import (BackendUnavailableError, ExecPolicy, REGISTRY,
+                             fused_conv_block, list_backends,
+                             quantize_conv_int8, split_requant)
+from repro_torch.ops import tiling
+
+PALLAS = JPolicy(backend="pallas")
+TOL_FP32 = 1e-5
+QSTEP = 2.0 ** -8
+# the paper CNN's conv stages: (N, H, W, M, K); the fc is (320, 10)
+STAGES = {"conv1": (1, 28, 28, 15, 3), "conv2": (15, 13, 13, 20, 6)}
+FC = (320, 10)
+MODES = ("none", "qformat", "int8")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _conv_operands(stage: str, mode: str, bsz: int = 2, seed: int = 0):
+    """Numpy (x, w, b, scale) for one stage in one mode, as the op layer
+    hands them to the kernel: lattice values under qformat, integer-valued
+    f32 codes plus the per-channel requant scale under int8 (quantized by
+    the JAX package, so both sides see the same codes)."""
+    n, h, w_, m, k = STAGES[stage]
+    rng = np.random.RandomState(seed)
+    x = rng.randn(bsz, n, h, w_).astype(np.float32)
+    w = (rng.randn(m, n, k, k) / np.sqrt(n * k * k)).astype(np.float32)
+    b = (rng.randn(m) * 0.1).astype(np.float32)
+    scale = None
+    if mode == "qformat":
+        q = QFormat()
+        x, w, b = (q.quantize(_t(a)).numpy() for a in (x, w, b))
+    elif mode == "int8":
+        xc, wc, s = j_split_requant(*j_quantize_conv_int8(jnp.asarray(x),
+                                                          jnp.asarray(w)))
+        x, w, scale = np.asarray(xc), np.asarray(wc), np.asarray(s)
+    return x, w, b, scale
+
+
+def _agree(mode: str, got: np.ndarray, want: np.ndarray) -> None:
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if mode == "int8":
+        np.testing.assert_array_equal(got, want)
+    elif mode == "qformat":
+        q = QFormat()
+        g, w = q.quantize(_t(got)).numpy(), q.quantize(_t(want)).numpy()
+        diff = np.abs(g - w)
+        assert diff.max() <= QSTEP, (
+            f"{int((diff > 0).sum())} elements differ, max {diff.max()}")
+    else:
+        np.testing.assert_allclose(got, want, rtol=TOL_FP32, atol=TOL_FP32)
+
+
+# ------------------------------------------- plain versions vs Pallas
+
+@pytest.mark.parametrize("stage", sorted(STAGES))
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_cwp_plain_matches_pallas(stage, mode):
+    """Under int8 the Pallas kernel, interpreted on the CPU, contracts its
+    requant epilogue ``acc·s + b`` into one fused multiply-add despite the
+    optimization barrier that pins two roundings (jax 0.9.0), so it sits
+    up to one rounding of the product acc·s (ε·|acc·s| ≤ ε·(|y| + |b|))
+    from the two-rounding result. The port keeps the two roundings, which
+    the reference's own ``xla`` backend of the same op family computes:
+    against that backend int8 is bitwise."""
+    x, w, b, s = (None if a is None else jnp.asarray(a)
+                  for a in _conv_operands(stage, mode))
+    want = np.asarray(j_fused(x, w, b, scale=s, policy=PALLAS))
+    got = fused_cwp_ref(*(None if a is None else _t(np.asarray(a))
+                          for a in (x, w, b)),
+                        scale=None if s is None else _t(np.asarray(s)))
+    got = got.numpy()
+    if mode != "int8":
+        _agree(mode, got, want)
+        return
+    eps = float(np.finfo(np.float32).eps)
+    bound = eps * (np.abs(want).max() + np.abs(np.asarray(b)).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=bound)
+    xla = J_REGISTRY.lookup("fused_conv_block", "xla").fn
+    _agree(mode, got, np.asarray(xla(x, w, b, scale=s)))
+
+
+@pytest.mark.parametrize("stage", sorted(STAGES))
+@pytest.mark.parametrize("mode", MODES)
+def test_conv_window_plain_matches_pallas(stage, mode):
+    """Under int8 the conv sees codes and no bias; the requant epilogue
+    runs outside it (``ops.conv2d``)."""
+    x, w, b, _ = _conv_operands(stage, mode)
+    b = None if mode == "int8" else b
+    want = np.asarray(j_conv_window(jnp.asarray(x), jnp.asarray(w),
+                                    None if b is None else jnp.asarray(b),
+                                    policy=PALLAS))
+    got = conv2d_window_ref(_t(x), _t(w),
+                            None if b is None else _t(b)).numpy()
+    _agree(mode, got, want)
+
+
+@pytest.mark.parametrize("bsz", [1, 5])
+def test_qmatmul_plain_matches_pallas(bsz):
+    rng = np.random.RandomState(bsz)
+    xq = quantize_int8(_t(rng.randn(bsz, FC[0]).astype(np.float32)), axis=-1)
+    wq = quantize_int8(_t((rng.randn(*FC) * 0.05).astype(np.float32)),
+                       axis=0)
+    want = np.asarray(j_qmatmul(*(jnp.asarray(t.numpy()) for t in
+                                  (xq.codes, wq.codes, xq.scale, wq.scale)),
+                                policy=PALLAS))
+    got = qmatmul_ref(xq.codes, wq.codes, xq.scale, wq.scale).numpy()
+    _agree("int8", got, want)
+
+
+def test_int8_operands_match_reference():
+    """``quantize_conv_int8`` + ``split_requant`` give the kernels the
+    same codes and requant scale as the JAX op layer."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 15, 13, 13).astype(np.float32)
+    w = (rng.randn(20, 15, 6, 6) * 0.05).astype(np.float32)
+    want = j_split_requant(*j_quantize_conv_int8(jnp.asarray(x),
+                                                 jnp.asarray(w)))
+    got = split_requant(*quantize_conv_int8(_t(x), _t(w)))
+    for g, e in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+
+
+# ------------------------------------------------ wrappers on the CPU
+
+def test_wrappers_run_plain_version_on_cpu_without_launching():
+    x, w, b, s = (None if a is None else _t(a)
+                  for a in _conv_operands("conv2", "int8"))
+    before = (fc_ops.launches, cw_ops.launches, qm_ops.launches)
+    assert torch.equal(fc_ops.fused_cwp(x, w, b, scale=s),
+                       fused_cwp_ref(x, w, b, scale=s))
+    assert torch.equal(cw_ops.conv_window(x, w, b),
+                       conv2d_window_ref(x, w, b))
+    xq = quantize_int8(torch.randn(3, 320, generator=torch.Generator()
+                                   .manual_seed(0)), axis=-1)
+    wq = quantize_int8(torch.randn(320, 10, generator=torch.Generator()
+                                   .manual_seed(1)), axis=0)
+    assert torch.equal(qm_ops.qmatmul(xq.codes, wq.codes, xq.scale,
+                                      wq.scale),
+                       qmatmul_ref(xq.codes, wq.codes, xq.scale, wq.scale))
+    assert (fc_ops.launches, cw_ops.launches, qm_ops.launches) == before
+
+
+def test_qmatmul_wrapper_broadcasts_scalar_scales():
+    g = torch.Generator().manual_seed(2)
+    xc = torch.randint(-127, 128, (4, 320), generator=g, dtype=torch.int8)
+    wc = torch.randint(-127, 128, (320, 10), generator=g, dtype=torch.int8)
+    out = qm_ops.qmatmul(xc, wc, 0.5, torch.tensor(0.25))
+    assert torch.equal(out, qmatmul_ref(xc, wc, torch.full((4, 1), 0.5),
+                                        torch.full((1, 10), 0.25)))
+    with pytest.raises(ValueError):
+        qm_ops.qmatmul(xc, wc, torch.ones(3), 1.0)
+
+
+@pytest.mark.parametrize("case", ["dtype", "rank", "contiguity",
+                                  "channels", "bias", "odd_output"])
+def test_fused_wrapper_rejects_bad_arguments(case):
+    x = torch.zeros(2, 15, 13, 13)
+    w = torch.zeros(20, 15, 6, 6)
+    b = torch.zeros(20)
+    if case == "dtype":
+        x = x.double()
+    elif case == "rank":
+        x = x[0]
+    elif case == "contiguity":
+        x = x.transpose(2, 3)
+    elif case == "channels":
+        w = torch.zeros(20, 14, 6, 6)
+    elif case == "bias":
+        b = torch.zeros(19)
+    else:
+        w = torch.zeros(20, 15, 5, 5)          # 13 - 5 + 1 = 9, odd
+    with pytest.raises((TypeError, ValueError)):
+        fc_ops.fused_cwp(x, w, b)
+
+
+def test_conv_and_qmatmul_wrappers_reject_bad_arguments():
+    with pytest.raises(TypeError):
+        cw_ops.conv_window(torch.zeros(1, 1, 8, 8, dtype=torch.float16),
+                           torch.zeros(2, 1, 3, 3))
+    with pytest.raises(ValueError):
+        cw_ops.conv_window(torch.zeros(1, 1, 2, 8), torch.zeros(2, 1, 3, 3))
+    with pytest.raises(TypeError):
+        qm_ops.qmatmul(torch.zeros(2, 8), torch.zeros(8, 3, dtype=torch.int8),
+                       1.0, 1.0)
+    with pytest.raises(ValueError):
+        qm_ops.qmatmul(torch.zeros(2, 8, dtype=torch.int8),
+                       torch.zeros(7, 3, dtype=torch.int8), 1.0, 1.0)
+
+
+# ------------------------------------------------------------ registry
+
+def test_backend_priorities_by_device():
+    for op in ("conv2d", "fused_conv_block", "qmatmul"):
+        assert list_backends(op, "cpu") == ["torch", "cuda", "ref"]
+        assert list_backends(op, "cuda") == ["cuda"]
+
+
+class _CudaLike:
+    """Shape-only stand-in for a CUDA tensor: dispatch reads its device
+    and the predicates its shape, and nothing may run on it."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.ndim = len(shape)
+        self.dtype = torch.float32
+        self.device = torch.device("cuda")
+
+    def contiguous(self):
+        raise AssertionError("a backend ran on a refused CUDA call")
+
+
+def test_cuda_call_the_kernel_refuses_raises():
+    """On a CUDA tensor only the kernel is a candidate: a shape it
+    refuses (odd conv output) raises instead of falling back to a plain
+    backend."""
+    x, w = _CudaLike((2, 15, 13, 13)), _CudaLike((20, 15, 5, 5))
+    with pytest.raises(BackendUnavailableError):
+        REGISTRY.dispatch("fused_conv_block", x, w, None, stride=(1, 1),
+                          odd="drop", scale=None)
+
+
+def test_named_backend_refusal_raises():
+    x, w = torch.zeros(1, 15, 13, 13), torch.zeros(20, 15, 5, 5)
+    with pytest.raises(BackendUnavailableError):
+        fused_conv_block(x, w, odd="drop", policy=ExecPolicy(backend="cuda"))
+    out = fused_conv_block(x, w, odd="drop", policy=ExecPolicy(
+        backend="torch"))
+    assert tuple(out.shape) == (1, 20, 4, 4)
+
+
+@pytest.mark.parametrize("backend", ["ref", "torch", "cuda"])
+@pytest.mark.parametrize("mode", MODES)
+def test_every_cpu_backend_agrees(backend, mode):
+    rng = np.random.RandomState(4)
+    x = _t(rng.randn(2, 15, 13, 13).astype(np.float32))
+    w = _t((rng.randn(20, 15, 6, 6) * 0.05).astype(np.float32))
+    b = _t((rng.randn(20) * 0.1).astype(np.float32))
+    pol = ExecPolicy(quant=mode)
+    got = fused_conv_block(x, w, b, policy=pol.with_options(backend=backend))
+    want = fused_conv_block(x, w, b, policy=pol)
+    _agree(mode, got.numpy(), want.numpy())
+
+
+# -------------------------------------------------------- launch shape
+
+@pytest.mark.parametrize("outputs,threads", [(1, 32), (2560, 32),
+                                             (132 * 64, 64),
+                                             (132 * 256, 256),
+                                             (10 ** 7, 256)])
+def test_launch_threads_fills_every_sm(outputs, threads):
+    assert tiling.launch_threads(outputs) == threads
+
+
+def test_tiling_overrides_and_validation():
+    defaults = tiling.choose_conv_blocks(8, 20, 8, 8)
+    assert tiling.block_threads("conv2d", defaults, {"threads": 64}) == 64
+    assert tiling.block_threads("conv2d", defaults,
+                                {"threads": 64, "conv2d.threads": 96}) == 96
+    assert tiling.block_threads("conv2d", defaults,
+                                {"qmatmul.threads": 64}) == \
+        defaults["threads"]
+    with pytest.raises(ValueError):
+        tiling.block_threads("conv2d", defaults, {"threads": 48})
+
+
+def test_build_paths_are_content_keyed():
+    paths = {n: build.library_path(n) for n in build.SOURCES}
+    assert set(paths) == {"conv_window", "fused_cwp", "qmatmul"}
+    for name, p in paths.items():
+        assert p.parent == build.BUILD_DIR and p.name.startswith(f"lib{name}-")
+        assert build.library_path(name) == p
+    with pytest.raises(KeyError):
+        build.library_path("addtree")
+
