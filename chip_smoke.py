@@ -9,12 +9,17 @@ Phases, each printing one JSON line:
   build    nvcc builds every kernel of ``src/repro_torch/csrc`` for sm_90a;
   kernels  each kernel against its plain PyTorch version on the card, at
            the paper CNN's conv1/conv2/fc shapes, B in {1, 3, 8}, in the
-           number formats it sees (int8 must be bitwise);
+           number formats it sees (int8 must be bitwise), and the addition
+           tree at eleven (R, η) shapes up to its η cap (bitwise), plus
+           two calls it must refuse;
   serve    the launcher's CNN path and VisionEngine under qformat and int8
            on the card, every request held against the same engine on the
            CPU; the kernels' launch counts must match the batches served;
   eager    PaperCNN.forward (conv_window) against the compiled plan
            (fused_cwp) on the card, and against the CPU, in all 3 modes;
+  tree     the paper-dataflow conv on the card: each conv stage's product
+           matrix at B = 8 reduced by ``tree_reduce_sum`` (addtree), + bias,
+           against ``conv2d_ref`` on the CPU, bitwise, in none and int8;
   times    per kernel and shape, the median device time of 100 launches
            at B = 8 and B = 1024, beside the plain version, one library
            call for the same function, and the card's bound.
@@ -41,6 +46,7 @@ SRC = ROOT / "src"
 # H100 SXM data sheet (NVIDIA), dense: fp32 on CUDA cores, int8 tensor
 # cores, HBM3 bandwidth. Rates assume the full 700 W power limit.
 PEAK_FP32 = 67e12
+PEAK_FP32_ADD = PEAK_FP32 / 2   # an add is one of an FMA's two operations
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -52,11 +58,17 @@ KERNELS = {
                     "src/repro/kernels/conv_window/kernel.py:46"),
     "qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                 "src/repro/kernels/qmatmul/kernel.py:25"),
+    "addtree": ("src/repro_torch/csrc/addtree.cu",
+                "src/repro/kernels/addtree/kernel.py:21"),
 }
 # the paper CNN's stage shapes: (N, H, W, M, K) per conv, (K, N) for fc
 CONV1 = (1, 28, 28, 15, 3)
 CONV2 = (15, 13, 13, 20, 6)
 FC = (320, 10)
+# addtree (R, η): prime R = 509, one row, η = 1, up to the η cap (appended
+# in phase_kernels)
+TREE_SHAPES = [(1, 1), (4, 9), (8, 1), (96, 7), (100, 37), (509, 144),
+               (1024, 37), (16, 256), (64, 540), (64, 1350)]
 # fp32 sums in another order than the plain version's matmul; |y| is
 # O(10) here and the reference itself moves by 3.8e-6 between orders
 TOL_FP32 = 1e-5
@@ -79,10 +91,11 @@ def emit(obj: dict) -> None:
 # ------------------------------------------------------------------ helpers
 
 def kernel_modules():
+    import repro_torch.kernels.addtree.ops as at
     import repro_torch.kernels.conv_window.ops as cw
     import repro_torch.kernels.fused_cwp.ops as fc
     import repro_torch.kernels.qmatmul.ops as qm
-    return {"fused_cwp": fc, "conv_window": cw, "qmatmul": qm}
+    return {"fused_cwp": fc, "conv_window": cw, "qmatmul": qm, "addtree": at}
 
 
 def reset_counts() -> None:
@@ -167,12 +180,17 @@ def phase_build():
 def phase_kernels(device):
     """Each kernel against its plain version on the same card inputs."""
     import torch
+    from repro_torch.kernels.addtree.ops import tree_reduce_sum
+    from repro_torch.kernels.addtree.ref import tree_reduce_sum_ref
     from repro_torch.kernels.conv_window.ops import conv_window
     from repro_torch.kernels.conv_window.ref import conv2d_window_ref
     from repro_torch.kernels.fused_cwp.ops import fused_cwp
     from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    from repro_torch.ops import BackendUnavailableError
+    from repro_torch.ops import tree_reduce_sum as tree_op
+    from repro_torch.ops.tiling import TREE_MAX_ETA
 
     gen = torch.Generator().manual_seed(0)
     cases = {k: [] for k in KERNELS}
@@ -181,9 +199,11 @@ def phase_kernels(device):
         torch.cuda.synchronize()
         err = max_abs(got, want)
         exact = bitwise(got, want)
-        tol = 0.0 if mode == "int8" else TOL_FP32 * (1 + float(
+        # the tree sums in its plain version's order: bitwise in fp32 too
+        must_be_exact = mode == "int8" or name == "addtree"
+        tol = 0.0 if must_be_exact else TOL_FP32 * (1 + float(
             want.abs().max()))
-        ok = exact if mode == "int8" else err <= tol
+        ok = exact if must_be_exact else err <= tol
         cases[name].append({"stage": stage, "B": bsz, "mode": mode,
                             "max_abs": err, "bitwise": exact,
                             "tolerance": tol, "ok": ok})
@@ -205,10 +225,24 @@ def phase_kernels(device):
         xc, wc, xs, ws = fc_inputs(gen, bsz, device)
         record("qmatmul", "fc", bsz, "int8", qmatmul(xc, wc, xs, ws),
                qmatmul_ref(xc, wc, xs, ws))
+    for r, eta in TREE_SHAPES + [(33, TREE_MAX_ETA)]:
+        x = torch.randn((r, eta), generator=gen).to(device)
+        record("addtree", f"{r}x{eta}", r, "none", tree_reduce_sum(x),
+               tree_reduce_sum_ref(x))
+    # what the kernel cannot take raises on the card instead of falling
+    # back to a plain version: a 3-D input and a row over the η cap
+    for shape in ((2, 4, 9), (2, TREE_MAX_ETA + 1)):
+        try:
+            tree_op(torch.zeros(shape, device=device))
+        except BackendUnavailableError:
+            continue
+        raise SmokeFailure(f"tree_reduce_sum{shape} on the card did not "
+                           f"raise BackendUnavailableError")
     parity = [{"name": k, "replaces": KERNELS[k][1],
                "max_abs": max(c["max_abs"] for c in v),
                "int8_bitwise": all(c["bitwise"] for c in v
                                    if c["mode"] == "int8"),
+               "all_bitwise": all(c["bitwise"] for c in v),
                "cases": v} for k, v in cases.items()]
     emit({"phase": "kernels", "parity": parity})
     return {p["name"]: p["max_abs"] for p in parity}
@@ -340,6 +374,41 @@ def phase_eager(device):
     emit({"phase": "eager", "runs": rows})
 
 
+def phase_tree(device):
+    """The paper-dataflow conv (Eq. 3-8) on the card: every window's
+    products as an (B·Ho·Wo·M, η) matrix, the odd-even tree over each row
+    through the op entry point (auto-dispatch: the addtree kernel), then
+    the bias; held bitwise against ``conv2d_ref`` on the CPU."""
+    import torch
+    from repro_torch.core.window import conv2d_ref, window_products
+    from repro_torch.ops import tree_reduce_sum
+
+    gen = torch.Generator().manual_seed(5)
+    rows = []
+    for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
+        for mode in ("none", "int8"):
+            x, w, b, _ = conv_inputs(gen, 8, shape, mode, "cpu")
+            want = conv2d_ref(x, w, b)
+            prod = window_products(x.to(device), w.to(device))
+            before = counts()["addtree"]
+            sums = tree_reduce_sum(prod.reshape(-1, prod.shape[-1]))
+            grew = counts()["addtree"] - before
+            got = (sums.reshape(prod.shape[:-1]) + b.to(device)).permute(
+                0, 3, 1, 2).cpu()
+            check(grew == 1, f"tree {stage} {mode}: {grew} addtree launches")
+            check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+                  f"tree {stage} {mode}: shape {tuple(got.shape)} or "
+                  f"non-finite values")
+            err = max_abs(got, want)
+            check(bitwise(got, want), f"tree {stage} {mode}: card vs cpu "
+                                      f"conv2d_ref max_abs {err}")
+            rows.append({"stage": stage, "mode": mode, "B": 8,
+                         "rows": prod.numel() // prod.shape[-1],
+                         "eta": prod.shape[-1], "max_abs": err,
+                         "bitwise": True, "launches": grew})
+    emit({"phase": "tree", "runs": rows})
+
+
 def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
     """Median device time of ``reps`` calls of ``fn``, each between two
     CUDA events, all queued behind a spin kernel so the host's launch
@@ -375,6 +444,8 @@ def conv_work(bsz, stage, pooled: bool) -> tuple[float, float]:
 def phase_times(device):
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.addtree import pairwise_sum
+    from repro_torch.kernels.addtree.ops import tree_reduce_sum
     from repro_torch.kernels.conv_window.ops import conv_window
     from repro_torch.kernels.conv_window.ref import conv2d_window_ref
     from repro_torch.kernels.fused_cwp.ops import fused_cwp
@@ -405,7 +476,18 @@ def phase_times(device):
             "qmatmul", "fc", bsz, lambda: qmatmul(xc, wc, xs, ws),
             lambda: qmatmul_ref(xc, wc, xs, ws), None, nbytes,
             2.0 * bsz * k * n / PEAK_INT8))
+        # the tree at each conv stage's product matrix: (B·Ho·Wo·M, η)
+        for stage, (n, h, w_, m, k) in (("conv1", CONV1), ("conv2", CONV2)):
+            r, eta = bsz * (h - k + 1) * (w_ - k + 1) * m, n * k * k
+            x = torch.randn((r, eta), device=device,
+                            generator=torch.Generator(device).manual_seed(6))
+            rows.append(_time_row(
+                "addtree", stage, bsz, lambda: tree_reduce_sum(x),
+                lambda: pairwise_sum(x, -1), lambda: torch.sum(x, dim=-1),
+                4 * r * (eta + 1), r * (eta - 1) / PEAK_FP32_ADD))
+            del x
     emit({"phase": "times", "peaks": {"fp32_flops": PEAK_FP32,
+                                      "fp32_adds": PEAK_FP32_ADD,
                                       "int8_ops": PEAK_INT8,
                                       "bytes_per_s": PEAK_BYTES},
           "library_null_reason": {
@@ -426,13 +508,17 @@ def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s):
             "bound_ms": max(bytes_s, ops_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "bytes_ms": bytes_s * 1e3, "operations_ms": ops_s * 1e3,
-            "queue_ran_dry": dry or plain_dry or lib_dry}
+            "queue_ran_dry": [col for col, d in (("ms", dry),
+                                                 ("plain_ms", plain_dry),
+                                                 ("library_ms", lib_dry))
+                              if d]}
 
 
 def kernels_line(launches, max_err, rows) -> dict:
     """The contract line: per kernel, the main path's launch count, its
     parity error, and its time beside the bound for one served batch
-    (B = 8: both conv stages for the conv kernels, the fc for qmatmul)."""
+    (B = 8: both conv stages for the conv kernels and for the tree's
+    product matrices, the fc for qmatmul)."""
     out = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name and r["B"] == 8]
@@ -474,6 +560,7 @@ def main() -> int:
         reset_counts()                      # the main path starts here
         phase_serve(device)
         phase_eager(device)
+        phase_tree(device)
         launches = counts()
         check(all(launches.values()),
               f"a kernel of the main path never launched: {launches}")

@@ -3,9 +3,10 @@
 Port of ``repro.core.quantize``:
 
 1. ``QFormat`` — the paper's Qm.n fixed-point lattice (default Q8.8):
-   round half to even, saturate.
+   round half to even, saturate; ``quantize_int`` gives the integer codes.
 2. int8 symmetric quantization — ``quantize_int8`` produces the codes and
-   scales the ``qmatmul`` kernel and the int8 conv epilogue consume.
+   scales the ``qmatmul`` kernel and the int8 conv epilogue consume;
+   ``dequantize_int8`` maps them back.
 
 ``requant_epilogue`` keeps the multiply-round-then-add-round order that
 the JAX reference pins with an optimization barrier: PyTorch's eager ops
@@ -19,8 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["QFormat", "QTensor", "quantize_int8", "requant_epilogue",
-           "conv_epilogue"]
+__all__ = ["QFormat", "QTensor", "quantize_int8", "dequantize_int8",
+           "requant_epilogue", "conv_epilogue"]
 
 # fp32(1 / 127), the constant ``quantize_int8`` multiplies by
 _INV127 = torch.tensor(1.0, dtype=torch.float32) / 127.0
@@ -57,6 +58,16 @@ class QFormat:
         hi = self.max_val / self.step
         return torch.clamp(scaled, lo, hi) * self.step
 
+    def quantize_int(self, x: torch.Tensor) -> torch.Tensor:
+        """Integer codes (int32) for hardware-exact arithmetic."""
+        scaled = torch.round(x.to(torch.float32) / self.step)
+        lo = self.min_val / self.step
+        hi = self.max_val / self.step
+        return torch.clamp(scaled, lo, hi).to(torch.int32)
+
+    def dequantize_int(self, codes: torch.Tensor) -> torch.Tensor:
+        return codes.to(torch.float32) * self.step
+
 
 class QTensor(NamedTuple):
     """int8 codes + fp32 scales; ``values = codes * scale``."""
@@ -84,6 +95,12 @@ def quantize_int8(x: torch.Tensor, axis: int | None = -1) -> QTensor:
     scale = torch.clamp(amax, min=1e-8) * _INV127
     codes = torch.clamp(torch.round(xf / scale), -127, 127)
     return QTensor(codes.to(torch.int8), scale)
+
+
+def dequantize_int8(q: QTensor, dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """``codes · scale`` in fp32, cast to ``dtype``."""
+    return (q.codes.to(torch.float32) * q.scale).to(dtype)
 
 
 def requant_epilogue(acc: torch.Tensor, scale: torch.Tensor,

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("conv_window", "fused_cwp", "qmatmul")
+SOURCES = ("addtree", "conv_window", "fused_cwp", "qmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,10 +6,11 @@ from repro_torch.ops.registry import (REGISTRY, BackendUnavailableError,
                                       dispatch, list_backends, list_ops,
                                       register)
 from repro_torch.ops.impls import (conv2d, dense, fused_conv_block, qdense,
-                                   qmatmul, quantize_conv_int8, split_requant)
+                                   qmatmul, quantize_conv_int8, split_requant,
+                                   tree_reduce_sum)
 
 __all__ = ["ExecPolicy", "use_policy", "current_policy", "BACKENDS",
            "QUANT_MODES", "REGISTRY", "BackendUnavailableError", "dispatch",
            "register", "list_ops", "list_backends", "conv2d",
-           "fused_conv_block", "qmatmul", "qdense", "dense",
-           "quantize_conv_int8", "split_requant"]
+           "fused_conv_block", "tree_reduce_sum", "qmatmul", "qdense",
+           "dense", "quantize_conv_int8", "split_requant"]

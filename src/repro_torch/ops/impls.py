@@ -1,6 +1,6 @@
 """Backend registrations + the public op entry points (DESIGN.md §7).
 
-Port of ``repro.ops.impls`` for three op families, three backends each:
+Port of ``repro.ops.impls`` for four op families, three backends each:
 
   op               ref (oracle)          torch (plain)        cuda (kernel)
   ---------------  --------------------  -------------------  ----------------
@@ -8,6 +8,7 @@ Port of ``repro.ops.impls`` for three op families, three backends each:
                    (windows → odd-even
                    tree)
   fused_conv_block unfused ref chain     im2col+relu+pool     csrc/fused_cwp
+  tree_reduce_sum  pairwise_sum          torch.sum            csrc/addtree
   qmatmul          int32-exact sum       int32-exact sum      csrc/qmatmul
 
 Device priorities: on a CUDA tensor only ``cuda`` is auto-selected; on a
@@ -24,13 +25,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.addtree import pairwise_sum
 from repro_torch.core.quantize import QTensor, conv_epilogue, quantize_int8
 from repro_torch.core.window import conv2d_im2col, conv2d_ref, maxpool2
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.registry import dispatch, register
+from repro_torch.ops.tiling import TREE_MAX_ETA
 
-__all__ = ["conv2d", "fused_conv_block", "qmatmul", "qdense", "dense",
-           "quantize_conv_int8", "split_requant"]
+__all__ = ["conv2d", "fused_conv_block", "tree_reduce_sum", "qmatmul",
+           "qdense", "dense", "quantize_conv_int8", "split_requant"]
 
 # the reference pins fp32 matmul precision; the fp32 fc product that stays
 # on torch.matmul must not run in TF32 on the card
@@ -188,6 +191,35 @@ def fused_conv_block(x: torch.Tensor, w: torch.Tensor,
     if pol.quant == "qformat":
         out = pol.qformat.quantize(out)
     return out
+
+
+# ------------------------------------------------------- tree_reduce_sum
+
+@register("tree_reduce_sum", "ref", priority=_REF_CPU)
+def _tree_ref(x, *, policy=None):
+    return pairwise_sum(x, axis=-1)
+
+
+@register("tree_reduce_sum", "torch", priority=_PLAIN_CPU)
+def _tree_torch(x, *, policy=None):
+    return torch.sum(x, dim=-1)
+
+
+def _tree_cuda_ok(x, **_) -> bool:
+    return (x.ndim == 2 and x.dtype == torch.float32
+            and 1 <= x.shape[1] <= TREE_MAX_ETA)
+
+
+@register("tree_reduce_sum", "cuda", priority=_KERNEL, supports=_tree_cuda_ok)
+def _tree_cuda(x, *, policy=None):
+    from repro_torch.kernels.addtree.ops import tree_reduce_sum as tree_kernel
+    return tree_kernel(x.contiguous(), policy=policy)
+
+
+def tree_reduce_sum(x: torch.Tensor, *,
+                    policy: ExecPolicy | None = None) -> torch.Tensor:
+    """(R, η) -> (R,): odd-even pairwise tree sum along the last axis."""
+    return dispatch("tree_reduce_sum", x, policy=policy)
 
 
 # --------------------------------------------------------------- qmatmul

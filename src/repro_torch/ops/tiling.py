@@ -13,6 +13,12 @@ and the constraint is filling an H100's 132 streaming multiprocessors:
     packed onto a few SMs while the rest idle (with fewer than 132 warps
     of outputs, some SMs get none).
 
+The addition tree (``tree_reduce_sum``) is the exception to one thread
+per output: one block reduces one row, so its block is the smallest warp
+multiple that gives each of the tree's first-level pairs a thread. The
+JAX ``rb`` row block has no counterpart: the grid is one block per row,
+so no row padding is needed.
+
 Resolution order: ``ExecPolicy.tiling`` overrides (bare ``threads`` or
 namespaced ``<op>.threads``) > these heuristics. The JAX ``TuningCache``
 waits for the measured autotuner (ROADMAP §A.7).
@@ -21,13 +27,18 @@ from __future__ import annotations
 
 from typing import Mapping
 
-__all__ = ["H100_SMS", "WARP", "MAX_THREADS", "launch_threads",
-           "choose_conv_blocks", "choose_fused_blocks",
-           "choose_qmatmul_blocks", "tile_params", "block_threads"]
+__all__ = ["H100_SMS", "WARP", "MAX_THREADS", "TREE_MAX_ETA",
+           "launch_threads", "choose_conv_blocks", "choose_fused_blocks",
+           "choose_qmatmul_blocks", "choose_tree_blocks", "tile_params",
+           "block_threads"]
 
 H100_SMS = 132
 WARP = 32
 MAX_THREADS = 256
+# the addtree kernel stages a row in two ping-pong fp32 buffers of η in
+# dynamic shared memory: 2·4·6144 bytes is the 48 KB a block gets without
+# opting in to more
+TREE_MAX_ETA = 6144
 
 
 def launch_threads(outputs: int, sms: int = H100_SMS) -> int:
@@ -51,6 +62,14 @@ def choose_fused_blocks(bsz: int, m: int, ho: int, wo: int
 def choose_qmatmul_blocks(m: int, n: int) -> dict[str, int]:
     """qmatmul: one thread per (row, column) of the (M, N) output."""
     return {"threads": launch_threads(m * n)}
+
+
+def choose_tree_blocks(eta: int) -> dict[str, int]:
+    """addtree: one block per row, whatever the row count; one thread per
+    first-level pair (⌈η/2⌉), rounded up to whole warps and capped at
+    ``MAX_THREADS`` (wider levels loop over the block)."""
+    pairs = -(-max(eta, 1) // 2)
+    return {"threads": min(MAX_THREADS, -(-pairs // WARP) * WARP)}
 
 
 def tile_params(op: str, defaults: Mapping[str, int],

@@ -8,13 +8,16 @@ imports nothing of JAX, so it also runs where only PyTorch is installed:
 
 Tolerances: int8 and qformat operands make every conv sum exact, so the
 kernels must agree bitwise with their plain versions; fp32 (``none``)
-sums run in another order, rtol = atol = 1e-5.
+sums run in another order, rtol = atol = 1e-5. The addition tree sums in
+its plain version's order, so it is bitwise in fp32.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.quantize import QFormat, quantize_int8
+from repro_torch.kernels.addtree import ops as at_ops
+from repro_torch.kernels.addtree.ref import tree_reduce_sum_ref
 from repro_torch.kernels.conv_window import ops as cw_ops
 from repro_torch.kernels.conv_window.ref import conv2d_window_ref
 from repro_torch.kernels.fused_cwp import ops as fc_ops
@@ -24,12 +27,17 @@ from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.models.cnn import PaperCNN
 from repro_torch.ops import (BackendUnavailableError, ExecPolicy, conv2d,
                              fused_conv_block, qdense, quantize_conv_int8,
-                             split_requant)
+                             split_requant, tree_reduce_sum)
+from repro_torch.ops.tiling import TREE_MAX_ETA
 from repro_torch.serve import VisionEngine, VisionEngineConfig
 
 pytestmark = pytest.mark.cuda
 
 STAGES = {"conv1": (1, 28, 28, 15, 3), "conv2": (15, 13, 13, 20, 6)}
+# chip_smoke.py's addtree shapes: (R, η), prime R = 509, η up to the cap
+TREE_SHAPES = [(1, 1), (4, 9), (8, 1), (96, 7), (100, 37), (509, 144),
+               (1024, 37), (16, 256), (64, 540), (64, 1350),
+               (33, TREE_MAX_ETA)]
 MODES = ("none", "qformat", "int8")
 TOL_FP32 = 1e-5
 
@@ -108,6 +116,42 @@ def test_refused_call_raises_instead_of_falling_back(card):
         fused_conv_block(x, w, odd="drop")
     with pytest.raises(ValueError):
         cw_ops.conv_window(x, w.cpu())
+
+
+@pytest.mark.parametrize("shape", TREE_SHAPES)
+def test_addtree_matches_plain_bitwise(card, shape):
+    g = torch.Generator().manual_seed(shape[1])
+    x = torch.randn(shape, generator=g).to(card)
+    before = at_ops.launches
+    got = at_ops.tree_reduce_sum(x)
+    assert at_ops.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, tree_reduce_sum_ref(x))
+
+
+def test_tree_auto_dispatch_launches_the_kernel(card, monkeypatch):
+    """On a CUDA tensor the op runs the kernel: one launch, and neither
+    plain version may run in its place."""
+    def refuse(*_, **__):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    x = torch.randn((10240, 540), generator=torch.Generator().manual_seed(0))
+    want = tree_reduce_sum_ref(x)
+    monkeypatch.setattr(at_ops, "tree_reduce_sum_ref", refuse)
+    monkeypatch.setattr(torch, "sum", refuse)
+    before = at_ops.launches
+    got = tree_reduce_sum(x.to(card))
+    assert at_ops.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 9), (2, TREE_MAX_ETA + 1)])
+def test_tree_refused_call_raises(card, shape):
+    before = at_ops.launches
+    with pytest.raises(BackendUnavailableError):
+        tree_reduce_sum(torch.zeros(shape, device=card))
+    assert at_ops.launches == before
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -307,10 +307,10 @@ def test_tiling_overrides_and_validation():
 
 def test_build_paths_are_content_keyed():
     paths = {n: build.library_path(n) for n in build.SOURCES}
-    assert set(paths) == {"conv_window", "fused_cwp", "qmatmul"}
+    assert set(paths) == {"addtree", "conv_window", "fused_cwp", "qmatmul"}
     for name, p in paths.items():
         assert p.parent == build.BUILD_DIR and p.name.startswith(f"lib{name}-")
         assert build.library_path(name) == p
     with pytest.raises(KeyError):
-        build.library_path("addtree")
+        build.library_path("no_such_kernel")
 
