@@ -9,9 +9,11 @@ Phases, each printing one JSON line:
   build    nvcc builds every kernel of ``src/repro_torch/csrc`` for sm_90a;
   kernels  each kernel against its plain PyTorch version on the card, at
            the paper CNN's conv1/conv2/fc shapes, B in {1, 3, 8}, in the
-           number formats it sees (int8 must be bitwise), and the addition
-           tree at eleven (R, η) shapes up to its η cap (bitwise), plus
-           two calls it must refuse;
+           number formats it sees (int8 must be bitwise, and qformat for
+           fused_cwp), fused_cwp also at B = 1024 and at two other shapes
+           (stride 2 with a ragged band; a slab too wide to stage), and the
+           addition tree bitwise at (R, η) shapes up to its η cap that
+           reach each of its paths, plus two calls it must refuse;
   serve    the launcher's CNN path and VisionEngine under qformat and int8
            on the card, every request held against the same engine on the
            CPU; the kernels' launch counts must match the batches served;
@@ -22,7 +24,8 @@ Phases, each printing one JSON line:
            against ``conv2d_ref`` on the CPU, bitwise, in none and int8;
   times    per kernel and shape, the median device time of 100 launches
            at B = 8 and B = 1024, beside the plain version, one library
-           call for the same function, and the card's bound.
+           call for the same function, and the card's bound; each B = 1024
+           output is first held against the plain version.
 
 Then the kernels line (one JSON object), the card's ``nvidia-smi`` name
 and power limit, and as the last line ``{"ok": true, "device": ...}``.
@@ -68,7 +71,20 @@ FC = (320, 10)
 # addtree (R, η): prime R = 509, one row, η = 1, up to the η cap (appended
 # in phase_kernels)
 TREE_SHAPES = [(1, 1), (4, 9), (8, 1), (96, 7), (100, 37), (509, 144),
-               (1024, 37), (16, 256), (64, 540), (64, 1350)]
+               (1024, 37), (16, 256), (64, 540), (64, 1350),
+               # the kernel's paths: η either side of its short-row
+               # threshold (32), R off a multiple of a block's rows (256
+               # short, 16 or 8 long), and the product matrices at B = 8
+               (257, 9), (300, 32), (13, 33), (9, 16), (13, 540),
+               (81_120, 9), (10_240, 540),
+               # over 16,896 rows: a whole warp a row
+               (20_000, 37), (20_000, 540)]
+# fused_cwp beyond the paper's shapes: (N, H, W, M, K), stride, tiling
+FUSED_SHAPES = {
+    "stride2_ragged_band": ((3, 33, 41, 5, 3), (2, 2),
+                            {"fused_conv_block.band": 3}),
+    "unstaged": ((64, 6, 230, 6, 3), (1, 1), {}),
+}
 # fp32 sums in another order than the plain version's matmul; |y| is
 # O(10) here and the reference itself moves by 3.8e-6 between orders
 TOL_FP32 = 1e-5
@@ -171,7 +187,7 @@ def phase_build():
     for name in SOURCES:
         r = report[name]
         regs = [ln.strip() for ln in r["ptxas"].splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "spill" in ln]
         libs[name] = {"built": r["built"], "seconds": round(r["seconds"], 2),
                       "ptxas": regs}
     emit({"phase": "build", "seconds": round(seconds, 2), "libs": libs})
@@ -188,7 +204,7 @@ def phase_kernels(device):
     from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
-    from repro_torch.ops import BackendUnavailableError
+    from repro_torch.ops import BackendUnavailableError, ExecPolicy
     from repro_torch.ops import tree_reduce_sum as tree_op
     from repro_torch.ops.tiling import TREE_MAX_ETA
 
@@ -199,8 +215,10 @@ def phase_kernels(device):
         torch.cuda.synchronize()
         err = max_abs(got, want)
         exact = bitwise(got, want)
-        # the tree sums in its plain version's order: bitwise in fp32 too
-        must_be_exact = mode == "int8" or name == "addtree"
+        # the tree sums in its plain version's order: bitwise in fp32 too;
+        # qformat conv sums are exact, which fused_cwp is held to
+        must_be_exact = (mode == "int8" or name == "addtree"
+                         or (name == "fused_cwp" and mode == "qformat"))
         tol = 0.0 if must_be_exact else TOL_FP32 * (1 + float(
             want.abs().max()))
         ok = exact if must_be_exact else err <= tol
@@ -225,9 +243,28 @@ def phase_kernels(device):
         xc, wc, xs, ws = fc_inputs(gen, bsz, device)
         record("qmatmul", "fc", bsz, "int8", qmatmul(xc, wc, xs, ws),
                qmatmul_ref(xc, wc, xs, ws))
+    for mode in ("none", "qformat", "int8"):
+        for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
+            x, w, b, s = conv_inputs(gen, 1024, shape, mode, device)
+            record("fused_cwp", stage, 1024, mode,
+                   fused_cwp(x, w, b, scale=s),
+                   fused_cwp_ref(x, w, b, scale=s))
+        for case, (shape, stride, tiling) in FUSED_SHAPES.items():
+            x, w, b, s = conv_inputs(gen, 2, shape, mode, device)
+            record("fused_cwp", case, 2, mode,
+                   fused_cwp(x, w, b, stride=stride, scale=s,
+                             policy=ExecPolicy(tiling=tiling)),
+                   fused_cwp_ref(x, w, b, stride, scale=s))
     for r, eta in TREE_SHAPES + [(33, TREE_MAX_ETA)]:
         x = torch.randn((r, eta), generator=gen).to(device)
         record("addtree", f"{r}x{eta}", r, "none", tree_reduce_sum(x),
+               tree_reduce_sum_ref(x))
+    # a view one float into its storage: not 16-byte aligned, so the
+    # kernel's 4-byte loads
+    for r, eta in ((37, 16), (37, 540)):
+        x = torch.randn(r * eta + 1, generator=gen).to(device)[1:].view(
+            r, eta)
+        record("addtree", f"{r}x{eta}+4B", r, "none", tree_reduce_sum(x),
                tree_reduce_sum_ref(x))
     # what the kernel cannot take raises on the card instead of falling
     # back to a plain version: a 3-D input and a row over the η cap
@@ -468,14 +505,15 @@ def phase_times(device):
                      lambda: F.conv2d(x, w, b), False)):
                 nbytes, ops = conv_work(bsz, shape, pooled)
                 rows.append(_time_row(name, stage, bsz, kern, plain, lib,
-                                      nbytes, ops / PEAK_FP32))
+                                      nbytes, ops / PEAK_FP32,
+                                      exact=False))
         xc, wc, xs, ws = fc_inputs(gen, bsz, device)
         k, n = FC
         nbytes = bsz * k + k * n + 4 * (bsz + n + bsz * n)
         rows.append(_time_row(
             "qmatmul", "fc", bsz, lambda: qmatmul(xc, wc, xs, ws),
             lambda: qmatmul_ref(xc, wc, xs, ws), None, nbytes,
-            2.0 * bsz * k * n / PEAK_INT8))
+            2.0 * bsz * k * n / PEAK_INT8, exact=True))
         # the tree at each conv stage's product matrix: (B·Ho·Wo·M, η)
         for stage, (n, h, w_, m, k) in (("conv1", CONV1), ("conv2", CONV2)):
             r, eta = bsz * (h - k + 1) * (w_ - k + 1) * m, n * k * k
@@ -484,7 +522,8 @@ def phase_times(device):
             rows.append(_time_row(
                 "addtree", stage, bsz, lambda: tree_reduce_sum(x),
                 lambda: pairwise_sum(x, -1), lambda: torch.sum(x, dim=-1),
-                4 * r * (eta + 1), r * (eta - 1) / PEAK_FP32_ADD))
+                4 * r * (eta + 1), r * (eta - 1) / PEAK_FP32_ADD,
+                exact=True))
             del x
     emit({"phase": "times", "peaks": {"fp32_flops": PEAK_FP32,
                                       "fp32_adds": PEAK_FP32_ADD,
@@ -498,7 +537,20 @@ def phase_times(device):
     return rows
 
 
-def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s):
+def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s, *,
+              exact: bool):
+    """One timed row; at B = 1024 the kernel's output is first held
+    against the plain version's (bitwise where ``exact``)."""
+    import torch
+    if bsz == 1024:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        tol = 0.0 if exact else TOL_FP32 * (1 + float(want.abs().max()))
+        check(bitwise(got, want) if exact else err <= tol,
+              f"times {name} {stage} B={bsz}: kernel vs plain max_abs "
+              f"{err}, tolerance {tol}")
+        del got, want
     ms, dry = device_ms(kern)
     plain_ms, plain_dry = device_ms(plain)
     lib_ms, lib_dry = device_ms(lib) if lib is not None else (None, False)

@@ -17,19 +17,18 @@ from repro_torch.kernels.addtree.ref import tree_reduce_sum_ref
 from repro_torch.kernels.build import load
 from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import (TREE_MAX_ETA, block_threads,
-                                    choose_tree_blocks)
+from repro_torch.ops.tiling import TREE_MAX_ETA, tree_tiles
 
 __all__ = ["tree_reduce_sum", "launches"]
 
 launches = 0
-_MAX_GRID = 2 ** 31 - 1          # one block per row; CUDA's gridDim.x limit
+_MAX_ROWS = 2 ** 31 - 1          # R travels to the kernel as a 32-bit int
 
 
 @functools.cache
 def _launcher():
     fn = load("addtree").addtree_launch
-    fn.argtypes = launch_args(2, 3)
+    fn.argtypes = launch_args(2, 6)
     fn.restype = ctypes.c_int
     return fn
 
@@ -45,16 +44,16 @@ def tree_reduce_sum(x: torch.Tensor, *,
     if not 1 <= eta <= TREE_MAX_ETA:
         raise ValueError(f"row width {eta}: the kernel takes 1 <= eta <= "
                          f"{TREE_MAX_ETA}")
-    if r > _MAX_GRID:
-        raise ValueError(f"{r} rows: the grid holds at most {_MAX_GRID}")
+    if r > _MAX_ROWS:
+        raise ValueError(f"{r} rows: the kernel takes at most {_MAX_ROWS}")
     if dev.type == "cpu":
         return tree_reduce_sum_ref(x)
     pol = policy if policy is not None else current_policy()
-    threads = block_threads("tree_reduce_sum", choose_tree_blocks(eta),
-                            pol.tile_overrides)
+    t = tree_tiles(r, eta, pol.tile_overrides)
     out = torch.empty((r,), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    launch(_launcher(), "addtree", dev, ptr(x), ptr(out), r, eta, threads)
+    launch(_launcher(), "addtree", dev, ptr(x), ptr(out), r, eta,
+           t["threads"], t["rows"], t["short_eta"], t["row_lanes"])
     launches += 1
     return out

@@ -17,7 +17,7 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
 from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import block_threads, choose_fused_blocks
+from repro_torch.ops.tiling import fused_tiles
 
 __all__ = ["fused_cwp", "launches"]
 
@@ -27,7 +27,7 @@ launches = 0
 @functools.cache
 def _launcher():
     fn = load("fused_cwp").fused_cwp_launch
-    fn.argtypes = launch_args(5, 10)
+    fn.argtypes = launch_args(5, 16)
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,14 +63,13 @@ def fused_cwp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if dev.type == "cpu":
         return fused_cwp_ref(x, w, b, tuple(stride), scale=scale)
     pol = policy if policy is not None else current_policy()
-    threads = block_threads("fused_conv_block",
-                            choose_fused_blocks(bsz, m, ho, wo),
-                            pol.tile_overrides)
+    t = fused_tiles(bsz, n, h, wd, m, kh, kw, sh, sw, pol.tile_overrides)
     out = torch.empty((bsz, m, ho // 2, wo // 2), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:
         return out
     launch(_launcher(), "fused_cwp", dev, ptr(x), ptr(w), ptr(scale), ptr(b),
-           ptr(out), bsz, n, h, wd, m, kh, kw, sh, sw, threads)
+           ptr(out), bsz, n, h, wd, m, kh, kw, sh, sw, t["threads"], t["cpb"],
+           t["band"], t["split"], t["ipb"], t["ld"], t["smem"])
     launches += 1
     return out

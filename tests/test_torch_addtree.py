@@ -9,6 +9,8 @@ bitwise, except ``torch`` against ``xla``: both are library sums in
 orders of their own, held to |Δ| ≤ 1e-6·Σ|x| per row (measured here the
 gap is 1.5e-5 at η = 540, where Σ|x| ≈ 430: about 30× inside it).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +30,8 @@ from repro_torch.core import quantize as t_quant
 from repro_torch.core import window as t_window
 from repro_torch.kernels import build
 from repro_torch.kernels.addtree import ops as at_ops
-from repro_torch.kernels.addtree.ref import tree_reduce_sum_ref
+from repro_torch.kernels.addtree.ref import (tree_reduce_sum_levels,
+                                            tree_reduce_sum_ref)
 from repro_torch.ops import (REGISTRY, BackendUnavailableError, ExecPolicy,
                              list_backends, list_ops, tiling,
                              tree_reduce_sum)
@@ -72,6 +75,28 @@ def test_plain_and_wrapper_match_pallas_bitwise(shape):
     _same(tree_reduce_sum_ref(_t(x)), want)
     _same(at_ops.tree_reduce_sum(_t(x)), want)
     assert at_ops.launches == before          # the CPU runs no kernel
+
+
+# the kernel's order: aligned 2**k chunks as perfect trees, then the tree
+# over level k (k = 1..3 as stated, 4 and 6 where the kernel's lanes stop)
+LEVEL_ETAS = list(range(1, 65)) + [65, 96, 127, 128, 129, 143, 144, 255,
+                                   256, 257, 540, 1023, 1024, 1025, 1350,
+                                   2047, 4096, CAP - 1, CAP]
+
+
+@functools.cache
+def _jax_tree(eta: int) -> np.ndarray:
+    return np.asarray(j_addtree.pairwise_sum(jnp.asarray(_x((3, eta))),
+                                             axis=-1))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("eta", LEVEL_ETAS)
+def test_level_k_restatement_is_the_tree(eta, k):
+    x = _t(_x((3, eta)))
+    got = tree_reduce_sum_levels(x, k)
+    _same(got, t_addtree.pairwise_sum(x))
+    _same(got, _jax_tree(eta))
 
 
 # ------------------------------------- op family vs the JAX family, per backend
@@ -166,15 +191,23 @@ def test_wrapper_empty_rows_on_cpu():
     assert out.shape == (0,) and out.dtype == torch.float32
 
 
-@pytest.mark.parametrize("eta,threads", [(1, 32), (9, 32), (64, 32),
-                                         (65, 64), (144, 96), (540, 256),
-                                         (CAP, 256)])
-def test_choose_tree_blocks(eta, threads):
-    assert tiling.choose_tree_blocks(eta) == {"threads": threads}
+@pytest.mark.parametrize("r,eta,threads,rows,lanes", [
+    (4, 1, 128, 128, 32), (81_120, 9, 128, 128, 32),
+    (10_383_360, 32, 128, 128, 32), (13, 33, 256, 16, 16),
+    (10_240, 540, 256, 16, 16), (16_896, 144, 256, 16, 16),
+    (16_897, 144, 256, 8, 32), (1_310_720, 540, 256, 8, 32),
+    (33, CAP, 256, 16, 16)])
+def test_choose_tree_blocks(r, eta, threads, rows, lanes):
+    """A thread a row up to η = 32 (128 a block); above, 256 threads, a
+    half-warp a row while 132 SMs × 128 half-warps cover R, a warp a row
+    on more."""
+    assert tiling.choose_tree_blocks(r, eta) == {
+        "threads": threads, "rows": rows, "short_eta": 32,
+        "row_lanes": lanes}
 
 
 def test_tree_tiling_overrides():
-    d = tiling.choose_tree_blocks(540)
+    d = tiling.choose_tree_blocks(10_240, 540)
     assert tiling.block_threads("tree_reduce_sum", d,
                                 {"tree_reduce_sum.threads": 64}) == 64
     assert tiling.block_threads("tree_reduce_sum", d, {"threads": 128}) == 128
@@ -183,6 +216,40 @@ def test_tree_tiling_overrides():
     with pytest.raises(ValueError):
         tiling.block_threads("tree_reduce_sum", d,
                              {"tree_reduce_sum.threads": 40})
+
+
+@pytest.mark.parametrize("r,eta,overrides,want", [
+    (100, 9, {}, {"threads": 128, "rows": 128, "short_eta": 32,
+                  "row_lanes": 32, "smem": 128 * 9 * 4}),
+    (100, 16, {}, {"threads": 128, "rows": 128, "short_eta": 32,
+                   "row_lanes": 32, "smem": 128 * 17 * 4}),  # odd stride
+    (10_240, 540, {}, {"rows": 16, "short_eta": 32, "row_lanes": 16,
+                       "smem": 16 * 34 * 4}),             # ⌈540/16⌉ a row
+    (10**6, 540, {}, {"rows": 8, "short_eta": 32, "row_lanes": 32,
+                      "smem": 8 * 34 * 4}),
+    (100, 9, {"tree_reduce_sum.rows": 100, "tree_reduce_sum.short_eta": 4},
+     {"threads": 128, "rows": 100, "short_eta": 4, "row_lanes": 32,
+      "smem": 4 * 1 * 4}),
+    (100, 540, {"rows": 3, "threads": 64, "conv2d.rows": 1},
+     {"rows": 3, "short_eta": 32, "row_lanes": 16, "smem": 4 * 34 * 4}),
+    (100, 540, {"tree_reduce_sum.row_lanes": 32},
+     {"rows": 16, "short_eta": 32, "row_lanes": 32, "smem": 8 * 34 * 4}),
+    (100, 540, {"tree_reduce_sum.short_eta": 540},
+     {"rows": 16, "short_eta": 540, "row_lanes": 16, "smem": 16 * 541 * 4}),
+])
+def test_tree_tiles_resolve_overrides(r, eta, overrides, want):
+    threads = 64 if "threads" in overrides else 256
+    assert tiling.tree_tiles(r, eta, overrides) == {"threads": threads,
+                                                    **want}
+
+
+@pytest.mark.parametrize("overrides", [{"tree_reduce_sum.rows": 0},
+                                       {"tree_reduce_sum.threads": 48},
+                                       {"tree_reduce_sum.row_lanes": 8},
+                                       {"tree_reduce_sum.rows": 100_000}])
+def test_tree_tiles_refuse_what_cannot_launch(overrides):
+    with pytest.raises(ValueError):
+        tiling.tree_tiles(100, 9, overrides)
 
 
 def test_addtree_source_is_built_and_content_keyed():

@@ -38,6 +38,20 @@ STAGES = {"conv1": (1, 28, 28, 15, 3), "conv2": (15, 13, 13, 20, 6)}
 TREE_SHAPES = [(1, 1), (4, 9), (8, 1), (96, 7), (100, 37), (509, 144),
                (1024, 37), (16, 256), (64, 540), (64, 1350),
                (33, TREE_MAX_ETA)]
+# the kernel's own paths: η on both sides of the short-row threshold (32),
+# R off a multiple of the rows a block takes (256 short, 16 or 8 long), the
+# paper CNN's product matrices at B = 8
+TREE_PATH_SHAPES = [(257, 9), (300, 32), (13, 33), (9, 16), (13, 540),
+                    (81_120, 9), (10_240, 540),
+                    # over 16,896 rows: a whole warp a row
+                    (20_000, 37), (20_000, 540)]
+# non-paper fused shapes (N, H, W, M, K, stride, tiling): stride 2 with a
+# band of 3 pooled rows over 8, and a slab too wide to stage
+FUSED_SHAPES = {
+    "stride2_ragged_band": ((3, 33, 41, 5, 3), (2, 2),
+                            {"fused_conv_block.band": 3}),
+    "unstaged": ((64, 6, 230, 6, 3), (1, 1), {}),
+}
 MODES = ("none", "qformat", "int8")
 TOL_FP32 = 1e-5
 
@@ -50,7 +64,7 @@ def card():
 
 
 def _operands(stage, mode, bsz, device):
-    n, h, w_, m, k = STAGES[stage]
+    n, h, w_, m, k = STAGES[stage] if isinstance(stage, str) else stage
     g = torch.Generator().manual_seed(bsz)
     x = torch.randn((bsz, n, h, w_), generator=g)
     w = torch.randn((m, n, k, k), generator=g) * (n * k * k) ** -0.5
@@ -127,6 +141,57 @@ def test_addtree_matches_plain_bitwise(card, shape):
     assert at_ops.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, tree_reduce_sum_ref(x))
+
+
+@pytest.mark.parametrize("shape", TREE_PATH_SHAPES)
+def test_addtree_paths_match_plain_bitwise(card, shape):
+    g = torch.Generator().manual_seed(shape[0])
+    x = torch.randn(shape, generator=g).to(card)
+    assert torch.equal(at_ops.tree_reduce_sum(x), tree_reduce_sum_ref(x))
+
+
+@pytest.mark.parametrize("eta", [16, 540])
+def test_addtree_unaligned_rows_match_plain_bitwise(card, eta):
+    """A view one float into its storage is not 16-byte aligned: the
+    kernel takes 4-byte loads there."""
+    g = torch.Generator().manual_seed(eta)
+    x = torch.randn(37 * eta + 1, generator=g).to(card)[1:].view(37, eta)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert torch.equal(at_ops.tree_reduce_sum(x), tree_reduce_sum_ref(x))
+
+
+@pytest.mark.parametrize("tiling", [{"tree_reduce_sum.rows": 5,
+                                     "tree_reduce_sum.threads": 64},
+                                    {"tree_reduce_sum.short_eta": 1},
+                                    {"tree_reduce_sum.short_eta": 540,
+                                     "tree_reduce_sum.rows": 40},
+                                    {"tree_reduce_sum.row_lanes": 32},
+                                    {"tree_reduce_sum.row_lanes": 16,
+                                     "tree_reduce_sum.rows": 7}])
+@pytest.mark.parametrize("eta", [9, 540])
+def test_addtree_overrides_match_plain_bitwise(card, tiling, eta):
+    g = torch.Generator().manual_seed(eta)
+    x = torch.randn((301, eta), generator=g).to(card)
+    got = at_ops.tree_reduce_sum(x, policy=ExecPolicy(tiling=tiling))
+    assert torch.equal(got, tree_reduce_sum_ref(x))
+
+
+@pytest.mark.parametrize("stage", sorted(STAGES))
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_large_batch_matches_plain(card, mode, stage):
+    x, w, b, s = _operands(stage, mode, 1024, card)
+    _agree(mode, fc_ops.fused_cwp(x, w, b, scale=s),
+           fused_cwp_ref(x, w, b, scale=s))
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_other_shapes_match_plain(card, mode, case):
+    shape, stride, tiling = FUSED_SHAPES[case]
+    x, w, b, s = _operands(shape, mode, 2, card)
+    got = fc_ops.fused_cwp(x, w, b, stride=stride, scale=s,
+                           policy=ExecPolicy(tiling=tiling))
+    _agree(mode, got, fused_cwp_ref(x, w, b, stride, scale=s))
 
 
 def test_tree_auto_dispatch_launches_the_kernel(card, monkeypatch):

@@ -314,3 +314,79 @@ def test_build_paths_are_content_keyed():
     with pytest.raises(KeyError):
         build.library_path("no_such_kernel")
 
+
+
+# the paper CNN's stages as choose_fused_blocks takes them:
+# (N, H, W, M, Kh, Kw, sh, sw)
+FUSED_ARGS = {"conv1": (1, 28, 28, 15, 3, 3, 1, 1),
+              "conv2": (15, 13, 13, 20, 6, 6, 1, 1)}
+
+
+@pytest.mark.parametrize("stage,bsz,want", [
+    # served batches: lanes split the contraction, small blocks spread out
+    ("conv1", 1, {"threads": 32, "cpb": 4, "band": 1, "split": 2,
+                  "ipb": 1}),
+    ("conv1", 8, {"threads": 64, "cpb": 8, "band": 1, "split": 2,
+                  "ipb": 1}),
+    ("conv2", 1, {"threads": 128, "cpb": 4, "band": 1, "split": 32,
+                  "ipb": 1}),
+    ("conv2", 8, {"threads": 128, "cpb": 4, "band": 1, "split": 32,
+                  "ipb": 1}),
+    # large batches: no split; whole images, every channel group, several
+    # images a block (conv2's 43 KB of weights stage once for four)
+    ("conv1", 1024, {"threads": 320, "cpb": 16, "band": 4, "split": 1,
+                     "ipb": 3}),
+    ("conv2", 1024, {"threads": 320, "cpb": 20, "band": 4, "split": 1,
+                     "ipb": 4}),
+])
+def test_choose_fused_blocks(stage, bsz, want):
+    assert tiling.choose_fused_blocks(bsz, *FUSED_ARGS[stage]) == want
+
+
+@pytest.mark.parametrize("args,ld", [
+    (FUSED_ARGS["conv2"], 20),      # Qo = 4: 2·ld ≡ 8 (mod 32)
+    (FUSED_ARGS["conv1"], 29),      # Qo = 13: 2·ld ≡ 26 (mod 32)
+    ((3, 33, 41, 5, 3, 3, 2, 2), 41),   # Qo = 10, sw = 2: 40 words a row
+    ((1, 40, 40, 4, 3, 3, 1, 1), 40),   # Qo = 19: a row spans 38 words
+    ((1, 21, 13, 4, 3, 3, 2, 1), 13),   # 4·ld ≡ 10 (mod 32) has no ld
+])
+def test_fused_ld_pads_rows_apart_in_the_banks(args, ld):
+    n, h, w, m, kh, kw, sh, sw = args
+    assert tiling.fused_ld(h, w, kh, kw, sh, sw) == ld
+
+
+def test_fused_tiles_overrides_staging_and_checks():
+    conv2 = FUSED_ARGS["conv2"]
+    t = tiling.fused_tiles(1024, *conv2)
+    # 20 × 540 weights + 4 images × 15 channels × 13 rows × 20 floats
+    assert t["smem"] == 4 * (20 * 540 + 4 * 15 * 13 * 20) and t["ld"] == 20
+    t = tiling.fused_tiles(8, *conv2, {"fused_conv_block.split": 8,
+                                       "band": 2, "cpb": 8, "ipb": 2,
+                                       "conv2d.threads": 32})
+    assert {k: t[k] for k in ("threads", "cpb", "band", "split", "ipb")} == \
+        {"threads": 128, "cpb": 8, "band": 2, "split": 8, "ipb": 2}
+    assert t["smem"] == 4 * (8 * 540 + 2 * 15 * 9 * 20)   # 2 pooled rows
+    # a slab over SMEM_MAX is read from device memory, not refused
+    wide = tiling.fused_tiles(1, 256, 6, 512, 4, 3, 3, 1, 1)
+    assert wide["smem"] == 0
+    for bad in ({"cpb": 6}, {"cpb": 0}, {"band": 0}, {"ipb": 0},
+                {"split": 3}, {"split": 64},
+                {"fused_conv_block.threads": 40}):
+        with pytest.raises(ValueError):
+            tiling.fused_tiles(8, *conv2, bad)
+
+
+@pytest.mark.parametrize("name", ["addtree", "conv_window", "fused_cwp",
+                                  "qmatmul"])
+def test_launch_args_match_the_c_signature(name):
+    """ctypes passes what ``argtypes`` says, so a count that drifts from
+    the launcher's C signature fails only on the card: count both here."""
+    import re
+    src = (build.CSRC / f"{name}.cu").read_text()
+    sig = re.search(r'extern "C" int \w+\((.*?)\)\s*\{', src, re.S).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    want = (sum("void*" in p for p in params) - 1,       # the stream
+            sum(p.startswith("int ") for p in params))
+    ops = (build.CSRC.parent / "kernels" / name / "ops.py").read_text()
+    got = re.search(r"launch_args\((\d+), (\d+)\)", ops).groups()
+    assert tuple(map(int, got)) == want
