@@ -6,14 +6,18 @@
 Phases, each printing one JSON line:
 
   device   the card (torch and ``nvidia-smi``), torch and CUDA versions;
-  build    nvcc builds every kernel of ``src/repro_torch/csrc`` for sm_90a;
+  build    nvcc builds every kernel of ``src/repro_torch/csrc`` for sm_90a
+           and ptxas must report no spills and no stack frame;
   kernels  each kernel against its plain PyTorch version on the card, at
            the paper CNN's conv1/conv2/fc shapes, B in {1, 3, 8}, in the
-           number formats it sees (int8 must be bitwise, and qformat for
-           fused_cwp), fused_cwp also at B = 1024 and at two other shapes
-           (stride 2 with a ragged band; a slab too wide to stage), and the
-           addition tree bitwise at (R, η) shapes up to its η cap that
-           reach each of its paths, plus two calls it must refuse;
+           number formats it sees (int8 and qformat must be bitwise for
+           both conv kernels), both conv kernels also at B = 1024 and at
+           other shapes (stride 2 with a ragged band; a slab too wide to
+           stage; for conv_window odd outputs), qmatmul bitwise at M up to
+           4,097, K in {37, 320, 4,099}, N up to 300, on an unaligned view,
+           with scalar scales and with K cut into slices, and the addition
+           tree bitwise at (R, η) shapes up to its η cap that reach each of
+           its paths, plus two calls it must refuse;
   serve    the launcher's CNN path and VisionEngine under qformat and int8
            on the card, every request held against the same engine on the
            CPU; the kernels' launch counts must match the batches served;
@@ -25,7 +29,10 @@ Phases, each printing one JSON line:
   times    per kernel and shape, the median device time of 100 launches
            at B = 8 and B = 1024, beside the plain version, one library
            call for the same function, and the card's bound; each B = 1024
-           output is first held against the plain version.
+           output is first held against the plain version. An empty
+           kernel (``torch.cuda._sleep(0)``) timed the same way is the
+           launch floor, a copy of 16 floats the floor of a kernel that
+           loads and stores.
 
 Then the kernels line (one JSON object), the card's ``nvidia-smi`` name
 and power limit, and as the last line ``{"ok": true, "device": ...}``.
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +93,22 @@ FUSED_SHAPES = {
                             {"fused_conv_block.band": 3}),
     "unstaged": ((64, 6, 230, 6, 3), (1, 1), {}),
 }
+# conv_window beyond the paper's shapes, each with an odd output: a 5x5
+# kernel on conv2's input (9x9), stride 2 (17x21) with a band of 3 tile
+# rows over 9, and a slab too wide to stage (5x229)
+CONV_SHAPES = {
+    "odd_output": ((15, 13, 13, 20, 5), (1, 1), {}),
+    "stride2_ragged_band": ((3, 35, 43, 5, 3), (2, 2), {"conv2d.band": 3}),
+    "unstaged": ((64, 7, 231, 6, 3), (1, 1), {}),
+}
+# qmatmul (M, K, N), tiling overrides: K in {37, 320, 4099} (4099 and 37
+# are not word multiples), N from 1 to 300, M from 1 to 4097, and K cut
+# into slices of 100 words with 24 rows a block
+QMATMUL_SHAPES = [((1, 37, 1), {}), ((8, 320, 10), {}),
+                  ((1000, 4099, 33), {}), ((4097, 320, 300), {}),
+                  ((8, 4099, 300), {}), ((4097, 37, 10), {}),
+                  ((64, 4099, 33), {"qmatmul.kslice": 100,
+                                    "qmatmul.rows": 24})]
 # fp32 sums in another order than the plain version's matmul; |y| is
 # O(10) here and the reference itself moves by 3.8e-6 between orders
 TOL_FP32 = 1e-5
@@ -150,6 +174,16 @@ def conv_inputs(gen, bsz, stage, mode, device):
     return tuple(None if t is None else t.to(device) for t in (x, w, b, scale))
 
 
+def qmatmul_inputs(gen, m, k, n, device):
+    """Random int8 codes over the full range and positive f32 scales."""
+    import torch
+    xc = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8)
+    wc = torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8)
+    xs = torch.rand((m, 1), generator=gen) * 0.05
+    ws = torch.rand((1, n), generator=gen) * 0.05
+    return tuple(t.to(device) for t in (xc, wc, xs, ws))
+
+
 def fc_inputs(gen, bsz, device):
     import torch
     from repro_torch.core.quantize import quantize_int8
@@ -184,13 +218,20 @@ def phase_build():
     report = build()
     seconds = time.perf_counter() - t0
     libs = {}
+    local = 0
     for name in SOURCES:
         r = report[name]
         regs = [ln.strip() for ln in r["ptxas"].splitlines()
                 if "registers" in ln or "spill" in ln]
+        for ln in regs:
+            local += sum(int(n) for n in re.findall(
+                r"(\d+) bytes (?:spill stores|spill loads|stack frame)", ln))
         libs[name] = {"built": r["built"], "seconds": round(r["seconds"], 2),
                       "ptxas": regs}
-    emit({"phase": "build", "seconds": round(seconds, 2), "libs": libs})
+    emit({"phase": "build", "seconds": round(seconds, 2),
+          "local_bytes": local, "libs": libs})
+    check(local == 0, f"ptxas reports {local} bytes of spills or stack "
+                      f"frame: a kernel keeps values in local memory")
 
 
 def phase_kernels(device):
@@ -216,9 +257,8 @@ def phase_kernels(device):
         err = max_abs(got, want)
         exact = bitwise(got, want)
         # the tree sums in its plain version's order: bitwise in fp32 too;
-        # qformat conv sums are exact, which fused_cwp is held to
-        must_be_exact = (mode == "int8" or name == "addtree"
-                         or (name == "fused_cwp" and mode == "qformat"))
+        # qformat conv sums are exact, which both conv kernels are held to
+        must_be_exact = mode in ("int8", "qformat") or name == "addtree"
         tol = 0.0 if must_be_exact else TOL_FP32 * (1 + float(
             want.abs().max()))
         ok = exact if must_be_exact else err <= tol
@@ -249,12 +289,40 @@ def phase_kernels(device):
             record("fused_cwp", stage, 1024, mode,
                    fused_cwp(x, w, b, scale=s),
                    fused_cwp_ref(x, w, b, scale=s))
+            cb = None if mode == "int8" else b
+            record("conv_window", stage, 1024, mode, conv_window(x, w, cb),
+                   conv2d_window_ref(x, w, cb))
         for case, (shape, stride, tiling) in FUSED_SHAPES.items():
             x, w, b, s = conv_inputs(gen, 2, shape, mode, device)
             record("fused_cwp", case, 2, mode,
                    fused_cwp(x, w, b, stride=stride, scale=s,
                              policy=ExecPolicy(tiling=tiling)),
                    fused_cwp_ref(x, w, b, stride, scale=s))
+        for case, (shape, stride, tiling) in CONV_SHAPES.items():
+            x, w, b, _ = conv_inputs(gen, 2, shape, mode, device)
+            cb = None if mode == "int8" else b
+            record("conv_window", case, 2, mode,
+                   conv_window(x, w, cb, stride=stride,
+                               policy=ExecPolicy(tiling=tiling)),
+                   conv2d_window_ref(x, w, cb, stride=stride))
+    for (m, k, n), tiling in QMATMUL_SHAPES:
+        xc, wc, xs, ws = qmatmul_inputs(gen, m, k, n, device)
+        record("qmatmul", f"{m}x{k}x{n}", m, "int8",
+               qmatmul(xc, wc, xs, ws, policy=ExecPolicy(tiling=tiling)),
+               qmatmul_ref(xc, wc, xs, ws))
+    # a view one byte into its storage: rows not 4-byte aligned, so the
+    # kernel's byte loads; and scalar scales, broadcast by the wrapper
+    xc, wc, xs, ws = qmatmul_inputs(gen, 37, 320, 10, device)
+    xu = torch.empty(37 * 320 + 1, dtype=torch.int8, device=device)
+    xu = xu[1:].view(37, 320)
+    xu.copy_(xc)
+    record("qmatmul", "37x320x10+1B", 37, "int8", qmatmul(xu, wc, xs, ws),
+           qmatmul_ref(xu, wc, xs, ws))
+    sx = torch.full((8, 1), 0.03125, device=device)
+    sw = torch.full((1, 10), 0.0078125, device=device)
+    record("qmatmul", "8x320x10 scalar scales", 8, "int8",
+           qmatmul(xc[:8], wc, 0.03125, 0.0078125),
+           qmatmul_ref(xc[:8], wc, sx, sw))
     for r, eta in TREE_SHAPES + [(33, TREE_MAX_ETA)]:
         x = torch.randn((r, eta), generator=gen).to(device)
         record("addtree", f"{r}x{eta}", r, "none", tree_reduce_sum(x),
@@ -491,6 +559,10 @@ def phase_times(device):
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
     gen = torch.Generator().manual_seed(4)
+    floor_ms, floor_dry = device_ms(lambda: torch.cuda._sleep(0))
+    # a kernel that loads and stores one cache line: 16 floats copied
+    src16, dst16 = (torch.ones(16, device=device) for _ in range(2))
+    rw_ms, rw_dry = device_ms(lambda: dst16.copy_(src16))
     rows = []
     for bsz in (8, 1024):
         for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
@@ -525,7 +597,12 @@ def phase_times(device):
                 4 * r * (eta + 1), r * (eta - 1) / PEAK_FP32_ADD,
                 exact=True))
             del x
-    emit({"phase": "times", "peaks": {"fp32_flops": PEAK_FP32,
+    emit({"phase": "times", "launch_floor_ms": floor_ms,
+          "load_store_floor_ms": rw_ms,
+          "floors_queue_ran_dry": [k for k, d in (("launch", floor_dry),
+                                                  ("load_store", rw_dry))
+                                   if d],
+          "peaks": {"fp32_flops": PEAK_FP32,
                                       "fp32_adds": PEAK_FP32_ADD,
                                       "int8_ops": PEAK_INT8,
                                       "bytes_per_s": PEAK_BYTES},

@@ -4,23 +4,28 @@
 // (_conv_window_kernel, launched by conv2d_window_pallas).
 //
 // What bounds it on an H100: the same contraction as fused_cwp without the
-// pool, so four times the output bytes. By its work, launch latency sets
-// the pace at the eager forward's batches; at large batches conv2 is bound
-// by fp32 operations and conv1 by bytes.
+// pool, so four times the output bytes. At B = 1024 conv2 of the paper CNN
+// is bound by fp32 operations on the CUDA cores (TF32 is ruled out, the
+// reference pins fp32) and conv1, whose unpooled output is 41.5 MB, by
+// bytes. At the eager forward's batches (B <= 8) the launch sets the pace.
 //
-// What this design does about it: one thread per conv output, a sequential
-// fp32 FMA loop over eta, whole-warp blocks spread over as many SMs as the
-// outputs fill (repro_torch/ops/tiling.py). The kernel masks its own
-// ragged edge, so none of the TPU wrapper's row and batch padding is
-// carried over. Each thread's dependent FMA chain (540 on conv2), not the
-// card's bound, sets its time; reuse of the overlapping windows through
-// shared memory is later work.
-#include "conv_common.cuh"
+// What this design does about it: the shared template of conv_tile.cuh
+// without the pool. The input band and the weights are staged in shared
+// memory once per block, a thread holds 2x2 conv points x 4 channels (16
+// independent FMA chains), `split` lanes share a tile where the tiles
+// cannot fill the card, and each point is stored with +bias
+// (__fadd_rn). Any VALID output is taken: at an odd last row or column
+// the tile stores only the points that exist and reads nothing past the
+// input.
+#include "conv_tile.cuh"
 
 extern "C" int conv_window_launch(const void* x, const void* w,
                                   const void* bias, void* out, int B, int N,
                                   int H, int W, int M, int Kh, int Kw, int sh,
-                                  int sw, int threads, void* stream) {
-  return launch_conv<false>(x, w, nullptr, bias, out, B, N, H, W, M, Kh, Kw,
-                            sh, sw, threads, stream);
+                                  int sw, int threads, int cpb, int band,
+                                  int split, int ipb, int ld, int smem,
+                                  void* stream) {
+  return conv_tile::launch<false>(x, w, nullptr, bias, out, B, N, H, W, M,
+                                  Kh, Kw, sh, sw, threads, cpb, band, split,
+                                  ipb, ld, smem, stream);
 }

@@ -11,234 +11,22 @@
 // served batches (B <= 8) both are under a microsecond of work, so the
 // launch and one round trip to memory set the pace.
 //
-// What this design does about it:
-//  * Tiling. A block owns `ipb` images, a group of `cpb` output channels
-//    and a band of `band` pooled rows. It stages the input band (N
-//    channels x the band's rows + the Kh - sh halo x W, at a row stride
-//    `ld` padded so a warp's 2x2 windows fall in distinct banks) and the
-//    group's weights, transposed to [eta][cpb], in shared memory, with
-//    four loads in flight a thread, so the overlapping windows are read
-//    from memory once and the weights once for `ipb` images. Where even a
-//    one-row band of one channel group would not fit (huge N*W or
-//    kernels), the same loop reads from device memory instead: no shape
-//    the wrapper took before is refused.
-//  * Register tile. A thread holds the 2x2 conv points behind one pooled
-//    output x 4 channels: 16 independent fp32 FMA chains, fed per kernel
-//    tap by 4 input loads and one float4 weight load (a broadcast).
-//  * Small batches. Where the pooled outputs cannot fill 132 SMs, `split`
-//    adjacent lanes (a power of two up to 32) share one tile, each taking
-//    every split-th kernel row of the contraction; shuffles down combine
-//    their partials in a fixed order inside the warp.
-//  * The epilogue of the reference: __fadd_rn(__fmul_rn(acc, s), b) so
-//    nvcc cannot contract it, the relu floor at 0, the 2x2 max, and only
-//    the pooled value is stored.
-// int8 and qformat operands make every partial sum exact (integer codes:
-// 540 * 127^2 < 2^24), so the new order is bitwise there; fp32 moves
-// within the stated 1e-5.
-#include <cuda_runtime.h>
+// What this design does about it: the shared template of conv_tile.cuh
+// with its pooling epilogue. The input band and the weights are staged
+// in shared memory once per block, so the overlapping windows cost one
+// read from memory; a thread's 2x2 window x 4 channels are 16 independent
+// FMA chains; at served batches `split` lanes share a tile. The epilogue
+// is the reference's: __fadd_rn(__fmul_rn(acc, s), b), the relu floor at
+// 0, the 2x2 max, and only the pooled value is stored.
+#include "conv_tile.cuh"
 
-namespace {
-
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int CT = 4;  // output channels in a thread's register tile
-
-struct Shape {
-  int B, N, H, W, M, Kh, Kw, sh, sw, Po, Qo;
-};
-
-template <bool STAGED>
-__global__ void fused_cwp_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ scale,
-                                 const float* __restrict__ bias,
-                                 float* __restrict__ out, Shape s, int cpb,
-                                 int band, int split, int ipb, int ld) {
-  extern __shared__ __align__(16) float smem[];
-  const int eta = s.N * s.Kh * s.Kw;
-  const int groups = (s.M + cpb - 1) / cpb;
-  const int bands = (s.Po + band - 1) / band;
-  int bid = blockIdx.x;
-  const int bi = bid % bands;
-  bid /= bands;
-  const int m0 = (bid % groups) * cpb;
-  const int b0 = (bid / groups) * ipb;
-  const int nimg = min(ipb, s.B - b0);
-  const int ph0 = bi * band;
-  const int nph = min(band, s.Po - ph0);
-  const int row0 = 2 * ph0 * s.sh;
-  const int rows = (2 * nph - 1) * s.sh + s.Kh;  // input rows of the band
-  const float* xb = x + ((size_t)b0 * s.N * s.H + row0) * s.W;
-
-  // the contraction reads x through (xs, ld = row stride, cs = channel
-  // stride) and the weights through ws ([eta][cpb]) or w ([M][eta])
-  const float* xs = xb;
-  size_t cs = (size_t)s.H * s.W;
-  int xld = s.W;
-  if constexpr (STAGED) {
-    // UNROLL independent loads in flight per thread while staging
-    constexpr int UNROLL = 4;
-    const int step = blockDim.x * UNROLL;
-    for (int i0 = threadIdx.x; i0 < cpb * eta; i0 += step) {
-      float v[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int idx = i0 + u * blockDim.x;
-        const int m = m0 + idx / eta;
-        v[u] = idx < cpb * eta && m < s.M
-                   ? w[(size_t)m0 * eta + idx] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int idx = i0 + u * blockDim.x;
-        const int c = idx / eta;
-        if (idx < cpb * eta) smem[(idx - c * eta) * cpb + c] = v[u];
-      }
-    }
-    // the band of each (image, channel) is `rows` whole rows: contiguous
-    // in memory, at row stride ld in shared memory
-    float* xsm = smem + (size_t)eta * cpb;
-    const int chunk = rows * s.W;
-    const int total = nimg * s.N * chunk;
-    for (int i0 = threadIdx.x; i0 < total; i0 += step) {
-      float v[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int idx = i0 + u * blockDim.x;
-        const int c = idx / chunk;
-        v[u] = idx < total ? xb[c * cs + (idx - c * chunk)] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int idx = i0 + u * blockDim.x;
-        const int c = idx / chunk, k = idx - c * chunk;
-        const int r = k / s.W;
-        if (idx < total) xsm[(c * rows + r) * ld + (k - r * s.W)] = v[u];
-      }
-    }
-    xs = xsm;
-    cs = (size_t)rows * ld;
-    xld = ld;
-    __syncthreads();
-  }
-
-  const int cgs = cpb / CT;
-  const int tiles = nimg * cgs * nph * s.Qo;
-  const int part = threadIdx.x % split;
-  const int per_round = blockDim.x / split;
-  const int krows = s.N * s.Kh;
-  // a uniform trip count: every lane reaches the shuffles
-  for (int t0 = 0; t0 < tiles; t0 += per_round) {
-    const int t = t0 + threadIdx.x / split;
-    int pw = 0, phl = 0, cgl = 0, img = 0;
-    bool live = t < tiles;
-    if (live) {
-      pw = t % s.Qo;
-      int r = t / s.Qo;
-      phl = r % nph;
-      r /= nph;
-      cgl = r % cgs;
-      img = r / cgs;
-      live = m0 + cgl * CT < s.M;
-    }
-    float acc[4][CT];
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) acc[p][c] = 0.f;
-    if (live) {
-      const float* xt = xs + (size_t)img * s.N * cs +
-                        (size_t)(2 * phl * s.sh) * xld + 2 * pw * s.sw;
-      const size_t down = (size_t)s.sh * xld;
-      for (int kr = part; kr < krows; kr += split) {
-        const int n = kr / s.Kh, i = kr - n * s.Kh;
-        const float* p0 = xt + n * cs + (size_t)i * xld;
-        const float* p1 = p0 + down;
-        const int e0 = kr * s.Kw;
-#pragma unroll 2
-        for (int j = 0; j < s.Kw; ++j) {
-          float4 wv;
-          if constexpr (STAGED) {
-            wv = reinterpret_cast<const float4*>(smem)[(e0 + j) * cgs + cgl];
-          } else {
-            const int m = m0 + cgl * CT;
-            const float* wm = w + (size_t)m * eta + e0 + j;
-            wv.x = wm[0];
-            wv.y = m + 1 < s.M ? wm[(size_t)eta] : 0.f;
-            wv.z = m + 2 < s.M ? wm[(size_t)2 * eta] : 0.f;
-            wv.w = m + 3 < s.M ? wm[(size_t)3 * eta] : 0.f;
-          }
-          const float xv[4] = {p0[j], p0[j + s.sw], p1[j], p1[j + s.sw]};
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            acc[p][0] = fmaf(xv[p], wv.x, acc[p][0]);
-            acc[p][1] = fmaf(xv[p], wv.y, acc[p][1]);
-            acc[p][2] = fmaf(xv[p], wv.z, acc[p][2]);
-            acc[p][3] = fmaf(xv[p], wv.w, acc[p][3]);
-          }
-        }
-      }
-    }
-    // the split lanes of a tile are adjacent: fold them onto the first
-    for (int o = split >> 1; o > 0; o >>= 1) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int c = 0; c < CT; ++c)
-          acc[p][c] += __shfl_down_sync(FULL, acc[p][c], o);
-    }
-    if (live && part == 0) {
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const int m = m0 + cgl * CT + c;
-        if (m >= s.M) break;
-        float v = 0.f;  // relu floor: max(relu(a), ...) == max(0, a, ...)
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          float a = acc[p][c];
-          if (scale != nullptr) a = __fmul_rn(a, scale[m]);
-          if (bias != nullptr) a = __fadd_rn(a, bias[m]);
-          v = fmaxf(v, a);
-        }
-        out[(((size_t)(b0 + img) * s.M + m) * s.Po + ph0 + phl) * s.Qo +
-            pw] = v;
-      }
-    }
-  }
-}
-
-}  // namespace
-
-// Host side: launch on `stream`, return a CUDA error code (0 = launched).
-// cpb is a multiple of 4, split a power of two up to 32, threads a
-// multiple of 32; smem is the staged slab's bytes, 0 to read device memory
-// (repro_torch/ops/tiling.py resolves and checks all of them).
 extern "C" int fused_cwp_launch(const void* x, const void* w,
                                 const void* scale, const void* bias, void* out,
                                 int B, int N, int H, int W, int M, int Kh,
                                 int Kw, int sh, int sw, int threads, int cpb,
                                 int band, int split, int ipb, int ld, int smem,
                                 void* stream) {
-  const int Ho = (H - Kh) / sh + 1, Wo = (W - Kw) / sw + 1;
-  const Shape s{B, N, H, W, M, Kh, Kw, sh, sw, Ho / 2, Wo / 2};
-  const long long grid = (long long)((B + ipb - 1) / ipb) *
-                         ((M + cpb - 1) / cpb) * ((s.Po + band - 1) / band);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* args[4] = {(const float*)x, (const float*)w,
-                          (const float*)scale, (const float*)bias};
-  if (smem > 0) {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          fused_cwp_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    fused_cwp_kernel<true><<<(unsigned)grid, threads, smem, st>>>(
-        args[0], args[1], args[2], args[3], (float*)out, s, cpb, band, split,
-        ipb, ld);
-  } else {
-    fused_cwp_kernel<false><<<(unsigned)grid, threads, 0, st>>>(
-        args[0], args[1], args[2], args[3], (float*)out, s, cpb, band, split,
-        ipb, ld);
-  }
-  return (int)cudaGetLastError();
+  return conv_tile::launch<true>(x, w, scale, bias, out, B, N, H, W, M, Kh,
+                                 Kw, sh, sw, threads, cpb, band, split, ipb,
+                                 ld, smem, stream);
 }

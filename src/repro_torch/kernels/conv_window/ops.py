@@ -17,7 +17,7 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
 from repro_torch.kernels.conv_window.ref import conv2d_window_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import block_threads, choose_conv_blocks
+from repro_torch.ops.tiling import fused_tiles
 
 __all__ = ["conv_window", "launches"]
 
@@ -27,7 +27,7 @@ launches = 0
 @functools.cache
 def _launcher():
     fn = load("conv_window").conv_window_launch
-    fn.argtypes = launch_args(4, 10)
+    fn.argtypes = launch_args(4, 16)
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,12 +57,13 @@ def conv_window(x: torch.Tensor, w: torch.Tensor,
         return conv2d_window_ref(x, w, b, stride=tuple(stride))
     ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
     pol = policy if policy is not None else current_policy()
-    threads = block_threads("conv2d", choose_conv_blocks(bsz, m, ho, wo),
-                            pol.tile_overrides)
+    t = fused_tiles(bsz, n, h, wd, m, kh, kw, sh, sw, pol.tile_overrides,
+                    pool=False)
     out = torch.empty((bsz, m, ho, wo), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     launch(_launcher(), "conv_window", dev, ptr(x), ptr(w), ptr(b), ptr(out),
-           bsz, n, h, wd, m, kh, kw, sh, sw, threads)
+           bsz, n, h, wd, m, kh, kw, sh, sw, t["threads"], t["cpb"],
+           t["band"], t["split"], t["ipb"], t["ld"], t["smem"])
     launches += 1
     return out

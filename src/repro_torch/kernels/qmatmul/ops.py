@@ -17,7 +17,7 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import block_threads, choose_qmatmul_blocks
+from repro_torch.ops.tiling import qmatmul_tiles
 
 __all__ = ["qmatmul", "launches"]
 
@@ -27,7 +27,7 @@ launches = 0
 @functools.cache
 def _launcher():
     fn = load("qmatmul").qmatmul_launch
-    fn.argtypes = launch_args(5, 4)
+    fn.argtypes = launch_args(5, 9)
     fn.restype = ctypes.c_int
     return fn
 
@@ -64,12 +64,12 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
     if dev.type == "cpu":
         return qmatmul_ref(x_codes, w_codes, xs, ws)
     pol = policy if policy is not None else current_policy()
-    threads = block_threads("qmatmul", choose_qmatmul_blocks(m, n),
-                            pol.tile_overrides)
+    t = qmatmul_tiles(m, k, n, pol.tile_overrides)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     launch(_launcher(), "qmatmul", dev, ptr(x_codes), ptr(w_codes), ptr(xs),
-           ptr(ws), ptr(out), m, n, k, threads)
+           ptr(ws), ptr(out), m, n, k, t["threads"], t["rows"], t["cols"],
+           t["kslice"], t["ld"], t["smem"])
     launches += 1
     return out

@@ -4,35 +4,38 @@ The JAX package sizes Pallas blocks against a TPU VMEM budget. Here the
 constraint is filling an H100's 132 streaming multiprocessors with whole
 32-thread warps, inside a block's shared memory.
 
-  * ``conv_window`` and ``qmatmul`` compute one output element per
-    thread and mask their own ragged edge, so their one launch parameter
-    is the block size: 256 threads (8 warps) once the grid has at least
-    one such block per SM, below that the smallest warp multiple that
-    spreads the outputs over as many SMs as they fill.
-  * ``fused_cwp`` (``choose_fused_blocks``): a block owns ``ipb``
-    images, a group of ``cpb`` output channels and a band of ``band``
-    pooled rows, staged in shared memory; a thread holds one pooled
-    output × 4 channels, and ``split`` adjacent lanes share it along
-    the contraction where the outputs alone cannot fill the card.
+  * ``conv_window`` and ``fused_cwp`` (``choose_fused_blocks``, one
+    template, ``pool`` tells them apart): a block owns ``ipb`` images, a
+    group of ``cpb`` output channels and a band of ``band`` tile rows,
+    staged in shared memory; a thread holds a tile of 2×2 conv points ×
+    4 channels (one pooled output under ``pool``), and ``split``
+    adjacent lanes share it along the contraction where the tiles alone
+    cannot fill the card.
+  * ``qmatmul`` (``choose_qmatmul_blocks``): a block of 8 warps takes
+    ``rows`` rows of x, a warp a row at a time, against a slice of
+    ``cols`` columns of w staged in shared memory ``kslice`` words of K
+    at a time.
   * the addition tree (``choose_tree_blocks``): ``rows`` rows a block;
     rows up to ``short_eta`` wide take one thread each, wider rows half
     a warp or a warp each (``row_lanes``).
 
 Resolution order: ``ExecPolicy.tiling`` overrides (bare ``<key>`` or
-namespaced ``<op>.<key>``) > these heuristics; ``fused_tiles`` and
-``tree_tiles`` resolve and check what a launch takes. The JAX
-``TuningCache`` waits for the measured autotuner (ROADMAP §A.7).
+namespaced ``<op>.<key>``: ``conv2d.``, ``fused_conv_block.``,
+``qmatmul.``, ``tree_reduce_sum.``) > these heuristics; ``fused_tiles``,
+``qmatmul_tiles`` and ``tree_tiles`` resolve and check what a launch
+takes. The JAX ``TuningCache`` waits for the measured autotuner
+(ROADMAP §A.7).
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 __all__ = ["H100_SMS", "WARP", "MAX_THREADS", "SMEM_MAX", "TREE_MAX_ETA",
-           "TREE_SHORT_ETA", "CONV_CHANNELS", "launch_threads",
-           "choose_conv_blocks", "choose_fused_blocks", "fused_ld",
-           "fused_smem_bytes", "fused_tiles", "choose_qmatmul_blocks",
-           "choose_tree_blocks", "tree_smem_bytes", "tree_tiles",
-           "tile_params", "block_threads"]
+           "TREE_SHORT_ETA", "CONV_CHANNELS", "QMATMUL_COLS",
+           "choose_fused_blocks", "fused_ld", "fused_smem_bytes",
+           "fused_tiles", "choose_qmatmul_blocks", "qmatmul_smem_bytes",
+           "qmatmul_tiles", "choose_tree_blocks", "tree_smem_bytes",
+           "tree_tiles", "tile_params", "block_threads"]
 
 H100_SMS = 132
 WARP = 32
@@ -43,34 +46,38 @@ SMEM_MAX = 232_448              # dynamic shared memory a block may opt in to
 # (a row's slice is ⌈η/16⌉ floats); the cap stays where the tests pin it.
 TREE_MAX_ETA = 6144
 TREE_SHORT_ETA = 32             # rows up to this wide: one thread a row
-CONV_CHANNELS = 4               # output channels in a fused_cwp thread
-# fused_cwp's heuristic keeps a block's staged band and weights under this
+CONV_CHANNELS = 4               # output channels in a conv thread's tile
+# the conv heuristic keeps a block's staged band and weights under this
 # (two blocks an SM); anything up to SMEM_MAX is staged when asked for
 FUSED_SMEM_TARGET = SMEM_MAX // 2
 FUSED_MAX_THREADS = 320         # a block of several images: 10 warps
+QMATMUL_COLS = 16               # columns a qmatmul lane holds in one pass
+QMATMUL_SMEM_TARGET = SMEM_MAX // 2
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def launch_threads(outputs: int, sms: int = H100_SMS) -> int:
-    """Threads per block for a one-thread-per-output kernel."""
-    per_sm = _cdiv(max(outputs, 1), sms)
-    return min(MAX_THREADS, max(WARP, _cdiv(per_sm, WARP) * WARP))
+def _conv_grid(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
+               pool: bool) -> tuple[int, int]:
+    """(Po, Qo): the tile rows and columns of a conv's output, one tile
+    being 2×2 conv points; pooled, only whole tiles, else a ragged last
+    row or column too."""
+    ho = max((h - kh) // sh + 1, 0)
+    wo = max((w - kw) // sw + 1, 0)
+    if pool:
+        return ho // 2, wo // 2
+    return _cdiv(ho, 2), _cdiv(wo, 2)
 
 
-def choose_conv_blocks(bsz: int, m: int, ho: int, wo: int) -> dict[str, int]:
-    """conv_window: one thread per (b, m, oh, ow) conv output."""
-    return {"threads": launch_threads(bsz * m * ho * wo)}
-
-
-def fused_ld(h: int, w: int, kh: int, kw: int, sh: int, sw: int) -> int:
+def fused_ld(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
+             pool: bool = True) -> int:
     """Row stride of a staged input band, in floats: W, padded (by < 16)
-    so that one pooled row of 2×2 windows ends where the next begins in
-    the 32 banks, (2·sh·ld − 2·sw·Qo) ≡ 0 (mod 32), when a row of them
-    spans fewer than 32 words; else W."""
-    qo = ((w - kw) // sw + 1) // 2
+    so that one row of 2×2 tiles ends where the next begins in the 32
+    banks, (2·sh·ld − 2·sw·Qo) ≡ 0 (mod 32), when a row of them spans
+    fewer than 32 words; else W."""
+    qo = _conv_grid(h, w, kh, kw, sh, sw, pool)[1]
     if 2 * sw * qo < 32:
         for ld in range(w, w + 16):
             if (2 * sh * ld - 2 * sw * qo) % 32 == 0:
@@ -79,17 +86,24 @@ def fused_ld(h: int, w: int, kh: int, kw: int, sh: int, sw: int) -> int:
 
 
 def fused_smem_bytes(n: int, h: int, w: int, kh: int, kw: int, sh: int,
-                     sw: int, cpb: int, band: int, ipb: int) -> int:
-    """Shared memory of one staged fused_cwp block: the group's weights
-    (cpb × η) and the input bands (ipb × N × the band's rows × ld), fp32."""
+                     sw: int, cpb: int, band: int, ipb: int,
+                     pool: bool = True) -> int:
+    """Shared memory of one staged conv block: the group's weights
+    (cpb × η) and the input bands (ipb × N × the band's rows × ld), fp32.
+    A band's rows are its tiles' windows, at most the input's H: a
+    ragged last tile row reads its first row's windows again, so the
+    kernel clamps the band there too and reads nothing past H."""
     rows = min((2 * band - 1) * sh + kh, h)
     return 4 * (n * kh * kw * cpb
-                + ipb * n * rows * fused_ld(h, w, kh, kw, sh, sw))
+                + ipb * n * rows * fused_ld(h, w, kh, kw, sh, sw, pool))
 
 
 def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
-                        kw: int, sh: int, sw: int) -> dict[str, int]:
-    """fused_cwp: ``split`` is the least power of two (≤ 32 and ≤ the
+                        kw: int, sh: int, sw: int, pool: bool = True
+                        ) -> dict[str, int]:
+    """The conv tile template: ``fused_cwp`` with ``pool``, else
+    ``conv_window``, whose tiles cover a ragged last row and column of
+    an odd output. ``split`` is the least power of two (≤ 32 and ≤ the
     N·Kh kernel rows it divides among lanes) that gives 132 SMs 256
     threads each. The block starts at one whole image and every channel
     group and halves its band, then its channel groups, until it holds
@@ -98,8 +112,7 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
     (``ipb``), so the weights are staged once for several, while the grid
     keeps a block an SM, the slab ``FUSED_SMEM_TARGET``, and the block at
     most two rounds of ``FUSED_MAX_THREADS``."""
-    po = max((h - kh) // sh + 1, 0) // 2
-    qo = max((w - kw) // sw + 1, 0) // 2
+    po, qo = _conv_grid(h, w, kh, kw, sh, sw, pool)
     po, qo = max(po, 1), max(qo, 1)
     groups = _cdiv(m, CONV_CHANNELS)
     tiles = bsz * groups * po * qo
@@ -110,7 +123,7 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
 
     def smem(cg, band, ipb):
         return fused_smem_bytes(n, h, w, kh, kw, sh, sw, CONV_CHANNELS * cg,
-                                band, ipb)
+                                band, ipb, pool)
 
     cg, band = groups, po
     while band > 1 or cg > 1:
@@ -137,41 +150,92 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
 
 def fused_tiles(bsz: int, n: int, h: int, w: int, m: int, kh: int, kw: int,
                 sh: int, sw: int,
-                overrides: Mapping[str, int] | None = None
-                ) -> dict[str, int]:
-    """``choose_fused_blocks`` with ``fused_conv_block`` overrides
-    applied and checked, plus the staged row stride ``ld`` and ``smem``,
-    the staged slab's bytes: 0 where it would exceed ``SMEM_MAX``, and
-    the kernel then reads device memory instead."""
-    defaults = choose_fused_blocks(bsz, n, h, w, m, kh, kw, sh, sw)
-    t = tile_params("fused_conv_block", defaults, overrides)
-    t["threads"] = block_threads("fused_conv_block", defaults, overrides)
+                overrides: Mapping[str, int] | None = None,
+                pool: bool = True) -> dict[str, int]:
+    """``choose_fused_blocks`` with the op's overrides applied and
+    checked (``fused_conv_block.<key>`` with ``pool``, ``conv2d.<key>``
+    without), plus the staged row stride ``ld`` and ``smem``, the staged
+    slab's bytes: 0 where it would exceed ``SMEM_MAX``, and the kernel
+    then reads device memory instead."""
+    op = "fused_conv_block" if pool else "conv2d"
+    defaults = choose_fused_blocks(bsz, n, h, w, m, kh, kw, sh, sw, pool)
+    t = tile_params(op, defaults, overrides)
+    t["threads"] = block_threads(op, defaults, overrides)
     if t["cpb"] < CONV_CHANNELS or t["cpb"] % CONV_CHANNELS:
-        raise ValueError(f"fused_conv_block: cpb {t['cpb']} must be a "
-                         f"positive multiple of {CONV_CHANNELS}")
+        raise ValueError(f"{op}: cpb {t['cpb']} must be a positive "
+                         f"multiple of {CONV_CHANNELS}")
     for key in ("band", "ipb"):
         if t[key] < 1:
-            raise ValueError(f"fused_conv_block: {key} {t[key]} must be "
-                             f">= 1")
+            raise ValueError(f"{op}: {key} {t[key]} must be >= 1")
     if t["split"] not in (1, 2, 4, 8, 16, WARP):
-        raise ValueError(f"fused_conv_block: split {t['split']} must be a "
-                         f"power of two up to {WARP}")
-    po = ((h - kh) // sh + 1) // 2
+        raise ValueError(f"{op}: split {t['split']} must be a power of "
+                         f"two up to {WARP}")
+    po = _conv_grid(h, w, kh, kw, sh, sw, pool)[0]
     grid = (_cdiv(bsz, t["ipb"]) * _cdiv(m, t["cpb"])
             * _cdiv(po, t["band"]))
     if grid > 2 ** 31 - 1:
-        raise ValueError(f"fused_conv_block: {grid} blocks; CUDA's grid "
-                         f"holds at most 2**31 - 1")
-    t["ld"] = fused_ld(h, w, kh, kw, sh, sw)
+        raise ValueError(f"{op}: {grid} blocks; CUDA's grid holds at most "
+                         f"2**31 - 1")
+    t["ld"] = fused_ld(h, w, kh, kw, sh, sw, pool)
     smem = fused_smem_bytes(n, h, w, kh, kw, sh, sw, t["cpb"], t["band"],
-                            t["ipb"])
+                            t["ipb"], pool)
     t["smem"] = smem if smem <= SMEM_MAX else 0
     return t
 
 
-def choose_qmatmul_blocks(m: int, n: int) -> dict[str, int]:
-    """qmatmul: one thread per (row, column) of the (M, N) output."""
-    return {"threads": launch_threads(m * n)}
+def qmatmul_smem_bytes(cols: int, kslice: int) -> int:
+    """Shared memory of one qmatmul block: the column slice rounded up to
+    whole 16-column passes × one K slice of packed 4-byte words, at the
+    odd word stride ``kslice | 1`` (adjacent columns in distinct banks)."""
+    return 4 * _cdiv(cols, QMATMUL_COLS) * QMATMUL_COLS * (kslice | 1)
+
+
+def choose_qmatmul_blocks(m: int, k: int, n: int) -> dict[str, int]:
+    """qmatmul: 8 warps a block, a row a warp (``rows`` = 8). The column
+    slice ``cols`` is the least multiple of 16 that still gives 132
+    blocks where N allows it, halved (to multiples of 16) while the
+    staged slice of the whole K exceeds ``QMATMUL_SMEM_TARGET``; where
+    even 16 columns of K exceed it, ``kslice`` cuts K into slices that
+    fit. ``kslice`` is in 4-byte words (⌈K/4⌉ when K fits)."""
+    kw = max(_cdiv(k, 4), 1)
+    rows = MAX_THREADS // WARP
+    slices = max(1, _cdiv(H100_SMS, _cdiv(max(m, 1), rows)))
+    full = _cdiv(max(n, 1), QMATMUL_COLS) * QMATMUL_COLS
+    cols = min(full, _cdiv(_cdiv(max(n, 1), slices), QMATMUL_COLS)
+               * QMATMUL_COLS)
+    while (cols > QMATMUL_COLS
+           and qmatmul_smem_bytes(cols, kw) > QMATMUL_SMEM_TARGET):
+        cols = max(QMATMUL_COLS, cols // 2 // QMATMUL_COLS * QMATMUL_COLS)
+    kslice = kw
+    if qmatmul_smem_bytes(cols, kw) > QMATMUL_SMEM_TARGET:
+        kslice = QMATMUL_SMEM_TARGET // (4 * cols) - 1
+    return {"threads": MAX_THREADS, "rows": rows, "cols": cols,
+            "kslice": kslice}
+
+
+def qmatmul_tiles(m: int, k: int, n: int,
+                  overrides: Mapping[str, int] | None = None
+                  ) -> dict[str, int]:
+    """``choose_qmatmul_blocks`` with ``qmatmul`` overrides applied and
+    checked, ``kslice`` clipped to ⌈K/4⌉, plus the staged slice's word
+    stride ``ld`` and its bytes ``smem``."""
+    defaults = choose_qmatmul_blocks(m, k, n)
+    t = tile_params("qmatmul", defaults, overrides)
+    t["threads"] = block_threads("qmatmul", defaults, overrides)
+    for key in ("rows", "cols", "kslice"):
+        if t[key] < 1:
+            raise ValueError(f"qmatmul: {key} {t[key]} must be >= 1")
+    t["kslice"] = min(t["kslice"], max(_cdiv(k, 4), 1))
+    grid = _cdiv(m, t["rows"]) * _cdiv(n, t["cols"])
+    if grid > 2 ** 31 - 1:
+        raise ValueError(f"qmatmul: {grid} blocks; CUDA's grid holds at "
+                         f"most 2**31 - 1")
+    t["ld"] = t["kslice"] | 1
+    t["smem"] = qmatmul_smem_bytes(t["cols"], t["kslice"])
+    if t["smem"] > SMEM_MAX:
+        raise ValueError(f"qmatmul: {t['smem']} bytes of shared memory a "
+                         f"block; at most {SMEM_MAX}")
+    return t
 
 
 def choose_tree_blocks(r: int, eta: int) -> dict[str, int]:

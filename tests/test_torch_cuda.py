@@ -52,6 +52,14 @@ FUSED_SHAPES = {
                             {"fused_conv_block.band": 3}),
     "unstaged": ((64, 6, 230, 6, 3), (1, 1), {}),
 }
+# conv_window beyond the paper's shapes, each with an odd output: a 5x5
+# kernel on conv2's input (9x9), stride 2 (17x21) with a band of 3 tile
+# rows over 9, and a slab too wide to stage (5x229)
+CONV_SHAPES = {
+    "odd_output": ((15, 13, 13, 20, 5), (1, 1), {}),
+    "stride2_ragged_band": ((3, 35, 43, 5, 3), (2, 2), {"conv2d.band": 3}),
+    "unstaged": ((64, 7, 231, 6, 3), (1, 1), {}),
+}
 MODES = ("none", "qformat", "int8")
 TOL_FP32 = 1e-5
 
@@ -108,6 +116,59 @@ def test_qmatmul_matches_plain(card, bsz):
     wq = quantize_int8(torch.randn((320, 10), generator=g) * 0.05, axis=0)
     args = [t.to(card) for t in (xq.codes, wq.codes, xq.scale, wq.scale)]
     _agree("int8", qm_ops.qmatmul(*args), qmatmul_ref(*args))
+
+
+def _qmatmul_operands(m, k, n, device):
+    """int8 codes over the full range and positive f32 scales."""
+    g = torch.Generator().manual_seed(m * 7 + k * 3 + n)
+    xc = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    wc = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    xs = torch.rand((m, 1), generator=g) * 0.05
+    ws = torch.rand((1, n), generator=g) * 0.05
+    return [t.to(device) for t in (xc, wc, xs, ws)]
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 37, 1), (8, 320, 10), (1000, 4099, 33), (4097, 320, 300),
+    (8, 4099, 300), (4097, 37, 10), (1, 4099, 33), (1000, 37, 1)])
+def test_qmatmul_shapes_match_plain_bitwise(card, m, k, n):
+    """K off a multiple of 4 (37, 4099) takes byte loads; N past one
+    16-column pass and past one column slice; M off a block's 8 rows."""
+    args = _qmatmul_operands(m, k, n, card)
+    before = qm_ops.launches
+    got = qm_ops.qmatmul(*args)
+    assert qm_ops.launches == before + 1
+    _agree("int8", got, qmatmul_ref(*args))
+
+
+def test_qmatmul_unaligned_view_matches_plain_bitwise(card):
+    """A view one byte into its storage: rows are not 4-byte aligned, so
+    the kernel reads them with byte loads."""
+    xc, wc, xs, ws = _qmatmul_operands(37, 320, 10, card)
+    x = torch.empty(37 * 320 + 1, dtype=torch.int8, device=card)[1:]
+    x = x.view(37, 320)
+    x.copy_(xc)
+    assert x.is_contiguous() and x.data_ptr() % 4
+    _agree("int8", qm_ops.qmatmul(x, wc, xs, ws), qmatmul_ref(x, wc, xs, ws))
+
+
+def test_qmatmul_scalar_scales_match_plain_bitwise(card):
+    xc, wc, _, _ = _qmatmul_operands(8, 320, 10, card)
+    got = qm_ops.qmatmul(xc, wc, 0.03125, torch.tensor(0.0078125))
+    want = qmatmul_ref(xc, wc, torch.full((8, 1), 0.03125, device=card),
+                       torch.full((1, 10), 0.0078125, device=card))
+    _agree("int8", got, want)
+
+
+@pytest.mark.parametrize("tiling", [
+    {"qmatmul.kslice": 100},                        # K in 11 slices
+    {"qmatmul.kslice": 7, "qmatmul.rows": 24},      # 3 rows a warp
+    {"qmatmul.cols": 48, "qmatmul.threads": 64},    # 3 passes, 2 warps
+    {"qmatmul.cols": 5, "qmatmul.rows": 1}])
+def test_qmatmul_overrides_match_plain_bitwise(card, tiling):
+    args = _qmatmul_operands(67, 4099, 33, card)
+    got = qm_ops.qmatmul(*args, policy=ExecPolicy(tiling=tiling))
+    _agree("int8", got, qmatmul_ref(*args))
 
 
 def test_auto_dispatch_reaches_the_kernels(card):
@@ -192,6 +253,36 @@ def test_fused_other_shapes_match_plain(card, mode, case):
     got = fc_ops.fused_cwp(x, w, b, stride=stride, scale=s,
                            policy=ExecPolicy(tiling=tiling))
     _agree(mode, got, fused_cwp_ref(x, w, b, stride, scale=s))
+
+
+@pytest.mark.parametrize("stage", sorted(STAGES))
+@pytest.mark.parametrize("mode", MODES)
+def test_conv_window_large_batch_matches_plain(card, mode, stage):
+    x, w, b, _ = _operands(stage, mode, 1024, card)
+    cb = None if mode == "int8" else b
+    _agree(mode, cw_ops.conv_window(x, w, cb), conv2d_window_ref(x, w, cb))
+
+
+@pytest.mark.parametrize("case", sorted(CONV_SHAPES))
+@pytest.mark.parametrize("mode", MODES)
+def test_conv_window_other_shapes_match_plain(card, mode, case):
+    shape, stride, tiling = CONV_SHAPES[case]
+    x, w, b, _ = _operands(shape, mode, 2, card)
+    cb = None if mode == "int8" else b
+    got = cw_ops.conv_window(x, w, cb, stride=stride,
+                             policy=ExecPolicy(tiling=tiling))
+    _agree(mode, got, conv2d_window_ref(x, w, cb, stride=stride))
+
+
+@pytest.mark.parametrize("tiling", [{"conv2d.band": 2, "conv2d.split": 4},
+                                    {"conv2d.ipb": 3, "conv2d.cpb": 8,
+                                     "conv2d.threads": 256},
+                                    {"conv2d.split": 1, "conv2d.band": 1}])
+def test_conv_window_overrides_match_plain(card, tiling):
+    """Odd 9x9 output, several images a block and every split width."""
+    x, w, b, _ = _operands((15, 13, 13, 20, 5), "qformat", 5, card)
+    got = cw_ops.conv_window(x, w, b, policy=ExecPolicy(tiling=tiling))
+    _agree("qformat", got, conv2d_window_ref(x, w, b))
 
 
 def test_tree_auto_dispatch_launches_the_kernel(card, monkeypatch):

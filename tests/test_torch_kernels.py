@@ -285,24 +285,28 @@ def test_every_cpu_backend_agrees(backend, mode):
 
 # -------------------------------------------------------- launch shape
 
-@pytest.mark.parametrize("outputs,threads", [(1, 32), (2560, 32),
-                                             (132 * 64, 64),
-                                             (132 * 256, 256),
-                                             (10 ** 7, 256)])
-def test_launch_threads_fills_every_sm(outputs, threads):
-    assert tiling.launch_threads(outputs) == threads
-
-
 def test_tiling_overrides_and_validation():
-    defaults = tiling.choose_conv_blocks(8, 20, 8, 8)
-    assert tiling.block_threads("conv2d", defaults, {"threads": 64}) == 64
-    assert tiling.block_threads("conv2d", defaults,
-                                {"threads": 64, "conv2d.threads": 96}) == 96
-    assert tiling.block_threads("conv2d", defaults,
-                                {"qmatmul.threads": 64}) == \
-        defaults["threads"]
-    with pytest.raises(ValueError):
-        tiling.block_threads("conv2d", defaults, {"threads": 48})
+    """conv_window's tiles take ``conv2d.<key>`` overrides and fused_cwp's
+    ``fused_conv_block.<key>``: one template, two namespaces."""
+    conv2 = (15, 13, 13, 20, 6, 6, 1, 1)
+    defaults = tiling.choose_fused_blocks(8, *conv2, pool=False)
+    tiles = {k: tiling.fused_tiles(8, *conv2, ov, pool=False)
+             for k, ov in (("bare", {"threads": 64}),
+                           ("named", {"threads": 64, "conv2d.threads": 96}),
+                           ("other", {"fused_conv_block.threads": 64,
+                                      "fused_conv_block.split": 4,
+                                      "qmatmul.threads": 64}))}
+    assert tiles["bare"]["threads"] == 64
+    assert tiles["named"]["threads"] == 96
+    assert {k: tiles["other"][k] for k in defaults} == defaults
+    fused = tiling.fused_tiles(8, *conv2, {"conv2d.split": 4,
+                                           "fused_conv_block.threads": 64})
+    assert fused["threads"] == 64 and fused["split"] == \
+        tiling.choose_fused_blocks(8, *conv2)["split"]
+    for bad in ({"threads": 48}, {"conv2d.cpb": 6}, {"conv2d.band": 0},
+                {"conv2d.split": 3}):
+        with pytest.raises(ValueError, match="conv2d"):
+            tiling.fused_tiles(8, *conv2, bad, pool=False)
 
 
 def test_build_paths_are_content_keyed():
@@ -341,6 +345,111 @@ FUSED_ARGS = {"conv1": (1, 28, 28, 15, 3, 3, 1, 1),
 ])
 def test_choose_fused_blocks(stage, bsz, want):
     assert tiling.choose_fused_blocks(bsz, *FUSED_ARGS[stage]) == want
+
+
+# conv_window at odd outputs: a 5x5 kernel on conv2's 13x13 input (9x9
+# out), and stride 2 on 35x43 (17x21 out)
+ODD_ARGS = {"odd_output": (15, 13, 13, 20, 5, 5, 1, 1),
+            "stride2": (3, 35, 43, 5, 3, 3, 2, 2)}
+
+
+@pytest.mark.parametrize("bsz", [1, 8, 1024])
+@pytest.mark.parametrize("stage", sorted(FUSED_ARGS))
+def test_unpooled_conv_blocks_at_the_paper_shapes(stage, bsz):
+    """Ho and Wo are even at both paper stages, so conv_window's tile grid
+    is fused_cwp's and the heuristic picks the same launch."""
+    args = FUSED_ARGS[stage]
+    assert tiling.choose_fused_blocks(bsz, *args, pool=False) == \
+        tiling.choose_fused_blocks(bsz, *args)
+
+
+@pytest.mark.parametrize("case,bsz,want", [
+    ("odd_output", 1, {"threads": 160, "cpb": 4, "band": 1, "split": 32,
+                       "ipb": 1}),
+    ("odd_output", 8, {"threads": 160, "cpb": 4, "band": 1, "split": 32,
+                       "ipb": 1}),
+    # 5x5 tiles of 2x2 points over the 9x9 output: the whole image and
+    # every channel a block, five images
+    ("odd_output", 1024, {"threads": 320, "cpb": 20, "band": 5, "split": 1,
+                          "ipb": 5}),
+    ("stride2", 8, {"threads": 96, "cpb": 4, "band": 1, "split": 8,
+                    "ipb": 1}),
+    ("stride2", 1024, {"threads": 320, "cpb": 8, "band": 9, "split": 1,
+                       "ipb": 3}),
+])
+def test_unpooled_conv_blocks_at_odd_outputs(case, bsz, want):
+    assert tiling.choose_fused_blocks(bsz, *ODD_ARGS[case],
+                                      pool=False) == want
+
+
+def _tile_rows_read(h, kh, sh, ho, band, po):
+    """Per band, the input rows (from the band's first) that the kernel's
+    tiles read: rows 2·ph·sh .. +Kh−1, and the tile's second conv row
+    unless it is past Ho, where the kernel reads the first row again."""
+    reads = []
+    for ph0 in range(0, po, band):
+        top = 0
+        for ph in range(ph0, min(ph0 + band, po)):
+            second = 2 * ph + 1 if 2 * ph + 1 < ho else 2 * ph
+            top = max(top, (second - 2 * ph0) * sh + kh)
+        reads.append((2 * ph0 * sh, top))
+    return reads
+
+
+@pytest.mark.parametrize("case,bsz,tiles", [
+    ("odd_output", 1024, {}), ("stride2", 2, {"conv2d.band": 3}),
+    ("stride2", 2, {"conv2d.band": 2}), ("stride2", 1024, {})])
+def test_unpooled_smem_covers_the_ragged_rows(case, bsz, tiles):
+    """The staged band holds every row its tiles read and none past H:
+    ``fused_smem_bytes`` counts min((2·band − 1)·sh + Kh, H) rows, which
+    the kernel clamps to H − row0 at the last band."""
+    n, h, w, m, kh, kw, sh, sw = ODD_ARGS[case]
+    t = tiling.fused_tiles(bsz, *ODD_ARGS[case], tiles, pool=False)
+    ho, wo = (h - kh) // sh + 1, (w - kw) // sw + 1
+    assert ho % 2 and wo % 2
+    po = -(-ho // 2)
+    staged = min((2 * t["band"] - 1) * sh + kh, h)
+    for row0, top in _tile_rows_read(h, kh, sh, ho, t["band"], po):
+        assert top <= min(staged, h - row0)
+    ld = tiling.fused_ld(h, w, kh, kw, sh, sw, pool=False)
+    assert t["ld"] == ld >= w
+    assert t["smem"] == 4 * (n * kh * kw * t["cpb"]
+                             + t["ipb"] * n * staged * ld)
+
+
+@pytest.mark.parametrize("mkn,want", [
+    # the paper's fc at a served batch and at 1024: one 16-column slice,
+    # the whole K (80 words) staged once
+    ((8, 320, 10), {"threads": 256, "rows": 8, "cols": 16, "kslice": 80}),
+    ((1024, 320, 10), {"threads": 256, "rows": 8, "cols": 16,
+                       "kslice": 80}),
+    # K off a word multiple: ⌈37/4⌉ = 10 words, the tail zero-padded
+    ((3, 37, 5), {"threads": 256, "rows": 8, "cols": 16, "kslice": 10}),
+    # 32 columns of 4,096 bytes would take 131 KB: 16 columns a slice
+    ((64, 4096, 300), {"threads": 256, "rows": 8, "cols": 16,
+                       "kslice": 1024}),
+])
+def test_choose_qmatmul_blocks(mkn, want):
+    assert tiling.choose_qmatmul_blocks(*mkn) == want
+    t = tiling.qmatmul_tiles(*mkn)
+    assert t["ld"] == want["kslice"] | 1
+    assert t["smem"] == 4 * 16 * t["ld"] <= tiling.QMATMUL_SMEM_TARGET
+
+
+def test_qmatmul_tiles_slices_long_k_and_refuses_bad_overrides():
+    t = tiling.qmatmul_tiles(8, 100_000, 10)
+    assert t["cols"] == 16 and t["kslice"] < 25_000
+    assert t["smem"] <= tiling.QMATMUL_SMEM_TARGET
+    # a slice longer than K is K; namespaced keys win over bare ones
+    t = tiling.qmatmul_tiles(8, 37, 10, {"kslice": 99, "rows": 3,
+                                         "qmatmul.rows": 5,
+                                         "conv2d.rows": 7})
+    assert (t["kslice"], t["rows"]) == (10, 5)
+    for bad in ({"rows": 0}, {"cols": 0}, {"kslice": 0},
+                {"qmatmul.threads": 40}, {"threads": 2048},
+                {"cols": 4000, "kslice": 80}):
+        with pytest.raises(ValueError, match="qmatmul"):
+            tiling.qmatmul_tiles(8, 320, 10, bad)
 
 
 @pytest.mark.parametrize("args,ld", [
