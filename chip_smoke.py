@@ -11,13 +11,14 @@ Phases, each printing one JSON line:
   kernels  each kernel against its plain PyTorch version on the card, at
            the paper CNN's conv1/conv2/fc shapes, B in {1, 3, 8}, in the
            number formats it sees (int8 and qformat must be bitwise for
-           both conv kernels), both conv kernels also at B = 1024 and at
+           both conv kernels), both conv kernels also at B = 1024, at
            other shapes (stride 2 with a ragged band; a slab too wide to
-           stage; for conv_window odd outputs), qmatmul bitwise at M up to
-           4,097, K in {37, 320, 4,099}, N up to 300, on an unaligned view,
-           with scalar scales and with K cut into slices, and the addition
-           tree bitwise at (R, η) shapes up to its η cap that reach each of
-           its paths, plus two calls it must refuse;
+           stage; for conv_window odd outputs) and at every launch shape
+           of highres_cnn's 224x224 plans (B in {2, 8}), qmatmul bitwise at
+           M up to 4,097, K in {37, 320, 4,099, 4,608}, N up to 300, on an
+           unaligned view, with scalar scales and with K cut into slices,
+           and the addition tree bitwise at (R, η) shapes up to its η cap
+           that reach each of its paths, plus two calls it must refuse;
   serve    the launcher's CNN path and VisionEngine under qformat and int8
            on the card, every request held against the same engine on the
            CPU; the kernels' launch counts must match the batches served;
@@ -26,16 +27,31 @@ Phases, each printing one JSON line:
   tree     the paper-dataflow conv on the card: each conv stage's product
            matrix at B = 8 reduced by ``tree_reduce_sum`` (addtree), + bias,
            against ``conv2d_ref`` on the CPU, bitwise, in none and int8;
+  stream   the 224x224 ``highres_cnn`` (VGGStyleCNN), whose first two
+           blocks run as halo-overlapped row bands: at B = 8 in all 3
+           modes the streamed plan against the untiled plan, a streamed
+           ``fuse=False`` plan (conv_window) and the eager forward on the
+           card, and against the CPU at B = 2; each plan's launches equal
+           its bands (7 fused_cwp a batch, 1 qmatmul under int8); then the
+           launcher (``--arch highres_cnn``) and VisionEngine under
+           qformat and int8 on the card and on the CPU;
   times    per kernel and shape, the median device time of 100 launches
            at B = 8 and B = 1024, beside the plain version, one library
            call for the same function, and the card's bound; each B = 1024
            output is first held against the plain version. An empty
            kernel (``torch.cuda._sleep(0)``) timed the same way is the
            launch floor, a copy of 16 floats the floor of a kernel that
-           loads and stores.
+           loads and stores. Rows tagged ``highres_cnn``: every distinct
+           launch shape of its served 224x224 plan at B = 8 (each band
+           shape of the streamed blocks, blocks 2 and 3, the K = 4,608 fc);
+  plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
+           under three stream budgets (untiled, the default 1 MiB,
+           256 KiB): device time between CUDA events, and wall time.
 
-Then the kernels line (one JSON object), the card's ``nvidia-smi`` name
-and power limit, and as the last line ``{"ok": true, "device": ...}``.
+Then the kernels line (one JSON object; its times are the paper CNN's
+served batch at B = 8, its launches those of the serve, eager, tree and
+stream phases), the card's ``nvidia-smi`` name and power limit, and as
+the last line ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line. Without a GPU, or
 without the repository beside it, the script exits non-zero and prints
 no result. It imports nothing of JAX.
@@ -61,7 +77,10 @@ PEAK_FP32_ADD = PEAK_FP32 / 2   # an add is one of an FMA's two operations
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
-# every kernel of this slice: wrapper module, source, TPU kernel replaced
+# every kernel of the port: source, TPU kernel replaced. fused_cwp runs
+# every fused stage and every band of a streamed one; conv_window the
+# eager forwards and fuse=False plans (bands too); qmatmul the int8 fc;
+# addtree the tree_reduce_sum family
 KERNELS = {
     "fused_cwp": ("src/repro_torch/csrc/fused_cwp.cu",
                   "src/repro/kernels/fused_cwp/kernel.py:47"),
@@ -113,6 +132,10 @@ QMATMUL_SHAPES = [((1, 37, 1), {}), ((8, 320, 10), {}),
 # O(10) here and the reference itself moves by 3.8e-6 between orders
 TOL_FP32 = 1e-5
 QSTEP = 2.0 ** -8               # one Q8.8 lattice step
+MODES = ("none", "qformat", "int8")
+# highres_cnn's stream budgets timed in the plans phase (None = the
+# default 1 MiB)
+PLAN_BUDGETS = {"untiled": 1 << 40, "1MiB": None, "256KiB": 256 * 1024}
 
 
 class SmokeFailure(RuntimeError):
@@ -184,13 +207,78 @@ def qmatmul_inputs(gen, m, k, n, device):
     return tuple(t.to(device) for t in (xc, wc, xs, ws))
 
 
-def fc_inputs(gen, bsz, device):
+def fc_inputs(gen, bsz, device, fc=FC):
+    """int8 fc operands of an (K, N) = ``fc`` layer: per-row x codes,
+    per-column w codes, and their scales."""
     import torch
     from repro_torch.core.quantize import quantize_int8
-    xq = quantize_int8(torch.randn((bsz, FC[0]), generator=gen), axis=-1)
-    wq = quantize_int8(torch.randn(FC, generator=gen) * FC[0] ** -0.5, axis=0)
+    xq = quantize_int8(torch.randn((bsz, fc[0]), generator=gen), axis=-1)
+    wq = quantize_int8(torch.randn(fc, generator=gen) * fc[0] ** -0.5, axis=0)
     return tuple(t.to(device) for t in (xq.codes, wq.codes, xq.scale,
                                         wq.scale))
+
+
+def to_device(params, device):
+    if isinstance(params, dict):
+        return {k: to_device(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+def launch_shapes(plan) -> list[tuple[str, str, tuple]]:
+    """(kernel, stage, (N, H, W, M, K)) of every conv launch one batch of
+    ``plan`` makes: one a band of a streamed stage, else one a stage."""
+    from repro_torch.core.window import pool_output_size
+    from repro_torch.graph.ir import Conv2DNode, FusedConvBlockNode
+    from repro_torch.graph.passes import stage_input_spec
+    from repro_torch.stream import conv_bands, pooled_bands
+    out = []
+    for node in plan.graph:
+        if not isinstance(node, (Conv2DNode, FusedConvBlockNode)):
+            continue
+        _, n, h, w = stage_input_spec(plan.graph, node).shape
+        m, _, k, _ = node.w.shape
+        sh = node.stride[0]
+        fused = isinstance(node, FusedConvBlockNode)
+        rows = [h]
+        if node.tiling is not None and fused:
+            po = pool_output_size((h - k) // sh + 1, node.odd)
+            rows = [hi - lo for *_, lo, hi in pooled_bands(
+                po, node.tiling.tile_rows, k, sh, h)]
+        elif node.tiling is not None:
+            rows = [hi - lo for *_, lo, hi in conv_bands(
+                (h - k) // sh + 1, node.tiling.tile_rows, k, sh)]
+        out += [("fused_cwp" if fused else "conv_window", node.w.path[0],
+                 (n, r, w, m, k)) for r in rows]
+    return out
+
+
+def plan_launches(plan) -> dict[str, int]:
+    """Kernel launches one batch of ``plan`` makes on the card, from its
+    graph: a conv kernel a band (or a stage), qmatmul a dense under int8."""
+    from repro_torch.graph.ir import DenseNode
+    n = {k: 0 for k in KERNELS}
+    for kern, _, _ in launch_shapes(plan):
+        n[kern] += 1
+    if plan.quant == "int8":
+        n["qmatmul"] = sum(isinstance(v, DenseNode) for v in plan.graph)
+    return n
+
+
+def hold(label, mode, got, want) -> dict:
+    """Logits ``got`` against ``want`` to the mode's bar: int8 bitwise,
+    qformat one Q8.8 step, fp32 TOL_FP32 relative to the largest |want|."""
+    import torch
+    torch.cuda.synchronize()
+    got, want = got.cpu(), want.cpu()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and bool(torch.isfinite(want).all()),
+          f"{label} {mode}: shapes {tuple(got.shape)} / "
+          f"{tuple(want.shape)} or non-finite values")
+    err = max_abs(got, want)
+    tol = {"none": TOL_FP32 * (1 + float(want.abs().max())),
+           "qformat": QSTEP, "int8": 0.0}[mode]
+    check(err <= tol, f"{label} {mode}: max_abs {err}, tolerance {tol}")
+    return {"max_abs": err, "bitwise": bitwise(got, want), "tolerance": tol}
 
 
 # ------------------------------------------------------------------- phases
@@ -323,6 +411,26 @@ def phase_kernels(device):
     record("qmatmul", "8x320x10 scalar scales", 8, "int8",
            qmatmul(xc[:8], wc, 0.03125, 0.0078125),
            qmatmul_ref(xc[:8], wc, sx, sw))
+    # every launch shape of highres_cnn's 224x224 plans, new to both conv
+    # kernels (3 input channels at W = 224 and K = 5; the band heights),
+    # and its fc at K = 4,608
+    for kern, stage, shape in highres_shapes():
+        for bsz in (2, 8):
+            for mode in MODES:
+                x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
+                label = f"highres {stage} {shape[1]}x{shape[2]}"
+                if kern == "fused_cwp":
+                    record(kern, label, bsz, mode,
+                           fused_cwp(x, w, b, scale=s),
+                           fused_cwp_ref(x, w, b, scale=s))
+                else:
+                    cb = None if mode == "int8" else b
+                    record(kern, label, bsz, mode, conv_window(x, w, cb),
+                           conv2d_window_ref(x, w, cb))
+    for bsz in (1, 2, 8):
+        xc, wc, xs, ws = fc_inputs(gen, bsz, device, highres_fc())
+        record("qmatmul", "highres fc", bsz, "int8", qmatmul(xc, wc, xs, ws),
+               qmatmul_ref(xc, wc, xs, ws))
     for r, eta in TREE_SHAPES + [(33, TREE_MAX_ETA)]:
         x = torch.randn((r, eta), generator=gen).to(device)
         record("addtree", f"{r}x{eta}", r, "none", tree_reduce_sum(x),
@@ -351,6 +459,27 @@ def phase_kernels(device):
                "cases": v} for k, v in cases.items()]
     emit({"phase": "kernels", "parity": parity})
     return {p["name"]: p["max_abs"] for p in parity}
+
+
+def highres_fc() -> tuple[int, int]:
+    from repro_torch.models.vgg import VGGStyleCNNConfig
+    cfg = VGGStyleCNNConfig()
+    return cfg.fc_in(), cfg.n_classes
+
+
+def highres_shapes() -> list[tuple[str, str, tuple]]:
+    """Every distinct (kernel, stage, shape) of highres_cnn's 224x224
+    plans: the served streamed plan (fused_cwp), the streamed fuse=False
+    plan and the eager forward (conv_window, untiled)."""
+    from repro_torch.models.vgg import VGGStyleCNN
+    model = VGGStyleCNN()
+    out = []
+    for plan in (model.compile(), model.compile(fuse=False),
+                 model.compile(fuse=False, stream_budget=1 << 40)):
+        for t in launch_shapes(plan):
+            if t not in out:
+                out.append(t)
+    return out
 
 
 def _compare_logits(mode, got: dict, want: dict) -> dict:
@@ -386,34 +515,33 @@ def _compare_logits(mode, got: dict, want: dict) -> dict:
             "differing_elements": differing}
 
 
-def phase_serve(device):
-    """The launcher's CNN path, then VisionEngine under qformat and int8,
-    each on the card and on the CPU with the same weights."""
-    import numpy as np
+def serve_launcher(arch, requests) -> dict:
+    """``launcher.main`` for ``arch`` at capacity 8 on the card and on the
+    CPU: every request's logits held card against CPU, and the card's
+    launches equal to its plan's per batch (served + prewarm)."""
     from repro_torch.launch import serve as launcher
-    from repro_torch.models.cnn import PaperCNN
-    from repro_torch.ops import ExecPolicy
-    from repro_torch.serve import VisionEngine, VisionEngineConfig
-
-    out = []
-    argv = ["--arch", "mnist_cnn", "--capacity", "8", "--requests", "32"]
+    argv = ["--arch", arch, "--capacity", "8", "--requests", str(requests)]
     before = counts()
     with contextlib.redirect_stdout(sys.stderr):
         eng, res = launcher.main(argv + ["--device", "cuda"])
         _, res_cpu = launcher.main(argv + ["--device", "cpu"])
     batches = eng.stats.steps + len(eng.buckets)        # served + prewarm
     grew = {k: counts()[k] - before[k] for k in before}
-    check(grew["fused_cwp"] == 2 * batches and grew["qmatmul"] == 0,
-          f"launcher: launches {grew} for {batches} batches")
+    want = {k: v * batches for k, v in plan_launches(eng.plan).items()}
+    check(grew == want, f"launcher {arch}: launches {grew} for {batches} "
+                        f"batches, expected {want}")
     row = _compare_logits("none", res, res_cpu)
-    row.update(path="launcher", batches=batches, launches=grew)
-    out.append(row)
+    row.update(path="launcher", arch=arch, batches=batches, launches=grew)
+    return row
 
-    model = PaperCNN()
-    params = model.init(0, device="cpu")
-    rng = np.random.RandomState(2)
-    images = [rng.randn(*model.input_shape()[1:]).astype(np.float32)
-              for _ in range(32)]
+
+def serve_engines(model, params, images) -> list[dict]:
+    """VisionEngine under qformat and int8 (batch 8, bucket ladder) on the
+    card and on the CPU with the same weights and images; the card's
+    launches equal to its plan's per batch, none on the CPU."""
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import VisionEngine, VisionEngineConfig
+    out = []
     for mode in ("qformat", "int8"):
         results = {}
         for dev in ("cuda", "cpu"):
@@ -427,18 +555,34 @@ def phase_serve(device):
             grew = {k: counts()[k] - before[k] for k in before}
             if dev == "cuda":
                 batches = e.stats.steps + len(e.buckets)
-                want_q = batches if mode == "int8" else 0
-                check(grew["fused_cwp"] == 2 * batches
-                      and grew["qmatmul"] == want_q,
-                      f"engine {mode}: launches {grew} for {batches} "
-                      f"batches")
+                want = {k: v * batches
+                        for k, v in plan_launches(e.plan).items()}
+                check(grew == want, f"engine {mode}: launches {grew} for "
+                                    f"{batches} batches, expected {want}")
                 cuda_grew, cuda_batches = grew, batches
             else:
                 check(not any(grew.values()),
                       f"engine {mode} on cpu launched kernels: {grew}")
         row = _compare_logits(mode, results["cuda"], results["cpu"])
-        row.update(path="engine", batches=cuda_batches, launches=cuda_grew)
+        row.update(path="engine", arch=model.cfg.name, batches=cuda_batches,
+                   launches=cuda_grew)
         out.append(row)
+    return out
+
+
+def phase_serve(device):
+    """The launcher's CNN path, then VisionEngine under qformat and int8,
+    each on the card and on the CPU with the same weights."""
+    import numpy as np
+    from repro_torch.models.cnn import PaperCNN
+
+    out = [serve_launcher("mnist_cnn", 32)]
+    model = PaperCNN()
+    params = model.init(0, device="cpu")
+    rng = np.random.RandomState(2)
+    images = [rng.randn(*model.input_shape()[1:]).astype(np.float32)
+              for _ in range(32)]
+    out += serve_engines(model, params, images)
     emit({"phase": "serve", "runs": out})
 
 
@@ -514,6 +658,75 @@ def phase_tree(device):
     emit({"phase": "tree", "runs": rows})
 
 
+def phase_stream(device):
+    """highres_cnn at 224x224, B = 8: the streamed plan (blocks 0 and 1 as
+    row bands) against the untiled plan, a streamed fuse=False plan and
+    the eager forward on the card, and against the CPU at B = 2; each
+    run's launches from its plan's bands; then the launcher and the
+    engines on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.models.vgg import VGGStyleCNN, VGGStyleCNNConfig
+    from repro_torch.ops import ExecPolicy
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(VGGStyleCNN().input_shape(8), generator=gen)
+    cpu_params = VGGStyleCNN().init(0, device="cpu")
+    params = to_device(cpu_params, device)
+    runs = []
+    for mode in MODES:
+        model = VGGStyleCNN(VGGStyleCNNConfig(policy=ExecPolicy(quant=mode)))
+        plans = {"streamed": model.compile(batch=8),
+                 "untiled": model.compile(batch=8, stream_budget=1 << 40),
+                 "unfused": model.compile(batch=8, fuse=False)}
+        tiled = {k: [n.id for n in p.graph if getattr(n, "tiling", None)]
+                 for k, p in plans.items()}
+        check(len(tiled["streamed"]) == len(tiled["unfused"]) == 2
+              and not tiled["untiled"],
+              f"stream {mode}: tiled stages {tiled}")
+        out, launches = {}, {}
+        for name, plan in plans.items():
+            before = counts()
+            with torch.inference_mode():
+                out[name] = plan.bind(params)(x.to(device))
+            torch.cuda.synchronize()
+            launches[name] = {k: counts()[k] - before[k] for k in before}
+            want = plan_launches(plan)
+            check(launches[name] == want,
+                  f"stream {mode} {name}: launches {launches[name]}, "
+                  f"its plan's bands give {want}")
+        before = counts()
+        with torch.inference_mode():
+            out["eager"] = model.forward(params, x.to(device))
+        torch.cuda.synchronize()
+        launches["eager"] = {k: counts()[k] - before[k] for k in before}
+        check(launches["eager"]["conv_window"] == len(model.cfg.blocks)
+              and launches["eager"]["fused_cwp"] == 0,
+              f"stream {mode} eager: launches {launches['eager']}")
+        with torch.inference_mode():
+            card2 = plans["streamed"].bind(params)(x[:2].to(device))
+            cpu2 = plans["streamed"].bind(cpu_params)(x[:2])
+        runs.append({
+            "mode": mode, "B": 8,
+            "bands": {k: [s[2][1] for s in launch_shapes(p)]
+                      for k, p in plans.items()},
+            "launches": launches,
+            "streamed_vs_untiled": hold("streamed vs untiled", mode,
+                                        out["streamed"], out["untiled"]),
+            "unfused_vs_untiled": hold("unfused streamed vs untiled", mode,
+                                       out["unfused"], out["untiled"]),
+            "eager_vs_untiled": hold("eager vs untiled", mode, out["eager"],
+                                     out["untiled"]),
+            "card_vs_cpu_B2": hold("streamed card vs cpu, B = 2", mode,
+                                   card2, cpu2)})
+    serve = [serve_launcher("highres_cnn", 16)]
+    rng = np.random.RandomState(3)
+    images = [rng.randn(*VGGStyleCNN().input_shape()[1:]).astype(np.float32)
+              for _ in range(12)]
+    serve += serve_engines(VGGStyleCNN(), cpu_params, images)
+    emit({"phase": "stream", "runs": runs, "serve": serve})
+
+
 def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
     """Median device time of ``reps`` calls of ``fn``, each between two
     CUDA events, all queued behind a spin kernel so the host's launch
@@ -534,6 +747,32 @@ def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
     dry = spin_done.query()                         # spin ended too soon
     torch.cuda.synchronize()
     return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs), dry
+
+
+def call_device_ms(fn, reps: int = 20) -> tuple[float, bool]:
+    """Median device time of one call of ``fn`` (many launches, such as a
+    whole plan), between two CUDA events, each call queued alone behind
+    a ~10 ms spin kernel: the host's dispatch does not show, and the
+    launch queue (about a thousand pending launches) never fills, as it
+    would with ``device_ms``'s hundred calls queued at once. Returns
+    (ms, the spin ended before the call was queued)."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times, dry = [], False
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        spin_done = torch.cuda.Event()
+        torch.cuda._sleep(int(2e7))
+        spin_done.record()
+        e0.record()
+        fn()
+        e1.record()
+        dry |= spin_done.query()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), dry
 
 
 def conv_work(bsz, stage, pooled: bool) -> tuple[float, float]:
@@ -597,6 +836,7 @@ def phase_times(device):
                 4 * r * (eta + 1), r * (eta - 1) / PEAK_FP32_ADD,
                 exact=True))
             del x
+    rows += highres_time_rows(gen, device)
     emit({"phase": "times", "launch_floor_ms": floor_ms,
           "load_store_floor_ms": rw_ms,
           "floors_queue_ran_dry": [k for k, d in (("launch", floor_dry),
@@ -614,10 +854,117 @@ def phase_times(device):
     return rows
 
 
+def highres_time_rows(gen, device) -> list[dict]:
+    """At B = 8, every distinct launch shape of highres_cnn's served
+    224x224 plan: each band shape of the streamed blocks, blocks 2 and 3
+    (fused_cwp, beside cuDNN's conv + relu + pool), and the int8 fc."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    from repro_torch.kernels.qmatmul.ops import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    from repro_torch.models.vgg import VGGStyleCNN
+
+    rows, seen = [], []
+    for kern, stage, shape in launch_shapes(VGGStyleCNN().compile(batch=8)):
+        if shape in seen:
+            continue
+        seen.append(shape)
+        x, w, b, _ = conv_inputs(gen, 8, shape, "none", device)
+        nbytes, ops = conv_work(8, shape, True)
+        rows.append(_time_row(
+            kern, f"{stage} {shape[1]}x{shape[2]}", 8,
+            lambda: fused_cwp(x, w, b), lambda: fused_cwp_ref(x, w, b),
+            lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2), nbytes,
+            ops / PEAK_FP32, exact=False, model="highres_cnn"))
+    k, n = highres_fc()
+    xc, wc, xs, ws = fc_inputs(gen, 8, device, (k, n))
+    rows.append(_time_row(
+        "qmatmul", "fc", 8, lambda: qmatmul(xc, wc, xs, ws),
+        lambda: qmatmul_ref(xc, wc, xs, ws), None,
+        8 * k + k * n + 4 * (8 + n + 8 * n), 2.0 * 8 * k * n / PEAK_INT8,
+        exact=True, model="highres_cnn"))
+    return rows
+
+
+def phase_plans(device):
+    """highres_cnn's whole bound plan per batch, at B = 1 and 8, in every
+    mode, under each of PLAN_BUDGETS: the device time between CUDA events
+    around one call (``call_device_ms``) and the wall time of one call to
+    its synchronize."""
+    import torch
+    from repro_torch.models.vgg import VGGStyleCNN, VGGStyleCNNConfig
+    from repro_torch.ops import ExecPolicy
+
+    params = VGGStyleCNN().init(0, device=device)
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+    for bsz in (1, 8):
+        x = torch.randn(VGGStyleCNN().input_shape(bsz), generator=gen).to(
+            device)
+        for mode in MODES:
+            model = VGGStyleCNN(VGGStyleCNNConfig(
+                policy=ExecPolicy(quant=mode)))
+            for label, budget in PLAN_BUDGETS.items():
+                plan = model.compile(batch=bsz, stream_budget=budget)
+                bound = plan.bind(params)
+                with torch.inference_mode():
+                    ms, dry = call_device_ms(lambda: bound(x))
+                    walls = []
+                    for _ in range(20):
+                        t0 = time.perf_counter()
+                        bound(x)
+                        torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                rows.append({"B": bsz, "mode": mode, "budget": label,
+                             "launches": plan_launches(plan),
+                             "ms": ms, "wall_ms": statistics.median(walls),
+                             "queue_ran_dry": dry})
+    emit({"phase": "plans", "model": "highres_cnn", "rows": rows,
+          "copies": band_copy_rows(device)})
+
+
+def band_copy_rows(device) -> list[dict]:
+    """What banding adds on the card besides launches, at B = 8 in fp32:
+    per streamed stage of the served plan, the copy of each band's input
+    slab (an H-slice of (B, N, H, W) is not contiguous, so the kernel's
+    wrapper copies it) and the ``torch.cat`` of the bands' outputs."""
+    import torch
+    from repro_torch.core.window import pool_output_size
+    from repro_torch.graph.passes import stage_input_spec
+    from repro_torch.models.vgg import VGGStyleCNN
+    from repro_torch.stream import pooled_bands
+
+    plan = VGGStyleCNN().compile(batch=8)
+    rows = []
+    for node in plan.graph:
+        if getattr(node, "tiling", None) is None:
+            continue
+        shape = stage_input_spec(plan.graph, node).shape
+        k, sh = node.w.shape[2], node.stride[0]
+        x = torch.randn(shape, device=device)
+        po = pool_output_size((shape[2] - k) // sh + 1, node.odd)
+        bands = pooled_bands(po, node.tiling.tile_rows, k, sh, shape[2])
+        slab_ms = 0.0
+        for _, _, lo, hi in bands:
+            slab_ms += device_ms(
+                lambda: x[:, :, lo:hi, :].contiguous())[0]
+        outs = [torch.empty((8, node.w.shape[0], p1 - p0, node.out.shape[3]),
+                            device=device) for p0, p1, _, _ in bands]
+        cat_ms = device_ms(lambda: torch.cat(outs, dim=2))[0]
+        rows.append({"stage": node.w.path[0], "bands": len(bands),
+                     "slab_copy_ms": slab_ms, "cat_ms": cat_ms,
+                     "slab_bytes": 4 * sum(shape[0] * shape[1] * (hi - lo)
+                                           * shape[3]
+                                           for *_, lo, hi in bands)})
+    return rows
+
+
 def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s, *,
-              exact: bool):
-    """One timed row; at B = 1024 the kernel's output is first held
-    against the plain version's (bitwise where ``exact``)."""
+              exact: bool, model: str = "mnist_cnn"):
+    """One timed row of ``model``'s kernel shapes; at B = 1024 the
+    kernel's output is first held against the plain version's (bitwise
+    where ``exact``)."""
     import torch
     if bsz == 1024:
         got, want = kern(), plain()
@@ -632,7 +979,8 @@ def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s, *,
     plain_ms, plain_dry = device_ms(plain)
     lib_ms, lib_dry = device_ms(lib) if lib is not None else (None, False)
     bytes_s = nbytes / PEAK_BYTES
-    return {"name": name, "stage": stage, "B": bsz, "ms": ms,
+    return {"name": name, "model": model, "stage": stage, "B": bsz,
+            "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": max(bytes_s, ops_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
@@ -647,10 +995,12 @@ def kernels_line(launches, max_err, rows) -> dict:
     """The contract line: per kernel, the main path's launch count, its
     parity error, and its time beside the bound for one served batch
     (B = 8: both conv stages for the conv kernels and for the tree's
-    product matrices, the fc for qmatmul)."""
+    product matrices, the fc for qmatmul). The highres_cnn rows of the
+    times phase stay out of it."""
     out = []
     for name, (source, replaces) in KERNELS.items():
-        mine = [r for r in rows if r["name"] == name and r["B"] == 8]
+        mine = [r for r in rows if r["name"] == name and r["B"] == 8
+                and r["model"] == "mnist_cnn"]
         libs = [r["library_ms"] for r in mine]
         bytes_ms = sum(r["bytes_ms"] for r in mine)
         ops_ms = sum(r["operations_ms"] for r in mine)
@@ -690,10 +1040,12 @@ def main() -> int:
         phase_serve(device)
         phase_eager(device)
         phase_tree(device)
+        phase_stream(device)
         launches = counts()
         check(all(launches.values()),
               f"a kernel of the main path never launched: {launches}")
         rows = phase_times(device)
+        phase_plans(device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

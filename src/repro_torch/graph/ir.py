@@ -1,15 +1,19 @@
 """Typed op-graph IR for the fusion graph compiler (DESIGN.md §8).
 
 Port of ``repro.graph.ir`` on a single device: the same frozen node
-dataclasses, ids, ``TensorSpec``s and ``ParamRef`` paths, so a port plan
-prints (``Graph.pretty``) exactly like the reference plan it mirrors. The
-reference's ``ShardingSpec`` and streaming ``tiling`` fields wait for the
-mesh and stream slices (ROADMAP §A.6, §A.10).
+dataclasses, ids, ``TensorSpec``s and ``ParamRef`` paths, and the conv
+stages' streaming ``tiling`` (``repro_torch.stream``, DESIGN.md §13), so
+a port plan prints (``Graph.pretty``) exactly like the reference plan it
+mirrors. The reference's ``ShardingSpec`` waits for the mesh slice
+(ROADMAP §A.10).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Iterator
+from typing import TYPE_CHECKING, Iterator
+
+if TYPE_CHECKING:
+    from repro_torch.stream.tiling import SpatialTiling
 
 __all__ = ["TensorSpec", "ParamRef", "Node", "InputNode", "Conv2DNode",
            "ReluNode", "MaxPool2Node", "FlattenNode", "DenseNode",
@@ -82,11 +86,15 @@ class Conv2DNode(Node):
     w: ParamRef = None
     b: ParamRef | None = None
     stride: tuple[int, int] = (1, 1)
+    # streaming row-band spec (repro_torch.stream, DESIGN.md §13); None =
+    # untiled
+    tiling: "SpatialTiling | None" = None
 
     def describe(self) -> str:
+        tile = "" if self.tiling is None else f" tile={self.tiling}"
         return (f"w={self.w} k={self.w.shape[2]}x{self.w.shape[3]} "
                 f"s={self.stride[0]}x{self.stride[1]}"
-                + ("" if self.b is None else f" b={self.b}"))
+                + ("" if self.b is None else f" b={self.b}") + tile)
 
 
 @dataclass(frozen=True)
@@ -155,10 +163,14 @@ class FusedConvBlockNode(Node):
     b: ParamRef | None = None
     stride: tuple[int, int] = (1, 1)
     odd: str = "raise"
+    # streaming row-band spec in POOLED rows (DESIGN.md §13); None = untiled
+    tiling: "SpatialTiling | None" = None
 
     def describe(self) -> str:
+        tile = "" if self.tiling is None else f" tile={self.tiling}"
         return (f"w={self.w} k={self.w.shape[2]}x{self.w.shape[3]} "
-                f"s={self.stride[0]}x{self.stride[1]} odd={self.odd}")
+                f"s={self.stride[0]}x{self.stride[1]} odd={self.odd}"
+                + tile)
 
 
 @dataclass(frozen=True)

@@ -11,6 +11,8 @@ Port of ``repro.graph.passes`` (DESIGN.md §8), single device:
   3. ``eliminate_dead_quantize`` — drops activation snaps whose producer
      chain is provably already on the lattice.
 
+``stage_input_spec`` gives a stage's float-level input spec, which the
+streaming placement pass (``repro_torch.stream.passes``) sizes bands by.
 The channel-parallel placement pass waits for ROADMAP §A.10.
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ from repro_torch.graph.ir import (Conv2DNode, FlattenNode,
                                   Node, QuantizeNode, ReluNode, TensorSpec)
 
 __all__ = ["fuse_conv_blocks", "lower_quant", "eliminate_dead_quantize",
-           "default_passes"]
+           "stage_input_spec", "default_passes"]
 
 
 def _single_consumer(graph: Graph, nid: int) -> Node | None:
@@ -137,6 +139,17 @@ def eliminate_dead_quantize(graph: Graph) -> Graph:
                 changed = True
                 break
     return graph.validate()
+
+
+def stage_input_spec(graph: Graph, node: Node) -> TensorSpec:
+    """The *float-level* activation spec feeding ``node``: quantize nodes
+    are transparent (an int8_act QuantizeNode re-emits its input's spec —
+    the executed QTensor's codes keep that shape, and the kernels contract
+    codes as float32)."""
+    src = graph.node(node.inputs[0])
+    while isinstance(src, QuantizeNode) and src.inputs:
+        src = graph.node(src.inputs[0])
+    return src.out
 
 
 def default_passes(graph: Graph, quant: str = "none",

@@ -14,8 +14,12 @@ Port of ``repro.graph.plan`` on a single device (DESIGN.md §8).
     ambient quant raises.
 
 ``plan.bind(params)`` folds the constant (weight) quantize nodes once and
-returns a ``BoundPlan``. Mesh placement, streamed stages, bind-time
-autotuning, artifacts and the plan verifier are later slices and raise
+returns a ``BoundPlan``. Every compile runs the streaming placement pass
+(``repro_torch.stream``, DESIGN.md §13): a conv stage whose per-image
+footprint exceeds ``stream_budget`` carries a ``SpatialTiling`` and runs
+as halo-overlapped row bands through the same registry ops, one kernel
+launch a band on the card. Mesh placement, bind-time autotuning,
+artifacts and the plan verifier are later slices and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -77,6 +81,8 @@ class ExecutionPlan:
     def __call__(self, params, x, *, policy: ExecPolicy | None = None,
                  _folded: dict | None = None):
         from repro_torch.ops import conv2d, dense, fused_conv_block, qdense
+        from repro_torch.stream.executor import (stream_conv2d,
+                                                 stream_fused_conv_block)
         base = self._base_policy(policy)
         dense_pol = base.with_options(quant=self.quant, qformat=self.qformat)
         env: dict[int, object] = {}
@@ -101,14 +107,27 @@ class ExecutionPlan:
                        else env[node.inputs[0]])
                 env[node.id] = _apply_quantize(node, val, self.qformat)
             elif isinstance(node, FusedConvBlockNode):
-                env[node.id] = fused_conv_block(
-                    env[node.inputs[0]], _weight(node, 1, "w"),
-                    _weight(node, 2, "b"), stride=node.stride,
-                    odd=node.odd, policy=base)
+                args = (env[node.inputs[0]], _weight(node, 1, "w"),
+                        _weight(node, 2, "b"))
+                if node.tiling is not None:
+                    # over-budget stage: halo-overlapped row bands
+                    env[node.id] = stream_fused_conv_block(
+                        *args, stride=node.stride, odd=node.odd,
+                        tiling=node.tiling, policy=base)
+                else:
+                    env[node.id] = fused_conv_block(
+                        *args, stride=node.stride, odd=node.odd,
+                        policy=base)
             elif isinstance(node, Conv2DNode):
-                env[node.id] = conv2d(
-                    env[node.inputs[0]], _weight(node, 1, "w"),
-                    _weight(node, 2, "b"), stride=node.stride, policy=base)
+                args = (env[node.inputs[0]], _weight(node, 1, "w"),
+                        _weight(node, 2, "b"))
+                if node.tiling is not None:
+                    env[node.id] = stream_conv2d(
+                        *args, stride=node.stride, tiling=node.tiling,
+                        policy=base)
+                else:
+                    env[node.id] = conv2d(*args, stride=node.stride,
+                                          policy=base)
             elif isinstance(node, ReluNode):
                 env[node.id] = torch.relu(env[node.inputs[0]])
             elif isinstance(node, MaxPool2Node):
@@ -188,10 +207,16 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
                   stream_budget: int | None = None,
                   dtype: str = "float32",
                   verify: bool = False) -> ExecutionPlan:
-    """trace → passes → plan for any model whose forward routes through
-    the hooked functional layer. The quantization mode resolves now
-    (explicit ``policy`` > model-config policy > ambient ``use_policy``);
-    backend and launch shape stay dynamic through the registry."""
+    """trace → passes → spatial-tiling placement → plan for any model
+    whose forward routes through the hooked functional layer. The
+    quantization mode resolves now (explicit ``policy`` > model-config
+    policy > ambient ``use_policy``); backend and launch shape stay
+    dynamic through the registry.
+
+    ``stream_budget`` (bytes, default
+    ``repro_torch.stream.STREAM_VMEM_BUDGET_BYTES``) is the per-image
+    stage footprint above which conv/fused stages get a ``SpatialTiling``
+    and execute as halo-overlapped row bands (DESIGN.md §13)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-placed plans are not ported yet (ROADMAP §A.10, "
@@ -199,9 +224,6 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
     if autotune:
         raise NotImplementedError(
             "bind-time autotuning is not ported yet (ROADMAP §A.7)")
-    if stream_budget is not None:
-        raise NotImplementedError(
-            "streamed conv stages are not ported yet (ROADMAP §A.6)")
     if verify:
         raise NotImplementedError(
             "the plan verifier is not ported yet (ROADMAP §A.9)")
@@ -215,5 +237,10 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
     graph = trace(model, tuple(input_shape), dtype)
     graph = default_passes(graph, quant=quant_pol.quant,
                            qformat=quant_pol.qformat, fuse=fuse)
+    # runs on every compile: under-budget graphs (all MNIST-sized plans)
+    # come back node for node identical. Imported here: repro_torch.stream
+    # imports the graph IR, whose package imports this module.
+    from repro_torch.stream.passes import place_spatial_tiling
+    graph = place_spatial_tiling(graph, budget_bytes=stream_budget)
     return ExecutionPlan(graph=graph, quant=quant_pol.quant,
                          qformat=quant_pol.qformat, compile_policy=pol)

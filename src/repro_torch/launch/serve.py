@@ -11,6 +11,12 @@ view. The LM branch and the ``--mesh``, ``--autotune``,
 
     python -m repro_torch.launch.serve --arch mnist_cnn --capacity 8 \
         --requests 32
+    python -m repro_torch.launch.serve --arch highres_cnn --capacity 8 \
+        --requests 16
+
+Any ``cnn`` arch serves through the same path: ``serve_vision`` needs
+only the model's ``init(seed, device=...)``, ``input_shape()`` and
+``compile(...)``; ``highres_cnn``'s plans stream its first two blocks.
 """
 from __future__ import annotations
 

@@ -124,10 +124,12 @@ class PaperCNN:
                 fuse: bool = True, batch: int = 1, mesh=None,
                 autotune: bool = False, stream_budget: int | None = None,
                 verify: bool = False) -> "ExecutionPlan":
-        """trace → conv+relu+pool fusion → quant lowering → DQE, as a
-        single-device ``ExecutionPlan`` (DESIGN.md §8). ``mesh``,
-        ``autotune``, ``stream_budget`` and ``verify`` are not ported yet
-        and raise."""
+        """trace → conv+relu+pool fusion → quant lowering → DQE →
+        spatial-tiling placement, as a single-device ``ExecutionPlan``
+        (DESIGN.md §8, §13). At the default ``stream_budget`` every stage
+        fits and the plan is untiled; a smaller budget streams the conv
+        stages as row bands. ``mesh``, ``autotune`` and ``verify`` are not
+        ported yet and raise."""
         from repro_torch.graph.plan import compile_model
         return compile_model(self, self.input_shape(batch), policy=policy,
                              fuse=fuse, mesh=mesh, autotune=autotune,

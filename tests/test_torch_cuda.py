@@ -24,12 +24,18 @@ from repro_torch.kernels.fused_cwp import ops as fc_ops
 from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
 from repro_torch.kernels.qmatmul import ops as qm_ops
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+from repro_torch.core.window import pool_output_size
+from repro_torch.graph.ir import Conv2DNode, FusedConvBlockNode
+from repro_torch.graph.passes import stage_input_spec
 from repro_torch.models.cnn import PaperCNN
+from repro_torch.models.vgg import VGGStyleCNN, VGGStyleCNNConfig
 from repro_torch.ops import (BackendUnavailableError, ExecPolicy, conv2d,
                              fused_conv_block, qdense, quantize_conv_int8,
                              split_requant, tree_reduce_sum)
 from repro_torch.ops.tiling import TREE_MAX_ETA
 from repro_torch.serve import VisionEngine, VisionEngineConfig
+from repro_torch.stream import (SpatialTiling, conv_bands, pooled_bands,
+                                stream_fused_conv_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,6 +68,7 @@ CONV_SHAPES = {
 }
 MODES = ("none", "qformat", "int8")
 TOL_FP32 = 1e-5
+QSTEP = 2.0 ** -8
 
 
 @pytest.fixture
@@ -330,3 +337,124 @@ def test_vision_engine_on_card_matches_cpu(card, mode):
                                    atol=TOL_FP32)
     else:
         np.testing.assert_array_equal(out["cuda"], out["cpu"])
+
+
+# ------------------------------------------------ highres_cnn, streamed
+
+def _launch_shapes(plan) -> list[tuple[str, tuple]]:
+    """(kernel, (N, H, W, M, K)) of every conv launch one batch of
+    ``plan`` makes: one a band for a streamed stage, else one a stage."""
+    out = []
+    for node in plan.graph:
+        if not isinstance(node, (Conv2DNode, FusedConvBlockNode)):
+            continue
+        _, n, h, w = stage_input_spec(plan.graph, node).shape
+        m, _, k, _ = node.w.shape
+        sh = node.stride[0]
+        fused = isinstance(node, FusedConvBlockNode)
+        rows = [h]
+        if node.tiling is not None and fused:
+            po = pool_output_size((h - k) // sh + 1, node.odd)
+            rows = [hi - lo for *_, lo, hi in pooled_bands(
+                po, node.tiling.tile_rows, k, sh, h)]
+        elif node.tiling is not None:
+            rows = [hi - lo for *_, lo, hi in conv_bands(
+                (h - k) // sh + 1, node.tiling.tile_rows, k, sh)]
+        out += [("fused_cwp" if fused else "conv_window", (n, r, w, m, k))
+                for r in rows]
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_highres_streamed_matches_untiled_and_cpu(card, mode):
+    """224², B = 2: the streamed plan (first two blocks in bands) against
+    the untiled plan on the card and against itself on the CPU; the
+    kernels launch once a band."""
+    model = VGGStyleCNN(VGGStyleCNNConfig(policy=ExecPolicy(quant=mode)))
+    cpu_params = model.init(0, device="cpu")
+    params = model.init(0, device=card)
+    x = torch.randn(model.input_shape(2),
+                    generator=torch.Generator().manual_seed(2))
+    streamed = model.compile(batch=2)
+    untiled = model.compile(batch=2, stream_budget=1 << 40)
+    shapes = _launch_shapes(streamed)
+    assert [k for k, _ in shapes] == ["fused_cwp"] * 7
+    assert len(_launch_shapes(untiled)) == 4
+    out = {}
+    for name, plan in (("streamed", streamed), ("untiled", untiled)):
+        before = (fc_ops.launches, qm_ops.launches)
+        with torch.inference_mode():
+            out[name] = plan.bind(params)(x.to(card))
+        torch.cuda.synchronize()
+        assert fc_ops.launches - before[0] == len(_launch_shapes(plan))
+        assert qm_ops.launches - before[1] == (mode == "int8")
+    with torch.inference_mode():
+        cpu = streamed.bind(cpu_params)(x)
+    for got, want in ((out["streamed"], out["untiled"]),
+                      (out["streamed"].cpu(), cpu)):
+        assert got.shape == (2, 10) and bool(torch.isfinite(got).all())
+        if mode == "int8":
+            assert torch.equal(got, want)
+        elif mode == "qformat":
+            assert float((got - want).abs().max()) <= QSTEP
+        else:
+            torch.testing.assert_close(got, want, rtol=TOL_FP32,
+                                       atol=TOL_FP32)
+
+
+def _highres_shapes() -> dict[str, set]:
+    """Every distinct conv launch shape of the 224² plans: streamed fused
+    (served), streamed unfused, and the eager forward's convs."""
+    model = VGGStyleCNN()
+    shapes = {"fused_cwp": set(), "conv_window": set()}
+    for plan in (model.compile(), model.compile(fuse=False),
+                 model.compile(fuse=False, stream_budget=1 << 40)):
+        for kern, shape in _launch_shapes(plan):
+            shapes[kern].add(shape)
+    return shapes
+
+
+@pytest.mark.parametrize("bsz", [2, 8])
+@pytest.mark.parametrize("mode", MODES)
+def test_highres_kernel_shapes_match_plain(card, mode, bsz):
+    shapes = _highres_shapes()
+    assert (3, 94, 224, 8, 5) in shapes["fused_cwp"]
+    assert (8, 86, 110, 16, 3) in shapes["fused_cwp"]
+    for shape in sorted(shapes["fused_cwp"]):
+        x, w, b, s = _operands(shape, mode, bsz, card)
+        _agree(mode, fc_ops.fused_cwp(x, w, b, scale=s),
+               fused_cwp_ref(x, w, b, scale=s))
+    for shape in sorted(shapes["conv_window"]):
+        x, w, b, _ = _operands(shape, mode, bsz, card)
+        cb = None if mode == "int8" else b
+        _agree(mode, cw_ops.conv_window(x, w, cb),
+               conv2d_window_ref(x, w, cb))
+
+
+@pytest.mark.parametrize("bsz", [2, 8])
+def test_highres_fc_qmatmul_matches_plain(card, bsz):
+    """The int8 fc of the 224² model: K = 4,608, N = 10."""
+    fc_in = VGGStyleCNNConfig().fc_in()
+    assert fc_in == 4608
+    args = _qmatmul_operands(bsz, fc_in, 10, card)
+    _agree("int8", qm_ops.qmatmul(*args), qmatmul_ref(*args))
+
+
+def test_odd_streamed_fused_band_raises(card, monkeypatch):
+    """13 rows, k = 3, odd='pad': 11 conv rows, pooled bands of 2, 2, 2
+    rows whose last reads input rows 8-13, a conv map of 3 rows, which
+    the fused kernel does not take. (Under odd='drop' the last band stops
+    at row 12 and is even.) The two even bands launch, the odd one raises
+    and never reaches the plain version."""
+    def refuse(*_, **__):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fc_ops, "fused_cwp_ref", refuse)
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((2, 3, 13, 14), generator=g).to(card)
+    w = torch.randn((4, 3, 3, 3), generator=g).to(card)
+    before = fc_ops.launches
+    with pytest.raises(BackendUnavailableError):
+        stream_fused_conv_block(x, w, None, odd="pad",
+                                tiling=SpatialTiling(2, 2, pooled=True))
+    assert fc_ops.launches == before + 2

@@ -162,7 +162,6 @@ def test_plan_refuses_another_number_format(ref):
 
 
 @pytest.mark.parametrize("option", [{"mesh": object()}, {"autotune": True},
-                                    {"stream_budget": 1 << 20},
                                     {"verify": True}])
 def test_unported_compile_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
