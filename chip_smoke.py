@@ -17,11 +17,14 @@ Phases, each printing one JSON line:
            of highres_cnn's 224x224 plans (B in {2, 8}), qmatmul bitwise at
            M up to 4,097, K in {37, 320, 4,099, 4,608}, N up to 300, on an
            unaligned view, with scalar scales and with K cut into slices,
-           and the addition tree bitwise at (R, η) shapes up to its η cap
-           that reach each of its paths, plus two calls it must refuse;
+           fused_cwp at odd conv maps (a 9x9 map, a 224-wide band with an
+           odd row count; odd='drop' and 'pad'; B in {1, 8}), and the
+           addition tree bitwise at (R, η) shapes up to its η cap that
+           reach each of its paths, plus calls that must raise;
   serve    the launcher's CNN path and VisionEngine under qformat and int8
            on the card, every request held against the same engine on the
-           CPU; the kernels' launch counts must match the batches served;
+           CPU; each bucket is served by its CUDA graph, whose captured
+           launches times its replays must match the batches served;
   eager    PaperCNN.forward (conv_window) against the compiled plan
            (fused_cwp) on the card, and against the CPU, in all 3 modes;
   tree     the paper-dataflow conv on the card: each conv stage's product
@@ -35,6 +38,20 @@ Phases, each printing one JSON line:
            its bands (7 fused_cwp a batch, 1 qmatmul under int8); then the
            launcher (``--arch highres_cnn``) and VisionEngine under
            qformat and int8 on the card and on the CPU;
+  boot     the served plans booted as the reference boots them, for
+           mnist_cnn (buckets 1/2/4/8) and highres_cnn at 224x224 (B = 8)
+           in all 3 modes: malformed plans refused with the CPU's
+           Violation codes; autotuned plans against heuristic ones (int8
+           and qformat bitwise, fp32 1e-5), with the winners and both
+           kernel times; the TuningCache saved, reloaded, and a second
+           boot measuring nothing; the ladder saved to an artifact store
+           and a second engine booted from it (no trace/fuse/place/tune
+           work, its WarmupReport and plan_source printed, logits bitwise
+           to the fresh engine's); a corrupted artifact warns, boots fresh
+           and serves the same logits; every graph replay bitwise to a
+           direct call of its bound plan; a short batch after a full one
+           bitwise to a direct call on zero pad lanes; and the device and
+           wall time a batch, graph against direct call, at B = 1 and 8;
   times    per kernel and shape, the median device time of 100 launches
            at B = 8 and B = 1024, beside the plain version, one library
            call for the same function, and the card's bound; each B = 1024
@@ -44,14 +61,20 @@ Phases, each printing one JSON line:
            loads and stores. Rows tagged ``highres_cnn``: every distinct
            launch shape of its served 224x224 plan at B = 8 (each band
            shape of the streamed blocks, blocks 2 and 3, the K = 4,608 fc);
+           one row tagged ``odd_pool``: fused_cwp on an odd-row 224-wide
+           band under odd='pad', beside cuDNN's conv + relu + ceil-mode
+           pool;
   plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
            under three stream budgets (untiled, the default 1 MiB,
            256 KiB): device time between CUDA events, and wall time.
 
 Then the kernels line (one JSON object; its times are the paper CNN's
-served batch at B = 8, its launches those of the serve, eager, tree and
-stream phases), the card's ``nvidia-smi`` name and power limit, and as
-the last line ``{"ok": true, "device": ...}``.
+served batch at B = 8, its launches the wrapper launches of the serve,
+eager, tree and stream phases and of the boot phase, each counted from 0
+just before it; a CUDA graph's kernels are counted once, at capture),
+the card's ``nvidia-smi`` name and power limit, and as the last line
+``{"ok": true, "device": ...}``. ``--phases boot,kernels`` runs only the
+named phases (after device and build) and prints no result.
 Any failed check exits non-zero before that line. Without a GPU, or
 without the repository beside it, the script exits non-zero and prints
 no result. It imports nothing of JAX.
@@ -120,6 +143,10 @@ CONV_SHAPES = {
     "stride2_ragged_band": ((3, 35, 43, 5, 3), (2, 2), {"conv2d.band": 3}),
     "unstaged": ((64, 7, 231, 6, 3), (1, 1), {}),
 }
+# fused_cwp at odd conv maps (N, H, W, M, K): a 5x5 kernel on conv2's
+# 13x13 input (a 9x9 map) and a 224-wide band with an odd row count
+# (91x220)
+ODD_POOL_SHAPES = {"9x9": (15, 13, 13, 20, 5), "band": (3, 95, 224, 8, 5)}
 # qmatmul (M, K, N), tiling overrides: K in {37, 320, 4099} (4099 and 37
 # are not word multiples), N from 1 to 300, M from 1 to 4097, and K cut
 # into slices of 100 words with 24 rows a block
@@ -393,6 +420,25 @@ def phase_kernels(device):
                    conv_window(x, w, cb, stride=stride,
                                policy=ExecPolicy(tiling=tiling)),
                    conv2d_window_ref(x, w, cb, stride=stride))
+    # odd conv maps: the last row/column dropped or pooled against -inf
+    for name, shape in ODD_POOL_SHAPES.items():
+        for bsz in (1, 8):
+            for mode in MODES:
+                for odd in ("drop", "pad"):
+                    x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
+                    record("fused_cwp", f"odd {odd} {name}", bsz, mode,
+                           fused_cwp(x, w, b, scale=s, odd=odd),
+                           fused_cwp_ref(x, w, b, scale=s, odd=odd))
+    # odd='raise' refuses an odd map before any launch
+    x, w, b, _ = conv_inputs(gen, 2, ODD_POOL_SHAPES["9x9"], "none", device)
+    before = counts()["fused_cwp"]
+    try:
+        fused_cwp(x, w, b)
+    except ValueError:
+        check(counts()["fused_cwp"] == before,
+              "fused_cwp launched on an odd map under odd='raise'")
+    else:
+        raise SmokeFailure("fused_cwp took an odd map under odd='raise'")
     for (m, k, n), tiling in QMATMUL_SHAPES:
         xc, wc, xs, ws = qmatmul_inputs(gen, m, k, n, device)
         record("qmatmul", f"{m}x{k}x{n}", m, "int8",
@@ -515,36 +561,66 @@ def _compare_logits(mode, got: dict, want: dict) -> dict:
             "differing_elements": differing}
 
 
+def graph_launch_check(label, eng, grew) -> dict:
+    """An engine on the card serves each bucket through one CUDA graph.
+    Its wrappers launched each bucket's plan twice at boot (a warm call
+    on a side stream, then the capture), and every batch since (the
+    boot's first replay included) replayed that graph. So: each graph
+    holds its plan's launches, the replays equal the batches, the
+    wrappers counted 2 plans a bucket, and the launches the replays made
+    equal the plan's per batch."""
+    per_bucket = {b: plan_launches(eng._bounds[b].plan) for b in eng.buckets}
+    for b, want in per_bucket.items():
+        check(eng._graphs[b].kernels == want,
+              f"{label}: bucket {b}'s graph holds {eng._graphs[b].kernels}"
+              f", its plan launches {want}")
+    batches = eng.stats.steps + len(eng.buckets)        # served + prewarm
+    check(sum(eng.replays.values()) == batches,
+          f"{label}: {eng.replays} replays for {batches} batches")
+    wrapped = {k: sum(2 * v[k] for v in per_bucket.values()) for k in grew}
+    check(grew == wrapped, f"{label}: wrapper launches {grew}, expected "
+                           f"{wrapped} (a warm call and a capture a bucket)")
+    executed = eng.graph_launches()
+    want = {k: sum(v[k] * eng.replays[b] for b, v in per_bucket.items())
+            for k in grew}
+    check(executed == want, f"{label}: graph replays launched {executed}, "
+                            f"expected {want}")
+    return {"batches": batches, "replays": dict(eng.replays),
+            "wrapper_launches": grew, "graph_launches": executed}
+
+
 def serve_launcher(arch, requests) -> dict:
     """``launcher.main`` for ``arch`` at capacity 8 on the card and on the
     CPU: every request's logits held card against CPU, and the card's
-    launches equal to its plan's per batch (served + prewarm)."""
+    launches those of one CUDA graph a bucket replayed once a batch
+    (served + prewarm)."""
+    from repro_torch.artifact import clear_graph_cache
     from repro_torch.launch import serve as launcher
     argv = ["--arch", arch, "--capacity", "8", "--requests", str(requests)]
+    clear_graph_cache()
     before = counts()
     with contextlib.redirect_stdout(sys.stderr):
         eng, res = launcher.main(argv + ["--device", "cuda"])
         _, res_cpu = launcher.main(argv + ["--device", "cpu"])
-    batches = eng.stats.steps + len(eng.buckets)        # served + prewarm
     grew = {k: counts()[k] - before[k] for k in before}
-    want = {k: v * batches for k, v in plan_launches(eng.plan).items()}
-    check(grew == want, f"launcher {arch}: launches {grew} for {batches} "
-                        f"batches, expected {want}")
     row = _compare_logits("none", res, res_cpu)
-    row.update(path="launcher", arch=arch, batches=batches, launches=grew)
+    row.update(path="launcher", arch=arch,
+               **graph_launch_check(f"launcher {arch}", eng, grew))
     return row
 
 
 def serve_engines(model, params, images) -> list[dict]:
     """VisionEngine under qformat and int8 (batch 8, bucket ladder) on the
     card and on the CPU with the same weights and images; the card's
-    launches equal to its plan's per batch, none on the CPU."""
+    launches those of its graphs' replays, none on the CPU."""
+    from repro_torch.artifact import clear_graph_cache
     from repro_torch.ops import ExecPolicy
     from repro_torch.serve import VisionEngine, VisionEngineConfig
     out = []
     for mode in ("qformat", "int8"):
         results = {}
         for dev in ("cuda", "cpu"):
+            clear_graph_cache()
             before = counts()
             e = VisionEngine(model, params, VisionEngineConfig(
                 batch=8, buckets="auto", policy=ExecPolicy(quant=mode),
@@ -554,18 +630,12 @@ def serve_engines(model, params, images) -> list[dict]:
             results[dev] = e.run()
             grew = {k: counts()[k] - before[k] for k in before}
             if dev == "cuda":
-                batches = e.stats.steps + len(e.buckets)
-                want = {k: v * batches
-                        for k, v in plan_launches(e.plan).items()}
-                check(grew == want, f"engine {mode}: launches {grew} for "
-                                    f"{batches} batches, expected {want}")
-                cuda_grew, cuda_batches = grew, batches
+                launch_row = graph_launch_check(f"engine {mode}", e, grew)
             else:
                 check(not any(grew.values()),
                       f"engine {mode} on cpu launched kernels: {grew}")
         row = _compare_logits(mode, results["cuda"], results["cpu"])
-        row.update(path="engine", arch=model.cfg.name, batches=cuda_batches,
-                   launches=cuda_grew)
+        row.update(path="engine", arch=model.cfg.name, **launch_row)
         out.append(row)
     return out
 
@@ -727,6 +797,360 @@ def phase_stream(device):
     emit({"phase": "stream", "runs": runs, "serve": serve})
 
 
+# ------------------------------------------------------------------- boot
+
+# the served ladders booted in the boot phase
+BOOT_CONFIGS = {"mnist_cnn": {"batch": 8, "buckets": "auto"},
+                "highres_cnn": {"batch": 8, "buckets": None}}
+
+
+def boot_model(name, mode):
+    from repro_torch.models.cnn import PaperCNN, PaperCNNConfig
+    from repro_torch.models.vgg import VGGStyleCNN, VGGStyleCNNConfig
+    from repro_torch.ops import ExecPolicy
+    pol = ExecPolicy(quant=mode)
+    if name == "mnist_cnn":
+        return PaperCNN(PaperCNNConfig(policy=pol))
+    return VGGStyleCNN(VGGStyleCNNConfig(policy=pol))
+
+
+def _replace_node(plan, nid, **changes):
+    import dataclasses
+    nodes = tuple(dataclasses.replace(n, **changes) if n.id == nid else n
+                  for n in plan.graph)
+    return dataclasses.replace(
+        plan, graph=dataclasses.replace(plan.graph, nodes=nodes))
+
+
+def boot_verifier() -> list[dict]:
+    """Malformed plans bound on the card are refused with the Violation
+    codes (and nodes) the same tampering gets on the CPU."""
+    import dataclasses
+    from repro_torch.analysis import verify_plan
+    from repro_torch.core.quantize import QTensor
+    from repro_torch.graph.ir import FusedConvBlockNode
+
+    def first_fused(plan, tiled=False):
+        return next(n for n in plan.graph
+                    if isinstance(n, FusedConvBlockNode)
+                    and (n.tiling is not None or not tiled))
+
+    def halo(bound):
+        n = first_fused(bound.plan, tiled=True)
+        return dataclasses.replace(bound, plan=_replace_node(
+            bound.plan, n.id, tiling=dataclasses.replace(
+                n.tiling, halo=n.tiling.halo + 1)))
+
+    def stride(bound):
+        n = first_fused(bound.plan)
+        return dataclasses.replace(bound, plan=_replace_node(
+            bound.plan, n.id, stride=(2, 2)))
+
+    def scale(bound):
+        nid = next(n.id for n in bound.plan.graph
+                   if getattr(n, "kind", "") == "int8_conv_weight")
+        folded = dict(bound.folded)
+        v = folded[nid]
+        folded[nid] = QTensor(v.codes, v.scale.reshape(-1)[:1])
+        return dataclasses.replace(bound, folded=folded)
+
+    def fp_weight(bound):
+        n = first_fused(bound.plan)
+        return dataclasses.replace(bound, plan=_replace_node(
+            bound.plan, n.id, inputs=(n.inputs[0], n.inputs[0])))
+
+    cases = {"stream-halo": ("none", 10_000, halo),
+             "shape-flow": ("qformat", None, stride),
+             "quant-scale-shape": ("int8", None, scale),
+             "quant-weight-unlowered": ("int8", None, fp_weight)}
+    rows = []
+    for code, (mode, budget, tamper) in cases.items():
+        model = boot_model("mnist_cnn", mode)
+        params = model.init(0, device="cpu")
+        plan = model.compile(batch=8, stream_budget=budget)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            bound = plan.bind(to_device(params, dev))
+            got[dev] = [(v.code, v.node) for v in verify_plan(
+                tamper(bound), raise_on_violation=False)]
+        check(got["cuda"] == got["cpu"]
+              and code in [c for c, _ in got["cuda"]],
+              f"boot verifier {code}: card {got['cuda']}, cpu {got['cpu']}")
+        rows.append({"case": code, "mode": mode, "violations": got["cuda"]})
+    return rows
+
+
+def stage_call(op, args, kw, tiles):
+    """A zero-argument call of one tunable plan stage at ``tiles``."""
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.qmatmul.ops import qmatmul
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.stream.executor import (stream_conv2d,
+                                             stream_fused_conv_block)
+    fn = {"fused_conv_block": fused_cwp, "conv2d": conv_window,
+          "qmatmul": qmatmul, "stream_conv2d": stream_conv2d,
+          "stream_fused_conv_block": stream_fused_conv_block}[op]
+    pol = ExecPolicy(tiling={f"{op}.{k}": v for k, v in tiles.items()})
+    return lambda: fn(*args, policy=pol, **kw)
+
+
+def boot_winners(bound) -> list[dict]:
+    """Per tunable stage of ``bound``: the heuristic's tiles, the baked
+    winner, and the stage's device time at each (one kernel launch;
+    a streamed stage's whole band loop)."""
+    import torch
+    from repro_torch.ops.autotune import heuristic_tiles
+    rows = []
+    for node, op, args, kw in bound.plan._stage_calls(bound.params,
+                                                      bound.folded):
+        heur = heuristic_tiles(op, *args, **kw)
+        baked = bound.tuned.get(node.id)
+        win = ({k.split(".", 1)[1]: v for k, v in baked.items()}
+               if baked else heur)
+        timer = call_device_ms if op.startswith("stream_") else device_ms
+        with torch.inference_mode():
+            heur_ms = timer(stage_call(op, args, kw, heur))[0]
+            tuned_ms = (timer(stage_call(op, args, kw, win))[0] if baked
+                        else heur_ms)
+        rows.append({"stage": node.w.path[0], "op": op, "heuristic": heur,
+                     "winner": win, "heuristic_ms": heur_ms,
+                     "tuned_ms": tuned_ms})
+    return rows
+
+
+@contextlib.contextmanager
+def tuning_cache_off():
+    """The heuristic's tiles for every call in the block: an empty
+    TUNING_CACHE, restored after."""
+    from repro_torch.ops.tiling import TUNING_CACHE
+    saved = TUNING_CACHE.snapshot()
+    TUNING_CACHE.clear()
+    try:
+        yield
+    finally:
+        TUNING_CACHE.restore(saved)
+
+
+def _served(eng, images) -> dict:
+    for img in images:
+        eng.submit(img)
+    return eng.run()
+
+
+def _bitwise_results(label, got: dict, want: dict) -> None:
+    import numpy as np
+    check(sorted(got) == sorted(want), f"{label}: request ids differ")
+    for uid in want:
+        check(np.array_equal(got[uid]["logits"], want[uid]["logits"]),
+              f"{label}: request {uid} logits differ")
+
+
+def boot_one(name, mode, work, device) -> dict:
+    """One model and mode: a fresh autotuned engine, tuned vs heuristic
+    plans, the ladder saved and booted from the store, a corrupted
+    store, graph replays and pad lanes, all on the card."""
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.artifact import clear_graph_cache, collect_warmup
+    from repro_torch.serve import VisionEngine, VisionEngineConfig
+
+    model = boot_model(name, mode)
+    params = model.init(0, device="cpu")
+    cfg = dict(device="cuda", autotune=True, **BOOT_CONFIGS[name])
+    top = cfg["batch"]
+    clear_graph_cache()
+    t0 = time.perf_counter()
+    with collect_warmup() as fresh_rep:
+        fresh = VisionEngine(model, params, VisionEngineConfig(**cfg))
+    fresh_s = time.perf_counter() - t0
+    rng = np.random.RandomState(9)
+    tuned = []
+    for b in fresh.buckets:
+        bound = fresh._bounds[b]
+        heur = model.compile(batch=b).bind(bound.params)
+        x = torch.from_numpy(rng.randn(*model.input_shape(b)).astype(
+            np.float32)).to(device)
+        with torch.inference_mode():
+            got = bound(x)
+            with tuning_cache_off():
+                want = heur(x)
+            row = hold(f"boot {name} tuned vs heuristic B={b}", mode, got,
+                       want)
+        tuned.append({"B": b, "stages_baked": len(bound.tuned), **row})
+
+    # the ladder through the artifact store, then a corrupted copy of it
+    store = work / name / mode
+    fresh.save_artifacts(store)
+    clear_graph_cache()
+    with collect_warmup() as boot_rep:
+        booted = VisionEngine(model, params, VisionEngineConfig(
+            artifact_dir=str(store), **cfg))
+    check(boot_rep.zero_compile(),
+          f"boot {name} {mode}: the artifact boot derived:\n"
+          f"{boot_rep.pretty()}")
+    check(set(booted.plan_source.values()) == {"artifact+aot"},
+          f"boot {name} {mode}: plan_source {booted.plan_source}")
+    check(all(booted._bounds[b].tuned == fresh._bounds[b].tuned
+              for b in booted.buckets),
+          f"boot {name} {mode}: the artifact lost baked tiles")
+    bad = work / name / f"{mode}-corrupt"
+    shutil.copytree(store, bad)
+    (bad / booted.bucket_name(top) / "manifest.json").write_text("{not")
+    clear_graph_cache()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        degraded = VisionEngine(model, params, VisionEngineConfig(
+            artifact_dir=str(bad), **cfg))
+    check(any("falling back" in str(w.message) for w in caught)
+          and degraded.plan_source[top] == "fresh",
+          f"boot {name} {mode}: a corrupt artifact gave "
+          f"{degraded.plan_source}")
+
+    # a full batch of large images, then a short batch: the same logits
+    # from all three engines, the short batch's as a direct call of its
+    # bucket's bound plan on zero pad lanes
+    shape = model.input_shape()[1:]
+    full = [(rng.randn(*shape) * 8).astype(np.float32) for _ in range(top)]
+    short = [rng.randn(*shape).astype(np.float32) for _ in range(3)]
+    want = _served(fresh, full + short)
+    _bitwise_results(f"boot {name} {mode} artifact vs fresh",
+                     _served(booted, full + short), want)
+    _bitwise_results(f"boot {name} {mode} corrupt store vs fresh",
+                     _served(degraded, full + short), want)
+    sb = booted._bucket_for(3)
+    xs = torch.zeros(model.input_shape(sb))
+    xs[:3] = torch.from_numpy(np.stack(short))
+    with torch.inference_mode():
+        direct = booted._bounds[sb](xs.to(device)).cpu().numpy()
+    for i in range(3):
+        check(np.array_equal(direct[i], want[top + i]["logits"]),
+              f"boot {name} {mode}: short batch lane {i} differs from a "
+              f"direct call on zero pad lanes")
+    # every bucket's graph against a direct call of its bound plan
+    for b in booted.buckets:
+        x = torch.from_numpy(rng.randn(*model.input_shape(b)).astype(
+            np.float32)).to(device)
+        with torch.inference_mode():
+            got = booted._graphs[b].run(x).clone()
+            ref = booted._bounds[b](x)
+        torch.cuda.synchronize()
+        check(bitwise(got, ref), f"boot {name} {mode} bucket {b}: graph "
+                                 f"replay vs direct max_abs "
+                                 f"{max_abs(got, ref)}")
+    return {"model": name, "mode": mode, "fresh_boot_s": fresh_s,
+            "fresh_warmup": fresh_rep.seconds,
+            "fresh_warmup_calls": fresh_rep.counts,
+            "tuned_vs_heuristic": tuned,
+            "winners": boot_winners(fresh._bounds[top]),
+            "artifact_plan_source": booted.plan_source,
+            "artifact_warmup": boot_rep.seconds,
+            "artifact_warmup_calls": boot_rep.counts,
+            "corrupt_plan_source": degraded.plan_source,
+            "graph_launches": booted.graph_launches(),
+            "tuned": {b: booted._bounds[b].tuned for b in booted.buckets}}
+
+
+def boot_cache_roundtrip(name, work, tuned_int8) -> dict:
+    """The TuningCache saved and reloaded; a second autotuned boot of the
+    int8 ladder then measures nothing and bakes the same tiles."""
+    import repro_torch.ops.autotune as autotune
+    from repro_torch.artifact import clear_graph_cache
+    from repro_torch.ops.tiling import TUNING_CACHE
+    from repro_torch.serve import VisionEngine, VisionEngineConfig
+    path = work / f"{name}.tuning.json"
+    TUNING_CACHE.save(path)
+    n = len(TUNING_CACHE)
+    TUNING_CACHE.clear()
+    loaded = TUNING_CACHE.load(path)
+    check(loaded == n > 0, f"boot {name}: saved {n} tuning entries, "
+                           f"loaded {loaded}")
+    measured = []
+    real = autotune._measure
+    autotune._measure = lambda *a, **k: measured.append(1) or real(*a, **k)
+    try:
+        clear_graph_cache()
+        model = boot_model(name, "int8")
+        again = VisionEngine(model, model.init(0, device="cpu"),
+                             VisionEngineConfig(device="cuda",
+                                                autotune=True,
+                                                **BOOT_CONFIGS[name]))
+    finally:
+        autotune._measure = real
+    check(not measured, f"boot {name}: the second boot measured "
+                        f"{len(measured)} candidates")
+    got = {b: again._bounds[b].tuned for b in again.buckets}
+    check(got == tuned_int8, f"boot {name}: second boot baked {got}, the "
+                             f"first {tuned_int8}")
+    return {"model": name, "entries": n, "loaded": loaded,
+            "second_boot_measured": len(measured)}
+
+
+def boot_graph_times(name, mode, bsz, device) -> dict:
+    """Device and wall time a batch of one bound plan, replayed as its
+    CUDA graph against a direct call, on the same device input."""
+    import torch
+    from repro_torch.artifact.aot import capture_graph
+    model = boot_model(name, mode)
+    bound = model.compile(batch=bsz).bind(model.init(0, device=device))
+    graph = capture_graph(bound, model.input_shape(bsz))
+    x = torch.randn(model.input_shape(bsz), device=device)
+
+    def wall(fn):
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    with torch.inference_mode():
+        g_ms, g_dry = call_device_ms(lambda: graph.run(x))
+        d_ms, d_dry = call_device_ms(lambda: bound(x))
+        g_wall, d_wall = wall(lambda: graph.run(x)), wall(lambda: bound(x))
+    return {"model": name, "mode": mode, "B": bsz, "graph_ms": g_ms,
+            "direct_ms": d_ms, "graph_wall_ms": g_wall,
+            "direct_wall_ms": d_wall,
+            "queue_ran_dry": [k for k, d in (("graph", g_dry),
+                                             ("direct", d_dry)) if d]}
+
+
+def phase_boot(device):
+    """Boot the served plans as the reference does (see the module
+    docstring). The tuning cache it fills is dropped at the end, so the
+    later phases time the heuristic tiles."""
+    import tempfile
+    from repro_torch.ops.tiling import TUNING_CACHE
+    t0 = time.perf_counter()
+    saved = TUNING_CACHE.snapshot()
+    TUNING_CACHE.clear()
+    out = {"phase": "boot", "verifier": boot_verifier(), "runs": [],
+           "cache": [], "graph_times": []}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_boot_") as tmp:
+            work = Path(tmp)
+            for name in BOOT_CONFIGS:
+                for mode in MODES:
+                    out["runs"].append(boot_one(name, mode, work, device))
+                out["cache"].append(boot_cache_roundtrip(
+                    name, work, out["runs"][-1]["tuned"]))
+        for run in out["runs"]:
+            del run["tuned"]            # shown as the winners
+        with tuning_cache_off():         # the default plans' tiles
+            for name in BOOT_CONFIGS:
+                for mode in MODES:
+                    for bsz in (1, 8):
+                        out["graph_times"].append(
+                            boot_graph_times(name, mode, bsz, device))
+    finally:
+        TUNING_CACHE.restore(saved)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+
+
 def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
     """Median device time of ``reps`` calls of ``fn``, each between two
     CUDA events, all queued behind a spin kernel so the host's launch
@@ -775,12 +1199,15 @@ def call_device_ms(fn, reps: int = 20) -> tuple[float, bool]:
     return statistics.median(times), dry
 
 
-def conv_work(bsz, stage, pooled: bool) -> tuple[float, float]:
+def conv_work(bsz, stage, pooled: bool, odd: str = "raise"
+              ) -> tuple[float, float]:
     """(bytes, fp32 operations) one conv stage call must move and do:
-    inputs read once, output written once."""
+    inputs read once, output written once (pooled under ``odd``)."""
     n, h, w, m, k = stage
     ho, wo = h - k + 1, w - k + 1
-    out = bsz * m * (ho // 2) * (wo // 2) if pooled else bsz * m * ho * wo
+    pad = int(odd == "pad")
+    out = (bsz * m * ((ho + pad) // 2) * ((wo + pad) // 2) if pooled
+           else bsz * m * ho * wo)
     nbytes = 4 * (bsz * n * h * w + m * n * k * k + 2 * m + out)
     return nbytes, 2.0 * bsz * m * ho * wo * n * k * k
 
@@ -837,6 +1264,7 @@ def phase_times(device):
                 exact=True))
             del x
     rows += highres_time_rows(gen, device)
+    rows.append(odd_time_row(gen, device))
     emit({"phase": "times", "launch_floor_ms": floor_ms,
           "load_store_floor_ms": rw_ms,
           "floors_queue_ran_dry": [k for k, d in (("launch", floor_dry),
@@ -885,6 +1313,23 @@ def highres_time_rows(gen, device) -> list[dict]:
         8 * k + k * n + 4 * (8 + n + 8 * n), 2.0 * 8 * k * n / PEAK_INT8,
         exact=True, model="highres_cnn"))
     return rows
+
+
+def odd_time_row(gen, device) -> dict:
+    """fused_cwp on a 224-wide band with an odd conv row count (91 rows)
+    under odd='pad', B = 8, beside cuDNN's conv + relu + ceil-mode pool."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    shape = ODD_POOL_SHAPES["band"]
+    x, w, b, _ = conv_inputs(gen, 8, shape, "none", device)
+    nbytes, ops = conv_work(8, shape, True, "pad")
+    return _time_row(
+        "fused_cwp", f"odd pad {shape[1]}x{shape[2]}", 8,
+        lambda: fused_cwp(x, w, b, odd="pad"),
+        lambda: fused_cwp_ref(x, w, b, odd="pad"),
+        lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2, ceil_mode=True),
+        nbytes, ops / PEAK_FP32, exact=False, model="odd_pool")
 
 
 def phase_plans(device):
@@ -1016,7 +1461,14 @@ def kernels_line(launches, max_err, rows) -> dict:
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after device and "
+                         "build (kernels, serve, eager, tree, stream, boot, "
+                         "times, plans); prints no result line")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
               f"from a checkout of the repository", file=sys.stderr)
@@ -1032,9 +1484,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    phases = {"kernels": phase_kernels, "serve": phase_serve,
+              "eager": phase_eager, "tree": phase_tree,
+              "stream": phase_stream, "boot": phase_boot,
+              "times": phase_times, "plans": phase_plans}
     try:
         info = phase_device()
         phase_build()
+        if args.phases is not None:
+            for name in args.phases.split(","):
+                phases[name](device)
+            print("chip_smoke: ran only --phases; no result", file=sys.stderr)
+            return 4
         max_err = phase_kernels(device)
         reset_counts()                      # the main path starts here
         phase_serve(device)
@@ -1044,6 +1505,13 @@ def main() -> int:
         launches = counts()
         check(all(launches.values()),
               f"a kernel of the main path never launched: {launches}")
+        reset_counts()                      # this slice's path: the boot
+        phase_boot(device)
+        boot = counts()
+        check(boot["fused_cwp"] and boot["qmatmul"],
+              f"a kernel of the boot path never launched: {boot}")
+        emit({"phase": "launches", "main": launches, "boot": boot})
+        launches = {k: v + boot[k] for k, v in launches.items()}
         rows = phase_times(device)
         phase_plans(device)
     except SmokeFailure as e:

@@ -3,7 +3,10 @@
 // tile, and one of two epilogues.
 //
 //  * POOL = true (fused_cwp): requant scale, bias, relu floor, 2x2/2 max;
-//    only the pooled value is stored. Output (B, M, Ho/2, Wo/2).
+//    only the pooled value is stored. Output (B, M, Po, Qo): Ho/2 x Wo/2
+//    (an odd last conv row or column is dropped, odd='drop'), or with
+//    `pad` ceil(Ho/2) x ceil(Wo/2), whose last tile pools the points that
+//    exist (odd='pad': the missing ones are -inf, below the relu floor).
 //  * POOL = false (conv_window): bias only; each of the tile's 4 conv
 //    points is stored. Output (B, M, Ho, Wo), on a grid of Po = ceil(Ho/2)
 //    x Qo = ceil(Wo/2) tiles; a tile at an odd last row or column stores
@@ -23,7 +26,8 @@
 // channels: 16 independent fp32 FMA chains, fed per kernel tap by 4 input
 // loads and one float4 weight load (a broadcast). At a ragged edge the
 // missing points read the first point's window again (never past the
-// band or past H) and are not stored.
+// band or past H) and are not stored; pooled, they repeat a point that
+// exists, so the 2x2 max is that of the points that exist.
 //
 // Small batches. Where the tiles cannot fill 132 SMs, `split` adjacent
 // lanes (a power of two up to 32) share one tile, each taking every
@@ -45,7 +49,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int CT = 4;  // output channels in a thread's register tile
 
 struct Shape {
-  int B, N, H, W, M, Kh, Kw, sh, sw, Ho, Wo, Po, Qo;
+  // ragged: the tile grid covers an odd last conv row/column (Po =
+  // ceil(Ho/2)); conv_window always, fused_cwp under odd='pad'
+  int B, N, H, W, M, Kh, Kw, sh, sw, Ho, Wo, Po, Qo, ragged;
 };
 
 template <bool STAGED, bool POOL>
@@ -56,6 +62,7 @@ __global__ void kernel(const float* __restrict__ x,
                        float* __restrict__ out, Shape s, int cpb, int band,
                        int split, int ipb, int ld) {
   extern __shared__ __align__(16) float smem[];
+  const bool ragged = !POOL || s.ragged;
   const int eta = s.N * s.Kh * s.Kw;
   const int groups = (s.M + cpb - 1) / cpb;
   const int bands = (s.Po + band - 1) / band;
@@ -70,7 +77,7 @@ __global__ void kernel(const float* __restrict__ x,
   const int row0 = 2 * ph0 * s.sh;
   // input rows of the band; a ragged last tile row reads none past H
   int rows = (2 * nph - 1) * s.sh + s.Kh;
-  if constexpr (!POOL) rows = min(rows, s.H - row0);
+  if (ragged) rows = min(rows, s.H - row0);
   const float* xb = x + ((size_t)b0 * s.N * s.H + row0) * s.W;
 
   // the contraction reads x through (xs, ld = row stride, cs = channel
@@ -147,7 +154,7 @@ __global__ void kernel(const float* __restrict__ x,
     const int oh = 2 * (ph0 + phl), ow = 2 * pw;
     // the tile's second row and column: at a ragged edge, the first again
     int down_rows = s.sh, right = s.sw;
-    if constexpr (!POOL) {
+    if (ragged) {
       if (oh + 1 >= s.Ho) down_rows = 0;
       if (ow + 1 >= s.Wo) right = 0;
     }
@@ -211,7 +218,8 @@ __global__ void kernel(const float* __restrict__ x,
         }
         const size_t plane = (size_t)(b0 + img) * s.M + m;
         if constexpr (POOL) {
-          // relu floor: max(relu(a), ...) == max(0, a, ...)
+          // relu floor: max(relu(a), ...) == max(0, a, ...); a missing
+          // point of a ragged tile repeats one that exists
           float v = 0.f;
 #pragma unroll
           for (int p = 0; p < 4; ++p) v = fmaxf(v, a[p]);
@@ -235,26 +243,37 @@ __global__ void kernel(const float* __restrict__ x,
 // Host side: launch on `stream`, return a CUDA error code (0 = launched).
 // cpb is a multiple of 4, split a power of two up to 32, threads a
 // multiple of 32; smem is the staged slab's bytes, 0 to read device memory
-// (repro_torch/ops/tiling.py resolves and checks all of them).
+// (repro_torch/ops/tiling.py resolves and checks all of them). `pad`
+// (POOL only) pools an odd last row/column against -inf instead of
+// dropping it.
 template <bool POOL>
 int launch(const void* x, const void* w, const void* scale, const void* bias,
            void* out, int B, int N, int H, int W, int M, int Kh, int Kw,
            int sh, int sw, int threads, int cpb, int band, int split, int ipb,
-           int ld, int smem, void* stream) {
+           int ld, int smem, int pad, void* stream) {
   const int Ho = (H - Kh) / sh + 1, Wo = (W - Kw) / sw + 1;
+  const bool ragged = !POOL || pad;
   const Shape s{B, N, H, W, M, Kh, Kw, sh, sw, Ho, Wo,
-                POOL ? Ho / 2 : (Ho + 1) / 2, POOL ? Wo / 2 : (Wo + 1) / 2};
+                ragged ? (Ho + 1) / 2 : Ho / 2,
+                ragged ? (Wo + 1) / 2 : Wo / 2, ragged ? 1 : 0};
   const long long grid = (long long)((B + ipb - 1) / ipb) *
                          ((M + cpb - 1) / cpb) * ((s.Po + band - 1) / band);
   cudaStream_t st = (cudaStream_t)stream;
   const float* args[4] = {(const float*)x, (const float*)w,
                           (const float*)scale, (const float*)bias};
   if (smem > 0) {
-    if (smem > 48 * 1024) {
+    // opt in to more than 48 KB once per device and size: never again
+    // on a later launch (or inside a CUDA graph capture) that needs no more
+    static int opted[64];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int& have = opted[dev & 63];
+    if (smem > 48 * 1024 && smem > have) {
       const cudaError_t e = cudaFuncSetAttribute(
           kernel<true, POOL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           smem);
       if (e != cudaSuccess) return (int)e;
+      have = smem;
     }
     kernel<true, POOL><<<(unsigned)grid, threads, smem, st>>>(
         args[0], args[1], args[2], args[3], (float*)out, s, cpb, band, split,

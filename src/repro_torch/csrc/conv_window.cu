@@ -27,5 +27,5 @@ extern "C" int conv_window_launch(const void* x, const void* w,
                                   void* stream) {
   return conv_tile::launch<false>(x, w, nullptr, bias, out, B, N, H, W, M,
                                   Kh, Kw, sh, sw, threads, cpb, band, split,
-                                  ipb, ld, smem, stream);
+                                  ipb, ld, smem, 0, stream);
 }

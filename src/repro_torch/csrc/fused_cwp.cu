@@ -17,7 +17,9 @@
 // read from memory; a thread's 2x2 window x 4 channels are 16 independent
 // FMA chains; at served batches `split` lanes share a tile. The epilogue
 // is the reference's: __fadd_rn(__fmul_rn(acc, s), b), the relu floor at
-// 0, the 2x2 max, and only the pooled value is stored.
+// 0, the 2x2 max, and only the pooled value is stored. An odd conv map
+// is pooled as core/window.py's maxpool2 does: `pad` = 0 drops the last
+// row/column (odd='drop'), 1 pools it against -inf (odd='pad').
 #include "conv_tile.cuh"
 
 extern "C" int fused_cwp_launch(const void* x, const void* w,
@@ -25,8 +27,8 @@ extern "C" int fused_cwp_launch(const void* x, const void* w,
                                 int B, int N, int H, int W, int M, int Kh,
                                 int Kw, int sh, int sw, int threads, int cpb,
                                 int band, int split, int ipb, int ld, int smem,
-                                void* stream) {
+                                int pad, void* stream) {
   return conv_tile::launch<true>(x, w, scale, bias, out, B, N, H, W, M, Kh,
                                  Kw, sh, sw, threads, cpb, band, split, ipb,
-                                 ld, smem, stream);
+                                 ld, smem, pad, stream);
 }

@@ -179,11 +179,18 @@ template <bool ALIGNED>
 int launch(const void* x, const void* w, const void* xs, const void* ws,
            void* out, int M, int N, int K, int threads, int rows, int cols,
            int kslice, int ld, int smem, long long grid, cudaStream_t st) {
-  if (smem > 48 * 1024) {
+  // opt in to more than 48 KB once per device and size: never again on a
+  // later launch (or inside a CUDA graph capture) that needs no more
+  static int opted[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& have = opted[dev & 63];
+  if (smem > 48 * 1024 && smem > have) {
     const cudaError_t e = cudaFuncSetAttribute(
         qmatmul_kernel<ALIGNED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
+    have = smem;
   }
   qmatmul_kernel<ALIGNED><<<(unsigned)grid, threads, smem, st>>>(
       (const int8_t*)x, (const int8_t*)w, (const float*)xs, (const float*)ws,

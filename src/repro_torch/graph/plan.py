@@ -18,22 +18,36 @@ returns a ``BoundPlan``. Every compile runs the streaming placement pass
 (``repro_torch.stream``, DESIGN.md §13): a conv stage whose per-image
 footprint exceeds ``stream_budget`` carries a ``SpatialTiling`` and runs
 as halo-overlapped row bands through the same registry ops, one kernel
-launch a band on the card. Mesh placement, bind-time autotuning,
-artifacts and the plan verifier are later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+launch a band on the card.
+
+As in the reference:
+
+  * ``verify=True`` (the default of ``compile_model`` and ``bind``) runs
+    the static plan verifier (``repro_torch.analysis``, DESIGN.md §14);
+  * ``autotune=True`` makes ``bind`` measure launch shapes per stage on
+    the card (``repro_torch.ops.autotune``; tuning-cache hits skip the
+    measurement) and bake the winners into the BoundPlan as per-stage
+    tiling overrides, so serving never re-tunes (DESIGN.md §10);
+  * ``BoundPlan.save`` / ``.load`` persist a bound plan as a versioned
+    artifact (``repro_torch.artifact``, DESIGN.md §12).
+
+Mesh placement is a later slice (ROADMAP §A.10) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
+from repro_torch.artifact.warmup import phase
 from repro_torch.core.quantize import QFormat, QTensor, quantize_int8
 from repro_torch.core.window import maxpool2
 from repro_torch.graph.ir import (Conv2DNode, DenseNode, FlattenNode,
                                   FusedConvBlockNode, Graph, InputNode,
                                   MaxPool2Node, QuantizeNode, ReluNode)
-from repro_torch.graph.passes import default_passes
+from repro_torch.graph.passes import default_passes, stage_input_spec
 from repro_torch.graph.trace import trace
 from repro_torch.ops.policy import ExecPolicy, current_policy
 
@@ -64,6 +78,8 @@ class ExecutionPlan:
     quant: str = "none"
     qformat: QFormat = field(default_factory=QFormat)
     compile_policy: ExecPolicy | None = None
+    # measured launch shapes at bind time (DESIGN.md §10)
+    autotune: bool = False
 
     def _base_policy(self, policy: ExecPolicy | None) -> ExecPolicy:
         pol = policy
@@ -76,10 +92,21 @@ class ExecutionPlan:
                 f"plan was compiled for quant={self.quant!r} but is being "
                 f"run under quant={pol.quant!r}; recompile with "
                 f".compile(policy=...) for a different number format")
-        return pol.with_options(quant="none")
+        # stages run quant-free (quantization is graph structure) and
+        # never tune while they run: bind measured and baked the tiles
+        return pol.with_options(quant="none", autotune=False)
+
+    @staticmethod
+    def _stage_policy(base: ExecPolicy, tiles: dict | None) -> ExecPolicy:
+        """The per-stage policy: baked (bind-time autotuned) tiles ride as
+        namespaced tiling overrides, which win over the tuning cache and
+        the heuristics."""
+        if not tiles:
+            return base
+        return base.with_options(tiling={**base.tile_overrides, **tiles})
 
     def __call__(self, params, x, *, policy: ExecPolicy | None = None,
-                 _folded: dict | None = None):
+                 _folded: dict | None = None, _tuned: dict | None = None):
         from repro_torch.ops import conv2d, dense, fused_conv_block, qdense
         from repro_torch.stream.executor import (stream_conv2d,
                                                  stream_fused_conv_block)
@@ -87,6 +114,7 @@ class ExecutionPlan:
         dense_pol = base.with_options(quant=self.quant, qformat=self.qformat)
         env: dict[int, object] = {}
         folded = _folded or {}
+        tuned = _tuned or {}
 
         def _weight(node, idx, attr):
             """Weight operand: through the lowered graph's quantize node
@@ -109,25 +137,27 @@ class ExecutionPlan:
             elif isinstance(node, FusedConvBlockNode):
                 args = (env[node.inputs[0]], _weight(node, 1, "w"),
                         _weight(node, 2, "b"))
+                pol = self._stage_policy(base, tuned.get(node.id))
                 if node.tiling is not None:
                     # over-budget stage: halo-overlapped row bands
                     env[node.id] = stream_fused_conv_block(
                         *args, stride=node.stride, odd=node.odd,
-                        tiling=node.tiling, policy=base)
+                        tiling=node.tiling, policy=pol)
                 else:
                     env[node.id] = fused_conv_block(
                         *args, stride=node.stride, odd=node.odd,
-                        policy=base)
+                        policy=pol)
             elif isinstance(node, Conv2DNode):
                 args = (env[node.inputs[0]], _weight(node, 1, "w"),
                         _weight(node, 2, "b"))
+                pol = self._stage_policy(base, tuned.get(node.id))
                 if node.tiling is not None:
                     env[node.id] = stream_conv2d(
                         *args, stride=node.stride, tiling=node.tiling,
-                        policy=base)
+                        policy=pol)
                 else:
                     env[node.id] = conv2d(*args, stride=node.stride,
-                                          policy=base)
+                                          policy=pol)
             elif isinstance(node, ReluNode):
                 env[node.id] = torch.relu(env[node.inputs[0]])
             elif isinstance(node, MaxPool2Node):
@@ -140,7 +170,9 @@ class ExecutionPlan:
                 if wq is not None:
                     # bind pre-quantized this dense weight: the int8
                     # datapath directly (== ops.dense under int8)
-                    out = qdense(env[node.inputs[0]], wq, policy=base)
+                    out = qdense(env[node.inputs[0]], wq,
+                                 policy=self._stage_policy(
+                                     base, tuned.get(node.id)))
                     b = _weight(node, 2, "b")
                     env[node.id] = out if b is None else out + b
                 else:
@@ -166,12 +198,119 @@ class ExecutionPlan:
                                                     axis=0)
         return folded
 
-    def bind(self, params, *, policy: ExecPolicy | None = None
-             ) -> "BoundPlan":
+    def _stage_calls(self, params, folded: dict):
+        """Yield (node, op, args, kwargs) for every tunable stage: the
+        concrete call the autotuner measures, with a representative
+        activation from the graph's static specs (seeded, on the params'
+        device) and the real bound weights (int8 stages get codes as f32
+        plus the requant scale operand)."""
+        from repro_torch.ops.impls import split_requant
+        dev = _params_device(params)
+        rng = np.random.RandomState(0)
+        for node in self.graph:
+            if not isinstance(node, (Conv2DNode, FusedConvBlockNode,
+                                     DenseNode)):
+                continue
+            spec = stage_input_spec(self.graph, node)
+            x = torch.from_numpy(rng.standard_normal(spec.shape).astype(
+                np.float32)).to(dev)
+            if isinstance(node, DenseNode):
+                wq = folded.get(node.id)
+                if wq is None:          # fp dense is a plain matmul —
+                    continue            # nothing to tune
+                xq = quantize_int8(x.reshape(x.shape[0], -1), axis=-1)
+                yield node, "qmatmul", (xq.codes, wq.codes, xq.scale,
+                                        wq.scale), {}
+                continue
+            fused = isinstance(node, FusedConvBlockNode)
+            tiling = node.tiling
+            op = "fused_conv_block" if fused else "conv2d"
+            if tiling is not None:          # streamed stage: tune th
+                op = "stream_" + op
+            wv = (folded[node.inputs[1]] if len(node.inputs) > 1
+                  else node.w.fetch(params))
+            bv = (folded.get(node.inputs[2]) if len(node.inputs) > 2
+                  else (None if node.b is None else node.b.fetch(params)))
+            scale = None
+            if isinstance(wv, QTensor):
+                _, w_arr, scale = split_requant(
+                    QTensor(x, torch.ones((), device=dev)), wv)
+            else:
+                w_arr = wv
+            kw = dict(stride=tuple(node.stride))
+            if tiling is not None:
+                kw["tiling"] = tiling
+            if fused:
+                kw.update(scale=scale, odd=node.odd)
+            elif tiling is not None:
+                kw["scale"] = scale
+            yield node, op, (x, w_arr, bv), kw
+
+    def _autotune_stages(self, params, folded: dict,
+                         policy: ExecPolicy | None = None
+                         ) -> dict[int, dict]:
+        """Measure launch-shape winners for every tunable stage (DESIGN.md
+        §10): ``ensure_tuned`` on the stage's concrete call (a cache hit
+        skips the measurement), returning {node id: namespaced tiling
+        overrides} to bake. Stages whose dispatch under the bind
+        ``policy`` would not run the ``cuda`` kernel on the card tune
+        nothing; a winner that IS the heuristic point bakes nothing
+        either, the default resolution already gives that program."""
+        from repro_torch.ops.autotune import ensure_tuned, heuristic_tiles
+        base = self._base_policy(policy)
+        tuned: dict[int, dict] = {}
+        for node, op, args, kw in self._stage_calls(params, folded):
+            best = ensure_tuned(op, *args, policy=base, **kw)
+            if best and best != heuristic_tiles(op, *args, **kw):
+                tuned[node.id] = {f"{op}.{k}": v for k, v in best.items()}
+        return tuned
+
+    def pin_heuristic_tiles(self, params, folded: dict | None = None
+                            ) -> int:
+        """Winner validation (DESIGN.md §10): overwrite every tunable
+        stage's tuning-cache entry with the heuristic point, for when a
+        plan-level A/B shows op-level winners losing end to end; a later
+        bind then bakes nothing. Returns how many entries were pinned."""
+        from repro_torch.ops.autotune import heuristic_tiles, signature_of
+        from repro_torch.ops.tiling import TUNING_CACHE, platform_key
+        if folded is None:
+            folded = self._fold_constants(params)
+        pinned = 0
+        for _, op, args, kw in self._stage_calls(params, folded):
+            heur = heuristic_tiles(op, *args, **kw)
+            if heur is None:
+                continue
+            TUNING_CACHE.put(op, signature_of(op, args, kw), args[0].dtype,
+                             heur, platform=platform_key(args[0].device))
+            pinned += 1
+        return pinned
+
+    def bind(self, params, *, policy: ExecPolicy | None = None,
+             verify: bool = True) -> "BoundPlan":
         """Fold weight quantization against ``params`` now, so per-batch
-        calls skip weight requantization."""
-        return BoundPlan(plan=self, params=params,
-                         folded=self._fold_constants(params), policy=policy)
+        calls skip weight requantization. On an ``autotune=True`` plan the
+        measured tile winners are baked in too. ``verify=True`` (the
+        default) re-runs the static verifier over the bound plan, adding
+        the bound-level checks (folded QTensor shapes, serializable
+        fingerprint inputs); it is read-only."""
+        folded = self._fold_constants(params)
+        tuned: dict = {}
+        if self.autotune:
+            with phase("tune"):
+                tuned = self._autotune_stages(params, folded, policy=policy)
+        bound = BoundPlan(plan=self, params=params, folded=folded,
+                          policy=policy, tuned=tuned)
+        if verify:
+            from repro_torch.analysis.verifier import verify_plan
+            verify_plan(bound)
+        return bound
+
+    def save(self, params, path, *, policy: ExecPolicy | None = None
+             ) -> str:
+        """``bind`` against ``params`` and persist the result as a plan
+        artifact (``repro_torch.artifact.store.save_plan``); returns the
+        content fingerprint."""
+        return self.bind(params, policy=policy).save(path)
 
     def stages(self) -> list[str]:
         return [n.pretty() for n in self.graph]
@@ -185,20 +324,58 @@ class ExecutionPlan:
         return head + "\n" + self.graph.pretty()
 
 
+def _params_device(params) -> torch.device:
+    from repro_torch.artifact.fingerprint import params_device
+    return params_device(params) or torch.device("cpu")
+
+
 @dataclass(frozen=True)
 class BoundPlan:
     """An ExecutionPlan closed over one params dict with weight
-    quantization pre-folded — call as ``bound(images)``."""
+    quantization pre-folded (and, on an autotuned plan, measured tiles
+    pre-baked) — call as ``bound(images)``."""
 
     plan: ExecutionPlan
     params: object
     folded: dict
     policy: ExecPolicy | None = None
+    # {node id: namespaced tiling overrides} measured at bind time
+    tuned: dict = field(default_factory=dict)
 
     def __call__(self, x, *, policy: ExecPolicy | None = None):
         return self.plan(self.params, x,
                          policy=policy if policy is not None else self.policy,
-                         _folded=self.folded)
+                         _folded=self.folded, _tuned=self.tuned)
+
+    @property
+    def device(self) -> torch.device:
+        """Where the params (and so every stage) live."""
+        return _params_device(self.params)
+
+    def fingerprint(self) -> str:
+        """Content fingerprint over graph IR + quant + tiles + policies +
+        weights + the build (``repro_torch.artifact.fingerprint``)."""
+        from repro_torch.artifact.fingerprint import plan_fingerprint
+        return plan_fingerprint(self.plan, params=self.params,
+                                tuned=self.tuned, bind_policy=self.policy)
+
+    def save(self, path) -> str:
+        """Persist as a versioned plan artifact; returns the content
+        fingerprint. See ``repro_torch.artifact.store.save_plan``."""
+        from repro_torch.artifact.store import save_plan
+        return save_plan(self, path)
+
+    @classmethod
+    def load(cls, path, *, params=None, device=None) -> "BoundPlan":
+        """Reconstruct a bound plan from an artifact onto ``device`` (the
+        card unless the caller asks for the CPU) — no trace, no passes,
+        no tuning. ``params`` (optional) asserts the artifact holds the
+        caller's weights. Raises ``repro_torch.artifact.ArtifactError``
+        when the artifact is unusable (serving uses ``PlanStore.load``
+        to warn and fall back)."""
+        from repro_torch.artifact.store import load_plan
+        kw = {} if device is None else {"device": device}
+        return load_plan(path, params=params, **kw).bound
 
 
 def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
@@ -206,27 +383,30 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
                   mesh=None, autotune: bool = False,
                   stream_budget: int | None = None,
                   dtype: str = "float32",
-                  verify: bool = False) -> ExecutionPlan:
+                  verify: bool = True) -> ExecutionPlan:
     """trace → passes → spatial-tiling placement → plan for any model
     whose forward routes through the hooked functional layer. The
     quantization mode resolves now (explicit ``policy`` > model-config
     policy > ambient ``use_policy``); backend and launch shape stay
     dynamic through the registry.
 
+    ``autotune=True`` (or ``ExecPolicy.autotune``): ``plan.bind``
+    measures launch shapes per stage on the card and bakes the winners
+    into the BoundPlan (DESIGN.md §10).
+
     ``stream_budget`` (bytes, default
     ``repro_torch.stream.STREAM_VMEM_BUDGET_BYTES``) is the per-image
     stage footprint above which conv/fused stages get a ``SpatialTiling``
-    and execute as halo-overlapped row bands (DESIGN.md §13)."""
+    and execute as halo-overlapped row bands (DESIGN.md §13).
+
+    ``verify=True`` (the default) runs the static plan verifier
+    (``repro_torch.analysis.verify_plan``, DESIGN.md §14) over the
+    finished plan, raising ``PlanVerificationError`` with named
+    violations; it is read-only."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-placed plans are not ported yet (ROADMAP §A.10, "
             "channel parallelism)")
-    if autotune:
-        raise NotImplementedError(
-            "bind-time autotuning is not ported yet (ROADMAP §A.7)")
-    if verify:
-        raise NotImplementedError(
-            "the plan verifier is not ported yet (ROADMAP §A.9)")
     if input_shape is None:
         input_shape = model.input_shape()
     pol = policy
@@ -234,13 +414,21 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
         exec_pol = getattr(getattr(model, "cfg", None), "exec_policy", None)
         pol = exec_pol() if callable(exec_pol) else None
     quant_pol = pol if pol is not None else current_policy()
-    graph = trace(model, tuple(input_shape), dtype)
-    graph = default_passes(graph, quant=quant_pol.quant,
-                           qformat=quant_pol.qformat, fuse=fuse)
+    with phase("trace"):
+        graph = trace(model, tuple(input_shape), dtype)
+    with phase("fuse"):
+        graph = default_passes(graph, quant=quant_pol.quant,
+                               qformat=quant_pol.qformat, fuse=fuse)
     # runs on every compile: under-budget graphs (all MNIST-sized plans)
     # come back node for node identical. Imported here: repro_torch.stream
     # imports the graph IR, whose package imports this module.
     from repro_torch.stream.passes import place_spatial_tiling
-    graph = place_spatial_tiling(graph, budget_bytes=stream_budget)
-    return ExecutionPlan(graph=graph, quant=quant_pol.quant,
-                         qformat=quant_pol.qformat, compile_policy=pol)
+    with phase("place"):
+        graph = place_spatial_tiling(graph, budget_bytes=stream_budget)
+    plan = ExecutionPlan(graph=graph, quant=quant_pol.quant,
+                         qformat=quant_pol.qformat, compile_policy=pol,
+                         autotune=autotune or quant_pol.autotune)
+    if verify:
+        from repro_torch.analysis.verifier import verify_plan
+        verify_plan(plan)
+    return plan

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc",
-           "library_path", "build", "load"]
+           "library_path", "source_digest", "is_built", "build", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -58,6 +58,22 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def source_digest() -> str:
+    """sha256 over the nvcc flags and every source in ``csrc/``: the
+    kernel build a plan artifact's fingerprint records."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def is_built(names=SOURCES) -> bool:
+    """True when every library in ``names`` is built from the current
+    sources, so loading them runs no nvcc."""
+    return all(library_path(n).exists() for n in names)
 
 
 def build(names=SOURCES) -> dict[str, dict]:

@@ -17,7 +17,7 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
 from repro_torch.kernels.conv_window.ref import conv2d_window_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import fused_tiles
+from repro_torch.ops.tiling import fused_tiles, platform_key
 
 __all__ = ["conv_window", "launches"]
 
@@ -57,8 +57,11 @@ def conv_window(x: torch.Tensor, w: torch.Tensor,
         return conv2d_window_ref(x, w, b, stride=tuple(stride))
     ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
     pol = policy if policy is not None else current_policy()
+    if pol.autotune:
+        from repro_torch.ops.autotune import ensure_tuned
+        ensure_tuned("conv2d", x, w, b, stride=tuple(stride), policy=pol)
     t = fused_tiles(bsz, n, h, wd, m, kh, kw, sh, sw, pol.tile_overrides,
-                    pool=False)
+                    pool=False, platform=platform_key(dev))
     out = torch.empty((bsz, m, ho, wo), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

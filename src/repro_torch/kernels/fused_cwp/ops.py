@@ -13,11 +13,12 @@ import functools
 
 import torch
 
+from repro_torch.core.window import pool_output_size
 from repro_torch.kernels.build import load
 from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
 from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import fused_tiles
+from repro_torch.ops.tiling import fused_tiles, platform_key
 
 __all__ = ["fused_cwp", "launches"]
 
@@ -27,19 +28,21 @@ launches = 0
 @functools.cache
 def _launcher():
     fn = load("fused_cwp").fused_cwp_launch
-    fn.argtypes = launch_args(5, 16)
+    fn.argtypes = launch_args(5, 17)
     fn.restype = ctypes.c_int
     return fn
 
 
 def fused_cwp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
               *, stride: tuple[int, int] = (1, 1),
-              scale: torch.Tensor | None = None,
+              scale: torch.Tensor | None = None, odd: str = "raise",
               policy: ExecPolicy | None = None) -> torch.Tensor:
-    """x: (B,N,H,W) f32 · w: (M,N,Kh,Kw) f32 -> (B,M,Ho/2,Wo/2) f32:
-    VALID conv, ``×scale`` (M,) when given (the int8 requant epilogue on
+    """x: (B,N,H,W) f32 · w: (M,N,Kh,Kw) f32 -> (B,M,Po,Qo) f32: VALID
+    conv, ``×scale`` (M,) when given (the int8 requant epilogue on
     integer-valued codes), ``+b`` (M,) when given, relu, 2×2/2 max pool.
-    Needs even conv output dims."""
+    An odd conv output dim follows ``odd`` as ``core.window.maxpool2``
+    does: ``'raise'`` raises ValueError before any launch, ``'drop'``
+    drops the last row/column, ``'pad'`` pools it against -inf."""
     global launches
     dev = x.device
     check_tensor(x, "x", dtype=torch.float32, ndim=4, device=dev)
@@ -57,19 +60,22 @@ def fused_cwp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         raise ValueError(f"conv shapes x={tuple(x.shape)} "
                          f"w={tuple(w.shape)} stride={tuple(stride)}")
     ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
-    if ho % 2 or wo % 2:
-        raise ValueError(
-            f"fused kernel needs even conv output dims, got {ho}x{wo}")
+    po, qo = pool_output_size(ho, odd), pool_output_size(wo, odd)
     if dev.type == "cpu":
-        return fused_cwp_ref(x, w, b, tuple(stride), scale=scale)
+        return fused_cwp_ref(x, w, b, tuple(stride), odd=odd, scale=scale)
     pol = policy if policy is not None else current_policy()
-    t = fused_tiles(bsz, n, h, wd, m, kh, kw, sh, sw, pol.tile_overrides)
-    out = torch.empty((bsz, m, ho // 2, wo // 2), dtype=torch.float32,
-                      device=dev)
+    if pol.autotune:
+        from repro_torch.ops.autotune import ensure_tuned
+        ensure_tuned("fused_conv_block", x, w, b, stride=tuple(stride),
+                     odd=odd, scale=scale, policy=pol)
+    t = fused_tiles(bsz, n, h, wd, m, kh, kw, sh, sw, pol.tile_overrides,
+                    odd=odd, platform=platform_key(dev))
+    out = torch.empty((bsz, m, po, qo), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     launch(_launcher(), "fused_cwp", dev, ptr(x), ptr(w), ptr(scale), ptr(b),
            ptr(out), bsz, n, h, wd, m, kh, kw, sh, sw, t["threads"], t["cpb"],
-           t["band"], t["split"], t["ipb"], t["ld"], t["smem"])
+           t["band"], t["split"], t["ipb"], t["ld"], t["smem"],
+           int(odd == "pad"))
     launches += 1
     return out

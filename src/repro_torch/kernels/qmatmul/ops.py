@@ -17,7 +17,7 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import qmatmul_tiles
+from repro_torch.ops.tiling import platform_key, qmatmul_tiles
 
 __all__ = ["qmatmul", "launches"]
 
@@ -64,7 +64,11 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
     if dev.type == "cpu":
         return qmatmul_ref(x_codes, w_codes, xs, ws)
     pol = policy if policy is not None else current_policy()
-    t = qmatmul_tiles(m, k, n, pol.tile_overrides)
+    if pol.autotune:
+        from repro_torch.ops.autotune import ensure_tuned
+        ensure_tuned("qmatmul", x_codes, w_codes, xs, ws, policy=pol)
+    t = qmatmul_tiles(m, k, n, pol.tile_overrides,
+                      platform=platform_key(dev))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

@@ -5,14 +5,27 @@ Port of ``repro.launch.serve``'s CNN branch: the bucketed vision engine
 over compiled plans, a synthetic workload of ``--requests`` seeded
 images submitted through the front-end with an optional ``--slo-ms``
 deadline budget, and a report of throughput, lane occupancy and the SLO
-view. The LM branch and the ``--mesh``, ``--autotune``,
-``--tuning-cache``, ``--plan-artifact``, ``--save-plan`` and
-``--warmup-report`` flags wait for later slices.
+view. The boot flags are the reference's:
+
+  * ``--tuning-cache PATH`` loads a persisted tuned-tile table before any
+    plan compiles and saves it (merged) after serving;
+  * ``--autotune`` measures launch shapes at each bucket's bind (on the
+    card; the CPU tunes nothing) and bakes the winners in;
+  * ``--plan-artifact DIR`` boots the bucket ladder from a plan artifact
+    store (no trace/fuse/place/tune work when every bucket hits; a bad
+    artifact warns and compiles fresh);
+  * ``--save-plan DIR`` writes the ladder out after boot;
+  * ``--warmup-report`` prints the time-to-ready breakdown (trace, fuse,
+    place, tune, compile — the nvcc build and the CUDA graph captures on
+    the card —, artifact, first_dispatch).
+
+The LM branch and ``--mesh`` wait for later slices.
 
     python -m repro_torch.launch.serve --arch mnist_cnn --capacity 8 \
         --requests 32
     python -m repro_torch.launch.serve --arch highres_cnn --capacity 8 \
-        --requests 16
+        --requests 16 --autotune --tuning-cache tuned.tuning.json \
+        --save-plan plans/ --warmup-report
 
 Any ``cnn`` arch serves through the same path: ``serve_vision`` needs
 only the model's ``init(seed, device=...)``, ``input_shape()`` and
@@ -25,6 +38,33 @@ import argparse
 import numpy as np
 
 from repro_torch.device import DEFAULT_DEVICE
+
+
+def _load_tuning_cache(path) -> None:
+    """``--tuning-cache`` load half: merge a persisted tuned-tile table
+    into the process cache before any plan compiles. A missing file is
+    fine (first runs start empty); corrupt or unknown-version files warn
+    and fall back to the heuristics inside ``TuningCache.load``."""
+    import os
+
+    from repro_torch.ops.tiling import TUNING_CACHE
+    if not path:
+        return
+    if not os.path.exists(path):
+        print(f"tuning cache: {path} not found (starting empty)")
+        return
+    n = TUNING_CACHE.load(path)
+    print(f"tuning cache: loaded {n} entries from {path}")
+
+
+def _save_tuning_cache(path) -> None:
+    """``--tuning-cache`` save half: persist everything measured in this
+    process (bind-time autotuning included) for the next one."""
+    from repro_torch.ops.tiling import TUNING_CACHE
+    if not path:
+        return
+    TUNING_CACHE.save(path)
+    print(f"tuning cache: saved {len(TUNING_CACHE)} entries to {path}")
 
 
 def _frontend(adapter, args, clock):
@@ -59,21 +99,45 @@ def _print_slo(stats, args) -> None:
 
 def serve_vision(model, args):
     """Micro-batched image serving through bucketed bound plans behind
-    the front-end. Returns (engine, {rid: {"label", "logits"}})."""
+    the front-end (on the card, a CUDA graph a bucket). Returns (engine,
+    {rid: {"label", "logits"}})."""
+    from repro_torch.artifact.warmup import collect_warmup
     from repro_torch.serve import (MonotonicClock, VisionAdapter,
                                    VisionEngine, VisionEngineConfig)
     clock = MonotonicClock()
     params = model.init(0, device=args.device)
-    engine = VisionEngine(
-        model, params,
-        VisionEngineConfig(batch=args.capacity,
-                           buckets=None if args.fixed_batch else "auto",
-                           device=args.device),
-        clock=clock)
+    with collect_warmup() as boot:
+        # prewarm (on by default) compiles or loads EVERY bucket here
+        engine = VisionEngine(
+            model, params,
+            VisionEngineConfig(batch=args.capacity,
+                               buckets=None if args.fixed_batch else "auto",
+                               device=args.device, autotune=args.autotune,
+                               artifact_dir=args.plan_artifact),
+            clock=clock)
     plan = engine.plan
+    tuned = ""
+    if args.autotune:
+        baked = engine._bounds[args.capacity].tuned
+        tuned = f", {len(baked)} autotuned stages"
     print(f"arch={args.arch} vision path on {engine.device}: compiled plan "
-          f"with {plan.num_fused()} fused conv blocks, quant={plan.quant}, "
-          f"batch buckets {list(engine.buckets)}")
+          f"with {plan.num_fused()} fused conv blocks, quant={plan.quant}"
+          f"{tuned}, batch buckets {list(engine.buckets)}")
+    if args.warmup_report:
+        print(boot.pretty())
+    if args.plan_artifact:
+        srcs = ", ".join(f"{b}:{s}"
+                         for b, s in sorted(engine.plan_source.items()))
+        print(f"plan artifacts: {srcs}")
+        status = ("OK (trace/fuse/place/tune phases all 0)"
+                  if boot.zero_compile() else
+                  "DEGRADED (fresh pipeline ran for some buckets)")
+        print(f"zero-derivation boot: {status}")
+    if args.save_plan:
+        fps = engine.save_artifacts(args.save_plan)
+        for name, fp in sorted(fps.items()):
+            print(f"saved plan artifact {args.save_plan}/{name} "
+                  f"fingerprint={fp[:16]}")
 
     frontend = _frontend(VisionAdapter(engine), args, clock)
     rng = np.random.RandomState(1)
@@ -118,6 +182,23 @@ def main(argv=None):
     ap.add_argument("--fixed-batch", action="store_true",
                     help="serve every micro-batch at the full --capacity "
                          "shape (disable bucketed batch plans)")
+    ap.add_argument("--tuning-cache", default=None, metavar="PATH",
+                    help="persisted tuned-tile table: load before "
+                         "compiling, save (merged) after serving")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure launch shapes at plan bind time on the "
+                         "card and bake them into the served plans")
+    ap.add_argument("--plan-artifact", default=None, metavar="DIR",
+                    help="boot bucket plans from a plan artifact store "
+                         "(zero trace/fuse/place/tune on a full hit; "
+                         "misses fall back to the fresh pipeline)")
+    ap.add_argument("--save-plan", default=None, metavar="DIR",
+                    help="after boot, save every bucket plan into DIR for "
+                         "the next replica")
+    ap.add_argument("--warmup-report", action="store_true",
+                    help="print the time-to-ready phase breakdown "
+                         "(trace/fuse/place/tune/compile/artifact/"
+                         "first_dispatch)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_arch
@@ -126,7 +207,10 @@ def main(argv=None):
         raise NotImplementedError(
             f"--arch {args.arch}: the LM serving stack is not ported yet "
             f"(ROADMAP §A.11)")
-    return serve_vision(spec.model(), args)
+    _load_tuning_cache(args.tuning_cache)
+    out = serve_vision(spec.model(), args)
+    _save_tuning_cache(args.tuning_cache)
+    return out
 
 
 if __name__ == "__main__":

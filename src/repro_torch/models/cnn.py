@@ -123,13 +123,14 @@ class PaperCNN:
     def compile(self, policy: ExecPolicy | None = None, *,
                 fuse: bool = True, batch: int = 1, mesh=None,
                 autotune: bool = False, stream_budget: int | None = None,
-                verify: bool = False) -> "ExecutionPlan":
+                verify: bool = True) -> "ExecutionPlan":
         """trace → conv+relu+pool fusion → quant lowering → DQE →
         spatial-tiling placement, as a single-device ``ExecutionPlan``
         (DESIGN.md §8, §13). At the default ``stream_budget`` every stage
         fits and the plan is untiled; a smaller budget streams the conv
-        stages as row bands. ``mesh``, ``autotune`` and ``verify`` are not
-        ported yet and raise."""
+        stages as row bands. ``autotune`` bakes measured launch shapes in
+        at bind (DESIGN.md §10); ``verify`` (default on) runs the plan
+        verifier (§14); ``mesh`` is not ported yet and raises."""
         from repro_torch.graph.plan import compile_model
         return compile_model(self, self.input_shape(batch), policy=policy,
                              fuse=fuse, mesh=mesh, autotune=autotune,

@@ -152,12 +152,13 @@ class VGGStyleCNN:
     def compile(self, policy: ExecPolicy | None = None, *,
                 fuse: bool = True, batch: int = 1, mesh=None,
                 autotune: bool = False, stream_budget: int | None = None,
-                verify: bool = False) -> "ExecutionPlan":
+                verify: bool = True) -> "ExecutionPlan":
         """Same contract as ``PaperCNN.compile``: trace → block fusion →
         quant lowering → spatial-tiling placement. At the default 224×224
         the first two blocks exceed the streaming budget and execute as
-        halo-overlapped row bands. ``mesh``, ``autotune`` and ``verify``
-        are not ported yet and raise."""
+        halo-overlapped row bands. ``autotune`` bakes measured launch
+        shapes in at bind; ``verify`` (default on) runs the plan verifier;
+        ``mesh`` is not ported yet and raises."""
         from repro_torch.graph.plan import compile_model
         return compile_model(self, self.input_shape(batch), policy=policy,
                              fuse=fuse, mesh=mesh, autotune=autotune,

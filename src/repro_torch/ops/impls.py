@@ -152,15 +152,12 @@ def _fused_torch(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
     return maxpool2(torch.relu(out), odd=odd)
 
 
-def _fused_cuda_ok(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
-                   **_) -> bool:
-    if not (_conv2d_cuda_ok(x, w, b, stride=stride) and _f32(scale)):
-        return False
-    ho = (x.shape[2] - w.shape[2]) // stride[0] + 1
-    wo = (x.shape[3] - w.shape[3]) // stride[1] + 1
-    # the kernel pools rows/cols in pairs; odd conv outputs take the
-    # ref/torch backends (which apply the explicit core.window odd modes)
-    return ho % 2 == 0 and wo % 2 == 0 and ho >= 2 and wo >= 2
+def _fused_cuda_ok(x, w, b=None, *, stride=(1, 1), scale=None, **_) -> bool:
+    # every VALID conv map: the kernel drops or pads an odd last row or
+    # column as core.window.maxpool2 does, and its wrapper raises
+    # ValueError before any launch where pool_output_size does
+    # (odd='raise' on an odd map, an unknown mode)
+    return _conv2d_cuda_ok(x, w, b, stride=stride) and _f32(scale)
 
 
 @register("fused_conv_block", "cuda", priority=_KERNEL,
@@ -172,7 +169,7 @@ def _fused_cuda(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
                      None if b is None else b.contiguous(),
                      stride=tuple(stride),
                      scale=None if scale is None else scale.contiguous(),
-                     policy=policy)
+                     odd=odd, policy=policy)
 
 
 def fused_conv_block(x: torch.Tensor, w: torch.Tensor,
@@ -180,7 +177,8 @@ def fused_conv_block(x: torch.Tensor, w: torch.Tensor,
                      stride: tuple[int, int] = (1, 1), odd: str = "raise",
                      policy: ExecPolicy | None = None) -> torch.Tensor:
     """conv + bias + relu + 2×2/2 maxpool as ONE op: (B, N, H, W) ·
-    (M, N, Kh, Kw) -> (B, M, Ho/2, Wo/2). Quantization matches ``conv2d``;
+    (M, N, Kh, Kw) -> (B, M, Po, Qo), an odd conv map pooled per ``odd``
+    (``core.window.pool_output_size``). Quantization matches ``conv2d``;
     under ``int8`` the requant scale rides into the backend, since it
     must apply before the in-kernel bias/relu/pool."""
     pol = policy if policy is not None else current_policy()

@@ -9,7 +9,10 @@ Port of ``repro.ops.policy``. One immutable value carries
     C4) with its ``QFormat`` lattice;
   * ``tiling``  — per-op launch-shape overrides (e.g. ``{"threads": 128}``
     or namespaced ``{"conv2d.threads": 128}``), consulted before the
-    heuristics in ``repro_torch.ops.tiling``.
+    tuning cache and the heuristics in ``repro_torch.ops.tiling``;
+  * ``autotune`` — measure launch shapes on a tuning-cache miss
+    (``repro_torch.ops.autotune``): a kernel wrapper's concrete call on
+    the card, or every stage of a plan at bind time.
 
 The CUDA kernels have no interpret mode, so the JAX ``interpret`` field
 has no counterpart. Policies nest via ``use_policy`` (a contextvar).
@@ -38,6 +41,7 @@ class ExecPolicy:
     quant: Literal["none", "qformat", "int8"] = "none"
     qformat: QFormat = field(default_factory=QFormat)
     tiling: tuple[tuple[str, int], ...] = ()
+    autotune: bool = False
 
     def __post_init__(self):
         if self.backend is not None and self.backend not in BACKENDS:

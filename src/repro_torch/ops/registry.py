@@ -89,6 +89,23 @@ class OpRegistry:
         ranked = [b for b in impls if impls[b].rank(platform) is not None]
         return sorted(ranked, key=lambda b: (-impls[b].rank(platform), b))
 
+    def lookup(self, op: str, backend: str) -> OpImpl:
+        """The registered ``backend`` of ``op``; ``BackendUnavailableError``
+        if there is none."""
+        impls = self._impls(op)
+        if backend not in impls:
+            raise BackendUnavailableError(
+                f"op {op!r} has no {backend!r} backend; registered: "
+                f"{sorted(impls)}")
+        return impls[backend]
+
+    def supported_backends(self, op: str, *args, **kwargs) -> list[str]:
+        """Backends auto-selectable on the call's device that accept it,
+        best first: ``[0]`` is what auto-dispatch would run."""
+        impls = self._impls(op)
+        return [b for b in self.backends(op, call_platform(args))
+                if impls[b].accepts(*args, **kwargs)]
+
     def _impls(self, op: str) -> dict[str, OpImpl]:
         if op not in self._ops:
             raise KeyError(f"unknown op {op!r}; registered: {self.ops()}")

@@ -19,15 +19,28 @@ constraint is filling an H100's 132 streaming multiprocessors with whole
     rows up to ``short_eta`` wide take one thread each, wider rows half
     a warp or a warp each (``row_lanes``).
 
-Resolution order: ``ExecPolicy.tiling`` overrides (bare ``<key>`` or
-namespaced ``<op>.<key>``: ``conv2d.``, ``fused_conv_block.``,
-``qmatmul.``, ``tree_reduce_sum.``) > these heuristics; ``fused_tiles``,
-``qmatmul_tiles`` and ``tree_tiles`` resolve and check what a launch
-takes. The JAX ``TuningCache`` waits for the measured autotuner
-(ROADMAP §A.7).
+Resolution order, as in the reference: ``ExecPolicy.tiling`` overrides
+(bare ``<key>`` or namespaced ``<op>.<key>``: ``conv2d.``,
+``fused_conv_block.``, ``qmatmul.``, ``tree_reduce_sum.``) > a
+``TUNING_CACHE`` entry for (op, shape signature, dtype, platform) > these
+heuristics; ``fused_tiles``, ``qmatmul_tiles`` and ``tree_tiles`` resolve
+and check what a launch takes. The measured autotuner
+(``repro_torch.ops.autotune``) writes the cache; the addition tree is not
+tuned, as in the reference, so its tiles skip the cache.
+
+The cache persists as versioned JSON (``SCHEMA_VERSION``):
+``TUNING_CACHE.save``/``.load``, or ``--tuning-cache`` on the launcher.
+A corrupt or unknown-version file warns and loads nothing, so the
+heuristics stay in charge. Entries are keyed by platform: the card's name and compute
+capability (``platform_key``), ``"cpu"`` on the CPU, so tiles measured on
+one card never steer another.
 """
 from __future__ import annotations
 
+import functools
+import json
+import pathlib
+import warnings
 from typing import Mapping
 
 __all__ = ["H100_SMS", "WARP", "MAX_THREADS", "SMEM_MAX", "TREE_MAX_ETA",
@@ -35,7 +48,8 @@ __all__ = ["H100_SMS", "WARP", "MAX_THREADS", "SMEM_MAX", "TREE_MAX_ETA",
            "choose_fused_blocks", "fused_ld", "fused_smem_bytes",
            "fused_tiles", "choose_qmatmul_blocks", "qmatmul_smem_bytes",
            "qmatmul_tiles", "choose_tree_blocks", "tree_smem_bytes",
-           "tree_tiles", "tile_params", "block_threads"]
+           "tree_tiles", "tile_params", "block_threads", "conv_signature",
+           "platform_key", "TuningCache", "TUNING_CACHE", "SCHEMA_VERSION"]
 
 H100_SMS = 132
 WARP = 32
@@ -53,6 +67,9 @@ FUSED_SMEM_TARGET = SMEM_MAX // 2
 FUSED_MAX_THREADS = 320         # a block of several images: 10 warps
 QMATMUL_COLS = 16               # columns a qmatmul lane holds in one pass
 QMATMUL_SMEM_TARGET = SMEM_MAX // 2
+# version of the persisted tuning-cache JSON schema; other versions fall
+# back to the heuristics on load
+SCHEMA_VERSION = 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -60,24 +77,25 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _conv_grid(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
-               pool: bool) -> tuple[int, int]:
+               pool: bool, odd: str = "raise") -> tuple[int, int]:
     """(Po, Qo): the tile rows and columns of a conv's output, one tile
-    being 2×2 conv points; pooled, only whole tiles, else a ragged last
+    being 2×2 conv points; pooled, only whole tiles (an odd last row or
+    column dropped), else, or pooled under ``odd='pad'``, a ragged last
     row or column too."""
     ho = max((h - kh) // sh + 1, 0)
     wo = max((w - kw) // sw + 1, 0)
-    if pool:
+    if pool and odd != "pad":
         return ho // 2, wo // 2
     return _cdiv(ho, 2), _cdiv(wo, 2)
 
 
 def fused_ld(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
-             pool: bool = True) -> int:
+             pool: bool = True, odd: str = "raise") -> int:
     """Row stride of a staged input band, in floats: W, padded (by < 16)
     so that one row of 2×2 tiles ends where the next begins in the 32
     banks, (2·sh·ld − 2·sw·Qo) ≡ 0 (mod 32), when a row of them spans
     fewer than 32 words; else W."""
-    qo = _conv_grid(h, w, kh, kw, sh, sw, pool)[1]
+    qo = _conv_grid(h, w, kh, kw, sh, sw, pool, odd)[1]
     if 2 * sw * qo < 32:
         for ld in range(w, w + 16):
             if (2 * sh * ld - 2 * sw * qo) % 32 == 0:
@@ -87,7 +105,7 @@ def fused_ld(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
 
 def fused_smem_bytes(n: int, h: int, w: int, kh: int, kw: int, sh: int,
                      sw: int, cpb: int, band: int, ipb: int,
-                     pool: bool = True) -> int:
+                     pool: bool = True, odd: str = "raise") -> int:
     """Shared memory of one staged conv block: the group's weights
     (cpb × η) and the input bands (ipb × N × the band's rows × ld), fp32.
     A band's rows are its tiles' windows, at most the input's H: a
@@ -95,15 +113,15 @@ def fused_smem_bytes(n: int, h: int, w: int, kh: int, kw: int, sh: int,
     kernel clamps the band there too and reads nothing past H."""
     rows = min((2 * band - 1) * sh + kh, h)
     return 4 * (n * kh * kw * cpb
-                + ipb * n * rows * fused_ld(h, w, kh, kw, sh, sw, pool))
+                + ipb * n * rows * fused_ld(h, w, kh, kw, sh, sw, pool, odd))
 
 
 def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
-                        kw: int, sh: int, sw: int, pool: bool = True
-                        ) -> dict[str, int]:
+                        kw: int, sh: int, sw: int, pool: bool = True,
+                        odd: str = "raise") -> dict[str, int]:
     """The conv tile template: ``fused_cwp`` with ``pool``, else
     ``conv_window``, whose tiles cover a ragged last row and column of
-    an odd output. ``split`` is the least power of two (≤ 32 and ≤ the
+    an odd output (as pooled ones do under ``odd='pad'``). ``split`` is the least power of two (≤ 32 and ≤ the
     N·Kh kernel rows it divides among lanes) that gives 132 SMs 256
     threads each. The block starts at one whole image and every channel
     group and halves its band, then its channel groups, until it holds
@@ -112,7 +130,7 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
     (``ipb``), so the weights are staged once for several, while the grid
     keeps a block an SM, the slab ``FUSED_SMEM_TARGET``, and the block at
     most two rounds of ``FUSED_MAX_THREADS``."""
-    po, qo = _conv_grid(h, w, kh, kw, sh, sw, pool)
+    po, qo = _conv_grid(h, w, kh, kw, sh, sw, pool, odd)
     po, qo = max(po, 1), max(qo, 1)
     groups = _cdiv(m, CONV_CHANNELS)
     tiles = bsz * groups * po * qo
@@ -123,7 +141,7 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
 
     def smem(cg, band, ipb):
         return fused_smem_bytes(n, h, w, kh, kw, sh, sw, CONV_CHANNELS * cg,
-                                band, ipb, pool)
+                                band, ipb, pool, odd)
 
     cg, band = groups, po
     while band > 1 or cg > 1:
@@ -151,16 +169,24 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
 def fused_tiles(bsz: int, n: int, h: int, w: int, m: int, kh: int, kw: int,
                 sh: int, sw: int,
                 overrides: Mapping[str, int] | None = None,
-                pool: bool = True) -> dict[str, int]:
+                pool: bool = True, odd: str = "raise",
+                platform: str | None = None) -> dict[str, int]:
     """``choose_fused_blocks`` with the op's overrides applied and
     checked (``fused_conv_block.<key>`` with ``pool``, ``conv2d.<key>``
     without), plus the staged row stride ``ld`` and ``smem``, the staged
     slab's bytes: 0 where it would exceed ``SMEM_MAX``, and the kernel
-    then reads device memory instead."""
+    then reads device memory instead. ``odd`` is the pool's odd mode
+    (``core.window.pool_output_size``): ``'pad'`` adds a ragged last tile
+    row or column where the conv map is odd. A ``TUNING_CACHE`` entry
+    of this (op, shape, float32, ``platform``) sits between the
+    overrides and the heuristic."""
     op = "fused_conv_block" if pool else "conv2d"
-    defaults = choose_fused_blocks(bsz, n, h, w, m, kh, kw, sh, sw, pool)
-    t = tile_params(op, defaults, overrides)
-    t["threads"] = block_threads(op, defaults, overrides)
+    defaults = choose_fused_blocks(bsz, n, h, w, m, kh, kw, sh, sw, pool,
+                                   odd)
+    key = {"signature": (bsz, n, h, w, m, kh, kw, sh, sw),
+           "platform": platform}
+    t = tile_params(op, defaults, overrides, **key)
+    t["threads"] = block_threads(op, defaults, overrides, **key)
     if t["cpb"] < CONV_CHANNELS or t["cpb"] % CONV_CHANNELS:
         raise ValueError(f"{op}: cpb {t['cpb']} must be a positive "
                          f"multiple of {CONV_CHANNELS}")
@@ -170,15 +196,15 @@ def fused_tiles(bsz: int, n: int, h: int, w: int, m: int, kh: int, kw: int,
     if t["split"] not in (1, 2, 4, 8, 16, WARP):
         raise ValueError(f"{op}: split {t['split']} must be a power of "
                          f"two up to {WARP}")
-    po = _conv_grid(h, w, kh, kw, sh, sw, pool)[0]
+    po = _conv_grid(h, w, kh, kw, sh, sw, pool, odd)[0]
     grid = (_cdiv(bsz, t["ipb"]) * _cdiv(m, t["cpb"])
             * _cdiv(po, t["band"]))
     if grid > 2 ** 31 - 1:
         raise ValueError(f"{op}: {grid} blocks; CUDA's grid holds at most "
                          f"2**31 - 1")
-    t["ld"] = fused_ld(h, w, kh, kw, sh, sw, pool)
+    t["ld"] = fused_ld(h, w, kh, kw, sh, sw, pool, odd)
     smem = fused_smem_bytes(n, h, w, kh, kw, sh, sw, t["cpb"], t["band"],
-                            t["ipb"], pool)
+                            t["ipb"], pool, odd)
     t["smem"] = smem if smem <= SMEM_MAX else 0
     return t
 
@@ -214,14 +240,16 @@ def choose_qmatmul_blocks(m: int, k: int, n: int) -> dict[str, int]:
 
 
 def qmatmul_tiles(m: int, k: int, n: int,
-                  overrides: Mapping[str, int] | None = None
-                  ) -> dict[str, int]:
-    """``choose_qmatmul_blocks`` with ``qmatmul`` overrides applied and
+                  overrides: Mapping[str, int] | None = None,
+                  platform: str | None = None) -> dict[str, int]:
+    """``choose_qmatmul_blocks`` with ``qmatmul`` overrides (and a
+    ``TUNING_CACHE`` entry of (M, K, N), int8, ``platform``) applied and
     checked, ``kslice`` clipped to ⌈K/4⌉, plus the staged slice's word
     stride ``ld`` and its bytes ``smem``."""
     defaults = choose_qmatmul_blocks(m, k, n)
-    t = tile_params("qmatmul", defaults, overrides)
-    t["threads"] = block_threads("qmatmul", defaults, overrides)
+    key = {"signature": (m, k, n), "dtype": "int8", "platform": platform}
+    t = tile_params("qmatmul", defaults, overrides, **key)
+    t["threads"] = block_threads("qmatmul", defaults, overrides, **key)
     for key in ("rows", "cols", "kslice"):
         if t[key] < 1:
             raise ValueError(f"qmatmul: {key} {t[key]} must be >= 1")
@@ -284,11 +312,19 @@ def tree_tiles(r: int, eta: int,
 
 
 def tile_params(op: str, defaults: Mapping[str, int],
-                overrides: Mapping[str, int] | None = None
-                ) -> dict[str, int]:
-    """Heuristic ``defaults`` with ``overrides`` applied: bare keys apply
-    to any op that knows them, ``"<op>.<key>"`` keys to one op and win."""
+                overrides: Mapping[str, int] | None = None, *,
+                signature: tuple | None = None, dtype="float32",
+                platform: str | None = None) -> dict[str, int]:
+    """Heuristic ``defaults``, refined by the ``TUNING_CACHE`` entry of
+    (``op``, ``signature``, ``dtype``, ``platform``) when a signature is
+    given, with ``overrides`` applied last: bare keys apply to any op
+    that knows them, ``"<op>.<key>"`` keys to one op and win. Unknown
+    keys are ignored, so one policy can carry tiles for several ops."""
     merged = dict(defaults)
+    if signature is not None:
+        hit = TUNING_CACHE.get(op, signature, dtype, platform)
+        if hit:
+            merged.update({k: v for k, v in hit.items() if k in defaults})
     ov = dict(overrides or {})
     for k, v in ov.items():
         if "." not in k and k in defaults:
@@ -301,11 +337,155 @@ def tile_params(op: str, defaults: Mapping[str, int],
 
 
 def block_threads(op: str, defaults: Mapping[str, int],
-                  overrides: Mapping[str, int] | None = None) -> int:
-    """The resolved ``threads`` of ``tile_params``, checked against what
-    a launch takes: whole warps, at most 1024 threads."""
-    t = tile_params(op, defaults, overrides)["threads"]
+                  overrides: Mapping[str, int] | None = None,
+                  **cache_key) -> int:
+    """The resolved ``threads`` of ``tile_params`` (``cache_key`` as
+    there), checked against what a launch takes: whole warps, at most
+    1024 threads."""
+    t = tile_params(op, defaults, overrides, **cache_key)["threads"]
     if t < WARP or t > 1024 or t % WARP:
         raise ValueError(f"{op}: threads per block {t} must be a multiple "
                          f"of {WARP} in [{WARP}, 1024]")
     return t
+
+
+# ------------------------------------------------------- the tuning cache
+
+def conv_signature(x_shape, w_shape, stride) -> tuple[int, ...]:
+    """The tuning-cache shape signature of a conv call, shared by the
+    ``conv2d`` and ``fused_conv_block`` wrappers, the stream executors and
+    the autotuner: (B, N, H, W, M, Kh, Kw, sh, sw)."""
+    bsz, n, h, w = x_shape
+    m, _, kh, kw = w_shape
+    return tuple(int(v) for v in (bsz, n, h, w, m, kh, kw, *stride))
+
+
+def platform_key(device=None) -> str:
+    """The tuning cache's platform: ``"<card name> sm_<cc>"`` for a CUDA
+    device (the current one when ``device`` is None and a card exists),
+    ``"cpu"`` otherwise."""
+    import torch
+    if device is None:
+        if not torch.cuda.is_available():
+            return "cpu"
+        return _card_key(torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    return _card_key(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.cache
+def _card_key(index: int) -> str:
+    import torch
+    major, minor = torch.cuda.get_device_capability(index)
+    return f"{torch.cuda.get_device_name(index)} sm_{major}{minor}"
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+class TuningCache:
+    """Measured launch shapes keyed by (op, shape signature, dtype,
+    platform). The platform key keeps tiles measured on one card (or
+    none) from steering another: entries apply only where they were
+    measured."""
+
+    def __init__(self):
+        self._entries: dict[tuple[str, tuple[int, ...], str, str],
+                            dict[str, int]] = {}
+
+    @staticmethod
+    def key(op: str, shape, dtype, platform: str | None = None
+            ) -> tuple[str, tuple[int, ...], str, str]:
+        return (op, tuple(int(s) for s in shape), _dtype_name(dtype),
+                platform or platform_key())
+
+    def get(self, op: str, shape, dtype,
+            platform: str | None = None) -> dict[str, int] | None:
+        return self._entries.get(self.key(op, shape, dtype, platform))
+
+    def put(self, op: str, shape, dtype, params: Mapping[str, int],
+            platform: str | None = None) -> None:
+        self._entries[self.key(op, shape, dtype, platform)] = {
+            k: int(v) for k, v in dict(params).items()}
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def snapshot(self) -> dict:
+        """Copy of the entry table (tests save/restore around tuning)."""
+        return dict(self._entries)
+
+    def restore(self, entries: dict) -> None:
+        self._entries = dict(entries)
+
+    def export_rows(self) -> list[dict]:
+        """Every entry as a JSON-able row (the persisted ``entries``
+        shape); the plan artifact store embeds the rows of a plan's
+        stages in its manifest."""
+        return [{"op": op, "shape": list(shape), "dtype": dt,
+                 "platform": plat, "params": dict(p)}
+                for (op, shape, dt, plat), p in sorted(self._entries.items())]
+
+    def merge_rows(self, rows, *, keep_existing: bool = False,
+                   source: str = "tuning rows") -> int:
+        """Merge rows in ``export_rows`` form; returns how many landed.
+        ``keep_existing=True`` never overwrites an entry already here
+        (an artifact's rows must not clobber fresher local measurements).
+        Malformed rows warn and are skipped."""
+        loaded = 0
+        for row in rows:
+            try:
+                key = self.key(row["op"], row["shape"], row["dtype"],
+                               row.get("platform"))
+                if keep_existing and key in self._entries:
+                    continue
+                self._entries[key] = {k: int(v)
+                                      for k, v in dict(row["params"]).items()}
+                loaded += 1
+            except (KeyError, TypeError, ValueError, AttributeError):
+                warnings.warn(f"{source}: skipping malformed row {row!r}",
+                              stacklevel=2)
+        return loaded
+
+    def save(self, path) -> None:
+        """Write the versioned JSON cache (schema ``SCHEMA_VERSION``)."""
+        doc = {"version": SCHEMA_VERSION, "entries": self.export_rows()}
+        pathlib.Path(path).write_text(json.dumps(doc, indent=1) + "\n")
+
+    def load(self, path) -> int:
+        """Merge entries from ``path``; returns how many were loaded. A
+        corrupt file, an unknown schema version or malformed rows warn and
+        load nothing (the heuristics stay in charge) rather than raising
+        mid-startup; only a missing file raises, as the caller chose the
+        path."""
+        text = pathlib.Path(path).read_text()
+        try:
+            doc = json.loads(text)
+        except json.JSONDecodeError:
+            warnings.warn(f"tuning cache {path}: corrupt JSON; falling back "
+                          f"to heuristic tiles", stacklevel=2)
+            return 0
+        if not isinstance(doc, dict):
+            warnings.warn(f"tuning cache {path}: expected a JSON object, got "
+                          f"{type(doc).__name__}; falling back to heuristic "
+                          f"tiles", stacklevel=2)
+            return 0
+        if doc.get("version") != SCHEMA_VERSION:
+            warnings.warn(
+                f"tuning cache {path}: unknown schema version "
+                f"{doc.get('version')!r} (this build reads "
+                f"{SCHEMA_VERSION}); falling back to heuristic tiles",
+                stacklevel=2)
+            return 0
+        return self.merge_rows(doc.get("entries", []),
+                               source=f"tuning cache {path}")
+
+
+TUNING_CACHE = TuningCache()

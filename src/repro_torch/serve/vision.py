@@ -8,15 +8,39 @@ the fused ``ExecutionPlan``; on the card its conv stages run the
 ``VisionEngineConfig.buckets`` keeps one bound plan per padded batch
 bucket (e.g. 1/2/4/8 for ``batch=8``), and each micro-batch runs through
 the smallest bucket that fits. The ladder **pre-warms at boot**
-(``prewarm``, default on): every bucket runs once on zeros before any
-request arrives, which builds the CUDA kernels and makes their first
-launch, so no request pays either. Plans are ``bind``-ed at construction:
-weight quantization is folded once.
+(``prewarm``, default on): every bucket's program exists before any
+request arrives. Plans are ``bind``-ed at construction: weight
+quantization is folded once.
+
+On the card each bucket is served through a **CUDA graph**
+(``repro_torch.artifact.aot``), the counterpart of the reference's AOT
+executable: at boot the kernels are built, the bound plan runs once and
+one call is captured on a static input; a micro-batch is copied into the
+bucket's static input (pad lanes zeroed), the graph replays, and the
+logits are copied out of the static output before the next batch. A
+capture or replay that fails raises; nothing falls back to eager
+dispatch. The graphs launch kernels without their wrappers, so the
+engine counts replays (``replays``) and ``graph_launches`` gives the
+kernel launches they made. A CPU engine calls the bound plan directly.
+
+``VisionEngineConfig.autotune`` compiles with ``autotune=True``: each
+bucket's bind measures launch shapes (or takes them from the tuning
+cache) and bakes the winners in, so traffic never re-tunes.
+
+``VisionEngineConfig.artifact_dir`` points the ladder at a plan artifact
+store (``repro_torch.artifact``): each bucket first tries
+``<dir>/bucket_<b>`` — a hit restores the bound plan (weights, folded
+quantization, baked tiles) with no trace/fuse/place/tune work; a stale
+or corrupt artifact warns and falls back to the fresh pipeline.
+``save_artifacts()`` writes the ladder out (``--save-plan``).
+``plan_source`` records each bucket's rung: ``"artifact+aot"`` — the
+artifact loaded and its recorded kernel build is the one already built
+here, so no nvcc runs (the CPU builds nothing); ``"artifact"`` — the
+artifact loaded, the kernels are built first; ``"fresh"`` — compiled.
 
 The engine runs on ``config.device`` — the card unless the caller asks
 for the CPU — and moves the params there. The reference's mesh
-placement, bind-time autotuning and plan artifact store are later slices
-and raise ``NotImplementedError``.
+placement is a later slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.artifact.warmup import phase
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.ops.policy import ExecPolicy
 from repro_torch.serve.clock import Clock, MonotonicClock
@@ -48,10 +73,13 @@ class VisionEngineConfig:
     # the kernel build or a first launch
     prewarm: bool = True
     device: str = DEFAULT_DEVICE
-    # not ported yet: each raises NotImplementedError when set
-    mesh: object | None = None
+    # measured launch shapes at bind time (DESIGN.md §10)
     autotune: bool = False
+    # plan artifact store directory (DESIGN.md §12): bucket plans load from
+    # ``<dir>/bucket_<b>`` when present; ``save_artifacts()`` writes them
     artifact_dir: str | None = None
+    # not ported yet: raises NotImplementedError when set (ROADMAP §A.10)
+    mesh: object | None = None
 
 
 @dataclass
@@ -89,12 +117,6 @@ class VisionEngine:
             raise NotImplementedError(
                 "mesh-placed vision serving is not ported yet (ROADMAP "
                 "§A.10, channel parallelism)")
-        if config.autotune:
-            raise NotImplementedError(
-                "bind-time autotuning is not ported yet (ROADMAP §A.7)")
-        if config.artifact_dir is not None:
-            raise NotImplementedError(
-                "the plan artifact store is not ported yet (ROADMAP §A.8)")
         self.model = model
         self.config = config
         self.clock = clock if clock is not None else MonotonicClock()
@@ -102,6 +124,14 @@ class VisionEngine:
         self._params = _to_device(params, self.device)
         self.buckets = self._resolve_buckets(config)
         self._bounds: dict[int, object] = {}    # bucket -> BoundPlan
+        self._graphs: dict[int, object] = {}    # bucket -> BucketGraph
+        self.replays: dict[int, int] = {}       # bucket -> graph replays
+        # bucket -> "artifact+aot" | "artifact" | "fresh" (boot telemetry)
+        self.plan_source: dict[int, str] = {}
+        self._store = None
+        if config.artifact_dir is not None:
+            from repro_torch.artifact.store import PlanStore
+            self._store = PlanStore(config.artifact_dir)
         self.plan = self._compile_bucket(config.batch)
         if config.prewarm:
             self.warm()
@@ -129,17 +159,80 @@ class VisionEngine:
                 f"{config.batch} (it serves saturated traffic)")
         return tuple(ladder)
 
+    @staticmethod
+    def bucket_name(bucket: int) -> str:
+        """Artifact name of one bucket plan inside the store."""
+        return f"bucket_{bucket}"
+
     def _compile_bucket(self, bucket: int):
-        """Compile + bind one padded batch shape and run it once on zeros
-        (builds the kernels, makes their first launch)."""
-        plan = self.model.compile(policy=self.config.policy,
-                                  fuse=self.config.fuse, batch=bucket)
-        bound = plan.bind(self._params)
-        self._bounds[bucket] = bound
+        """Produce the ready program for one padded batch shape: restore
+        the bound plan from the artifact store (any problem warns and
+        falls through) or compile + bind it; on the card capture its CUDA
+        graph (or take the process's graph of the same plan and bucket);
+        then run it once on zeros, outside any timed serving step."""
+        from repro_torch.kernels.build import is_built
         shape = (bucket, *self.model.input_shape()[1:])
-        with torch.inference_mode():
-            bound(torch.zeros(shape, device=self.device)).cpu()
-        return plan
+        bound = None
+        source = "fresh"
+        if self._store is not None:
+            art = self._store.load(self.bucket_name(bucket),
+                                   params=self._params, device=self.device)
+            if art is not None:
+                bound = art.bound
+                source = ("artifact+aot"
+                          if self.device.type != "cuda" or is_built()
+                          else "artifact")
+        if bound is None:
+            plan = self.model.compile(policy=self.config.policy,
+                                      fuse=self.config.fuse, batch=bucket,
+                                      autotune=self.config.autotune)
+            bound = plan.bind(self._params)
+        self._bounds[bucket] = bound
+        self.plan_source[bucket] = source
+        zeros = torch.zeros(shape, device=self.device)
+        if self.device.type == "cuda":
+            from repro_torch.artifact.aot import (cache_graph, cached_graph,
+                                                  capture_graph,
+                                                  executable_key)
+            key = executable_key(bound.fingerprint(), shape, self.device)
+            graph = cached_graph(key)
+            if graph is None:
+                graph = capture_graph(bound, shape)
+                cache_graph(key, graph)
+            self._graphs[bucket] = graph
+            with phase("first_dispatch"), torch.inference_mode():
+                graph.run(zeros).cpu()
+            self.replays[bucket] = 1
+        else:
+            with phase("first_dispatch"), torch.inference_mode():
+                bound(zeros)
+        return bound.plan
+
+    def save_artifacts(self, directory=None) -> dict[str, str]:
+        """Persist every compiled bucket plan into the store at
+        ``directory`` (default: the configured ``artifact_dir``) — what
+        ``launch/serve.py --save-plan`` calls. Returns {artifact name:
+        fingerprint}."""
+        from repro_torch.artifact.store import PlanStore
+        if directory is not None:
+            store = PlanStore(directory)
+        elif self._store is not None:
+            store = self._store
+        else:
+            raise ValueError("no artifact directory: pass one or set "
+                             "VisionEngineConfig.artifact_dir")
+        return {self.bucket_name(b): store.save(self.bucket_name(b), bound)
+                for b, bound in sorted(self._bounds.items())}
+
+    def graph_launches(self) -> dict[str, int]:
+        """Kernel launches the engine's graph replays made: per bucket,
+        the launches its graph captured × its replays (the first, at
+        boot, included)."""
+        out: dict[str, int] = {}
+        for b, n in self.replays.items():
+            for k, v in self._graphs[b].kernels.items():
+                out[k] = out.get(k, 0) + v * n
+        return out
 
     def warm(self) -> None:
         """Make every ladder bucket's bound plan exist now."""
@@ -182,13 +275,22 @@ class VisionEngine:
             self._compile_bucket(bucket)
         t0 = self.clock.now()
         batch = np.stack(imgs)
-        if len(uids) < bucket:                  # pad to the bucket shape
-            pad = np.zeros((bucket - len(uids), *batch.shape[1:]),
-                           np.float32)
-            batch = np.concatenate([batch, pad])
-        with torch.inference_mode():
-            logits = self._bounds[bucket](
-                torch.from_numpy(batch).to(self.device)).cpu().numpy()
+        graph = self._graphs.get(bucket)
+        if graph is not None:
+            # copy in (pad lanes zeroed), replay, copy the real lanes out
+            # before the next replay overwrites the static output
+            with torch.inference_mode():
+                logits = graph.run(torch.from_numpy(batch))[
+                    :len(uids)].cpu().numpy()
+            self.replays[bucket] += 1
+        else:
+            if len(uids) < bucket:              # pad to the bucket shape
+                pad = np.zeros((bucket - len(uids), *batch.shape[1:]),
+                               np.float32)
+                batch = np.concatenate([batch, pad])
+            with torch.inference_mode():
+                logits = self._bounds[bucket](
+                    torch.from_numpy(batch).to(self.device)).cpu().numpy()
         for i, uid in enumerate(uids):
             self.results[uid] = {"label": int(logits[i].argmax()),
                                  "logits": logits[i]}

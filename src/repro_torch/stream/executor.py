@@ -34,11 +34,10 @@ a band may sum in another order than the untiled launch.
 Tile height resolves through ``repro_torch.ops.tiling.tile_params`` under
 the op names ``stream_conv2d`` / ``stream_fused_conv_block`` with the
 single key ``th`` (the stream's band height, distinct from the conv
-kernels' own ``conv2d.band`` / ``fused_conv_block.band``): a policy
-override (``"stream_conv2d.th"``) beats the ``SpatialTiling`` spec's
-budget-derived default. The reference puts a tuning-cache row between
-the two; the port has no tuning cache until the measured autotuner
-(ROADMAP §A.7), so that step is absent, not skipped.
+kernels' own ``conv2d.band`` / ``fused_conv_block.band``), as in the
+reference: a policy override (``"stream_conv2d.th"``) beats a
+``TUNING_CACHE`` row for this call's signature, which beats the
+``SpatialTiling`` spec's budget-derived default.
 """
 from __future__ import annotations
 
@@ -49,7 +48,7 @@ from repro_torch.core.window import pool_output_size
 from repro_torch.ops.impls import _conv_quant_operands, split_requant
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.registry import dispatch
-from repro_torch.ops.tiling import tile_params
+from repro_torch.ops.tiling import conv_signature, platform_key, tile_params
 from repro_torch.stream.tiling import SpatialTiling, conv_bands, pooled_bands
 
 __all__ = ["stream_conv2d", "stream_fused_conv_block", "resolve_tile_rows"]
@@ -57,12 +56,12 @@ __all__ = ["stream_conv2d", "stream_fused_conv_block", "resolve_tile_rows"]
 
 def resolve_tile_rows(op: str, x, w, stride, tiling: SpatialTiling,
                       policy: ExecPolicy) -> int:
-    """Tile height for this call: the SpatialTiling's budget-derived
-    default, overridden by policy tiling (``"<op>.th"``). ``x``, ``w``
-    and ``stride`` keep the reference's signature; they key its
-    tuning-cache row, which joins with ROADMAP §A.7."""
-    th = tile_params(op, {"th": tiling.tile_rows},
-                     policy.tile_overrides)["th"]
+    """Tile height for this call: policy tiling (``"<op>.th"``) >
+    ``TUNING_CACHE`` entry for (op, conv signature, dtype, platform) >
+    the SpatialTiling's budget-derived default."""
+    th = tile_params(op, {"th": tiling.tile_rows}, policy.tile_overrides,
+                     signature=conv_signature(x.shape, w.shape, stride),
+                     dtype=x.dtype, platform=platform_key(x.device))["th"]
     return max(int(th), 1)
 
 
@@ -100,9 +99,8 @@ def stream_fused_conv_block(x, w, b=None, *, stride=(1, 1), odd="raise",
     """Halo-banded ``repro_torch.ops.fused_conv_block``: bands count
     *pooled* rows (even conv-row cuts — no 2×2 pool window ever straddles
     bands; only the image's own ragged last rows see the ``odd`` mode,
-    exactly as untiled). On the card the fused kernel takes only even
-    conv maps, so a band with an odd one raises there, as the untiled
-    call does."""
+    exactly as untiled). On the card the fused kernel pools a band's odd
+    last conv row as the untiled call does (``odd='pad'``)."""
     pol = policy if policy is not None else current_policy()
     x, w, b = _conv_quant_operands(pol, x, w, b)
     x, w, s = split_requant(x, w)

@@ -186,8 +186,8 @@ def check_tiling(tiling: "SpatialTiling", *, fused: bool,
                  ) -> list[tuple[str, str]]:
     """Streaming-legality checks for one tiled stage, as (code, message)
     pairs — the plan verifier's ``stream-*`` family lives here so the
-    band math and its invariants stay in one module. The port's verifier
-    waits for ROADMAP §A.9; until then nothing calls this but the tests.
+    band math and its invariants stay in one module; its caller is
+    ``repro_torch.analysis.verifier._check_streaming``.
 
     Checks: halo accounting matches K/stride (``stream-halo``); the
     pooled flag matches the stage family, so no 2×2 pool window can
@@ -261,8 +261,8 @@ class SpatialTiling:
     *pooled* output rows for a fused stage (``pooled=True``) — the pool
     alignment rule above. ``halo`` records kh - sh for introspection and
     the halo-accounting tests; ``budget_bytes`` is the per-image budget
-    the placement pass applied (part of the reference's artifact
-    fingerprint, which the port gains with ROADMAP §A.8)."""
+    the placement pass applied, which the artifact fingerprint covers
+    (``repro_torch.artifact.fingerprint``), as the reference's does."""
 
     tile_rows: int
     halo: int

@@ -27,7 +27,7 @@ from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.core.window import pool_output_size
 from repro_torch.graph.ir import Conv2DNode, FusedConvBlockNode
 from repro_torch.graph.passes import stage_input_spec
-from repro_torch.models.cnn import PaperCNN
+from repro_torch.models.cnn import PaperCNN, PaperCNNConfig
 from repro_torch.models.vgg import VGGStyleCNN, VGGStyleCNNConfig
 from repro_torch.ops import (BackendUnavailableError, ExecPolicy, conv2d,
                              fused_conv_block, qdense, quantize_conv_int8,
@@ -192,12 +192,13 @@ def test_auto_dispatch_reaches_the_kernels(card):
 
 
 def test_refused_call_raises_instead_of_falling_back(card):
-    x = torch.zeros((1, 15, 13, 13), device=card)
-    w = torch.zeros((20, 15, 5, 5), device=card)     # odd 9x9 conv output
+    # float64: the kernels take float32, and no plain version may run
+    x = torch.zeros((1, 15, 13, 13), device=card, dtype=torch.float64)
+    w = torch.zeros((20, 15, 5, 5), device=card, dtype=torch.float64)
     with pytest.raises(BackendUnavailableError):
         fused_conv_block(x, w, odd="drop")
     with pytest.raises(ValueError):
-        cw_ops.conv_window(x, w.cpu())
+        cw_ops.conv_window(x.float(), w.float().cpu())
 
 
 @pytest.mark.parametrize("shape", TREE_SHAPES)
@@ -442,19 +443,154 @@ def test_highres_fc_qmatmul_matches_plain(card, bsz):
 
 def test_odd_streamed_fused_band_raises(card, monkeypatch):
     """13 rows, k = 3, odd='pad': 11 conv rows, pooled bands of 2, 2, 2
-    rows whose last reads input rows 8-13, a conv map of 3 rows, which
-    the fused kernel does not take. (Under odd='drop' the last band stops
-    at row 12 and is even.) The two even bands launch, the odd one raises
-    and never reaches the plain version."""
+    rows whose last reads input rows 8-13, a conv map of 3 rows. (Under
+    odd='drop' the last band stops at row 12 and is even.) Since the
+    kernel pools odd maps this no longer raises: in every mode all three
+    bands launch the fused kernel, none reaches the plain version, and
+    the streamed result equals the plain version of the whole stage."""
     def refuse(*_, **__):
         raise AssertionError("a plain version ran on a CUDA tensor")
 
-    monkeypatch.setattr(fc_ops, "fused_cwp_ref", refuse)
     g = torch.Generator().manual_seed(13)
     x = torch.randn((2, 3, 13, 14), generator=g).to(card)
     w = torch.randn((4, 3, 3, 3), generator=g).to(card)
+    b = (torch.randn((4,), generator=g) * 0.1).to(card)
+    plain = fc_ops.fused_cwp_ref
+    for mode in MODES:
+        pol = ExecPolicy(quant=mode)
+        monkeypatch.setattr(fc_ops, "fused_cwp_ref", plain)
+        want = fused_conv_block(x, w, b, odd="pad",
+                                policy=pol.with_options(backend="torch"))
+        monkeypatch.setattr(fc_ops, "fused_cwp_ref", refuse)
+        before = fc_ops.launches
+        got = stream_fused_conv_block(
+            x, w, b, odd="pad", policy=pol,
+            tiling=SpatialTiling(2, 2, pooled=True))
+        assert fc_ops.launches == before + 3
+        assert got.shape == (2, 4, 6, 6)
+        _agree(mode, got, want)
+
+
+# ------------------------------------------------- odd pooled maps
+
+# (N, H, W, M, K) whose conv map is odd: 9x9 (a 5x5 kernel on conv2's
+# input), a 224-wide band with an odd row count, odd in both dims
+ODD_POOL_SHAPES = [(15, 13, 13, 20, 5), (3, 95, 224, 8, 5),
+                   (3, 44, 223, 8, 5), (8, 27, 27, 16, 3)]
+
+
+@pytest.mark.parametrize("odd", ["drop", "pad"])
+@pytest.mark.parametrize("bsz", [1, 8])
+@pytest.mark.parametrize("shape", ODD_POOL_SHAPES)
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_odd_pools_match_plain(card, mode, shape, bsz, odd):
+    x, w, b, s = _operands(shape, mode, bsz, card)
     before = fc_ops.launches
-    with pytest.raises(BackendUnavailableError):
-        stream_fused_conv_block(x, w, None, odd="pad",
-                                tiling=SpatialTiling(2, 2, pooled=True))
-    assert fc_ops.launches == before + 2
+    got = fc_ops.fused_cwp(x, w, b, scale=s, odd=odd)
+    assert fc_ops.launches == before + 1
+    _agree(mode, got, fused_cwp_ref(x, w, b, scale=s, odd=odd))
+
+
+def test_fused_odd_raise_raises_before_launching(card):
+    x, w, b, _ = _operands((15, 13, 13, 20, 5), "none", 2, card)
+    before = fc_ops.launches
+    with pytest.raises(ValueError, match="odd"):
+        fused_conv_block(x, w, b)
+    assert fc_ops.launches == before
+
+
+# ------------------------------------------- boot: graphs, tuning, artifacts
+
+def _images(n, shape=(1, 28, 28), seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("bsz", [1, 8])
+def test_graph_replay_matches_direct_call(card, mode, bsz):
+    """A bucket's CUDA graph replays bitwise what a direct call of its
+    bound plan computes; its kernels were counted once, at capture."""
+    from repro_torch.artifact.aot import capture_graph
+    model = PaperCNN(PaperCNNConfig(policy=ExecPolicy(quant=mode)))
+    bound = model.compile(batch=bsz).bind(model.init(0, device=card))
+    graph = capture_graph(bound, model.input_shape(bsz))
+    want = {"fused_cwp": 2, "conv_window": 0, "addtree": 0,
+            "qmatmul": int(mode == "int8")}
+    assert graph.kernels == want
+    x = torch.from_numpy(np.stack(_images(bsz, seed=bsz)))
+    before = fc_ops.launches
+    got = graph.run(x).clone()
+    assert fc_ops.launches == before
+    assert torch.equal(got, bound(x.to(card)))
+
+
+@pytest.mark.parametrize("mode", ["int8", "none"])
+def test_short_batch_after_a_full_one_sees_zero_pad_lanes(card, mode):
+    """The static input keeps the last batch's images: a short batch must
+    zero its pad lanes (an int8 activation scale is the whole padded
+    batch's absmax), so its logits equal those of a fresh engine."""
+    from repro_torch.artifact import clear_graph_cache
+    model = PaperCNN()
+    params = model.init(0, device="cpu")
+    cfg = VisionEngineConfig(batch=8, policy=ExecPolicy(quant=mode),
+                             device="cuda")
+    clear_graph_cache()
+    big = [img * 50 for img in _images(8, seed=1)]
+    short = _images(3, seed=2)
+    eng = VisionEngine(model, params, cfg)
+    for img in big + short:
+        eng.submit(img)
+    got = eng.run()
+    clear_graph_cache()                 # the fresh engine captures its own
+    fresh = VisionEngine(model, params, cfg)
+    for img in short:
+        fresh.submit(img)
+    want = fresh.run()
+    for i in range(3):
+        np.testing.assert_array_equal(got[8 + i]["logits"],
+                                      want[i]["logits"])
+    assert eng.replays == {8: 3} and eng.graph_launches()["fused_cwp"] == 6
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_tuned_plan_matches_heuristic(card, mode, monkeypatch):
+    """Bind-time autotuning on the card: every stage measured, and the
+    tuned plan equals the heuristic one bitwise in int8 and qformat,
+    within 1e-5 in fp32 (``split`` lanes change the fp32 sum order)."""
+    import repro_torch.ops.autotune as autotune
+    from repro_torch.ops.tiling import TUNING_CACHE
+    monkeypatch.setattr(autotune, "TUNE_ITERS", 2)
+    saved = TUNING_CACHE.snapshot()
+    TUNING_CACHE.clear()
+    try:
+        model = PaperCNN(PaperCNNConfig(policy=ExecPolicy(quant=mode)))
+        params = model.init(0, device=card)
+        x = torch.from_numpy(np.stack(_images(8))).to(card)
+        heur = model.compile(batch=8).bind(params)(x)
+        tuned = model.compile(batch=8, autotune=True).bind(params)
+        assert len(TUNING_CACHE) == (3 if mode == "int8" else 2)
+        _agree(mode, tuned(x), heur)
+    finally:
+        TUNING_CACHE.restore(saved)
+
+
+def test_artifact_boot_on_card_is_bitwise(card, tmp_path):
+    from repro_torch.artifact import clear_graph_cache, collect_warmup
+    model = PaperCNN(PaperCNNConfig(policy=ExecPolicy(quant="int8")))
+    params = model.init(0, device="cpu")
+    cfg = dict(batch=4, buckets="auto", device="cuda")
+    fresh = VisionEngine(model, params, VisionEngineConfig(**cfg))
+    fresh.save_artifacts(tmp_path)
+    clear_graph_cache()
+    with collect_warmup() as boot:
+        booted = VisionEngine(model, params, VisionEngineConfig(
+            **cfg, artifact_dir=str(tmp_path)))
+    assert boot.zero_compile()
+    assert set(booted.plan_source.values()) == {"artifact+aot"}
+    for img in _images(5):
+        fresh.submit(img)
+        booted.submit(img)
+    a, b = fresh.run(), booted.run()
+    for uid in a:
+        np.testing.assert_array_equal(a[uid]["logits"], b[uid]["logits"])

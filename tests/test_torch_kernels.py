@@ -239,12 +239,12 @@ def test_backend_priorities_by_device():
 
 class _CudaLike:
     """Shape-only stand-in for a CUDA tensor: dispatch reads its device
-    and the predicates its shape, and nothing may run on it."""
+    and the predicates its shape and dtype, and nothing may run on it."""
 
-    def __init__(self, shape):
+    def __init__(self, shape, dtype=torch.float32):
         self.shape = shape
         self.ndim = len(shape)
-        self.dtype = torch.float32
+        self.dtype = dtype
         self.device = torch.device("cuda")
 
     def contiguous(self):
@@ -252,17 +252,20 @@ class _CudaLike:
 
 
 def test_cuda_call_the_kernel_refuses_raises():
-    """On a CUDA tensor only the kernel is a candidate: a shape it
-    refuses (odd conv output) raises instead of falling back to a plain
-    backend."""
-    x, w = _CudaLike((2, 15, 13, 13)), _CudaLike((20, 15, 5, 5))
+    """On a CUDA tensor only the kernel is a candidate: a call it refuses
+    (a float64 input; the kernels take float32) raises instead of falling
+    back to a plain backend."""
+    x = _CudaLike((2, 15, 13, 13), torch.float64)
+    w = _CudaLike((20, 15, 5, 5), torch.float64)
     with pytest.raises(BackendUnavailableError):
         REGISTRY.dispatch("fused_conv_block", x, w, None, stride=(1, 1),
                           odd="drop", scale=None)
 
 
 def test_named_backend_refusal_raises():
-    x, w = torch.zeros(1, 15, 13, 13), torch.zeros(20, 15, 5, 5)
+    # float64: a call the cuda backend refuses (its kernel takes float32)
+    x = torch.zeros(1, 15, 13, 13, dtype=torch.float64)
+    w = torch.zeros(20, 15, 5, 5, dtype=torch.float64)
     with pytest.raises(BackendUnavailableError):
         fused_conv_block(x, w, odd="drop", policy=ExecPolicy(backend="cuda"))
     out = fused_conv_block(x, w, odd="drop", policy=ExecPolicy(
@@ -499,3 +502,72 @@ def test_launch_args_match_the_c_signature(name):
     ops = (build.CSRC.parent / "kernels" / name / "ops.py").read_text()
     got = re.search(r"launch_args\((\d+), (\d+)\)", ops).groups()
     assert tuple(map(int, got)) == want
+
+
+# ------------------------------------------------------ odd pooled maps
+
+# (N, H, W, M, K) whose conv map is odd: a 5x5 kernel on conv2's 13x13
+# input (9x9), and a band of a 224-wide image with an odd row count
+# (7x220)
+ODD_POOL_SHAPES = {"9x9": (15, 13, 13, 20, 5), "band": (3, 11, 224, 8, 5)}
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("odd", ["drop", "pad"])
+@pytest.mark.parametrize("shape", sorted(ODD_POOL_SHAPES))
+@pytest.mark.parametrize("mode", MODES)
+def test_odd_pooled_maps_match_reference_xla(backend, odd, shape, mode):
+    """``fused_conv_block`` at an odd conv map, ``odd='drop'`` and
+    ``'pad'``, through the plain backend and the kernel's wrapper (its
+    plain version on the CPU), against the reference's ``xla`` backend op
+    by op: int8 bitwise, qformat one step, fp32 1e-5."""
+    from repro.ops import fused_conv_block as j_fused_op
+    n, h, w_, m, k = ODD_POOL_SHAPES[shape]
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, n, h, w_).astype(np.float32)
+    w = (rng.randn(m, n, k, k) / np.sqrt(n * k * k)).astype(np.float32)
+    b = (rng.randn(m) * 0.1).astype(np.float32)
+    want = np.asarray(j_fused_op(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), odd=odd,
+        policy=JPolicy(backend="xla", quant=mode)))
+    got = fused_conv_block(_t(x), _t(w), _t(b), odd=odd,
+                           policy=ExecPolicy(backend=backend, quant=mode))
+    ho, wo = h - k + 1, w_ - k + 1
+    assert ho % 2 and want.shape == (2, m, (ho + (odd == "pad")) // 2,
+                                     (wo + (wo % 2 and odd == "pad")) // 2)
+    _agree(mode, got.numpy(), want)
+
+
+def test_odd_raise_refuses_an_odd_map_before_any_launch():
+    x, w = torch.zeros(1, 15, 13, 13), torch.zeros(20, 15, 5, 5)
+    before = fc_ops.launches
+    with pytest.raises(ValueError, match="odd"):
+        fc_ops.fused_cwp(x, w)
+    with pytest.raises(ValueError, match="odd"):
+        fused_conv_block(x, w, policy=ExecPolicy(backend="cuda"))
+    assert fc_ops.launches == before
+    # the kernel's predicate takes every odd mode: the wrapper decides
+    assert REGISTRY.lookup("fused_conv_block", "cuda").accepts(
+        x, w, None, stride=(1, 1), odd="pad", scale=None)
+
+
+@pytest.mark.parametrize("shape", sorted(ODD_POOL_SHAPES))
+@pytest.mark.parametrize("bsz", [1, 8])
+def test_pad_tiles_cover_the_ragged_rows(shape, bsz):
+    """Under ``odd='pad'`` the pooled tile grid is ceil(Ho/2) x
+    ceil(Wo/2), as conv_window's, and the staged band holds every row
+    its tiles read and none past H; under ``'drop'`` it is the floor."""
+    n, h, w, m, k = ODD_POOL_SHAPES[shape]
+    args = (n, h, w, m, k, k, 1, 1)
+    ho = h - k + 1
+    for odd, po in (("pad", -(-ho // 2)), ("drop", ho // 2)):
+        t = tiling.fused_tiles(bsz, *args, odd=odd)
+        staged = min((2 * t["band"] - 1) + k, h)
+        if odd == "pad":
+            for row0, top in _tile_rows_read(h, k, 1, ho, t["band"], po):
+                assert top <= min(staged, h - row0)
+        assert t["smem"] == 4 * (n * k * k * t["cpb"]
+                                 + t["ipb"] * n * staged * t["ld"])
+    # a padded pool tiles the conv map exactly as the unpooled conv does
+    assert tiling.fused_tiles(bsz, *args, odd="pad") == \
+        tiling.fused_tiles(bsz, *args, pool=False)

@@ -119,10 +119,24 @@ def test_bucket_ladder_and_prewarm():
 @pytest.mark.parametrize("option", [{"mesh": object()}, {"autotune": True},
                                     {"artifact_dir": "plans"}])
 def test_unported_engine_options_raise(option):
+    """Only the mesh is still unported (ROADMAP §A.10). ``autotune``
+    serves (the CPU tunes nothing) and an ``artifact_dir`` without an
+    artifact warns and compiles fresh, as the reference's engine does."""
     model = PaperCNN()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VisionEngine(model, model.init(0, device="cpu"),
-                     VisionEngineConfig(device="cpu", **option))
+    params = model.init(0, device="cpu")
+    if "mesh" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            VisionEngine(model, params,
+                         VisionEngineConfig(device="cpu", **option))
+    elif "artifact_dir" in option:
+        with pytest.warns(UserWarning, match="falling back"):
+            eng = VisionEngine(model, params,
+                               VisionEngineConfig(device="cpu", **option))
+        assert set(eng.plan_source.values()) == {"fresh"}
+    else:
+        eng = VisionEngine(model, params,
+                           VisionEngineConfig(device="cpu", **option))
+        assert all(not b.tuned for b in eng._bounds.values())
 
 
 def test_launcher_serves_on_cpu(capsys):

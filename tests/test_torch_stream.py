@@ -33,8 +33,10 @@ once instead of each op at each band's shape. Tolerances:
   may sum in other orders than each other and than XLA.
 
 The reference's ``TestFingerprint`` and ``TestStreamAutotune`` families
-are not ported here: they wait for the artifact store (ROADMAP §A.8) and
-the measured autotuner (§A.7).
+are ported beside the modules they test: ``tests/test_torch_artifact.py``
+(the budget in the fingerprint, streamed roundtrips) and
+``tests/test_torch_autotune.py`` (the ``th`` axis, its cache row and its
+baking into a plan).
 """
 import functools
 
@@ -304,7 +306,9 @@ def test_arch_registry_and_init():
     model = spec.model()
     assert isinstance(model, VGGStyleCNN) and spec.family == "cnn"
     assert model.input_shape(8) == (8, 3, 224, 224)
-    assert "highres_cnn" not in ARCH_IDS and "mnist_cnn" in ARCH_IDS
+    # the reference's rule: both CNNs stay out of the LM arch list
+    assert "highres_cnn" not in ARCH_IDS and "mnist_cnn" not in ARCH_IDS
+    assert ARCH_IDS == [a for a in ARCH_IDS if get_arch(a).family != "cnn"]
     a = model.init(7, device="cpu")
     b = model.init(torch.Generator().manual_seed(7), device="cpu")
     jshapes = jax.tree_util.tree_map(
