@@ -17,6 +17,8 @@ Phases, each printing one JSON line:
            of highres_cnn's 224x224 plans (B in {2, 8}), qmatmul bitwise at
            M up to 4,097, K in {37, 320, 4,099, 4,608}, N up to 300, on an
            unaligned view, with scalar scales and with K cut into slices,
+           and at qwen1.5-0.5b's MLP shapes (M in {1, 4, 32, 64, 256},
+           (K, N) in {(1,024, 2,816), (2,816, 1,024)}, f32 and bf16 out),
            fused_cwp at odd conv maps (a 9x9 map, a 224-wide band with an
            odd row count; odd='drop' and 'pad'; B in {1, 8}), and the
            addition tree bitwise at (R, η) shapes up to its η cap that
@@ -63,15 +65,35 @@ Phases, each printing one JSON line:
            shape of the streamed blocks, blocks 2 and 3, the K = 4,608 fc);
            one row tagged ``odd_pool``: fused_cwp on an odd-row 224-wide
            band under odd='pad', beside cuDNN's conv + relu + ceil-mode
-           pool;
+           pool; rows tagged ``qwen1.5-0.5b``: qmatmul at the LM's decode
+           (M = 4) and prefill (M = 64) shapes, beside ``torch._int_mm``
+           and the two scale multiplies where ``_int_mm`` takes the shape
+           (M > 16);
   plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
            under three stream budgets (untiled, the default 1 MiB,
-           256 KiB): device time between CUDA events, and wall time.
+           256 KiB): device time between CUDA events, and wall time;
+  lm       qwen1.5-0.5b at full width and depth (24 layers, d_model
+           1,024, vocab 151,936, bf16, random weights from seed 0): the
+           launcher (``--capacity 4 --requests 8 --prompt-len 64
+           --decode-steps 16``) with a bf16 and an int8 KV cache, then
+           ``Engine`` under ``ExecPolicy(quant="int8")`` over the same
+           requests, whose qmatmul launches must be 72 (24 layers x wi, wg,
+           wo) a prefill and a decode step, and whose tokens must equal
+           the same engine's through the plain qmatmul
+           (``backend="torch"``) on the card, as must, bitwise, the logits
+           of a 64-token prefill and of a decode step over 4 full slots
+           at their own positions; a 2-layer
+           model at full width, fp32 and int8, card against CPU (each
+           request's prefill logits and the first decode step's); the
+           device and wall time of a 64-token prefill and of a decode step
+           at capacity 4 in bf16 and int8, with a profile of a decode step.
 
 Then the kernels line (one JSON object; its times are the paper CNN's
 served batch at B = 8, its launches the wrapper launches of the serve,
-eager, tree and stream phases and of the boot phase, each counted from 0
-just before it; a CUDA graph's kernels are counted once, at capture),
+eager, tree and stream phases, of the boot phase and of the lm phase's
+int8 engine run, each counted from 0 just before it; a CUDA graph's
+kernels are counted once, at capture; the lm phase's warm-up, its
+card-vs-CPU model and its kernel-vs-plain comparisons are left out),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": ...}``. ``--phases boot,kernels`` runs only the
 named phases (after device and build) and prints no result.
@@ -155,6 +177,20 @@ QMATMUL_SHAPES = [((1, 37, 1), {}), ((8, 320, 10), {}),
                   ((8, 4099, 300), {}), ((4097, 37, 10), {}),
                   ((64, 4099, 33), {"qmatmul.kslice": 100,
                                     "qmatmul.rows": 24})]
+# qmatmul at qwen1.5-0.5b's MLP shapes: M = a prefill's prompt length or
+# the decode batch (every slot), (K, N) = wi/wg (1,024, 2,816) and wo
+# (2,816, 1,024)
+LM_QMATMUL_SHAPES = [(m, k, n) for m in (1, 4, 32, 64, 256)
+                     for k, n in ((1024, 2816), (2816, 1024))]
+# the lm phase: the launcher's workload on the full-size model
+LM_ARCH = "qwen1.5-0.5b"
+LM_ARGV = ["--arch", LM_ARCH, "--capacity", "4", "--requests", "8",
+           "--prompt-len", "64", "--decode-steps", "16"]
+# card vs CPU on a 2-layer, full-width fp32 model, relative to
+# 1 + max|logit|: fp32 sums in another order (MKL vs cuBLAS, ~1e-6 an
+# op), and under int8 an activation code that lands on the other side
+# of a rounding boundary moves one product by a quantization step
+TOL_LM = {"none": 1e-4, "int8": 2e-2}
 # fp32 sums in another order than the plain version's matmul; |y| is
 # O(10) here and the reference itself moves by 3.8e-6 between orders
 TOL_FP32 = 1e-5
@@ -477,6 +513,14 @@ def phase_kernels(device):
         xc, wc, xs, ws = fc_inputs(gen, bsz, device, highres_fc())
         record("qmatmul", "highres fc", bsz, "int8", qmatmul(xc, wc, xs, ws),
                qmatmul_ref(xc, wc, xs, ws))
+    # qwen1.5-0.5b's MLP matmuls, f32 out and the bf16 the model takes
+    # (the kernel writes f32; the wrapper casts after it)
+    for m, k, n in LM_QMATMUL_SHAPES:
+        xc, wc, xs, ws = qmatmul_inputs(gen, m, k, n, device)
+        for dt in (torch.float32, torch.bfloat16):
+            record("qmatmul", f"{LM_ARCH} {m}x{k}x{n} {str(dt)[6:]}", m,
+                   "int8", qmatmul(xc, wc, xs, ws, out_dtype=dt),
+                   qmatmul_ref(xc, wc, xs, ws, dt))
     for r, eta in TREE_SHAPES + [(33, TREE_MAX_ETA)]:
         x = torch.randn((r, eta), generator=gen).to(device)
         record("addtree", f"{r}x{eta}", r, "none", tree_reduce_sum(x),
@@ -795,6 +839,383 @@ def phase_stream(device):
               for _ in range(12)]
     serve += serve_engines(VGGStyleCNN(), cpu_params, images)
     emit({"phase": "stream", "runs": runs, "serve": serve})
+
+
+# --------------------------------------------------------------------- lm
+
+def lm_prompts(vocab: int, prompt_len: int = 64, n: int = 8) -> list:
+    """The launcher's workload: numpy seed 1, each prompt ``prompt_len``
+    or ``prompt_len // 2`` tokens."""
+    import numpy as np
+    rng = np.random.RandomState(1)
+    lens = rng.choice([prompt_len // 2, prompt_len], size=n)
+    return [rng.randint(0, vocab, size=int(p)) for p in lens]
+
+
+def lm_launcher(kv_quant: str) -> dict:
+    """``launcher.main`` for qwen1.5-0.5b on the card: every request served
+    with its 16 tokens, the reference's report lines, no qmatmul launch
+    (the launcher's compute policy is the default, as the reference's)."""
+    import io
+    from repro_torch.launch import serve as launcher
+    buf = io.StringIO()
+    before = counts()
+    with contextlib.redirect_stdout(buf):
+        eng, res = launcher.main(LM_ARGV + ["--kv-quant", kv_quant,
+                                            "--device", "cuda"])
+    grew = {k: counts()[k] - before[k] for k in before}
+    report = buf.getvalue().strip().splitlines()
+    print("\n".join(report), file=sys.stderr)
+    vocab = eng.model.cfg.vocab
+    check(len(res) == 8 and all(
+        len(r.generated) == 16 and all(0 <= t < vocab for t in r.generated)
+        for r in res.values()),
+        f"lm launcher kv_quant={kv_quant}: {len(res)} results, "
+        f"{[len(r.generated) for r in res.values()]} tokens each")
+    check(not any(grew.values()),
+          f"lm launcher kv_quant={kv_quant} launched kernels: {grew}")
+    check(report and report[0].startswith(f"arch={LM_ARCH} capacity=4") and
+          any(ln.startswith("served 8 requests") for ln in report),
+          f"lm launcher kv_quant={kv_quant}: report {report}")
+    tok_s = re.search(r"\(([\d.]+) tok/s\)", buf.getvalue())
+    return {"path": "launcher", "kv_quant": kv_quant, "report": report,
+            "tokens_per_s": float(tok_s.group(1)) if tok_s else None,
+            "engine_steps": eng.stats.steps, "kv_bytes": eng.kv.nbytes(),
+            "device_time_note": "wall clock, host dispatch included"}
+
+
+def lm_engines(model, params, device) -> tuple[dict, dict]:
+    """``Engine`` under ExecPolicy(quant="int8") over the launcher's
+    requests, through the qmatmul kernel (the default backend on the
+    card) and through its plain version (backend="torch"), both on the
+    card: 3 launches a layer a prefill and a decode step, none for the
+    plain run, and the same tokens. Returns (the report, the launches of
+    the kernel run's ``run()``: the LM path's, counted from 0 there)."""
+    import torch
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import Engine, EngineConfig
+
+    per_pass = 3 * model.cfg.n_layers                 # wi, wg, wo a layer
+    prompts = lm_prompts(model.cfg.vocab)
+    runs = {}
+    for backend in (None, "torch"):
+        eng = Engine(model, params, EngineConfig(
+            capacity=4, max_seq=80,
+            policy=ExecPolicy(quant="int8", backend=backend),
+            device=str(device)))
+        for length in sorted({len(p) for p in prompts}):
+            eng.warm_prefill(length)            # first calls stay untimed
+        for p in prompts:
+            eng.add_request(p, 16)
+        reset_counts()                      # the LM path starts here
+        t0 = time.perf_counter()
+        fin = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = counts()
+        if backend is None:
+            path = grew
+        s = eng.stats
+        runs[backend or "cuda"] = {
+            "tokens": {r.uid: r.generated for r in fin},
+            "prefills": s.prefills,
+            "decode_steps": s.decode_lane_steps // eng.config.capacity,
+            "qmatmul_launches": grew["qmatmul"],
+            "cache_quant": eng.config.cache_quant, "wall_s": wall,
+            "tokens_per_s": (s.prefill_tokens + s.decode_tokens) / wall}
+    k, p = runs["cuda"], runs["torch"]
+    want = per_pass * (k["prefills"] + k["decode_steps"])
+    check(path == dict(path, qmatmul=want),
+          f"lm engine int8: launches {path}, expected {per_pass} x "
+          f"({k['prefills']} prefills + {k['decode_steps']} decode steps) "
+          f"= {want} of qmatmul and none of any other kernel")
+    check(p["qmatmul_launches"] == 0,
+          f"lm engine int8 backend=torch launched qmatmul "
+          f"{p['qmatmul_launches']} times")
+    check(k["tokens"] == p["tokens"] and len(k["tokens"]) == 8 and all(
+        len(t) == 16 for t in k["tokens"].values()),
+        f"lm engine int8: kernel tokens {k['tokens']} vs plain "
+        f"{p['tokens']}")
+    return {"path": "engine", "policy": "int8", "per_pass": per_pass,
+            "expected_launches": want, "tokens_equal": True,
+            **{f"{name}_{key}": v for name, r in runs.items()
+               for key, v in r.items() if key != "tokens"}}, path
+
+
+def lm_step_logits(model, params, prompts, policy, device, first=None):
+    """Each prompt's prefill logits (batch 1, written into its slot of a
+    SlotKVCache as the engine does), then one decode step over all slots
+    at their own positions with the tokens ``first`` (default: the
+    prefills' argmax). Returns (prefill logits, decode logits, first),
+    on the CPU."""
+    import torch
+    from repro_torch.ops import use_policy
+    from repro_torch.serve import EngineConfig, SlotKVCache
+    from repro_torch.serve.cache import dequantize_leaves
+    from repro_torch.serve.steps import make_decode_step
+
+    quant = EngineConfig(policy=policy).cache_quant
+    kv = SlotKVCache(model, len(prompts), 48, quant=quant, device=device)
+    pre = []
+    with use_policy(policy), torch.no_grad():
+        for slot, p in enumerate(prompts):
+            cache = model.init_cache(1, len(p), device=device)
+            logits, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(p[None], device=device)},
+                cache)
+            kv.write_prefill(slot, cache, len(p))
+            pre.append(logits[0].cpu())
+    pre = torch.stack(pre)
+    if first is None:
+        first = torch.argmax(pre, dim=-1).to(torch.int32)
+    cache = dequantize_leaves(kv.codes, kv.scales, model.cfg.dtype) \
+        if quant == "int8" else kv.data
+    decode = make_decode_step(model, sample=False, policy=policy)
+    logits, _ = decode(params, first.to(device),
+                       torch.as_tensor(kv.positions(), device=device), cache)
+    return pre, logits.cpu(), first
+
+
+def lm_card_vs_cpu(device) -> list[dict]:
+    """A 2-layer qwen1.5-0.5b at full width (d_model 1,024, d_ff 2,816,
+    vocab 151,936) in fp32, drawn on the CPU and moved across: each
+    request's prefill logits and the first decode step's, under the
+    default policy and under int8, card against CPU within TOL_LM. Beside
+    each, how far the CPU's own logits move when the embedding moves by
+    a relative 1e-5 (seeded signs): the size of a flipped int8 code."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.ops import ExecPolicy
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model().cfg, n_layers=2,
+                              dtype=torch.float32)
+    model = TransformerLM(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params = to_device(cpu_params, device)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab, size=p) for p in (32, 16, 32, 16)]
+    emb = cpu_params["embedding"]
+    sign = torch.randint(0, 2, emb.shape,
+                         generator=torch.Generator().manual_seed(1)) * 2 - 1
+    nudged = dict(cpu_params, embedding=emb * (1 + 1e-5 * sign))
+    rows = []
+    for mode in ("none", "int8"):
+        pol = ExecPolicy(quant=mode)
+        cpu_pre, cpu_dec, first = lm_step_logits(model, cpu_params, prompts,
+                                                 pol, "cpu")
+        card_pre, card_dec, _ = lm_step_logits(model, params, prompts, pol,
+                                               device, first)
+        nudge_pre, nudge_dec, _ = lm_step_logits(model, nudged, prompts, pol,
+                                                 "cpu", first)
+        row = {"mode": mode, "layers": 2, "d_model": cfg.d_model,
+               "vocab": cfg.vocab, "requests": len(prompts)}
+        for name, got, want, moved in (
+                ("prefill", card_pre, cpu_pre, nudge_pre),
+                ("decode", card_dec, cpu_dec, nudge_dec)):
+            check(got.shape == want.shape == (len(prompts), cfg.vocab)
+                  and bool(torch.isfinite(got).all())
+                  and bool(torch.isfinite(want).all()),
+                  f"lm card vs cpu {mode} {name}: shapes "
+                  f"{tuple(got.shape)} / {tuple(want.shape)} or "
+                  f"non-finite values")
+            err = max_abs(got, want)
+            tol = TOL_LM[mode] * (1 + float(want.abs().max()))
+            check(err <= tol, f"lm card vs cpu {mode} {name}: max_abs "
+                              f"{err}, tolerance {tol}")
+            row[name] = {"max_abs": err, "tolerance": tol,
+                         "cpu_nudged_1e-5_max_abs": max_abs(moved, want),
+                         "max_abs_logit": float(want.abs().max()),
+                         "top1_agree": int((got.argmax(-1)
+                                            == want.argmax(-1)).sum())}
+        rows.append(row)
+    return rows
+
+
+def lm_logits_bitwise(model, params, device) -> dict:
+    """Under int8, through the qmatmul kernel and through its plain
+    version on the card, the same logits bitwise: one 64-token prefill
+    (M = 64), and one decode step over an engine's 4 full slots at their
+    own positions (M = 4), each backend from its own dequantized copy of
+    the same cache."""
+    import torch
+    from repro_torch.ops import ExecPolicy, use_policy
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.cache import dequantize_leaves
+    from repro_torch.serve.steps import make_decode_step
+
+    prompts = lm_prompts(model.cfg.vocab)
+    toks = torch.as_tensor(prompts[1][None], device=device)
+    eng = Engine(model, params, EngineConfig(
+        capacity=4, max_seq=80, policy=ExecPolicy(quant="int8"),
+        device=str(device)))
+    for p in prompts[:4]:
+        eng.add_request(p, 16)
+    eng._admit()
+    check(eng.scheduler.num_running == 4, "lm logits: slots not full")
+    tokens = torch.as_tensor(eng._last_token, device=device)
+    pos = torch.as_tensor(eng.kv.positions(), device=device)
+    out = {}
+    for backend in (None, "torch"):
+        pol = ExecPolicy(quant="int8", backend=backend)
+        with use_policy(pol), torch.no_grad():
+            pre, _ = model.prefill(
+                eng.params, {"tokens": toks},
+                model.init_cache(1, toks.shape[1], device=device))
+        cache = dequantize_leaves(eng.kv.codes, eng.kv.scales,
+                                  model.cfg.dtype)
+        dec, _ = make_decode_step(model, sample=False, policy=pol)(
+            eng.params, tokens, pos, cache)
+        out[backend] = {"prefill": pre, "decode": dec}
+    torch.cuda.synchronize()
+    rows = {}
+    for step, m in (("prefill", toks.shape[1]), ("decode", 4)):
+        got, want = out[None][step], out["torch"][step]
+        err = max_abs(got, want)
+        check(bitwise(got, want),
+              f"lm int8 {step} logits: kernel vs plain max_abs {err}")
+        rows[step] = {"M": m, "max_abs": err, "bitwise": True}
+    rows["decode"]["positions"] = pos.tolist()
+    return rows
+
+
+def lm_times(model, params, device) -> list[dict]:
+    """Wall time (one call to its synchronize), device busy time (the
+    sum of its kernels under torch.profiler) and CUDA-event time (one
+    call queued alone behind a ~0.25 s spin) of one 64-token prefill and
+    one decode step at capacity 4 with every slot live, in bf16 and under
+    int8, as the engine runs them. A call of over ~1,000 launches fills
+    the launch queue behind the spin (``queue_ran_dry``), and its event
+    time then holds host time too: the busy time is the device's own."""
+    import torch
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import Engine, EngineConfig
+
+    prompts = [p for p in lm_prompts(model.cfg.vocab) if len(p) == 64]
+    toks = torch.as_tensor(prompts[0][None], device=device)
+    rows = []
+    for mode, pol in (("bf16", ExecPolicy()),
+                      ("int8", ExecPolicy(quant="int8"))):
+        eng = Engine(model, params, EngineConfig(
+            capacity=4, max_seq=80, policy=pol, device=str(device)))
+        for p in prompts[:4]:
+            eng.add_request(p, 16)
+        eng._admit()
+        check(eng.scheduler.num_running == 4, "lm times: slots not full")
+        tokens = torch.as_tensor(eng._last_token, device=device)
+        pos = torch.as_tensor(eng.kv.positions(), device=device)
+        state = eng.kv.device_state()
+        fns = {"prefill": lambda: eng._prefill(
+                   eng.params, {"tokens": toks},
+                   model.init_cache(1, 64, device=device)),
+               "decode": lambda: eng._decode(eng.params, tokens, pos,
+                                             *state)}
+        for step, fn in fns.items():
+            ms, dry = call_device_ms(fn, reps=10, spin=int(5e8))
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            prof = lm_profile(fn)
+            wall = statistics.median(walls)
+            busy = prof.get("kernel_us", 0.0) / 1e3
+            rows.append({"step": step, "mode": mode,
+                         "M": 64 if step == "prefill" else 4,
+                         "cache_quant": eng.config.cache_quant,
+                         "wall_ms": wall, "device_busy_ms": busy,
+                         "busy_share_of_wall": busy / wall,
+                         "event_ms": ms, "queue_ran_dry": dry,
+                         "profile": prof})
+    rows.append({"weight_costs": lm_weight_costs(model, params)})
+    return rows
+
+
+def lm_profile(fn) -> dict:
+    """torch.profiler over one call: the device time of the aten ops that
+    launched most of it (their own kernels), of the kernels by name
+    (qmatmul's come from ctypes, under no aten op), and the device's busy
+    share of the call's wall time."""
+    import torch
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ops, kernels = [], []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if not us:
+                continue
+            row = {"name": e.key[:80], "calls": e.count,
+                   "self_device_us": us}
+            (ops if e.key.startswith("aten::") else kernels).append(row)
+        busy = sum(r["self_device_us"] for r in kernels)
+        for rows in (ops, kernels):
+            rows.sort(key=lambda r: -r["self_device_us"])
+        return {"wall_us": wall_us, "kernel_us": busy,
+                "kernel_launches": sum(r["calls"] for r in kernels),
+                "busy_share": busy / wall_us, "ops": ops[:15],
+                "kernels": kernels[:12]}
+    except Exception as e:      # informational: a profiler fault is no check
+        return {"error": repr(e)}
+
+
+def lm_weight_costs(model, params) -> dict:
+    """The two per-call weight costs the reference's semantics impose on
+    every forward: each fp32 weight cast to the model dtype (the
+    ``.astype(x.dtype)`` before each matmul, the tied embedding too), and
+    under int8 each MLP weight quantized again (``dense`` quantizes on
+    every call). Device ms for the whole model, one forward's worth."""
+    import torch
+    from repro_torch.core.quantize import quantize_int8
+    dt = model.cfg.dtype
+    mats = [params["embedding"]] + [
+        t for grp in ("attn", "mlp") for t in params["layers"][grp].values()]
+    cast_ms, _ = call_device_ms(lambda: [t.to(dt) for t in mats], reps=10,
+                                spin=int(2e8))
+    mlp = [params["layers"]["mlp"][k][0].to(dt) for k in ("wi", "wg", "wo")]
+    quant_ms, _ = device_ms(lambda: [quantize_int8(w, axis=0) for w in mlp],
+                            reps=20)
+    return {"cast_all_weights_ms": cast_ms,
+            "quantize_mlp_weights_ms": quant_ms * model.cfg.n_layers,
+            "params": int(sum(t.numel() for t in mats))}
+
+
+def phase_lm(device) -> dict:
+    """qwen1.5-0.5b on the card: Engine under int8 through the kernel and
+    through the plain qmatmul, the launcher (bf16 and an int8 KV cache),
+    and a 2-layer full-width model card vs CPU; then a prefill's and a
+    full decode step's logits kernel vs plain, and the times. Returns
+    the LM path's launches: those of the int8 engine's ``run()``."""
+    from repro_torch.configs import get_arch
+
+    model = get_arch(LM_ARCH).model()
+    params = model.init(0, device=device)
+    # the engines first: the launchers' tokens/s then hold no first-call
+    # costs (cuBLAS handles, the allocator's growth)
+    out = {"phase": "lm", "arch": LM_ARCH}
+    out["engine"], launches = lm_engines(model, params, device)
+    del params
+    out["launcher"] = [lm_launcher(q) for q in ("none", "int8")]
+    params = model.init(0, device=device)
+    out["card_vs_cpu"] = lm_card_vs_cpu(device)
+    out["logits_kernel_vs_plain"] = lm_logits_bitwise(model, params,
+                                                      device)
+    out["times"] = lm_times(model, params, device)
+    out["tolerances"] = TOL_LM
+    emit(out)
+    return launches
 
 
 # ------------------------------------------------------------------- boot
@@ -1173,13 +1594,15 @@ def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
     return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs), dry
 
 
-def call_device_ms(fn, reps: int = 20) -> tuple[float, bool]:
+def call_device_ms(fn, reps: int = 20,
+                   spin: int = int(2e7)) -> tuple[float, bool]:
     """Median device time of one call of ``fn`` (many launches, such as a
     whole plan), between two CUDA events, each call queued alone behind
-    a ~10 ms spin kernel: the host's dispatch does not show, and the
-    launch queue (about a thousand pending launches) never fills, as it
-    would with ``device_ms``'s hundred calls queued at once. Returns
-    (ms, the spin ended before the call was queued)."""
+    a spin kernel of ``spin`` cycles (the default ~10 ms): the host's
+    dispatch does not show, and the launch queue (about a thousand
+    pending launches) never fills, as it would with ``device_ms``'s
+    hundred calls queued at once. Returns (ms, the spin ended before the
+    call was queued)."""
     import torch
     for _ in range(5):
         fn()
@@ -1188,7 +1611,7 @@ def call_device_ms(fn, reps: int = 20) -> tuple[float, bool]:
     for _ in range(reps):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         spin_done = torch.cuda.Event()
-        torch.cuda._sleep(int(2e7))
+        torch.cuda._sleep(spin)
         spin_done.record()
         e0.record()
         fn()
@@ -1265,6 +1688,7 @@ def phase_times(device):
             del x
     rows += highres_time_rows(gen, device)
     rows.append(odd_time_row(gen, device))
+    rows += lm_time_rows(gen, device)
     emit({"phase": "times", "launch_floor_ms": floor_ms,
           "load_store_floor_ms": rw_ms,
           "floors_queue_ran_dry": [k for k, d in (("launch", floor_dry),
@@ -1276,8 +1700,9 @@ def phase_times(device):
                                       "bytes_per_s": PEAK_BYTES},
           "library_null_reason": {
               "qmatmul": "torch._int_mm refuses N = 10 (it needs N a "
-                         "multiple of 8 and M > 16), and no other single "
-                         "PyTorch call is an int8 x int8 -> int32 GEMM"},
+                         "multiple of 8 and M > 16), and M = 4 (qwen1.5-"
+                         "0.5b's decode), and no other single PyTorch "
+                         "call is an int8 x int8 -> int32 GEMM"},
           "rows": rows})
     return rows
 
@@ -1330,6 +1755,46 @@ def odd_time_row(gen, device) -> dict:
         lambda: fused_cwp_ref(x, w, b, odd="pad"),
         lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2, ceil_mode=True),
         nbytes, ops / PEAK_FP32, exact=False, model="odd_pool")
+
+
+def lm_time_rows(gen, device) -> list[dict]:
+    """qmatmul at qwen1.5-0.5b's MLP shapes: a decode step at capacity 4
+    (M = 4) and a 64-token prefill (M = 64), each (K, N) of wi/wg and wo.
+    The library yardstick is ``torch._int_mm`` (cuBLAS's int8 GEMM)
+    followed by the two scale multiplies, where it takes the shape (M >
+    16, K and N multiples of 8); its result is first held bitwise
+    against the plain version's."""
+    import torch
+    from repro_torch.kernels.qmatmul.ops import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+
+    rows = []
+    for m in (4, 64):
+        for k, n in ((1024, 2816), (2816, 1024)):
+            xc, wc, xs, ws = qmatmul_inputs(gen, m, k, n, device)
+            lib, note = None, "torch._int_mm needs M > 16"
+            if m > 16:
+                def lib(xc=xc, wc=wc, xs=xs, ws=ws):
+                    return torch._int_mm(xc, wc).to(torch.float32) * xs * ws
+                try:
+                    same = bitwise(lib(), qmatmul_ref(xc, wc, xs, ws))
+                except RuntimeError as e:
+                    lib, note = None, f"torch._int_mm refused: {e}"
+                else:
+                    check(same, f"torch._int_mm at {m}x{k}x{n} disagrees "
+                                f"with the plain qmatmul")
+                    note = None
+            stage = ("decode" if m == 4 else "prefill") + f" {m}x{k}x{n}"
+            row = _time_row(
+                "qmatmul", stage, m,
+                lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul(xc, wc, xs, ws),
+                lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul_ref(xc, wc, xs,
+                                                               ws),
+                lib, m * k + k * n + 4 * (m + n + m * n),
+                2.0 * m * k * n / PEAK_INT8, exact=True, model=LM_ARCH)
+            row["library_note"] = note
+            rows.append(row)
+    return rows
 
 
 def phase_plans(device):
@@ -1487,7 +1952,7 @@ def main(argv=None) -> int:
     phases = {"kernels": phase_kernels, "serve": phase_serve,
               "eager": phase_eager, "tree": phase_tree,
               "stream": phase_stream, "boot": phase_boot,
-              "times": phase_times, "plans": phase_plans}
+              "lm": phase_lm, "times": phase_times, "plans": phase_plans}
     try:
         info = phase_device()
         phase_build()
@@ -1510,8 +1975,11 @@ def main(argv=None) -> int:
         boot = counts()
         check(boot["fused_cwp"] and boot["qmatmul"],
               f"a kernel of the boot path never launched: {boot}")
-        emit({"phase": "launches", "main": launches, "boot": boot})
-        launches = {k: v + boot[k] for k, v in launches.items()}
+        lm = phase_lm(device)               # counted from 0 in there
+        check(lm["qmatmul"], f"qmatmul never launched on the LM path: {lm}")
+        emit({"phase": "launches", "main": launches, "boot": boot,
+              "lm": lm})
+        launches = {k: v + boot[k] + lm[k] for k, v in launches.items()}
         rows = phase_times(device)
         phase_plans(device)
     except SmokeFailure as e:

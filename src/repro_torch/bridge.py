@@ -1,11 +1,16 @@
 """JAX-to-PyTorch parameter bridge.
 
 ``params_from_numpy(tree, device)`` turns a params tree whose leaves are
-numpy arrays — the JAX ``PaperCNN.init`` output, converted to numpy by
-the caller — into the port's params in the same layout: conv weights
-(M, N, Kh, Kw), conv biases (M,), ``fc_w`` (K, N), ``fc_b`` (N,). Both
-packages then compute the same function, which is how the tests hold
-one against the other. Nothing here imports JAX.
+numpy arrays — a JAX ``init`` output converted to numpy by the caller —
+into the port's params in the same nested layout: the CNNs' conv weights
+(M, N, Kh, Kw), biases (M,), ``fc_w`` (K, N), and the LM's
+layer-stacked tree (``embedding``, ``layers/{attn, mlp, ln1, ln2}``,
+``final_norm``). Both packages then compute the same function, which is
+how the tests hold one against the other. Nothing here imports JAX.
+
+A bfloat16 leaf (numpy's view of a JAX bf16 array, dtype name
+``bfloat16``) becomes a ``torch.bfloat16`` tensor with the same values:
+bf16 → fp32 → bf16 is exact. Every other float leaf becomes float32.
 """
 from __future__ import annotations
 
@@ -18,12 +23,14 @@ __all__ = ["params_from_numpy"]
 
 
 def params_from_numpy(tree, device: str | torch.device) -> dict | torch.Tensor:
-    """Nested dicts of float arrays -> the same dicts of float32 tensors
-    on ``device``."""
+    """Nested dicts of float arrays -> the same dicts of tensors on
+    ``device``: bfloat16 leaves as bfloat16, other floats as float32."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     arr = np.asarray(tree)
-    if not np.issubdtype(arr.dtype, np.floating):
+    bf16 = arr.dtype.name == "bfloat16"
+    if not (bf16 or np.issubdtype(arr.dtype, np.floating)):
         raise TypeError(f"params leaf of dtype {arr.dtype}; expected float")
-    return torch.from_numpy(np.array(arr, np.float32)).to(dev)
+    t = torch.from_numpy(np.array(arr, np.float32))
+    return (t.to(torch.bfloat16) if bf16 else t).to(dev)

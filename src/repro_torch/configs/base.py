@@ -1,5 +1,6 @@
 """``ArchSpec``: what ``--arch <id>`` resolves to (port of
-``repro.configs.base``, the fields the vision path reads)."""
+``repro.configs.base``, the fields the vision and LM serving paths
+read)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -11,7 +12,7 @@ __all__ = ["ArchSpec"]
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                       # "cnn" for the vision workloads
+    family: str                       # "cnn" | "dense" (ported so far)
     build: Callable[[], Any]          # -> model instance
     source: str                       # provenance note
     notes: str = ""

@@ -1,9 +1,9 @@
 """Arch registry: ``--arch <id>`` resolution (port of
 ``repro.configs.registry``). Ported so far: the paper's ``mnist_cnn``
-(Tab. I) and ``highres_cnn`` (224×224, streamed through
-``repro_torch.stream``); the LM archs wait for ROADMAP §A.11. Both CNNs
-are servable via ``--arch`` and, as in the reference, stay out of
-``ARCH_IDS``, the list of LM archs, which is empty until then."""
+(Tab. I), ``highres_cnn`` (224×224, streamed through
+``repro_torch.stream``) and the dense LM ``qwen1.5-0.5b``; the other LM
+archs wait for ROADMAP §A.11. As in the reference, both CNNs are
+servable via ``--arch`` and stay out of ``ARCH_IDS``, the LM archs."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ArchSpec
 __all__ = ["get_arch", "ARCH_IDS"]
 
 _MODULES = {
+    "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "mnist_cnn": "repro_torch.configs.mnist_cnn",
     "highres_cnn": "repro_torch.configs.highres_cnn",
 }

@@ -47,9 +47,12 @@ def _scale(s, shape: tuple[int, int], dev: torch.device) -> torch.Tensor:
 
 
 def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
-            w_scale, *, policy: ExecPolicy | None = None) -> torch.Tensor:
-    """(M,K) int8 · (K,N) int8 -> (M,N) f32 = (acc · x_scale) · w_scale
-    with an int32 accumulator; x_scale (M,1)|scalar, w_scale (1,N)|scalar."""
+            w_scale, *, out_dtype: torch.dtype = torch.float32,
+            policy: ExecPolicy | None = None) -> torch.Tensor:
+    """(M,K) int8 · (K,N) int8 -> (M,N) ``out_dtype`` = (acc · x_scale) ·
+    w_scale with an int32 accumulator; x_scale (M,1)|scalar, w_scale
+    (1,N)|scalar. The kernel writes f32; another dtype is a cast after
+    it, as the reference's ``.astype`` after its epilogue."""
     global launches
     dev = x_codes.device
     check_tensor(x_codes, "x_codes", dtype=torch.int8, ndim=2, device=dev)
@@ -62,7 +65,7 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
     xs = _scale(x_scale, (m, 1), dev)
     ws = _scale(w_scale, (1, n), dev)
     if dev.type == "cpu":
-        return qmatmul_ref(x_codes, w_codes, xs, ws)
+        return qmatmul_ref(x_codes, w_codes, xs, ws, out_dtype)
     pol = policy if policy is not None else current_policy()
     if pol.autotune:
         from repro_torch.ops.autotune import ensure_tuned
@@ -71,9 +74,9 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
                       platform=platform_key(dev))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
-        return out
+        return out.to(out_dtype)
     launch(_launcher(), "qmatmul", dev, ptr(x_codes), ptr(w_codes), ptr(xs),
            ptr(ws), ptr(out), m, n, k, t["threads"], t["rows"], t["cols"],
            t["kslice"], t["ld"], t["smem"])
     launches += 1
-    return out
+    return out.to(out_dtype)

@@ -13,9 +13,10 @@ __all__ = ["qmatmul_ref"]
 
 
 def qmatmul_ref(x_codes: torch.Tensor, w_codes: torch.Tensor,
-                x_scale: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
-    """(M,K) int8 · (K,N) int8 -> (M,N) f32; x_scale (M,1)|scalar,
-    w_scale (1,N)|scalar."""
+                x_scale: torch.Tensor, w_scale: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M,K) int8 · (K,N) int8 -> (M,N) ``out_dtype``; x_scale
+    (M,1)|scalar, w_scale (1,N)|scalar. The epilogue is fp32, then cast."""
     acc = (x_codes.to(torch.int32)[:, :, None]
            * w_codes.to(torch.int32)[None, :, :]).sum(dim=1, dtype=torch.int32)
-    return acc.to(torch.float32) * x_scale * w_scale
+    return (acc.to(torch.float32) * x_scale * w_scale).to(out_dtype)

@@ -1,11 +1,26 @@
 """Serving launcher: ``--arch <id>`` behind the serving front-end
 (DESIGN.md §11), on the card unless ``--device cpu``.
 
-Port of ``repro.launch.serve``'s CNN branch: the bucketed vision engine
-over compiled plans, a synthetic workload of ``--requests`` seeded
-images submitted through the front-end with an optional ``--slo-ms``
-deadline budget, and a report of throughput, lane occupancy and the SLO
-view. The boot flags are the reference's:
+Port of ``repro.launch.serve``. An LM arch serves through the
+continuous-batching ``Engine`` (DESIGN.md §6) behind ``LMAdapter``: a
+seeded synthetic workload of ``--requests`` prompts (half of them
+``--prompt-len`` tokens, half ``--prompt-len // 2``) with a budget of
+``--decode-steps`` tokens each, over ``--capacity`` KV slots of
+``--max-seq`` positions (default prompt + decode), in the model's dtype
+(bf16 for qwen1.5-0.5b), with an int8 KV cache under ``--kv-quant int8``.
+``--reduced`` serves a 2-layer, d_model 64 model of the same family. The
+weights are random from seed 0, drawn by a generator on the serving
+device, so ``--device cpu`` and the card serve different weights and
+their tokens cannot be compared (the CNNs draw on the CPU for any
+device). The int8 compute path has no flag, as in the reference: it is
+``EngineConfig(policy=ExecPolicy(quant="int8"))``. The report is the
+reference's: occupancy, tokens/s and the SLO view.
+
+A CNN arch serves through the bucketed vision engine over compiled plans:
+a synthetic workload of ``--requests`` seeded images submitted through
+the front-end with an optional ``--slo-ms`` deadline budget, and a report
+of throughput, lane occupancy and the SLO view. Its boot flags are the
+reference's:
 
   * ``--tuning-cache PATH`` loads a persisted tuned-tile table before any
     plan compiles and saves it (merged) after serving;
@@ -19,8 +34,14 @@ view. The boot flags are the reference's:
     place, tune, compile — the nvcc build and the CUDA graph captures on
     the card —, artifact, first_dispatch).
 
-The LM branch and ``--mesh`` wait for later slices.
+``--mesh`` other than ``auto`` waits for channel parallelism (ROADMAP
+§A.10).
 
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --capacity 4 \
+        --requests 8 --prompt-len 64 --decode-steps 16 [--kv-quant int8]
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced \
+        --capacity 2 --requests 4 --prompt-len 16 --decode-steps 8 \
+        --device cpu
     python -m repro_torch.launch.serve --arch mnist_cnn --capacity 8 \
         --requests 32
     python -m repro_torch.launch.serve --arch highres_cnn --capacity 8 \
@@ -75,14 +96,14 @@ def _frontend(adapter, args, clock):
                                             slo_s=slo_s), clock)
 
 
-def _submit_all(frontend, payloads) -> int:
+def _submit_all(frontend, payloads, **options) -> int:
     """Submit everything; a full queue sheds (typed, counted) instead of
     hanging — the launcher's workload is open-loop."""
     from repro_torch.serve import QueueFullError
     shed = 0
     for p in payloads:
         try:
-            frontend.submit(p)
+            frontend.submit(p, **options)
         except QueueFullError:
             shed += 1
     return shed
@@ -165,12 +186,76 @@ def serve_vision(model, args):
     return engine, results
 
 
+def serve_lm(model, args):
+    """Continuous-batching LM serving behind the front-end. Returns
+    (engine, {rid: Request})."""
+    from repro_torch.serve import (Engine, EngineConfig, LMAdapter,
+                                   MonotonicClock)
+    clock = MonotonicClock()
+    params = model.init(0, device=args.device)
+    max_seq = args.max_seq or (args.prompt_len + args.decode_steps)
+    engine = Engine(model, params,
+                    EngineConfig(capacity=args.capacity, max_seq=max_seq,
+                                 kv_quant=args.kv_quant, device=args.device),
+                    clock=clock)
+    frontend = _frontend(LMAdapter(engine), args, clock)
+
+    # mixed-length synthetic workload: jittered prompts, fixed budget
+    rng = np.random.RandomState(1)
+    lens = rng.choice([args.prompt_len // 2, args.prompt_len],
+                      size=args.requests)
+    shed = _submit_all(frontend,
+                       (rng.randint(0, model.cfg.vocab, size=int(plen))
+                        for plen in lens),
+                       max_new_tokens=args.decode_steps)
+
+    t0 = clock.now()
+    results = frontend.run_until_drained()
+    wall = clock.now() - t0
+    finished = list(results.values())
+
+    s = engine.stats
+    total_tokens = s.prefill_tokens + s.decode_tokens
+    print(f"arch={args.arch} capacity={args.capacity} "
+          f"kv_quant={args.kv_quant} kv_bytes={engine.kv.nbytes():,}")
+    print(f"served {len(finished)} requests in {wall:.2f}s "
+          f"({len(finished) / wall:.2f} req/s)")
+    print(f"engine steps {s.steps} | mean occupancy "
+          f"{engine.scheduler.stats.mean_occupancy():.2f}/{args.capacity} "
+          f"| decode lane utilization {s.decode_utilization:.0%}")
+    print(f"tokens: {s.prefill_tokens} prefill + {s.decode_tokens} decode "
+          f"= {total_tokens} ({total_tokens / wall:.1f} tok/s)")
+    _print_slo(s, args)
+    if shed:
+        print(f"shed {shed} submissions at intake (queue full)")
+    served = [r for r in finished if r.generated]
+    if served:
+        r0 = served[0]
+        print(f"sample continuation (request {r0.uid}):", r0.generated[:10])
+    rejected = len(finished) - len(served)
+    if rejected:
+        print(f"rejected {rejected} requests (prompt > max_seq {max_seq})")
+    return engine, results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--capacity", type=int, default=4,
-                    help="largest served batch (the bucket ladder's top)")
+                    help="KV slots (max in-flight sequences) of an LM; the "
+                         "largest served batch (the bucket ladder's top) "
+                         "of a CNN")
     ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--decode-steps", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=0,
+                    help="per-slot budget (default prompt+decode)")
+    ap.add_argument("--kv-quant", choices=("none", "int8"), default="none")
+    ap.add_argument("--mesh", default="auto",
+                    help="only 'auto' (one device) until channel "
+                         "parallelism is ported")
+    ap.add_argument("--reduced", action="store_true",
+                    help="a small same-family LM (2 layers, d_model 64)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="torch device; the default needs a CUDA card")
     ap.add_argument("--slo-ms", type=float, default=None,
@@ -202,13 +287,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_arch
-    spec = get_arch(args.arch)
-    if spec.family != "cnn":
+    from repro_torch.launch.train import reduced_config
+    if args.mesh != "auto":
         raise NotImplementedError(
-            f"--arch {args.arch}: the LM serving stack is not ported yet "
-            f"(ROADMAP §A.11)")
+            f"--mesh {args.mesh}: channel parallelism is not ported yet "
+            f"(ROADMAP §A.10)")
     _load_tuning_cache(args.tuning_cache)
-    out = serve_vision(spec.model(), args)
+    spec = get_arch(args.arch)
+    model = spec.model()
+    if spec.family == "cnn":
+        out = serve_vision(model, args)
+    else:
+        out = serve_lm(reduced_config(model) if args.reduced else model,
+                       args)
     _save_tuning_cache(args.tuning_cache)
     return out
 

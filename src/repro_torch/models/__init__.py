@@ -1,1 +1,2 @@
-"""Models, ported from ``repro.models``: the paper CNN for now."""
+"""Models, ported from ``repro.models``: the paper CNN, the VGG-style
+streaming CNN and the dense transformer LM."""

@@ -1,0 +1,278 @@
+"""Decoder-only transformer LM, config-assembled (port of
+``repro.models.transformer``).
+
+One config class covers the reference's dense family: qwen1.5 (QKV
+bias), command-r (parallel block, LayerNorm), qwen3 (qk_norm), gemma2
+(local/global alternation, softcaps, sandwich norms, embed scaling) and
+the internvl2 backbone (vision-prefix embeddings). A config with ``moe``
+set raises until ``moe.py`` is ported (ROADMAP §A.11), and ``loss``
+waits for training (§A.12).
+
+Layers are stacked on a leading L dim as in the reference, whose
+``lax.scan`` over them becomes a Python loop over views of the stacked
+tensors here; each layer's slice of the KV cache is written in place.
+``remat`` is kept as a config field and means nothing when serving.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.common import (decode_q_pos, dense_init, layer_norm,
+                                       rms_norm, softcap, stacked_init)
+from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
+                                       attn_init, mlp_apply, mlp_init)
+from repro_torch.sharding.logical import ShardingCtx, shard
+
+__all__ = ["LMConfig", "TransformerLM"]
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None          # default d_model // n_heads
+    act: str = "silu"
+    gated: bool = True
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    rope_theta: float = 10000.0
+    norm: str = "rmsnorm"                # "rmsnorm" | "layernorm"
+    norm_plus_one: bool = False          # gemma (1+w) RMSNorm
+    sandwich_norm: bool = False          # gemma2 post-norms
+    parallel_block: bool = False         # command-r: attn ∥ mlp
+    sliding_window: int | None = None
+    local_global: bool = False           # alternate local/global (gemma2)
+    moe: Any = None                      # MoEConfig: not ported yet
+    tie_embeddings: bool = True
+    embed_scale: bool = False            # gemma: × sqrt(d_model)
+    vision_prefix: bool = False          # internvl: embeds prepended
+    chunked_ce: bool = True              # the loss's (ROADMAP §A.12)
+    dtype: Any = torch.bfloat16
+    remat: str = "full"                  # training only
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+            qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
+            attn_softcap=self.attn_softcap, rope_theta=self.rope_theta)
+
+    @property
+    def mlp_cfg(self) -> MLPConfig:
+        return MLPConfig(d_model=self.d_model, d_ff=self.d_ff, act=self.act,
+                         gated=self.gated)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding included once if tied;
+        QKV biases are not counted, as in the reference)."""
+        d, hd = self.d_model, self.hd
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        if self.moe is not None:
+            m = self.moe
+            ff_mults = 3 if m.gated else 2
+            ffn = m.n_experts * ff_mults * d * m.d_ff + d * m.n_experts
+            ffn += (ff_mults * d * m.d_ff * m.n_shared) if m.n_shared else 0
+        else:
+            ffn = (3 if self.gated else 2) * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+
+class TransformerLM:
+    """Functional decoder-only LM: params are a dict of tensors, and no
+    method keeps state (the KV cache is the caller's, written in place).
+    """
+
+    def __init__(self, cfg: LMConfig):
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: mixture-of-experts layers are not ported yet "
+                f"(ROADMAP §A.11, moe.py)")
+        self.cfg = cfg
+
+    # ---------- params ----------
+    def _layer_init(self, gen: torch.Generator, dev: torch.device) -> dict:
+        cfg = self.cfg
+        d = cfg.d_model
+        fill = torch.zeros if cfg.norm_plus_one else torch.ones
+        p = {"attn": attn_init(gen, cfg.attn_cfg, dev),
+             "ln1": fill((d,), device=dev),
+             "ln2": fill((d,), device=dev),
+             "mlp": mlp_init(gen, cfg.mlp_cfg, dev)}
+        if cfg.sandwich_norm:
+            p["ln1_post"] = torch.zeros((d,), device=dev)
+            p["ln2_post"] = torch.zeros((d,), device=dev)
+        if cfg.norm == "layernorm":
+            p["ln1_bias"] = torch.zeros((d,), device=dev)
+            p["ln2_bias"] = torch.zeros((d,), device=dev)
+        return p
+
+    def init(self, seed: int | torch.Generator = 0, *,
+             device: str | torch.device = DEFAULT_DEVICE) -> dict:
+        """Random fp32 params from ``seed`` on ``device``. An int seeds a
+        generator on ``device`` itself (so a full-size model is drawn on
+        the card), which makes the weights depend on the device: one int
+        seed gives different values on the CPU and on the card. Pass a
+        CPU ``torch.Generator`` to draw the same values for any device."""
+        dev = resolve_device(device)
+        gen = seed if isinstance(seed, torch.Generator) \
+            else torch.Generator(device=dev).manual_seed(int(seed))
+        cfg = self.cfg
+        params = {
+            "embedding": dense_init(gen, (cfg.vocab, cfg.d_model),
+                                    cfg.d_model, dev),
+            "layers": stacked_init(lambda g: self._layer_init(g, dev), gen,
+                                   cfg.n_layers),
+            "final_norm": (torch.zeros if cfg.norm_plus_one
+                           else torch.ones)((cfg.d_model,), device=dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
+                                           cfg.d_model, dev)
+        return params
+
+    # ---------- building blocks ----------
+    def _norm(self, x, w, p, bias_name):
+        if self.cfg.norm == "layernorm":
+            return layer_norm(x, w, p.get(bias_name))
+        return rms_norm(x, w, plus_one=self.cfg.norm_plus_one)
+
+    def _block(self, p: dict, x: torch.Tensor, ctx: ShardingCtx | None, *,
+               q_pos: torch.Tensor, window_active, cache_kv, cache_index):
+        """One transformer block. Returns (x, cache_kv written)."""
+        cfg = self.cfg
+        h = self._norm(x, p["ln1"], p, "ln1_bias")
+        attn_out, new_kv = attention(
+            p["attn"], h, cfg.attn_cfg, ctx, q_pos=q_pos, causal=True,
+            window=cfg.sliding_window, window_active=window_active,
+            cache_kv=cache_kv, cache_index=cache_index)
+        if cfg.sandwich_norm:
+            attn_out = rms_norm(attn_out, p["ln1_post"],
+                                plus_one=cfg.norm_plus_one)
+        if cfg.parallel_block:
+            # command-r: mlp on the same normed input, one residual add
+            mlp_out = mlp_apply(p["mlp"], h, cfg.mlp_cfg, ctx)
+            return x + attn_out + mlp_out, new_kv
+        x = x + attn_out
+        h2 = self._norm(x, p["ln2"], p, "ln2_bias")
+        ffn_out = mlp_apply(p["mlp"], h2, cfg.mlp_cfg, ctx)
+        if cfg.sandwich_norm:
+            ffn_out = rms_norm(ffn_out, p["ln2_post"],
+                               plus_one=cfg.norm_plus_one)
+        return x + ffn_out, new_kv
+
+    def _layer_flags(self) -> torch.Tensor | None:
+        cfg = self.cfg
+        if cfg.local_global:
+            # even layers local (sliding window), odd layers global
+            return torch.arange(cfg.n_layers) % 2 == 0
+        if cfg.sliding_window is not None:
+            return torch.ones((cfg.n_layers,), dtype=torch.bool)
+        return None
+
+    def _run_layers(self, params: dict, x: torch.Tensor,
+                    ctx: ShardingCtx | None, *, q_pos: torch.Tensor,
+                    cache: dict | None, cache_index) -> tuple:
+        """Run the stacked layers in order; returns (x, cache). cache:
+        {"k", "v"}: (L, B, S, KV, hd) or None; layer i reads and writes
+        the views ``cache["k"][i]``, ``cache["v"][i]`` in place."""
+        flags = self._layer_flags()
+        flags = [False] * self.cfg.n_layers if flags is None \
+            else flags.tolist()
+        for i, flag in enumerate(flags):
+            p = _layer_view(params["layers"], i)
+            cache_kv = None if cache is None \
+                else (cache["k"][i], cache["v"][i])
+            x, _ = self._block(p, x, ctx, q_pos=q_pos, window_active=flag,
+                               cache_kv=cache_kv, cache_index=cache_index)
+        return x, cache
+
+    # ---------- embedding / logits ----------
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               ctx: ShardingCtx | None,
+               vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embedding"][tokens.long()].to(cfg.dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model, dtype=cfg.dtype) ** 0.5
+        if cfg.vision_prefix and vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(cfg.dtype), x], dim=1)
+        return shard(x, ctx, "batch", "act_seq", "act_embed")
+
+    def _logits(self, params: dict, x: torch.Tensor,
+                ctx: ShardingCtx | None) -> torch.Tensor:
+        cfg = self.cfg
+        x = self._norm(x, params["final_norm"], params, "final_norm_bias")
+        if cfg.tie_embeddings:
+            logits = torch.einsum("bsd,vd->bsv", x,
+                                  params["embedding"].to(x.dtype))
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x,
+                                  params["lm_head"].to(x.dtype))
+        logits = softcap(logits.to(torch.float32), cfg.final_softcap)
+        return shard(logits, ctx, "batch", "act_seq", "act_vocab")
+
+    # ---------- public: serve ----------
+    def init_cache(self, batch: int, max_seq: int, *,
+                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
+        cfg = self.cfg
+        shp = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        dev = resolve_device(device)
+        return {"k": torch.zeros(shp, dtype=cfg.dtype, device=dev),
+                "v": torch.zeros(shp, dtype=cfg.dtype, device=dev)}
+
+    def prefill(self, params: dict, batch: dict, cache: dict,
+                ctx: ShardingCtx | None = None
+                ) -> tuple[torch.Tensor, dict]:
+        """Run the prompt, fill the cache (in place, from position 0);
+        returns (last-token logits (B, V) fp32, cache)."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens, ctx, batch.get("vision_embeds"))
+        b, s = x.shape[:2]
+        q_pos = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+        x, cache = self._run_layers(params, x, ctx, q_pos=q_pos,
+                                    cache=cache, cache_index=0)
+        logits = self._logits(params, x[:, -1:, :], ctx)
+        return logits[:, 0, :], cache
+
+    def decode_step(self, params: dict, tokens: torch.Tensor, pos,
+                    cache: dict, ctx: ShardingCtx | None = None
+                    ) -> tuple[torch.Tensor, dict]:
+        """tokens (B,) int, pos a scalar or per-slot (B,) ->
+        (logits (B, V) fp32, cache written in place)."""
+        x = self._embed(params, tokens[:, None], ctx)
+        if torch.is_tensor(pos):
+            pos = pos.to(device=x.device, dtype=torch.int32)
+        q_pos = decode_q_pos(pos, x.shape[0]).to(x.device)
+        x, cache = self._run_layers(params, x, ctx, q_pos=q_pos,
+                                    cache=cache, cache_index=pos)
+        logits = self._logits(params, x, ctx)
+        return logits[:, 0, :], cache
+
+    def param_count(self) -> int:
+        return self.cfg.param_count()
+
+
+def _layer_view(tree: dict, i: int) -> dict:
+    """Layer ``i``'s params: views into the stacked tensors."""
+    return {k: _layer_view(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}

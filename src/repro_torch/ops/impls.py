@@ -36,8 +36,10 @@ __all__ = ["conv2d", "fused_conv_block", "tree_reduce_sum", "qmatmul",
            "qdense", "dense", "quantize_conv_int8", "split_requant"]
 
 # the reference pins fp32 matmul precision; the fp32 fc product that stays
-# on torch.matmul must not run in TF32 on the card
+# on torch.matmul must not run in TF32 on the card. Its bf16 contractions
+# accumulate in fp32, so cuBLAS may not reduce bf16 partials in bf16
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 _PLAIN_CPU = {"cpu": 10}
 _REF_CPU = {"cpu": 1}
@@ -222,9 +224,10 @@ def tree_reduce_sum(x: torch.Tensor, *,
 
 # --------------------------------------------------------------- qmatmul
 
-def _qmatmul_plain(x_codes, w_codes, x_scale, w_scale, *, policy=None):
+def _qmatmul_plain(x_codes, w_codes, x_scale, w_scale, *,
+                   out_dtype=torch.float32, policy=None):
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
-    return qmatmul_ref(x_codes, w_codes, x_scale, w_scale)
+    return qmatmul_ref(x_codes, w_codes, x_scale, w_scale, out_dtype)
 
 
 register("qmatmul", "ref", priority=_REF_CPU)(_qmatmul_plain)
@@ -237,29 +240,36 @@ def _qmatmul_cuda_ok(xc, wc, xs, ws, **_) -> bool:
 
 
 @register("qmatmul", "cuda", priority=_KERNEL, supports=_qmatmul_cuda_ok)
-def _qmatmul_cuda(x_codes, w_codes, x_scale, w_scale, *, policy=None):
+def _qmatmul_cuda(x_codes, w_codes, x_scale, w_scale, *,
+                  out_dtype=torch.float32, policy=None):
     from repro_torch.kernels.qmatmul.ops import qmatmul as qmatmul_kernel
     return qmatmul_kernel(x_codes.contiguous(), w_codes.contiguous(),
-                          x_scale, w_scale, policy=policy)
+                          x_scale, w_scale, out_dtype=out_dtype,
+                          policy=policy)
 
 
 def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
             x_scale: torch.Tensor, w_scale: torch.Tensor, *,
+            out_dtype: torch.dtype = torch.float32,
             policy: ExecPolicy | None = None) -> torch.Tensor:
-    """(M,K) int8 · (K,N) int8 -> (M,N) f32. Scales: x (M,1)|scalar,
+    """(M,K) int8 · (K,N) int8 -> (M,N) ``out_dtype``: the fp32 epilogue
+    ``(acc · x_scale) · w_scale``, then a cast. Scales: x (M,1)|scalar,
     w (1,N)|scalar."""
     return dispatch("qmatmul", x_codes, w_codes, x_scale, w_scale,
-                    policy=policy)
+                    out_dtype=out_dtype, policy=policy)
 
 
-def qdense(x: torch.Tensor, wq: QTensor, *,
-           policy: ExecPolicy | None = None) -> torch.Tensor:
-    """fp (…, K) · int8 (K, N) -> f32 (…, N): per-token activation quant,
-    per-output-channel weight scales, int32 accumulation."""
+def qdense(x: torch.Tensor, wq: QTensor, out_dtype: torch.dtype | None = None,
+           *, policy: ExecPolicy | None = None) -> torch.Tensor:
+    """fp (…, K) · int8 (K, N) -> (…, N) in ``out_dtype`` (default
+    ``x.dtype``): per-token activation quant, per-output-channel weight
+    scales, int32 accumulation."""
+    out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     xq = quantize_int8(x2, axis=-1)             # per-row (per-token) scale
-    out = qmatmul(xq.codes, wq.codes, xq.scale, wq.scale, policy=policy)
+    out = qmatmul(xq.codes, wq.codes, xq.scale, wq.scale,
+                  out_dtype=out_dtype, policy=policy)
     return out.reshape(*lead, -1)
 
 
@@ -277,7 +287,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
             raise ValueError(
                 f"dense under quant='int8' needs a 2-D weight, got "
                 f"{tuple(w.shape)}; reshape or drop to quant='none'")
-        out = qdense(x, quantize_int8(w, axis=0), policy=pol)
+        # the weight is quantized on every call, as in the reference
+        out = qdense(x, quantize_int8(w, axis=0), out_dtype=x.dtype,
+                     policy=pol)
         return out if b is None else out + b
     if pol.quant == "qformat":
         q = pol.qformat

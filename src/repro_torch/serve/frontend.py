@@ -1,20 +1,22 @@
-"""Serving front-end over the vision engine (DESIGN.md §11).
+"""Serving front-end over both engines (DESIGN.md §11).
 
-Port of ``repro.serve.frontend`` for the vision path:
+Port of ``repro.serve.frontend``:
 
 * **``SchedulerCore``** — a bounded queue of ``ServeRequest`` with arrival
   timestamps (via the Clock seam, ``repro_torch.serve.clock``). A full
   queue refuses the submit with the typed ``QueueFullError``. Dispatch is
   earliest-deadline-first with FCFS among equal deadlines.
-* **``VisionAdapter``** — the facade ``VisionEngine`` exposes: free lanes,
-  inject, step, drain finished.
+* **``LMAdapter``** / **``VisionAdapter``** — the facade each engine
+  exposes: free lanes, inject, step, drain finished. The LM engine's
+  free lanes are its free KV slots (injecting IS topping up the
+  in-flight batch — continuous batching); the vision engine forms a
+  fresh bucket every step.
 * **``Frontend``** — the serving loop: drain completions, pick dispatches
   under the SLO top-up policy (hold a partial bucket while the earliest
   deadline still affords another step), run one engine step, account
   per-request latency into the engine's ``ServeStats``.
 
-``LMAdapter`` and ``OpenLoopDriver`` wait for the LM slice (ROADMAP
-§A.11).
+``OpenLoopDriver`` waits for the port's benchmark (ROADMAP §A.13).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.serve.stats import ServeStats
 
 __all__ = ["QueueFullError", "ServeRequestState", "ServeRequest",
            "SchedulerCore", "FrontendConfig", "Frontend",
-           "VisionAdapter"]
+           "LMAdapter", "VisionAdapter"]
 
 
 class ServeRequestState(enum.Enum):
@@ -129,6 +131,49 @@ class SchedulerCore:
 
 
 # ---------------------------------------------------------------- adapters
+
+class LMAdapter:
+    """Facade over ``repro_torch.serve.engine.Engine``. Free lanes are
+    free KV slots; injecting into one IS topping up the in-flight decode
+    batch (continuous batching), so the front-end never holds LM
+    requests."""
+
+    kind = "lm"
+    forms_buckets = False
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._rid_by_uid: dict[int, int] = {}
+        self._drained = 0            # prefix of engine.finished consumed
+
+    @property
+    def stats(self) -> ServeStats:
+        return self.engine.stats
+
+    @property
+    def preferred_batch(self) -> int:
+        return self.engine.config.capacity
+
+    def free_lanes(self) -> int:
+        return self.engine.scheduler.free_slots
+
+    def inject(self, req: ServeRequest) -> None:
+        uid = self.engine.add_request(
+            req.payload, req.options["max_new_tokens"],
+            eos_token=req.options.get("eos_token"))
+        self._rid_by_uid[uid] = req.rid
+
+    def step(self) -> None:
+        self.engine.step()
+
+    def drain(self) -> list[tuple[int, Any]]:
+        done = self.engine.finished[self._drained:]
+        self._drained = len(self.engine.finished)
+        return [(self._rid_by_uid.pop(r.uid), r) for r in done]
+
+    def has_inflight(self) -> bool:
+        return self.engine.scheduler.num_running > 0 or bool(self.engine.queue)
+
 
 class VisionAdapter:
     """Facade over ``repro_torch.serve.vision.VisionEngine``. Every engine step

@@ -1,0 +1,5 @@
+"""Logical-axis annotations (port of ``repro.sharding``, the part the
+models call). The mesh rules wait for ROADMAP §A.10."""
+from repro_torch.sharding.logical import A, ShardingCtx, shard
+
+__all__ = ["A", "ShardingCtx", "shard"]

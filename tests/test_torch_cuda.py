@@ -594,3 +594,75 @@ def test_artifact_boot_on_card_is_bitwise(card, tmp_path):
     a, b = fresh.run(), booted.run()
     for uid in a:
         np.testing.assert_array_equal(a[uid]["logits"], b[uid]["logits"])
+
+
+# ------------------------------------------------------------- the LM
+
+# qmatmul at the LM's shapes (qwen1.5-0.5b's MLP): M = a prefill's prompt
+# length or the decode batch, (K, N) = wi/wg (1,024, 2,816), wo (2,816,
+# 1,024)
+LM_QMATMUL = [(m, k, n) for m in (1, 4, 32, 64, 256)
+              for k, n in ((1024, 2816), (2816, 1024))]
+
+
+def _lm_model(layers=2, d_model=1024, vocab=151_936, dtype=torch.bfloat16):
+    from repro_torch.models.transformer import LMConfig, TransformerLM
+    return TransformerLM(LMConfig(
+        name="lm", n_layers=layers, d_model=d_model, n_heads=16,
+        n_kv_heads=16, head_dim=d_model // 16, d_ff=2816 * d_model // 1024,
+        vocab=vocab, qkv_bias=True, rope_theta=1e6, dtype=dtype,
+        remat="none"))
+
+
+@pytest.mark.parametrize("m,k,n", LM_QMATMUL)
+def test_qmatmul_lm_shapes_bitwise_with_a_bf16_out_dtype(card, m, k, n):
+    """The kernel writes f32 and the wrapper casts after it, as the plain
+    version does: bitwise in f32 and in bf16."""
+    args = _qmatmul_operands(m, k, n, card)
+    before = qm_ops.launches
+    got = qm_ops.qmatmul(*args, out_dtype=torch.bfloat16)
+    assert qm_ops.launches == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got, qmatmul_ref(*args, torch.bfloat16))
+    _agree("int8", qm_ops.qmatmul(*args), qmatmul_ref(*args))
+
+
+def test_lm_engine_int8_tokens_equal_between_cuda_and_torch(card):
+    """A 2-layer model at full width under ExecPolicy(quant="int8"): the
+    engine through the qmatmul kernel and through its plain version on
+    the same card gives the same tokens (integer sums are exact and the
+    epilogue rounds twice in both)."""
+    from repro_torch.serve import Engine, EngineConfig
+    model = _lm_model()
+    params = model.init(0, device=card)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 151_936, size=p) for p in (32, 64, 32, 64)]
+    out = {}
+    for backend in ("cuda", "torch"):
+        eng = Engine(model, params, EngineConfig(
+            capacity=2, max_seq=80,
+            policy=ExecPolicy(quant="int8", backend=backend),
+            device="cuda"))
+        for p in prompts:
+            eng.add_request(p, 6)
+        out[backend] = {r.uid: r.generated for r in eng.run()}
+    assert out["cuda"] == out["torch"] and len(out["cuda"]) == 4
+
+
+def test_lm_launch_counts(card):
+    """Under int8 each layer's MLP launches qmatmul three times (wi, wg,
+    wo) in a prefill and in a decode step; nothing else launches it."""
+    from repro_torch.ops import use_policy
+    model = _lm_model(layers=3, d_model=256, vocab=1000)
+    params = model.init(0, device=card)
+    cache = model.init_cache(2, 24, device=card)
+    toks = torch.randint(0, 1000, (2, 16), device=card)
+    with use_policy(ExecPolicy(quant="int8")):
+        before = qm_ops.launches
+        _, cache = model.prefill(params, {"tokens": toks}, cache)
+        assert qm_ops.launches - before == 3 * 3
+        before = qm_ops.launches
+        model.decode_step(params, toks[:, 0], torch.tensor([16, 16]), cache)
+        assert qm_ops.launches - before == 3 * 3
+    before = qm_ops.launches
+    model.decode_step(params, toks[:, 0], torch.tensor([17, 17]), cache)
+    assert qm_ops.launches == before               # no int8 policy
