@@ -17,8 +17,11 @@ Phases, each printing one JSON line:
            of highres_cnn's 224x224 plans (B in {2, 8}), qmatmul bitwise at
            M up to 4,097, K in {37, 320, 4,099, 4,608}, N up to 300, on an
            unaligned view, with scalar scales and with K cut into slices,
-           and at qwen1.5-0.5b's MLP shapes (M in {1, 4, 32, 64, 256},
+           at qwen1.5-0.5b's MLP shapes (M in {1, 4, 32, 64, 256},
            (K, N) in {(1,024, 2,816), (2,816, 1,024)}, f32 and bf16 out),
+           and at the MLP shapes of qwen3-14b, gemma2-2b, command-r-35b
+           and internvl2-26b (M in {4, 64}, K and N up to 22,528, f32
+           and bf16 out),
            fused_cwp at odd conv maps (a 9x9 map, a 224-wide band with an
            odd row count; odd='drop' and 'pad'; B in {1, 8}), and the
            addition tree bitwise at (R, η) shapes up to its η cap that
@@ -65,10 +68,13 @@ Phases, each printing one JSON line:
            shape of the streamed blocks, blocks 2 and 3, the K = 4,608 fc);
            one row tagged ``odd_pool``: fused_cwp on an odd-row 224-wide
            band under odd='pad', beside cuDNN's conv + relu + ceil-mode
-           pool; rows tagged ``qwen1.5-0.5b``: qmatmul at the LM's decode
+           pool; rows tagged with an LM arch (qwen1.5-0.5b and the four
+           dense configs above): qmatmul at its MLP matmuls' decode
            (M = 4) and prefill (M = 64) shapes, beside ``torch._int_mm``
            and the two scale multiplies where ``_int_mm`` takes the shape
-           (M > 16);
+           (M > 16), first checked bitwise against the plain version
+           (timed a call at a time for the dense configs: it sums K in
+           chunks of a 256 MiB product);
   plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
            under three stream budgets (untiled, the default 1 MiB,
            256 KiB): device time between CUDA events, and wall time;
@@ -87,13 +93,38 @@ Phases, each printing one JSON line:
            request's prefill logits and the first decode step's); the
            device and wall time of a 64-token prefill and of a decode step
            at capacity 4 in bf16 and int8, with a profile of a decode step.
+           Then qwen3-14b, gemma2-2b, command-r-35b and internvl2-26b at
+           full width and 2 layers: ``Engine`` under int8, kernel against
+           plain (qmatmul launches 3 x 2 a prefill and a decode step,
+           tokens and a prefill's and a decode step's logits bitwise), and
+           1 layer in fp32 card against CPU; and the launcher at full size
+           and depth in bf16 for gemma2-2b (26 layers) and qwen3-14b (40
+           layers, 14.8 B parameters, 59 GB of fp32 weights), with its
+           tokens/s and the card's peak memory;
+  moe      dbrx-132b (16 experts of d_ff 10,752, top-4) and
+           llama4-scout-17b-a16e (16 experts of d_ff 8,192, top-1 + a
+           shared expert) at full width and the deepest depth L >= 2 whose
+           fp32 init stays under 60 GB, cast once to bf16: ``Engine`` over
+           the launcher's mix (8 requests, 16 tokens each, capacity 4), the
+           assignments dropped in each layer of a 64-token prefill, a
+           decode step at capacity 4 against each row decoded alone
+           (within 2^-4 of 1 + max|logit|, the rows whose routing differs
+           counted), the device and wall time of a 64-token prefill and of
+           a decode step beside their bytes bound (every expert weight read
+           once a layer), with a torch.profiler breakdown; then one
+           ``moe_apply`` at full dbrx width in fp32, card against CPU
+           (every assignment clear of a 1e-5 near-tie with the same expert
+           and keep, those tokens within 1e-4 of 1 + max|out|, aux within
+           1e-6). No kernel launches in the whole phase: the reference's
+           MoE reaches no Pallas kernel.
 
 Then the kernels line (one JSON object; its times are the paper CNN's
 served batch at B = 8, its launches the wrapper launches of the serve,
-eager, tree and stream phases, of the boot phase and of the lm phase's
-int8 engine run, each counted from 0 just before it; a CUDA graph's
+eager, tree and stream phases, of the boot phase, of the lm phase's
+int8 engine runs (qwen1.5-0.5b and the four dense configs) and of the
+moe phase (none), each counted from 0 just before it; a CUDA graph's
 kernels are counted once, at capture; the lm phase's warm-up, its
-card-vs-CPU model and its kernel-vs-plain comparisons are left out),
+card-vs-CPU models and its kernel-vs-plain comparisons are left out),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": ...}``. ``--phases boot,kernels`` runs only the
 named phases (after device and build) and prints no result.
@@ -186,6 +217,21 @@ LM_QMATMUL_SHAPES = [(m, k, n) for m in (1, 4, 32, 64, 256)
 LM_ARCH = "qwen1.5-0.5b"
 LM_ARGV = ["--arch", LM_ARCH, "--capacity", "4", "--requests", "8",
            "--prompt-len", "64", "--decode-steps", "16"]
+# the dense configs served at full width and 2 layers under int8 in the
+# lm phase (each MLP matmul a qmatmul launch at its (K, N)), and the two
+# the launcher also serves at full size and depth in bf16
+LM_DENSE_ARCHS = ["qwen3-14b", "gemma2-2b", "command-r-35b",
+                  "internvl2-26b"]
+LM_DENSE_LAYERS = 2
+LM_FULL_ARCHS = ["gemma2-2b", "qwen3-14b"]
+# the moe phase: both MoE models at full width and the deepest L >= 2
+# whose fp32 init (the stack of L layers, one more layer being drawn, and
+# both embedding matrices) stays under MOE_INIT_BYTES
+MOE_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e"]
+MOE_INIT_BYTES = 60e9
+# a whole bf16 model, relative to 1 + max|logit| (tests/test_torch_lm.py's
+# TOL_BF16): a decode step's rows served together against each alone
+TOL_BF16 = 2.0 ** -4
 # card vs CPU on a 2-layer, full-width fp32 model, relative to
 # 1 + max|logit|: fp32 sums in another order (MKL vs cuBLAS, ~1e-6 an
 # op), and under int8 an activation code that lands on the other side
@@ -268,6 +314,40 @@ def qmatmul_inputs(gen, m, k, n, device):
     xs = torch.rand((m, 1), generator=gen) * 0.05
     ws = torch.rand((1, n), generator=gen) * 0.05
     return tuple(t.to(device) for t in (xc, wc, xs, ws))
+
+
+def qmatmul_inputs_on(device, seed, m, k, n):
+    """``qmatmul_inputs`` drawn on the card by a generator of its own:
+    the large-K shapes' int8 weights (up to 185 M codes) in no time."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    xc = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8,
+                       device=device)
+    wc = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8,
+                       device=device)
+    xs = torch.rand((m, 1), generator=g, device=device) * 0.05
+    ws = torch.rand((1, n), generator=g, device=device) * 0.05
+    return xc, wc, xs, ws
+
+
+def dense_qmatmul_shapes() -> list[tuple[str, int, int]]:
+    """(arch, K, N) of each LM_DENSE_ARCHS config's MLP matmuls under
+    int8: wi and wg (d_model, d_ff), wo (d_ff, d_model)."""
+    from repro_torch.configs import get_arch
+    out = []
+    for arch in LM_DENSE_ARCHS:
+        c = get_arch(arch).model().cfg
+        out += [(arch, c.d_model, c.d_ff), (arch, c.d_ff, c.d_model)]
+    return out
+
+
+def free_card() -> None:
+    """Return what the dropped models held to the card before the next
+    full-width one is drawn."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def fc_inputs(gen, bsz, device, fc=FC):
@@ -521,6 +601,16 @@ def phase_kernels(device):
             record("qmatmul", f"{LM_ARCH} {m}x{k}x{n} {str(dt)[6:]}", m,
                    "int8", qmatmul(xc, wc, xs, ws, out_dtype=dt),
                    qmatmul_ref(xc, wc, xs, ws, dt))
+    # the dense configs' MLP matmuls at a decode step (M = 4) and a
+    # 64-token prefill: K and N up to 22,528, f32 and bf16 out
+    for i, (arch, k, n) in enumerate(dense_qmatmul_shapes()):
+        for m in (4, 64):
+            xc, wc, xs, ws = qmatmul_inputs_on(device, 100 + i, m, k, n)
+            for dt in (torch.float32, torch.bfloat16):
+                record("qmatmul", f"{arch} {m}x{k}x{n} {str(dt)[6:]}", m,
+                       "int8", qmatmul(xc, wc, xs, ws, out_dtype=dt),
+                       qmatmul_ref(xc, wc, xs, ws, dt))
+            del xc, wc
     for r, eta in TREE_SHAPES + [(33, TREE_MAX_ETA)]:
         x = torch.randn((r, eta), generator=gen).to(device)
         record("addtree", f"{r}x{eta}", r, "none", tree_reduce_sum(x),
@@ -852,17 +942,23 @@ def lm_prompts(vocab: int, prompt_len: int = 64, n: int = 8) -> list:
     return [rng.randint(0, vocab, size=int(p)) for p in lens]
 
 
-def lm_launcher(kv_quant: str) -> dict:
-    """``launcher.main`` for qwen1.5-0.5b on the card: every request served
-    with its 16 tokens, the reference's report lines, no qmatmul launch
-    (the launcher's compute policy is the default, as the reference's)."""
+def lm_launcher(kv_quant: str, arch: str = LM_ARCH) -> dict:
+    """``launcher.main`` for ``arch`` at full size on the card (the
+    lm phase's workload): every request served with its 16 tokens, the
+    reference's report lines, no qmatmul launch (the launcher's compute
+    policy is the default, as the reference's), and the card's peak
+    memory over the call."""
     import io
+    import torch
     from repro_torch.launch import serve as launcher
     buf = io.StringIO()
     before = counts()
+    torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(buf):
-        eng, res = launcher.main(LM_ARGV + ["--kv-quant", kv_quant,
-                                            "--device", "cuda"])
+        eng, res = launcher.main(["--arch", arch] + LM_ARGV[2:] +
+                                 ["--kv-quant", kv_quant,
+                                  "--device", "cuda"])
+    peak = torch.cuda.max_memory_allocated()
     grew = {k: counts()[k] - before[k] for k in before}
     report = buf.getvalue().strip().splitlines()
     print("\n".join(report), file=sys.stderr)
@@ -870,17 +966,21 @@ def lm_launcher(kv_quant: str) -> dict:
     check(len(res) == 8 and all(
         len(r.generated) == 16 and all(0 <= t < vocab for t in r.generated)
         for r in res.values()),
-        f"lm launcher kv_quant={kv_quant}: {len(res)} results, "
+        f"lm launcher {arch} kv_quant={kv_quant}: {len(res)} results, "
         f"{[len(r.generated) for r in res.values()]} tokens each")
     check(not any(grew.values()),
-          f"lm launcher kv_quant={kv_quant} launched kernels: {grew}")
-    check(report and report[0].startswith(f"arch={LM_ARCH} capacity=4") and
+          f"lm launcher {arch} kv_quant={kv_quant} launched kernels: {grew}")
+    check(report and report[0].startswith(f"arch={arch} capacity=4") and
           any(ln.startswith("served 8 requests") for ln in report),
-          f"lm launcher kv_quant={kv_quant}: report {report}")
+          f"lm launcher {arch} kv_quant={kv_quant}: report {report}")
     tok_s = re.search(r"\(([\d.]+) tok/s\)", buf.getvalue())
-    return {"path": "launcher", "kv_quant": kv_quant, "report": report,
+    cfg = eng.model.cfg
+    return {"path": "launcher", "arch": arch, "kv_quant": kv_quant,
+            "layers": cfg.n_layers, "params": eng.model.param_count(),
+            "report": report,
             "tokens_per_s": float(tok_s.group(1)) if tok_s else None,
             "engine_steps": eng.stats.steps, "kv_bytes": eng.kv.nbytes(),
+            "max_memory_allocated": peak,
             "device_time_note": "wall clock, host dispatch included"}
 
 
@@ -976,13 +1076,18 @@ def lm_step_logits(model, params, prompts, policy, device, first=None):
     return pre, logits.cpu(), first
 
 
-def lm_card_vs_cpu(device) -> list[dict]:
-    """A 2-layer qwen1.5-0.5b at full width (d_model 1,024, d_ff 2,816,
-    vocab 151,936) in fp32, drawn on the CPU and moved across: each
+def lm_card_vs_cpu(device, arch: str = LM_ARCH, layers: int = 2,
+                   modes=("none", "int8"),
+                   prompt_lens=(32, 16, 32, 16),
+                   nudge: bool = True) -> list[dict]:
+    """``arch`` cut to ``layers`` layers at full width in fp32 (for
+    qwen1.5-0.5b: d_model 1,024, d_ff 2,816, vocab 151,936), drawn on
+    the card by a generator of its own and copied to the CPU: each
     request's prefill logits and the first decode step's, under the
-    default policy and under int8, card against CPU within TOL_LM. Beside
-    each, how far the CPU's own logits move when the embedding moves by
-    a relative 1e-5 (seeded signs): the size of a flipped int8 code."""
+    default policy and under int8 (``modes``), card against CPU within
+    TOL_LM. With ``nudge``, beside each, how far the CPU's own logits
+    move when the embedding moves by a relative 1e-5 (seeded signs): the
+    size of a flipped int8 code."""
     import dataclasses
     import numpy as np
     import torch
@@ -990,48 +1095,71 @@ def lm_card_vs_cpu(device) -> list[dict]:
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.ops import ExecPolicy
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH).model().cfg, n_layers=2,
+    cfg = dataclasses.replace(get_arch(arch).model().cfg, n_layers=layers,
                               dtype=torch.float32)
     model = TransformerLM(cfg)
-    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    params = to_device(cpu_params, device)
+    params = model.init(torch.Generator(device).manual_seed(0),
+                        device=device)
+    cpu_params = to_device(params, "cpu")
     rng = np.random.RandomState(2)
-    prompts = [rng.randint(0, cfg.vocab, size=p) for p in (32, 16, 32, 16)]
-    emb = cpu_params["embedding"]
-    sign = torch.randint(0, 2, emb.shape,
-                         generator=torch.Generator().manual_seed(1)) * 2 - 1
-    nudged = dict(cpu_params, embedding=emb * (1 + 1e-5 * sign))
+    prompts = [rng.randint(0, cfg.vocab, size=p) for p in prompt_lens]
+    if nudge:
+        emb = cpu_params["embedding"]
+        sign = torch.randint(0, 2, emb.shape, generator=torch.Generator()
+                             .manual_seed(1)) * 2 - 1
+        nudged = dict(cpu_params, embedding=emb * (1 + 1e-5 * sign))
     rows = []
-    for mode in ("none", "int8"):
+    for mode in modes:
         pol = ExecPolicy(quant=mode)
         cpu_pre, cpu_dec, first = lm_step_logits(model, cpu_params, prompts,
                                                  pol, "cpu")
         card_pre, card_dec, _ = lm_step_logits(model, params, prompts, pol,
                                                device, first)
-        nudge_pre, nudge_dec, _ = lm_step_logits(model, nudged, prompts, pol,
-                                                 "cpu", first)
-        row = {"mode": mode, "layers": 2, "d_model": cfg.d_model,
-               "vocab": cfg.vocab, "requests": len(prompts)}
-        for name, got, want, moved in (
-                ("prefill", card_pre, cpu_pre, nudge_pre),
-                ("decode", card_dec, cpu_dec, nudge_dec)):
+        moved = (lm_step_logits(model, nudged, prompts, pol, "cpu", first)
+                 if nudge else (None, None))
+        row = {"arch": arch, "mode": mode, "layers": layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab,
+               "requests": len(prompts)}
+        for name, got, want, off in (
+                ("prefill", card_pre, cpu_pre, moved[0]),
+                ("decode", card_dec, cpu_dec, moved[1])):
             check(got.shape == want.shape == (len(prompts), cfg.vocab)
                   and bool(torch.isfinite(got).all())
                   and bool(torch.isfinite(want).all()),
-                  f"lm card vs cpu {mode} {name}: shapes "
+                  f"lm card vs cpu {arch} {mode} {name}: shapes "
                   f"{tuple(got.shape)} / {tuple(want.shape)} or "
                   f"non-finite values")
             err = max_abs(got, want)
             tol = TOL_LM[mode] * (1 + float(want.abs().max()))
-            check(err <= tol, f"lm card vs cpu {mode} {name}: max_abs "
-                              f"{err}, tolerance {tol}")
+            check(err <= tol, f"lm card vs cpu {arch} {mode} {name}: "
+                              f"max_abs {err}, tolerance {tol}")
             row[name] = {"max_abs": err, "tolerance": tol,
-                         "cpu_nudged_1e-5_max_abs": max_abs(moved, want),
                          "max_abs_logit": float(want.abs().max()),
                          "top1_agree": int((got.argmax(-1)
                                             == want.argmax(-1)).sum())}
+            if off is not None:
+                row[name]["cpu_nudged_1e-5_max_abs"] = max_abs(off, want)
         rows.append(row)
     return rows
+
+
+def filled_engine(model, params, device, policy=None, prompts=None):
+    """An engine at capacity 4 under ``policy`` with every slot prefilled
+    from ``prompts`` (default: the launcher's first 4): (engine, the next
+    tokens (4,), the slots' positions (4,))."""
+    import torch
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import Engine, EngineConfig
+    eng = Engine(model, params, EngineConfig(capacity=4, max_seq=80,
+                                             policy=policy or ExecPolicy(),
+                                             device=str(device)))
+    for p in (prompts or lm_prompts(model.cfg.vocab))[:4]:
+        eng.add_request(p, 16)
+    eng._admit()
+    check(eng.scheduler.num_running == 4,
+          f"{model.cfg.name}: slots not full")
+    return (eng, torch.as_tensor(eng._last_token, device=device),
+            torch.as_tensor(eng.kv.positions(), device=device))
 
 
 def lm_logits_bitwise(model, params, device) -> dict:
@@ -1042,21 +1170,13 @@ def lm_logits_bitwise(model, params, device) -> dict:
     the same cache."""
     import torch
     from repro_torch.ops import ExecPolicy, use_policy
-    from repro_torch.serve import Engine, EngineConfig
     from repro_torch.serve.cache import dequantize_leaves
     from repro_torch.serve.steps import make_decode_step
 
     prompts = lm_prompts(model.cfg.vocab)
     toks = torch.as_tensor(prompts[1][None], device=device)
-    eng = Engine(model, params, EngineConfig(
-        capacity=4, max_seq=80, policy=ExecPolicy(quant="int8"),
-        device=str(device)))
-    for p in prompts[:4]:
-        eng.add_request(p, 16)
-    eng._admit()
-    check(eng.scheduler.num_running == 4, "lm logits: slots not full")
-    tokens = torch.as_tensor(eng._last_token, device=device)
-    pos = torch.as_tensor(eng.kv.positions(), device=device)
+    eng, tokens, pos = filled_engine(model, params, device,
+                                     ExecPolicy(quant="int8"))
     out = {}
     for backend in (None, "torch"):
         pol = ExecPolicy(quant="int8", backend=backend)
@@ -1091,21 +1211,14 @@ def lm_times(model, params, device) -> list[dict]:
     time then holds host time too: the busy time is the device's own."""
     import torch
     from repro_torch.ops import ExecPolicy
-    from repro_torch.serve import Engine, EngineConfig
 
     prompts = [p for p in lm_prompts(model.cfg.vocab) if len(p) == 64]
     toks = torch.as_tensor(prompts[0][None], device=device)
     rows = []
     for mode, pol in (("bf16", ExecPolicy()),
                       ("int8", ExecPolicy(quant="int8"))):
-        eng = Engine(model, params, EngineConfig(
-            capacity=4, max_seq=80, policy=pol, device=str(device)))
-        for p in prompts[:4]:
-            eng.add_request(p, 16)
-        eng._admit()
-        check(eng.scheduler.num_running == 4, "lm times: slots not full")
-        tokens = torch.as_tensor(eng._last_token, device=device)
-        pos = torch.as_tensor(eng.kv.positions(), device=device)
+        eng, tokens, pos = filled_engine(model, params, device, pol,
+                                         prompts)
         state = eng.kv.device_state()
         fns = {"prefill": lambda: eng._prefill(
                    eng.params, {"tokens": toks},
@@ -1192,12 +1305,45 @@ def lm_weight_costs(model, params) -> dict:
             "params": int(sum(t.numel() for t in mats))}
 
 
+def lm_dense(arch: str, device) -> tuple[dict, dict]:
+    """``arch`` at full width and LM_DENSE_LAYERS layers (fp32 weights
+    from seed 0 on the card, bf16 compute): ``Engine`` under int8 through
+    the qmatmul kernel and through its plain version (tokens equal,
+    3 x layers launches a prefill and a decode step), a 64-token
+    prefill's and a 4-slot decode step's logits bitwise kernel vs plain,
+    then 1 layer in fp32 card against CPU. Returns (the report, the
+    kernel engine run's launches)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = dataclasses.replace(get_arch(arch).model().cfg,
+                              n_layers=LM_DENSE_LAYERS)
+    model = TransformerLM(cfg)
+    params = model.init(0, device=device)
+    out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab}
+    t0 = time.perf_counter()
+    out["engine"], launches = lm_engines(model, params, device)
+    out["logits_kernel_vs_plain"] = lm_logits_bitwise(model, params, device)
+    del params
+    free_card()
+    out["card_vs_cpu"] = lm_card_vs_cpu(device, arch, layers=1,
+                                        modes=("none",),
+                                        prompt_lens=(16, 8), nudge=False)
+    free_card()
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def phase_lm(device) -> dict:
     """qwen1.5-0.5b on the card: Engine under int8 through the kernel and
     through the plain qmatmul, the launcher (bf16 and an int8 KV cache),
     and a 2-layer full-width model card vs CPU; then a prefill's and a
-    full decode step's logits kernel vs plain, and the times. Returns
-    the LM path's launches: those of the int8 engine's ``run()``."""
+    full decode step's logits kernel vs plain, and the times. Then each
+    LM_DENSE_ARCHS config at full width (``lm_dense``), and the launcher
+    at full size for each LM_FULL_ARCHS config. Returns the LM path's
+    launches: those of the int8 engines' ``run()``."""
     from repro_torch.configs import get_arch
 
     model = get_arch(LM_ARCH).model()
@@ -1214,8 +1360,317 @@ def phase_lm(device) -> dict:
                                                       device)
     out["times"] = lm_times(model, params, device)
     out["tolerances"] = TOL_LM
+    del params
+    free_card()
+    out["dense"] = []
+    for arch in LM_DENSE_ARCHS:
+        row, grew = lm_dense(arch, device)
+        out["dense"].append(row)
+        launches = {k: v + grew[k] for k, v in launches.items()}
+    for arch in LM_FULL_ARCHS:
+        free_card()
+        out["launcher"].append(lm_launcher("none", arch))
+    free_card()
     emit(out)
     return launches
+
+
+# -------------------------------------------------------------------- moe
+
+def moe_depth(cfg) -> int:
+    """The deepest L >= 2 at which ``cfg``'s fp32 init stays under
+    MOE_INIT_BYTES: the stack of L layers, one more layer being drawn
+    (``stacked_init`` draws a layer, then copies it in), and both
+    embedding matrices."""
+    import dataclasses
+    count = lambda n: dataclasses.replace(cfg, n_layers=n).param_count()
+    layer = count(1) - count(0)
+    depth = 2
+    while 4 * (count(depth + 1) + layer) <= MOE_INIT_BYTES:
+        depth += 1
+    return depth
+
+
+@contextlib.contextmanager
+def moe_routing_log():
+    """Record every ``moe_apply``'s routing (flat experts (B, S·k), keep)
+    on the device, one entry a layer call, without a host sync."""
+    import repro_torch.models.moe as moe
+    log, slots = [], moe._slots
+
+    def logged(flat_e, e, cap):
+        pos, keep = slots(flat_e, e, cap)
+        log.append((flat_e, keep))
+        return pos, keep
+
+    moe._slots = logged
+    try:
+        yield log
+    finally:
+        moe._slots = slots
+
+
+def to_dtype(tree, dtype):
+    """Each leaf cast once (numerically the per-call ``.to(x.dtype)``),
+    the fp32 leaf freed before the next is cast."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            to_dtype(tree[k], dtype)
+        else:
+            tree[k] = tree[k].to(dtype)
+    return tree
+
+
+def moe_engine(model, params, device) -> dict:
+    """``Engine`` over the launcher's synthetic mix (8 requests, prompts
+    of 64 or 32 tokens, 16 new tokens each, capacity 4): every request
+    served with its tokens."""
+    import torch
+    from repro_torch.serve import Engine, EngineConfig
+    prompts = lm_prompts(model.cfg.vocab)
+    eng = Engine(model, params, EngineConfig(capacity=4, max_seq=80,
+                                             device=str(device)))
+    for length in sorted({len(p) for p in prompts}):
+        eng.warm_prefill(length)
+    for p in prompts:
+        eng.add_request(p, 16)
+    t0 = time.perf_counter()
+    fin = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vocab = model.cfg.vocab
+    check(len(fin) == 8 and all(len(r.generated) == 16 and all(
+        0 <= t < vocab for t in r.generated) for r in fin),
+        f"moe engine {model.cfg.name}: {len(fin)} requests, "
+        f"{[len(r.generated) for r in fin]} tokens")
+    s = eng.stats
+    return {"requests": len(fin), "prefills": s.prefills,
+            "decode_steps": s.decode_lane_steps // eng.config.capacity,
+            "wall_s": wall,
+            "tokens_per_s": (s.prefill_tokens + s.decode_tokens) / wall,
+            "sample": fin[0].generated[:8]}
+
+
+
+
+def moe_group_independence(model, params, device) -> dict:
+    """A decode step over 4 live slots against each slot's row decoded
+    alone (batch 1, its own copy of its cache row): every row's logits
+    within TOL_BF16 of 1 + max|logit|, each row a dispatch group of its
+    own. Rows whose experts differ between the two runs are counted
+    (another batch size may take another GEMM, so bf16 sums may round
+    apart)."""
+    import torch
+    from repro_torch.serve.steps import make_decode_step
+    eng, tokens, pos = filled_engine(model, params, device)
+    decode = make_decode_step(model, sample=False)
+    cache = eng.kv.data
+    with moe_routing_log() as log:
+        together, _ = decode(eng.params, tokens, pos,
+                             {k: v.clone() for k, v in cache.items()})
+    routes = [fe for fe, _ in log]
+    rows, routed_apart = [], 0
+    for i in range(4):
+        with moe_routing_log() as log:
+            alone, _ = decode(eng.params, tokens[i:i + 1], pos[i:i + 1],
+                              {k: v[:, i:i + 1].clone()
+                               for k, v in cache.items()})
+        apart = any(not torch.equal(fe[0], r[i])
+                    for (fe, _), r in zip(log, routes))
+        routed_apart += apart
+        want = together[i:i + 1].float()
+        err = max_abs(alone.float(), want)
+        tol = TOL_BF16 * (1 + float(want.abs().max()))
+        check(bool(torch.isfinite(alone).all()) and err <= tol,
+              f"moe {model.cfg.name} group independence: row {i} alone "
+              f"max_abs {err}, tolerance {tol}")
+        rows.append({"row": i, "max_abs": err, "tolerance": tol,
+                     "routing_differs": apart})
+    return {"positions": pos.tolist(), "rows": rows,
+            "rows_routed_apart": routed_apart}
+
+
+def moe_drops(model, params, device) -> dict:
+    """One 64-token prefill (batch 1, one dispatch group): the
+    assignments dropped past capacity in each layer, and the experts
+    each layer's routing reached."""
+    import torch
+    from repro_torch.models.moe import _capacity
+    prompt = next(p for p in lm_prompts(model.cfg.vocab) if len(p) == 64)
+    with moe_routing_log() as log, torch.no_grad():
+        model.prefill(params, {"tokens": torch.as_tensor(
+            prompt[None], device=device)},
+            model.init_cache(1, 64, device=device))
+    m = model.cfg.moe
+    return {"tokens": 64, "top_k": m.top_k,
+            "capacity": _capacity(64, m),
+            "mean_per_expert": 64 * m.top_k / m.n_experts,
+            "dropped_per_layer": [int((~keep).sum()) for _, keep in log],
+            "experts_reached_per_layer": [int(fe.unique().numel())
+                                          for fe, _ in log]}
+
+
+def moe_times(model, params, device) -> list[dict]:
+    """Device time (one call behind a spin, CUDA events), device busy
+    time (torch.profiler's kernel sum), wall time, and a top-ops profile
+    of a 64-token prefill and of a decode step at capacity 4, beside the
+    bytes bound: every expert weight read once a layer (and the other
+    weights: attention, router, the head), at PEAK_BYTES; and the same
+    with only the experts this call's routing reached."""
+    import torch
+    eng, tokens, pos = filled_engine(model, params, device)
+    prompt = next(p for p in lm_prompts(model.cfg.vocab) if len(p) == 64)
+    toks = torch.as_tensor(prompt[None], device=device)
+    state = eng.kv.device_state()
+    cfg, m = model.cfg, model.cfg.moe
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    experts = params["layers"]["moe"]
+    expert_bytes = sum(nbytes(experts[k]) for k in ("wi", "wg", "wo")
+                       if k in experts) // (cfg.n_layers * m.n_experts)
+    # every weight but the routed experts' and the input embedding's
+    other = (sum(nbytes(t) for t in _leaves_of(params))
+             - nbytes(params["embedding"])
+             - cfg.n_layers * m.n_experts * expert_bytes)
+    fns = {"prefill": lambda: eng._prefill(
+               eng.params, {"tokens": toks},
+               model.init_cache(1, 64, device=device)),
+           "decode": lambda: eng._decode(eng.params, tokens, pos, *state)}
+    rows = []
+    for step, fn in fns.items():
+        with moe_routing_log() as log:
+            fn()
+        reached = [int(fe.unique().numel()) for fe, _ in log]
+        rows_read = 64 if step == "prefill" else 4
+        base = other + rows_read * nbytes(params["embedding"][0])
+        all_bytes = base + cfg.n_layers * m.n_experts * expert_bytes
+        routed_bytes = base + sum(reached) * expert_bytes
+        ms, dry = call_device_ms(fn, reps=10, spin=int(5e8))
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof = lm_profile(fn)
+        wall = statistics.median(walls)
+        busy = prof.get("kernel_us", 0.0) / 1e3
+        rows.append({"step": step, "M": rows_read, "layers": cfg.n_layers,
+                     "wall_ms": wall, "device_busy_ms": busy,
+                     "busy_share_of_wall": busy / wall, "event_ms": ms,
+                     "queue_ran_dry": dry,
+                     "bound_ms": all_bytes / PEAK_BYTES * 1e3,
+                     "bound_by": "bytes",
+                     "expert_bound_ms_per_layer":
+                         m.n_experts * expert_bytes / PEAK_BYTES * 1e3,
+                     "routed_bound_ms": routed_bytes / PEAK_BYTES * 1e3,
+                     "experts_reached_per_layer": reached,
+                     "profile": prof})
+    return rows
+
+
+def _leaves_of(tree):
+    """Every tensor of a params tree."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves_of(v)
+        else:
+            yield v
+
+
+def moe_card_vs_cpu(device) -> dict:
+    """One ``moe_apply`` at full dbrx width (d_model 6,144, 16 experts of
+    d_ff 10,752, top-4) in fp32 on a (1, 64, 6,144) input, the weights
+    drawn on the card and copied to the CPU (12.7 GB): every assignment
+    whose k-th to (k+1)-th probability margin exceeds 1e-5 takes the
+    same expert and the same keep on both; the tokens that touch no
+    near-tie agree within 1e-4 of 1 + max|want|; the aux loss within
+    1e-6."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = get_arch("dbrx-132b").model().cfg.moe
+    g = torch.Generator(device).manual_seed(3)
+    params = moe.moe_init(g, cfg, device)
+    x = torch.randn((1, 64, cfg.d_model), generator=g, device=device)
+    cpu_params, cpu_x = to_device(params, "cpu"), x.cpu()
+    with moe_routing_log() as log:
+        got, aux = moe.moe_apply(params, x, cfg, None)
+        want, want_aux = moe.moe_apply(cpu_params, cpu_x, cfg, None)
+    probs, _, _, _ = moe._route(cpu_params, cpu_x, cfg)
+    del params, cpu_params
+    srt = torch.sort(probs, dim=-1, descending=True).values
+    margin = (srt[..., cfg.top_k - 1] - srt[..., cfg.top_k])[0]   # (S,)
+    clear = (margin > 1e-5).repeat_interleave(cfg.top_k)          # (S·k,)
+    (e_card, keep_card), (e_cpu, keep_cpu) = log
+    e_card, keep_card = e_card.cpu()[0], keep_card.cpu()[0]
+    e_cpu, keep_cpu = e_cpu[0], keep_cpu[0]
+    check(torch.equal(e_card[clear], e_cpu[clear]) and
+          torch.equal(keep_card[clear], keep_cpu[clear]),
+          "moe card vs cpu: an assignment clear of any near-tie took "
+          "another expert or keep")
+    tokens = margin > 1e-5
+    err = max_abs(got.cpu()[0][tokens], want[0][tokens])
+    tol = 1e-4 * (1 + float(want.abs().max()))
+    aux_err = abs(float(aux) - float(want_aux))
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"moe card vs cpu: max_abs {err}, tolerance {tol}")
+    check(aux_err <= 1e-6, f"moe card vs cpu: aux {float(aux)} vs "
+                           f"{float(want_aux)}")
+    return {"shape": [1, 64, cfg.d_model], "smallest_margin":
+            float(margin.min()), "near_ties": int((~tokens).sum()),
+            "dropped": int((~keep_cpu).sum()), "max_abs": err,
+            "tolerance": tol, "max_abs_out": float(want.abs().max()),
+            "aux": float(want_aux), "aux_abs_err": aux_err}
+
+
+def phase_moe(device) -> dict:
+    """Both MoE models at full width and reduced depth on the card, bf16
+    weights (drawn in fp32 from seed 0 on the card, then cast once):
+    ``Engine`` over the launcher's mix, the drops of a 64-token prefill,
+    group independence at capacity 4, the times; then one full-width
+    dbrx ``moe_apply`` card against CPU. No kernel launches: the
+    reference's MoE reaches no Pallas kernel. Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+
+    reset_counts()
+    out = {"phase": "moe", "models": []}
+    for arch in MOE_ARCHS:
+        free_card()
+        cfg = get_arch(arch).model().cfg
+        depth = moe_depth(cfg)
+        model = TransformerLM(dataclasses.replace(cfg, n_layers=depth))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(0, device=device)
+        torch.cuda.synchronize()
+        row = {"arch": arch, "layers": depth,
+               "param_count": model.param_count(),
+               "active_param_count": model.cfg.active_param_count(),
+               "init_s": time.perf_counter() - t0,
+               "fp32_init_max_memory_allocated":
+                   torch.cuda.max_memory_allocated()}
+        to_dtype(params, cfg.dtype)
+        free_card()
+        row["bf16_memory_allocated"] = torch.cuda.memory_allocated()
+        row["engine"] = moe_engine(model, params, device)
+        row["drops"] = moe_drops(model, params, device)
+        row["group_independence"] = moe_group_independence(model, params,
+                                                           device)
+        row["times"] = moe_times(model, params, device)
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["models"].append(row)
+        del params
+    free_card()
+    out["card_vs_cpu"] = moe_card_vs_cpu(device)
+    free_card()
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"the moe path launched kernels: {out['launches']}")
+    emit(out)
+    return out["launches"]
 
 
 # ------------------------------------------------------------------- boot
@@ -1700,9 +2155,9 @@ def phase_times(device):
                                       "bytes_per_s": PEAK_BYTES},
           "library_null_reason": {
               "qmatmul": "torch._int_mm refuses N = 10 (it needs N a "
-                         "multiple of 8 and M > 16), and M = 4 (qwen1.5-"
-                         "0.5b's decode), and no other single PyTorch "
-                         "call is an int8 x int8 -> int32 GEMM"},
+                         "multiple of 8 and M > 16), and M = 4 (an LM's "
+                         "decode step at capacity 4), and no other single "
+                         "PyTorch call is an int8 x int8 -> int32 GEMM"},
           "rows": rows})
     return rows
 
@@ -1758,42 +2213,51 @@ def odd_time_row(gen, device) -> dict:
 
 
 def lm_time_rows(gen, device) -> list[dict]:
-    """qmatmul at qwen1.5-0.5b's MLP shapes: a decode step at capacity 4
-    (M = 4) and a 64-token prefill (M = 64), each (K, N) of wi/wg and wo.
-    The library yardstick is ``torch._int_mm`` (cuBLAS's int8 GEMM)
-    followed by the two scale multiplies, where it takes the shape (M >
-    16, K and N multiples of 8); its result is first held bitwise
-    against the plain version's."""
+    """qmatmul at the LMs' MLP shapes: a decode step at capacity 4 (M =
+    4) and a 64-token prefill (M = 64), each (K, N) of wi/wg and wo, for
+    qwen1.5-0.5b and each LM_DENSE_ARCHS config. The library yardstick is
+    ``torch._int_mm`` (cuBLAS's int8 GEMM) followed by the two scale
+    multiplies, where it takes the shape (M > 16, K and N multiples of
+    8); its result is first held bitwise against the plain version's. The
+    dense configs' plain version (tens of ms a call, summing K in
+    chunks) is timed a call at a time behind a spin."""
     import torch
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
+    cases = [(LM_ARCH, m, k, n, None) for m in (4, 64)
+             for k, n in ((1024, 2816), (2816, 1024))]
+    cases += [(arch, m, k, n, 200 + i)
+              for i, (arch, k, n) in enumerate(dense_qmatmul_shapes())
+              for m in (4, 64)]
     rows = []
-    for m in (4, 64):
-        for k, n in ((1024, 2816), (2816, 1024)):
-            xc, wc, xs, ws = qmatmul_inputs(gen, m, k, n, device)
-            lib, note = None, "torch._int_mm needs M > 16"
-            if m > 16:
-                def lib(xc=xc, wc=wc, xs=xs, ws=ws):
-                    return torch._int_mm(xc, wc).to(torch.float32) * xs * ws
-                try:
-                    same = bitwise(lib(), qmatmul_ref(xc, wc, xs, ws))
-                except RuntimeError as e:
-                    lib, note = None, f"torch._int_mm refused: {e}"
-                else:
-                    check(same, f"torch._int_mm at {m}x{k}x{n} disagrees "
-                                f"with the plain qmatmul")
-                    note = None
-            stage = ("decode" if m == 4 else "prefill") + f" {m}x{k}x{n}"
-            row = _time_row(
-                "qmatmul", stage, m,
-                lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul(xc, wc, xs, ws),
-                lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul_ref(xc, wc, xs,
-                                                               ws),
-                lib, m * k + k * n + 4 * (m + n + m * n),
-                2.0 * m * k * n / PEAK_INT8, exact=True, model=LM_ARCH)
-            row["library_note"] = note
-            rows.append(row)
+    for arch, m, k, n, seed in cases:
+        xc, wc, xs, ws = (qmatmul_inputs(gen, m, k, n, device) if seed is None
+                          else qmatmul_inputs_on(device, seed, m, k, n))
+        lib, note = None, "torch._int_mm needs M > 16"
+        if m > 16:
+            def lib(xc=xc, wc=wc, xs=xs, ws=ws):
+                return torch._int_mm(xc, wc).to(torch.float32) * xs * ws
+            try:
+                same = bitwise(lib(), qmatmul_ref(xc, wc, xs, ws))
+            except RuntimeError as e:
+                lib, note = None, f"torch._int_mm refused: {e}"
+            else:
+                check(same, f"torch._int_mm at {m}x{k}x{n} disagrees "
+                            f"with the plain qmatmul")
+                note = None
+        stage = ("decode" if m == 4 else "prefill") + f" {m}x{k}x{n}"
+        row = _time_row(
+            "qmatmul", stage, m,
+            lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul(xc, wc, xs, ws),
+            lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul_ref(xc, wc, xs,
+                                                           ws),
+            lib, m * k + k * n + 4 * (m + n + m * n),
+            2.0 * m * k * n / PEAK_INT8, exact=True, model=arch,
+            plain_one_call=seed is not None)
+        row["library_note"] = note
+        rows.append(row)
+        del xc, wc
     return rows
 
 
@@ -1871,10 +2335,13 @@ def band_copy_rows(device) -> list[dict]:
 
 
 def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s, *,
-              exact: bool, model: str = "mnist_cnn"):
+              exact: bool, model: str = "mnist_cnn",
+              plain_one_call: bool = False):
     """One timed row of ``model``'s kernel shapes; at B = 1024 the
     kernel's output is first held against the plain version's (bitwise
-    where ``exact``)."""
+    where ``exact``). ``plain_one_call``: the plain version is timed a
+    call at a time behind a spin (``call_device_ms``), for a call long
+    enough that a hundred queued at once would fill the launch queue."""
     import torch
     if bsz == 1024:
         got, want = kern(), plain()
@@ -1886,7 +2353,8 @@ def _time_row(name, stage, bsz, kern, plain, lib, nbytes, ops_s, *,
               f"{err}, tolerance {tol}")
         del got, want
     ms, dry = device_ms(kern)
-    plain_ms, plain_dry = device_ms(plain)
+    plain_ms, plain_dry = (call_device_ms(plain, reps=5, spin=int(1e8))
+                           if plain_one_call else device_ms(plain))
     lib_ms, lib_dry = device_ms(lib) if lib is not None else (None, False)
     bytes_s = nbytes / PEAK_BYTES
     return {"name": name, "model": model, "stage": stage, "B": bsz,
@@ -1926,13 +2394,24 @@ def kernels_line(launches, max_err, rows) -> dict:
     return {"kernels": out}
 
 
+def _timed(name, fn):
+    """``fn`` with its wall time printed to stderr when it returns."""
+    def run(device):
+        t0 = time.perf_counter()
+        out = fn(device)
+        print(f"chip_smoke: phase {name} {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+        return out
+    return run
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
-                         "times, plans); prints no result line")
+                         "lm, moe, times, plans); prints no result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -1952,7 +2431,10 @@ def main(argv=None) -> int:
     phases = {"kernels": phase_kernels, "serve": phase_serve,
               "eager": phase_eager, "tree": phase_tree,
               "stream": phase_stream, "boot": phase_boot,
-              "lm": phase_lm, "times": phase_times, "plans": phase_plans}
+              "lm": phase_lm, "moe": phase_moe, "times": phase_times,
+              "plans": phase_plans}
+    t_start = time.perf_counter()
+    phases = {name: _timed(name, fn) for name, fn in phases.items()}
     try:
         info = phase_device()
         phase_build()
@@ -1961,30 +2443,34 @@ def main(argv=None) -> int:
                 phases[name](device)
             print("chip_smoke: ran only --phases; no result", file=sys.stderr)
             return 4
-        max_err = phase_kernels(device)
+        max_err = phases["kernels"](device)
         reset_counts()                      # the main path starts here
-        phase_serve(device)
-        phase_eager(device)
-        phase_tree(device)
-        phase_stream(device)
+        phases["serve"](device)
+        phases["eager"](device)
+        phases["tree"](device)
+        phases["stream"](device)
         launches = counts()
         check(all(launches.values()),
               f"a kernel of the main path never launched: {launches}")
         reset_counts()                      # this slice's path: the boot
-        phase_boot(device)
+        phases["boot"](device)
         boot = counts()
         check(boot["fused_cwp"] and boot["qmatmul"],
               f"a kernel of the boot path never launched: {boot}")
-        lm = phase_lm(device)               # counted from 0 in there
+        lm = phases["lm"](device)               # counted from 0 in there
         check(lm["qmatmul"], f"qmatmul never launched on the LM path: {lm}")
+        moe = phases["moe"](device)             # counted from 0: none at all
         emit({"phase": "launches", "main": launches, "boot": boot,
-              "lm": lm})
-        launches = {k: v + boot[k] + lm[k] for k, v in launches.items()}
-        rows = phase_times(device)
-        phase_plans(device)
+              "lm": lm, "moe": moe})
+        launches = {k: v + boot[k] + lm[k] + moe[k]
+                    for k, v in launches.items()}
+        rows = phases["times"](device)
+        phases["plans"](device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
+          file=sys.stderr)
     emit(kernels_line(launches, max_err, rows))
     print(info["nvidia_smi"])
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,13 @@ numpy arrays — a JAX ``init`` output converted to numpy by the caller —
 into the port's params in the same nested layout: the CNNs' conv weights
 (M, N, Kh, Kw), biases (M,), ``fc_w`` (K, N), and the LM's
 layer-stacked tree (``embedding``, ``layers/{attn, mlp, ln1, ln2}``,
-``final_norm``). Both packages then compute the same function, which is
-how the tests hold one against the other. Nothing here imports JAX.
+``final_norm``, ``lm_head`` when untied), an MoE model's experts in
+place of ``mlp`` (``layers/moe/{router, wi, wg, wo}`` and, with shared
+experts, ``shared_{wi, wg, wo}``) and gemma2's ``ln*_post`` and
+command-r's ``ln*_bias`` norms. Any nested dict of float leaves comes
+through key for key. Both packages then compute the same function,
+which is how the tests hold one against the other. Nothing here imports
+JAX.
 
 A bfloat16 leaf (numpy's view of a JAX bf16 array, dtype name
 ``bfloat16``) becomes a ``torch.bfloat16`` tensor with the same values:

@@ -12,7 +12,7 @@ __all__ = ["ArchSpec"]
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                       # "cnn" | "dense" (ported so far)
+    family: str                       # cnn|dense|moe|vlm (ported so far)
     build: Callable[[], Any]          # -> model instance
     source: str                       # provenance note
     notes: str = ""

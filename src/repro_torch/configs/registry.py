@@ -1,9 +1,10 @@
 """Arch registry: ``--arch <id>`` resolution (port of
-``repro.configs.registry``). Ported so far: the paper's ``mnist_cnn``
-(Tab. I), ``highres_cnn`` (224×224, streamed through
-``repro_torch.stream``) and the dense LM ``qwen1.5-0.5b``; the other LM
-archs wait for ROADMAP §A.11. As in the reference, both CNNs are
-servable via ``--arch`` and stay out of ``ARCH_IDS``, the LM archs."""
+``repro.configs.registry``). Ported: the paper's ``mnist_cnn`` (Tab. I),
+``highres_cnn`` (224×224, streamed through ``repro_torch.stream``) and
+every transformer arch of the reference, dense and MoE. The three other
+LM archs (seamless-m4t-medium, zamba2-7b, rwkv6-1.6b) wait for their
+ROADMAP §A.11 items, and ``get_arch`` says which. As in the reference,
+both CNNs are servable via ``--arch`` and stay out of ``ARCH_IDS``."""
 from __future__ import annotations
 
 import importlib
@@ -13,15 +14,31 @@ from repro_torch.configs.base import ArchSpec
 __all__ = ["get_arch", "ARCH_IDS"]
 
 _MODULES = {
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "mnist_cnn": "repro_torch.configs.mnist_cnn",
     "highres_cnn": "repro_torch.configs.highres_cnn",
+}
+# the reference's archs whose model families are not ported yet: the
+# ROADMAP §A.11 item each waits for
+_NOT_PORTED = {
+    "seamless-m4t-medium": "encdec.py (the encoder-decoder)",
+    "zamba2-7b": "mamba2.py and hybrid.py (the Mamba2 hybrid)",
+    "rwkv6-1.6b": "rwkv6.py and rwkv_lm.py (the RWKV-6 LM)",
 }
 # the vision workloads are servable via --arch but are not LM archs
 ARCH_IDS = [a for a in _MODULES if a not in ("mnist_cnn", "highres_cnn")]
 
 
 def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id in _NOT_PORTED:
+        raise KeyError(f"arch {arch_id!r} is not ported yet: it waits for "
+                       f"{_NOT_PORTED[arch_id]}, ROADMAP §A.11")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; ported so far: "
                        f"{sorted(_MODULES)}")

@@ -42,15 +42,28 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], fan_in: int,
 def stacked_init(init_fn: Callable[[torch.Generator], dict],
                  gen: torch.Generator, n: int) -> dict:
     """Run ``init_fn`` ``n`` times -> params stacked on a leading layer
-    dim (the reference vmaps its init over ``n`` keys)."""
-    layers = [init_fn(gen) for _ in range(n)]
+    dim (the reference vmaps its init over ``n`` keys). Layer 0 sets each
+    stacked leaf's shape; each later layer is drawn in turn and copied
+    into its row, so the peak holds the stack and one layer, never the
+    list of layers beside their stack."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+        out[0] = t
+        return out
 
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack(trees)
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
 
-    return stack(layers)
+    stacked = alloc(init_fn(gen))
+    for i in range(1, n):
+        put(stacked, init_fn(gen), i)
+    return stacked
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,

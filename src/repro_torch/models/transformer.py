@@ -1,12 +1,13 @@
 """Decoder-only transformer LM, config-assembled (port of
 ``repro.models.transformer``).
 
-One config class covers the reference's dense family: qwen1.5 (QKV
-bias), command-r (parallel block, LayerNorm), qwen3 (qk_norm), gemma2
+One config class covers the reference's whole family: dbrx (MoE top-4),
+llama4-scout (MoE top-1 + a shared expert), qwen1.5 (QKV bias),
+command-r (parallel block, LayerNorm), qwen3 (qk_norm), gemma2
 (local/global alternation, softcaps, sandwich norms, embed scaling) and
-the internvl2 backbone (vision-prefix embeddings). A config with ``moe``
-set raises until ``moe.py`` is ported (ROADMAP §A.11), and ``loss``
-waits for training (§A.12).
+the internvl2 backbone (vision-prefix embeddings). ``loss`` waits for
+training (ROADMAP §A.12); so does the MoE aux loss's sum over layers,
+which serving discards.
 
 Layers are stacked on a leading L dim as in the reference, whose
 ``lax.scan`` over them becomes a Python loop over views of the stacked
@@ -25,6 +26,7 @@ from repro_torch.models.common import (decode_q_pos, dense_init, layer_norm,
                                        rms_norm, softcap, stacked_init)
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
                                        attn_init, mlp_apply, mlp_init)
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 from repro_torch.sharding.logical import ShardingCtx, shard
 
 __all__ = ["LMConfig", "TransformerLM"]
@@ -53,7 +55,7 @@ class LMConfig:
     parallel_block: bool = False         # command-r: attn ∥ mlp
     sliding_window: int | None = None
     local_global: bool = False           # alternate local/global (gemma2)
-    moe: Any = None                      # MoEConfig: not ported yet
+    moe: MoEConfig | None = None
     tie_embeddings: bool = True
     embed_scale: bool = False            # gemma: × sqrt(d_model)
     vision_prefix: bool = False          # internvl: embeds prepended
@@ -95,6 +97,20 @@ class LMConfig:
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        ff_mults = 3 if m.gated else 2
+        attn = d * self.hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * self.hd * d
+        ffn = (m.top_k + m.n_shared) * ff_mults * d * m.d_ff + d * m.n_experts
+        per_layer = attn + ffn + 2 * d
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
 
 class TransformerLM:
     """Functional decoder-only LM: params are a dict of tensors, and no
@@ -102,10 +118,6 @@ class TransformerLM:
     """
 
     def __init__(self, cfg: LMConfig):
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: mixture-of-experts layers are not ported yet "
-                f"(ROADMAP §A.11, moe.py)")
         self.cfg = cfg
 
     # ---------- params ----------
@@ -115,8 +127,11 @@ class TransformerLM:
         fill = torch.zeros if cfg.norm_plus_one else torch.ones
         p = {"attn": attn_init(gen, cfg.attn_cfg, dev),
              "ln1": fill((d,), device=dev),
-             "ln2": fill((d,), device=dev),
-             "mlp": mlp_init(gen, cfg.mlp_cfg, dev)}
+             "ln2": fill((d,), device=dev)}
+        if cfg.moe is not None:
+            p["moe"] = moe_init(gen, cfg.moe, dev)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.mlp_cfg, dev)
         if cfg.sandwich_norm:
             p["ln1_post"] = torch.zeros((d,), device=dev)
             p["ln2_post"] = torch.zeros((d,), device=dev)
@@ -173,7 +188,11 @@ class TransformerLM:
             return x + attn_out + mlp_out, new_kv
         x = x + attn_out
         h2 = self._norm(x, p["ln2"], p, "ln2_bias")
-        ffn_out = mlp_apply(p["mlp"], h2, cfg.mlp_cfg, ctx)
+        if cfg.moe is not None:
+            # the aux loss is the training loss's (ROADMAP §A.12)
+            ffn_out, _ = moe_apply(p["moe"], h2, cfg.moe, ctx)
+        else:
+            ffn_out = mlp_apply(p["mlp"], h2, cfg.mlp_cfg, ctx)
         if cfg.sandwich_norm:
             ffn_out = rms_norm(ffn_out, p["ln2_post"],
                                plus_one=cfg.norm_plus_one)

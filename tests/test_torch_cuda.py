@@ -666,3 +666,57 @@ def test_lm_launch_counts(card):
     before = qm_ops.launches
     model.decode_step(params, toks[:, 0], torch.tensor([17, 17]), cache)
     assert qm_ops.launches == before               # no int8 policy
+
+
+# the MLP shapes of the dense configs served under int8 since the MoE
+# slice: a decode step's M = 4 and a prefill's M = 64 at command-r's
+# largest K (22,528) and N (22,528), and qwen3-14b's wo
+LARGE_K_QMATMUL = [(4, 22_528, 8192), (64, 22_528, 8192),
+                   (64, 8192, 22_528), (64, 17_408, 5120)]
+
+
+@pytest.mark.parametrize("m,k,n", LARGE_K_QMATMUL)
+def test_qmatmul_large_k_shapes_bitwise(card, m, k, n):
+    """One launch at K and N up to 22,528 (127² · 22,528 < 2³¹: the int32
+    accumulator cannot overflow), bitwise to the plain version, whose
+    K chunks keep its temporary under 256 MiB."""
+    args = _qmatmul_operands(m, k, n, card)
+    before = qm_ops.launches
+    got = qm_ops.qmatmul(*args, out_dtype=torch.bfloat16)
+    assert qm_ops.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmatmul_ref(*args, torch.bfloat16))
+
+
+@pytest.mark.parametrize("n_shared,top_k", [(0, 4), (1, 1)])
+def test_moe_apply_card_matches_cpu(card, n_shared, top_k):
+    """moe_apply at a small width (d_model 256, 8 experts of d_ff 512) in
+    fp32, card against CPU: the same expert and the same keep wherever
+    the k-th and (k+1)-th probabilities are more than 1e-5 apart, the
+    output within 1e-4 of 1 + max|want| on the batch rows (dispatch
+    groups) that hold no near-tie,
+    the aux loss within 1e-6, and no kernel launched."""
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(d_model=256, d_ff=512, n_experts=8, top_k=top_k,
+                        n_shared=n_shared, capacity_factor=1.0)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg,
+                          torch.device("cpu"))
+    x = torch.randn((3, 64, 256), generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.moe_apply(params, x, cfg, None)
+    before = {m: m.launches for m in (fc_ops, cw_ops, qm_ops, at_ops)}
+    dev = {k: v.to(card) for k, v in params.items()}
+    got, aux = moe.moe_apply(dev, x.to(card), cfg, None)
+    assert all(m.launches == n for m, n in before.items())
+    probs, _, top_e, _ = moe._route(params, x, cfg)
+    _, _, top_e_card, _ = moe._route(dev, x.to(card), cfg)
+    srt = torch.sort(probs, dim=-1, descending=True).values
+    clear = (srt[..., top_k - 1] - srt[..., top_k]) > 1e-5
+    assert torch.equal(top_e_card.cpu()[clear], top_e[clear])
+    cap = moe._capacity(64, cfg)
+    _, keep = moe._slots(top_e.reshape(3, -1), 8, cap)
+    _, keep_card = moe._slots(top_e_card.reshape(3, -1), 8, cap)
+    whole = clear.all(dim=-1)                  # (B,): groups of no near-tie
+    assert torch.equal(keep_card.cpu()[whole], keep[whole])
+    err = float((got.cpu() - want).abs()[whole].max())
+    assert err <= 1e-4 * (1 + float(want.abs().max())), err
+    assert abs(float(aux) - float(want_aux)) <= 1e-6

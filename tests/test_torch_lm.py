@@ -41,6 +41,8 @@ import pytest
 import torch
 
 from repro.configs.qwen15_05b import CONFIG as J_QWEN
+from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
+from repro.configs.registry import get_arch as j_get_arch
 from repro.launch.train import reduced_config as j_reduced_config
 from repro.models import common as jc
 from repro.models import layers as jl
@@ -68,6 +70,9 @@ TOL_FP32 = 1e-5
 TOL_BF16 = 2.0 ** -4
 BF16_ULPS = 2.0
 BF16_SHARE = 0.01
+# the transformer archs this slice adds to the port's registry
+NEW_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e", "command-r-35b",
+             "qwen3-14b", "gemma2-2b", "internvl2-26b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 J_INT8 = {"xla": JPolicy(quant="int8"),
@@ -192,6 +197,71 @@ def test_bridge_keeps_bf16_leaves_and_carries_the_lm_tree():
                                   np.asarray(params["embedding"]))
     with pytest.raises(TypeError):
         params_from_numpy({"w": np.zeros(3, np.int32)}, "cpu")
+
+
+# ------------------------------------------------------- bounded memory
+
+def _stacked_init_as_a_list(init_fn, gen, n):
+    """The earlier ``stacked_init``: every layer drawn into a list, then
+    stacked (twice the layers' memory at its peak)."""
+    layers = [init_fn(gen) for _ in range(n)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    return stack(layers)
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_stacked_init_draws_the_same_values_into_one_stack(moe):
+    """Layer by layer into preallocated stacks: the generator's draws
+    keep their order, so every leaf is bitwise what the list-then-stack
+    version drew, for a dense and an MoE layer tree."""
+    from repro_torch.models.moe import MoEConfig
+    cfg = LMConfig(name="t", n_layers=3, d_model=16, n_heads=2,
+                   n_kv_heads=2, d_ff=24, vocab=32, qkv_bias=True,
+                   moe=MoEConfig(d_model=16, d_ff=24, n_experts=4, top_k=2,
+                                 n_shared=1) if moe else None)
+    tm = TransformerLM(cfg)
+    dev = torch.device("cpu")
+    init = lambda g: tm._layer_init(g, dev)  # noqa: E731
+    got = tc.stacked_init(init, torch.Generator().manual_seed(5), 3)
+    want = _stacked_init_as_a_list(init, torch.Generator().manual_seed(5), 3)
+    flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+    for (path, g), (_, w) in zip(flat_g, flat_w):
+        assert g.shape[0] == 3 and torch.equal(g, w), path
+    assert not torch.equal(got["attn"]["wq"][0], got["attn"]["wq"][1])
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 37, 5), (64, 1000, 48), (2, 1, 7),
+                                   (1, 4099, 1)])
+def test_qmatmul_ref_sums_k_in_bounded_chunks(m, k, n, monkeypatch):
+    """The plain qmatmul sums K in chunks whose (M, k, N) int32 product
+    stays under its budget, and equals the one-product sum bitwise: at a
+    K that spans many chunks (the budget cut to a few rows of K), at a
+    chunk of one row, and at K = 1."""
+    from repro_torch.kernels.qmatmul import ref as qref
+    rng = np.random.RandomState(k)
+    xc = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8))
+    wc = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(np.int8))
+    xs = torch.from_numpy(rng.rand(m, 1).astype(np.float32))
+    ws = torch.from_numpy(rng.rand(1, n).astype(np.float32))
+    acc = (xc.to(torch.int32)[:, :, None] * wc.to(torch.int32)[None]
+           ).sum(dim=1, dtype=torch.int32)
+    want = acc.to(torch.float32) * xs * ws
+    for budget in (qref.TEMP_BYTES, 4 * m * n * 7, 1):
+        monkeypatch.setattr(qref, "TEMP_BYTES", budget)
+        step = qref.k_chunk(m, n)
+        assert 4 * m * step * n <= max(budget, 4 * m * n)
+        assert torch.equal(qref.qmatmul_ref(xc, wc, xs, ws), want), budget
+    monkeypatch.undo()
+    # a full-size chunk at command-r's prefill, 64 x 22,528 int32 a row
+    # of K: the temporary stays under the 256 MiB budget
+    assert 4 * 64 * qref.k_chunk(64, 22_528) * 22_528 <= 256 << 20
 
 
 @pytest.mark.parametrize("jpol", sorted(J_INT8))
@@ -718,23 +788,16 @@ def _leaves(tree):
     return [tree]
 
 
-def test_moe_config_raises():
-    @dataclasses.dataclass(frozen=True)
-    class Moe:
-        n_experts: int = 4
-
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TransformerLM(LMConfig(name="m", n_layers=1, d_model=8, n_heads=2,
-                               n_kv_heads=2, d_ff=8, vocab=8, moe=Moe()))
-
-
 # --------------------------------------------------------------- config
 
 def test_qwen_config_matches_the_reference_without_allocating():
     spec = get_arch("qwen1.5-0.5b")
     model = spec.model()
     assert not any(torch.is_tensor(v) for v in vars(model).values())
-    assert ARCH_IDS == ["qwen1.5-0.5b"] and spec.family == "dense"
+    assert ARCH_IDS == J_ARCH_IDS[:7] == [
+        "dbrx-132b", "llama4-scout-17b-a16e", "qwen1.5-0.5b",
+        "command-r-35b", "qwen3-14b", "gemma2-2b", "internvl2-26b"]
+    assert spec.family == "dense"
     mine = dataclasses.asdict(model.cfg)
     ref = dataclasses.asdict(J_QWEN)
     assert mine.pop("dtype") == torch.bfloat16
@@ -745,9 +808,93 @@ def test_qwen_config_matches_the_reference_without_allocating():
             model.cfg.hd) == (24, 1024, 151_936, 64)
 
 
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_config_matches_the_reference_without_allocating(arch):
+    """Each transformer arch this slice adds: its ``CONFIG`` field for
+    field (an MoE config's too), its family, and its total and active
+    parameter counts, all without drawing a weight."""
+    spec, jspec = get_arch(arch), j_get_arch(arch)
+    model, jmodel = spec.model(), jspec.model()
+    assert not any(torch.is_tensor(v) for v in vars(model).values())
+    assert spec.family == jspec.family and spec.source == jspec.source
+    mine, ref = dataclasses.asdict(model.cfg), dataclasses.asdict(jmodel.cfg)
+    assert mine.pop("dtype") == torch.bfloat16
+    assert ref.pop("dtype") == jnp.bfloat16
+    assert mine == ref
+    assert model.param_count() == jmodel.cfg.param_count()
+    assert model.cfg.active_param_count() == jmodel.cfg.active_param_count()
+    assert (model.cfg.active_param_count() < model.param_count()) == \
+        (spec.family == "moe")
+
+
+def test_config_param_counts():
+    counts = {a: (get_arch(a).model().param_count(),
+                  get_arch(a).model().cfg.active_param_count())
+              for a in ARCH_IDS}
+    assert counts["dbrx-132b"] == (131_596_523_520, 36_469_708_800)
+    assert counts["llama4-scout-17b-a16e"] == (107_769_861_120,
+                                               17_172_894_720)
+    assert counts["qwen3-14b"][0] == 14_768_296_960
+
+
+def test_the_other_reference_archs_raise_with_their_roadmap_item():
+    for arch in set(J_ARCH_IDS) - set(ARCH_IDS):
+        with pytest.raises(KeyError, match="A.11"):
+            get_arch(arch)
+    assert len(set(J_ARCH_IDS) - set(ARCH_IDS)) == 3
+    with pytest.raises(KeyError, match="unknown"):
+        get_arch("no-such-arch")
+
+
 def test_reduced_config_matches_the_reference():
     mine = reduced_config(get_arch("qwen1.5-0.5b").model()).cfg
     ref = j_reduced_config(JTransformerLM(J_QWEN)).cfg
     a, b = dataclasses.asdict(mine), dataclasses.asdict(ref)
     assert a.pop("dtype") == torch.bfloat16 and b.pop("dtype")
     assert a == b and mine.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_reduced_config_of_each_arch_matches_the_reference(arch):
+    """``--reduced`` of every new arch, the MoE branch included (4
+    experts of d_ff 128, top-k at most 2)."""
+    mine = reduced_config(get_arch(arch).model()).cfg
+    ref = j_reduced_config(j_get_arch(arch).model()).cfg
+    a, b = dataclasses.asdict(mine), dataclasses.asdict(ref)
+    assert a.pop("dtype") == torch.bfloat16 and b.pop("dtype")
+    assert a == b and mine.param_count() == ref.param_count()
+    assert mine.active_param_count() == ref.active_param_count()
+    if mine.moe is not None:
+        assert (mine.moe.n_experts, mine.moe.d_ff) == (4, 128)
+        assert mine.moe.top_k == min(get_arch(arch).model().cfg.moe.top_k, 2)
+
+
+def test_internvl2_vision_prefix_prefill():
+    """internvl2's backbone at small size: a prefill whose
+    ``vision_embeds`` (B, P, D) are prepended to the text tokens, in
+    fp32 against the reference's, logits and the cache it wrote."""
+    from repro_torch.configs.internvl2_26b import VISION_PATCHES
+    assert VISION_PATCHES == 1024
+    jm = j_reduced_config(j_get_arch("internvl2-26b").model())
+    jm = type(jm)(dataclasses.replace(jm.cfg, dtype=jnp.float32))
+    tm = reduced_config(get_arch("internvl2-26b").model())
+    tm = type(tm)(dataclasses.replace(tm.cfg, dtype=torch.float32))
+    assert tm.cfg.vision_prefix and not tm.cfg.tie_embeddings
+    jp = jm.init(jax.random.PRNGKey(4))
+    tp = params_from_numpy(_tree_np(jp), "cpu")
+    rng = np.random.RandomState(6)
+    toks = rng.randint(0, tm.cfg.vocab, size=(2, 5)).astype(np.int32)
+    vis = rng.randn(2, 4, tm.cfg.d_model).astype(np.float32)
+    logits, cache = tm.prefill(
+        tp, {"tokens": torch.from_numpy(toks),
+             "vision_embeds": torch.from_numpy(vis)},
+        tm.init_cache(2, 9, device="cpu"))
+    jlog, jcache = jax.jit(jm.prefill)(
+        jp, {"tokens": jnp.asarray(toks), "vision_embeds": jnp.asarray(vis)},
+        jm.init_cache(2, 9))
+    _close(logits, jlog, TOL_FP32, "internvl2 prefill logits")
+    _close(cache["k"], jcache["k"], TOL_FP32, "internvl2 prefill cache")
+    # the prefix moves the text's logits: it is attended to, not dropped
+    plain, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                          tm.init_cache(2, 5, device="cpu"))
+    assert float((plain - logits).abs().max()) > 1e-3

@@ -259,6 +259,46 @@ def test_engine_under_int8_compute_matches_the_jax_engine(pair):
     assert {r.uid: r.generated for r in teng.run()} == want
 
 
+def _moe_pair(arch):
+    """The reduced ``arch`` (bf16, 2 layers, 4 experts) in both packages,
+    the JAX params bridged to the port."""
+    from repro.configs.registry import get_arch as j_get_arch
+    from repro.launch.train import reduced_config as j_reduced_config
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import reduced_config
+    jm = j_reduced_config(j_get_arch(arch).model())
+    tm = reduced_config(get_arch(arch).model())
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e"])
+def test_moe_engine_matches_the_jax_engine(arch, kv_quant):
+    """A reduced MoE model in bf16 (dbrx: top-2 of 4 experts with renorm;
+    llama4-scout: top-1 plus a shared expert) served by both packages'
+    engines, with a bf16 and with an int8 KV cache: the same tokens for
+    every request, and the same stats."""
+    jm, jp, tm, tp = _moe_pair(arch)
+    assert tm.cfg.moe is not None and tm.cfg.dtype == torch.bfloat16
+    rng = np.random.RandomState(11)
+    workload = [(rng.randint(0, tm.cfg.vocab, size=p).astype(np.int32), b)
+                for p, b in WORKLOAD]
+    jeng = JEngine(jm, jp, JEngineConfig(capacity=2, max_seq=24,
+                                         kv_quant=kv_quant))
+    teng = Engine(tm, tp, _cfg(capacity=2, max_seq=24, kv_quant=kv_quant))
+    for p, b in workload:
+        jeng.add_request(p, b)
+        teng.add_request(p, b)
+    want = {r.uid: r.generated for r in jeng.run()}
+    got = {r.uid: r.generated for r in teng.run()}
+    assert got == want and len(got) == len(WORKLOAD)
+    for field in ("steps", "prefills", "prefill_tokens"):
+        assert getattr(teng.stats, field) == getattr(jeng.stats, field)
+    assert teng.kv.nbytes() == jeng.kv.nbytes()
+
+
 def test_slot_reuse_does_not_leak():
     """A request decoded in a reused slot (the previous tenant's K/V
     still resident) matches a fresh single-request engine."""
@@ -414,6 +454,26 @@ def test_launcher_prints_the_references_report(monkeypatch, capsys,
     assert engine.model.cfg.d_model == 64 and engine.device.type == "cpu"
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "gemma2-2b"])
+def test_launcher_serves_the_other_archs_reduced(monkeypatch, capsys, arch):
+    """``--arch dbrx-132b --reduced --device cpu`` (MoE) and gemma2-2b
+    (local/global, softcaps) serve every request and print the
+    reference launcher's report lines with its counts."""
+    argv = ["--arch", arch] + ARGV[2:]
+    engine, results = launcher.main(argv + ["--device", "cpu"])
+    mine = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    j_launcher.main()
+    ref = capsys.readouterr().out
+    assert len(results) == 4 and all(len(r.generated) == 8
+                                      for r in results.values())
+    assert _line_heads(mine) == _line_heads(ref)
+    for a, b in zip(mine.splitlines(), ref.splitlines()):
+        if a.startswith(("arch=", "engine steps", "tokens:")):
+            assert a.split(" (")[0] == b.split(" (")[0], (a, b)
+    assert f"arch={arch}" in mine and "served 4 requests" in mine
+
+
 def test_launcher_lm_defaults_to_the_card_and_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="A.10"):
         launcher.main(ARGV + ["--device", "cpu", "--mesh", "1x2"])
@@ -433,8 +493,10 @@ def test_the_lm_modules_import_no_jax():
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.launch.train, repro_torch.sharding\n"
         "import repro_torch.models.transformer, repro_torch.configs\n"
-        "from repro_torch.configs import get_arch\n"
-        "get_arch('qwen1.5-0.5b').model()\n"
+        "import repro_torch.models.moe\n"
+        "from repro_torch.configs import ARCH_IDS, get_arch\n"
+        "for arch in ARCH_IDS:\n"
+        "    get_arch(arch).model()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
