@@ -74,7 +74,9 @@ Phases, each printing one JSON line:
            and the two scale multiplies where ``_int_mm`` takes the shape
            (M > 16), first checked bitwise against the plain version
            (timed a call at a time for the dense configs: it sums K in
-           chunks of a 256 MiB product);
+           chunks of a 256 MiB product); rows tagged zamba2-7b: qmatmul
+           at M in {4, 256, 512} x (K, N) in {(3,584, 14,336), (14,336,
+           3,584)}, each first bitwise against the plain version;
   plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
            under three stream budgets (untiled, the default 1 MiB,
            256 KiB): device time between CUDA events, and wall time;
@@ -116,13 +118,33 @@ Phases, each printing one JSON line:
            (every assignment clear of a 1e-5 near-tie with the same expert
            and keep, those tokens within 1e-4 of 1 + max|out|, aux within
            1e-6). No kernel launches in the whole phase: the reference's
-           MoE reaches no Pallas kernel.
+           MoE reaches no Pallas kernel;
+  ssm      the sub-quadratic LMs, prompts a whole number of their scan
+           chunks. zamba2-7b (the Mamba2 hybrid: 81 layers, d_model
+           3,584, one shared attention + MLP block after every 6, bf16,
+           6.66 B parameters) at full size: ``Engine`` under int8 over the
+           launcher's mix at ``--prompt-len 512`` (39 qmatmul launches a
+           prefill and a decode step, the shared MLP's 3 at each of its
+           13 calls), the device and wall time of a 512-token prefill and
+           of a decode step at capacity 4 in bf16 beside their bytes
+           bound (every weight once, as stored) with a torch.profiler
+           breakdown, a ragged prompt raising, and the launcher with a
+           bf16 and an int8 KV cache (tokens/s, peak memory); cut to 13
+           layers, the int8 engine's tokens and a 512-token prefill's and
+           a 4-slot decode step's logits bitwise kernel vs plain; cut to
+           7, a 256-token prefill's and the first decode step's logits
+           card vs CPU in fp32 and int8. rwkv6-1.6b (24 layers, d_model
+           2,048) at full size: the same times, a ragged prompt and the
+           launcher at ``--prompt-len 128`` (bf16 and int8 KV), then 2
+           layers fp32 card vs CPU; no kernel launches (the reference's
+           RWKV reaches no Pallas kernel).
 
 Then the kernels line (one JSON object; its times are the paper CNN's
 served batch at B = 8, its launches the wrapper launches of the serve,
 eager, tree and stream phases, of the boot phase, of the lm phase's
-int8 engine runs (qwen1.5-0.5b and the four dense configs) and of the
-moe phase (none), each counted from 0 just before it; a CUDA graph's
+int8 engine runs (qwen1.5-0.5b and the four dense configs), of the
+moe phase (none) and of the ssm phase's int8 zamba2 engine runs through
+the kernel, each counted from 0 just before it; a CUDA graph's
 kernels are counted once, at capture; the lm phase's warm-up, its
 card-vs-CPU models and its kernel-vs-plain comparisons are left out),
 the card's ``nvidia-smi`` name and power limit, and as the last line
@@ -229,6 +251,15 @@ LM_FULL_ARCHS = ["gemma2-2b", "qwen3-14b"]
 # both embedding matrices) stays under MOE_INIT_BYTES
 MOE_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e"]
 MOE_INIT_BYTES = 60e9
+# the ssm phase: the two sub-quadratic LMs at full size, each served at a
+# prompt length whose half is a whole number of its scan chunks (zamba2's
+# SSD chunk is 256 tokens, rwkv6's WKV chunk 64); zamba2 cut to 13 layers
+# (2 shared-block calls, 1 tail layer) for its kernel-vs-plain checks,
+# where the plain qmatmul at M = 512 costs ~0.1 s a call, and to 7 (one
+# group, one tail layer) for card against CPU; rwkv6 to 2 for the latter
+SSM_PROMPT = {"zamba2-7b": 512, "rwkv6-1.6b": 128}
+SSM_PLAIN_LAYERS = 13
+SSM_CPU_LAYERS = {"zamba2-7b": 7, "rwkv6-1.6b": 2}
 # a whole bf16 model, relative to 1 + max|logit| (tests/test_torch_lm.py's
 # TOL_BF16): a decode step's rows served together against each alone
 TOL_BF16 = 2.0 ** -4
@@ -942,12 +973,13 @@ def lm_prompts(vocab: int, prompt_len: int = 64, n: int = 8) -> list:
     return [rng.randint(0, vocab, size=int(p)) for p in lens]
 
 
-def lm_launcher(kv_quant: str, arch: str = LM_ARCH) -> dict:
+def lm_launcher(kv_quant: str, arch: str = LM_ARCH,
+                prompt_len: int = 64) -> dict:
     """``launcher.main`` for ``arch`` at full size on the card (the
-    lm phase's workload): every request served with its 16 tokens, the
-    reference's report lines, no qmatmul launch (the launcher's compute
-    policy is the default, as the reference's), and the card's peak
-    memory over the call."""
+    lm phase's workload, at ``--prompt-len prompt_len``): every request
+    served with its 16 tokens, the reference's report lines, no qmatmul
+    launch (the launcher's compute policy is the default, as the
+    reference's), and the card's peak memory over the call."""
     import io
     import torch
     from repro_torch.launch import serve as launcher
@@ -955,7 +987,9 @@ def lm_launcher(kv_quant: str, arch: str = LM_ARCH) -> dict:
     before = counts()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(buf):
-        eng, res = launcher.main(["--arch", arch] + LM_ARGV[2:] +
+        eng, res = launcher.main(["--arch", arch] + LM_ARGV[2:6] +
+                                 ["--prompt-len", str(prompt_len)] +
+                                 LM_ARGV[8:] +
                                  ["--kv-quant", kv_quant,
                                   "--device", "cuda"])
     peak = torch.cuda.max_memory_allocated()
@@ -976,7 +1010,8 @@ def lm_launcher(kv_quant: str, arch: str = LM_ARCH) -> dict:
     tok_s = re.search(r"\(([\d.]+) tok/s\)", buf.getvalue())
     cfg = eng.model.cfg
     return {"path": "launcher", "arch": arch, "kv_quant": kv_quant,
-            "layers": cfg.n_layers, "params": eng.model.param_count(),
+            "prompt_len": prompt_len, "layers": cfg.n_layers,
+            "params": eng.model.param_count(),
             "report": report,
             "tokens_per_s": float(tok_s.group(1)) if tok_s else None,
             "engine_steps": eng.stats.steps, "kv_bytes": eng.kv.nbytes(),
@@ -984,23 +1019,27 @@ def lm_launcher(kv_quant: str, arch: str = LM_ARCH) -> dict:
             "device_time_note": "wall clock, host dispatch included"}
 
 
-def lm_engines(model, params, device) -> tuple[dict, dict]:
+def lm_engines(model, params, device, per_pass: int | None = None,
+               prompt_len: int = 64, backends=(None, "torch")
+               ) -> tuple[dict, dict]:
     """``Engine`` under ExecPolicy(quant="int8") over the launcher's
-    requests, through the qmatmul kernel (the default backend on the
-    card) and through its plain version (backend="torch"), both on the
-    card: 3 launches a layer a prefill and a decode step, none for the
-    plain run, and the same tokens. Returns (the report, the launches of
-    the kernel run's ``run()``: the LM path's, counted from 0 there)."""
+    requests (``prompt_len`` or half as many tokens), through the qmatmul
+    kernel (the default backend on the card) and through its plain
+    version (backend="torch"), both on the card (``backends``):
+    ``per_pass`` launches (default 3 a layer: wi, wg, wo) a prefill and
+    a decode step, none for the plain run, and the same tokens. Returns
+    (the report, the launches of the kernel run's ``run()``: the LM
+    path's, counted from 0 there)."""
     import torch
     from repro_torch.ops import ExecPolicy
     from repro_torch.serve import Engine, EngineConfig
 
-    per_pass = 3 * model.cfg.n_layers                 # wi, wg, wo a layer
-    prompts = lm_prompts(model.cfg.vocab)
+    per_pass = per_pass or 3 * model.cfg.n_layers
+    prompts = lm_prompts(model.cfg.vocab, prompt_len)
     runs = {}
-    for backend in (None, "torch"):
+    for backend in backends:
         eng = Engine(model, params, EngineConfig(
-            capacity=4, max_seq=80,
+            capacity=4, max_seq=prompt_len + 16,
             policy=ExecPolicy(quant="int8", backend=backend),
             device=str(device)))
         for length in sorted({len(p) for p in prompts}):
@@ -1023,26 +1062,33 @@ def lm_engines(model, params, device) -> tuple[dict, dict]:
             "qmatmul_launches": grew["qmatmul"],
             "cache_quant": eng.config.cache_quant, "wall_s": wall,
             "tokens_per_s": (s.prefill_tokens + s.decode_tokens) / wall}
-    k, p = runs["cuda"], runs["torch"]
+    k = runs["cuda"]
     want = per_pass * (k["prefills"] + k["decode_steps"])
     check(path == dict(path, qmatmul=want),
           f"lm engine int8: launches {path}, expected {per_pass} x "
           f"({k['prefills']} prefills + {k['decode_steps']} decode steps) "
           f"= {want} of qmatmul and none of any other kernel")
-    check(p["qmatmul_launches"] == 0,
-          f"lm engine int8 backend=torch launched qmatmul "
-          f"{p['qmatmul_launches']} times")
-    check(k["tokens"] == p["tokens"] and len(k["tokens"]) == 8 and all(
-        len(t) == 16 for t in k["tokens"].values()),
-        f"lm engine int8: kernel tokens {k['tokens']} vs plain "
-        f"{p['tokens']}")
+    check(len(k["tokens"]) == 8 and all(
+        len(t) == 16 and all(0 <= x < model.cfg.vocab for x in t)
+        for t in k["tokens"].values()),
+        f"lm engine int8: tokens {k['tokens']}")
+    p = runs.get("torch")
+    if p is not None:
+        check(p["qmatmul_launches"] == 0,
+              f"lm engine int8 backend=torch launched qmatmul "
+              f"{p['qmatmul_launches']} times")
+        check(k["tokens"] == p["tokens"],
+              f"lm engine int8: kernel tokens {k['tokens']} vs plain "
+              f"{p['tokens']}")
     return {"path": "engine", "policy": "int8", "per_pass": per_pass,
-            "expected_launches": want, "tokens_equal": True,
+            "prompt_len": prompt_len, "expected_launches": want,
+            "tokens_vs_plain": "equal" if p is not None else "not run",
             **{f"{name}_{key}": v for name, r in runs.items()
                for key, v in r.items() if key != "tokens"}}, path
 
 
-def lm_step_logits(model, params, prompts, policy, device, first=None):
+def lm_step_logits(model, params, prompts, policy, device, first=None,
+                   max_seq: int = 48):
     """Each prompt's prefill logits (batch 1, written into its slot of a
     SlotKVCache as the engine does), then one decode step over all slots
     at their own positions with the tokens ``first`` (default: the
@@ -1055,7 +1101,8 @@ def lm_step_logits(model, params, prompts, policy, device, first=None):
     from repro_torch.serve.steps import make_decode_step
 
     quant = EngineConfig(policy=policy).cache_quant
-    kv = SlotKVCache(model, len(prompts), 48, quant=quant, device=device)
+    kv = SlotKVCache(model, len(prompts), max_seq, quant=quant,
+                     device=device)
     pre = []
     with use_policy(policy), torch.no_grad():
         for slot, p in enumerate(prompts):
@@ -1092,12 +1139,13 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH, layers: int = 2,
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models.transformer import TransformerLM
     from repro_torch.ops import ExecPolicy
 
-    cfg = dataclasses.replace(get_arch(arch).model().cfg, n_layers=layers,
+    full = get_arch(arch).model()
+    cfg = dataclasses.replace(full.cfg, n_layers=layers,
                               dtype=torch.float32)
-    model = TransformerLM(cfg)
+    model = type(full)(cfg)
+    max_seq = max(prompt_lens) + 16
     params = model.init(torch.Generator(device).manual_seed(0),
                         device=device)
     cpu_params = to_device(params, "cpu")
@@ -1111,11 +1159,12 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH, layers: int = 2,
     rows = []
     for mode in modes:
         pol = ExecPolicy(quant=mode)
-        cpu_pre, cpu_dec, first = lm_step_logits(model, cpu_params, prompts,
-                                                 pol, "cpu")
-        card_pre, card_dec, _ = lm_step_logits(model, params, prompts, pol,
-                                               device, first)
-        moved = (lm_step_logits(model, nudged, prompts, pol, "cpu", first)
+        cpu_pre, cpu_dec, first = lm_step_logits(
+            model, cpu_params, prompts, pol, "cpu", max_seq=max_seq)
+        card_pre, card_dec, _ = lm_step_logits(
+            model, params, prompts, pol, device, first, max_seq=max_seq)
+        moved = (lm_step_logits(model, nudged, prompts, pol, "cpu", first,
+                                max_seq=max_seq)
                  if nudge else (None, None))
         row = {"arch": arch, "mode": mode, "layers": layers,
                "d_model": cfg.d_model, "vocab": cfg.vocab,
@@ -1143,14 +1192,15 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH, layers: int = 2,
     return rows
 
 
-def filled_engine(model, params, device, policy=None, prompts=None):
+def filled_engine(model, params, device, policy=None, prompts=None,
+                  max_seq: int = 80):
     """An engine at capacity 4 under ``policy`` with every slot prefilled
     from ``prompts`` (default: the launcher's first 4): (engine, the next
     tokens (4,), the slots' positions (4,))."""
     import torch
     from repro_torch.ops import ExecPolicy
     from repro_torch.serve import Engine, EngineConfig
-    eng = Engine(model, params, EngineConfig(capacity=4, max_seq=80,
+    eng = Engine(model, params, EngineConfig(capacity=4, max_seq=max_seq,
                                              policy=policy or ExecPolicy(),
                                              device=str(device)))
     for p in (prompts or lm_prompts(model.cfg.vocab))[:4]:
@@ -1162,21 +1212,23 @@ def filled_engine(model, params, device, policy=None, prompts=None):
             torch.as_tensor(eng.kv.positions(), device=device))
 
 
-def lm_logits_bitwise(model, params, device) -> dict:
+def lm_logits_bitwise(model, params, device, prompt_len: int = 64) -> dict:
     """Under int8, through the qmatmul kernel and through its plain
-    version on the card, the same logits bitwise: one 64-token prefill
-    (M = 64), and one decode step over an engine's 4 full slots at their
-    own positions (M = 4), each backend from its own dequantized copy of
-    the same cache."""
+    version on the card, the same logits bitwise: one ``prompt_len``-token
+    prefill (M = prompt_len), and one decode step over an engine's 4 full
+    slots at their own positions (M = 4), each backend from its own
+    dequantized copy of the same cache."""
     import torch
     from repro_torch.ops import ExecPolicy, use_policy
     from repro_torch.serve.cache import dequantize_leaves
     from repro_torch.serve.steps import make_decode_step
 
-    prompts = lm_prompts(model.cfg.vocab)
-    toks = torch.as_tensor(prompts[1][None], device=device)
+    prompts = lm_prompts(model.cfg.vocab, prompt_len)
+    full = [p for p in prompts if len(p) == prompt_len]
+    toks = torch.as_tensor(full[1][None], device=device)
     eng, tokens, pos = filled_engine(model, params, device,
-                                     ExecPolicy(quant="int8"))
+                                     ExecPolicy(quant="int8"), prompts,
+                                     max_seq=prompt_len + 16)
     out = {}
     for backend in (None, "torch"):
         pol = ExecPolicy(quant="int8", backend=backend)
@@ -1226,25 +1278,34 @@ def lm_times(model, params, device) -> list[dict]:
                "decode": lambda: eng._decode(eng.params, tokens, pos,
                                              *state)}
         for step, fn in fns.items():
-            ms, dry = call_device_ms(fn, reps=10, spin=int(5e8))
-            walls = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            prof = lm_profile(fn)
-            wall = statistics.median(walls)
-            busy = prof.get("kernel_us", 0.0) / 1e3
             rows.append({"step": step, "mode": mode,
                          "M": 64 if step == "prefill" else 4,
                          "cache_quant": eng.config.cache_quant,
-                         "wall_ms": wall, "device_busy_ms": busy,
-                         "busy_share_of_wall": busy / wall,
-                         "event_ms": ms, "queue_ran_dry": dry,
-                         "profile": prof})
+                         **step_times(fn)})
     rows.append({"weight_costs": lm_weight_costs(model, params)})
     return rows
+
+
+def step_times(fn) -> dict:
+    """One LM step ``fn`` timed three ways: its CUDA-event time (one
+    call queued alone behind a ~0.25 s spin, the median of 10), its wall
+    time (one call to its synchronize, the median of 10), and its device
+    busy time (torch.profiler's kernel sum over one call), with that
+    profile."""
+    import torch
+    ms, dry = call_device_ms(fn, reps=10, spin=int(5e8))
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof = lm_profile(fn)
+    wall = statistics.median(walls)
+    busy = prof.get("kernel_us", 0.0) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "busy_share_of_wall": busy / wall, "event_ms": ms,
+            "queue_ran_dry": dry, "profile": prof}
 
 
 def lm_profile(fn) -> dict:
@@ -1544,27 +1605,14 @@ def moe_times(model, params, device) -> list[dict]:
         base = other + rows_read * nbytes(params["embedding"][0])
         all_bytes = base + cfg.n_layers * m.n_experts * expert_bytes
         routed_bytes = base + sum(reached) * expert_bytes
-        ms, dry = call_device_ms(fn, reps=10, spin=int(5e8))
-        walls = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        prof = lm_profile(fn)
-        wall = statistics.median(walls)
-        busy = prof.get("kernel_us", 0.0) / 1e3
         rows.append({"step": step, "M": rows_read, "layers": cfg.n_layers,
-                     "wall_ms": wall, "device_busy_ms": busy,
-                     "busy_share_of_wall": busy / wall, "event_ms": ms,
-                     "queue_ran_dry": dry,
+                     **step_times(fn),
                      "bound_ms": all_bytes / PEAK_BYTES * 1e3,
                      "bound_by": "bytes",
                      "expert_bound_ms_per_layer":
                          m.n_experts * expert_bytes / PEAK_BYTES * 1e3,
                      "routed_bound_ms": routed_bytes / PEAK_BYTES * 1e3,
-                     "experts_reached_per_layer": reached,
-                     "profile": prof})
+                     "experts_reached_per_layer": reached})
     return rows
 
 
@@ -1671,6 +1719,163 @@ def phase_moe(device) -> dict:
           f"the moe path launched kernels: {out['launches']}")
     emit(out)
     return out["launches"]
+
+
+# -------------------------------------------------------------------- ssm
+
+def ssm_times(model, params, device, prompt_len: int) -> list[dict]:
+    """Wall time (one call to its synchronize), device busy time
+    (torch.profiler's kernel sum) and CUDA-event time (one call behind a
+    spin) of one ``prompt_len``-token prefill and of one decode step at
+    capacity 4 with every slot live, in bf16, as the engine runs them;
+    beside each, the bytes bound: every weight read once at its stored
+    dtype (fp32), the input embedding only at the call's rows where the
+    head is a matrix of its own, at PEAK_BYTES."""
+    import torch
+    prompts = lm_prompts(model.cfg.vocab, prompt_len)
+    eng, tokens, pos = filled_engine(model, params, device, prompts=prompts,
+                                     max_seq=prompt_len + 16)
+    toks = torch.as_tensor(
+        next(p for p in prompts if len(p) == prompt_len)[None],
+        device=device)
+    state = eng.kv.device_state()
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    weights = sum(nbytes(t) for t in _leaves_of(params))
+    emb = params["embedding"]
+
+    def weight_bytes(rows: int) -> int:
+        if "lm_head" not in params:          # tied: the head reads it all
+            return weights
+        return weights - nbytes(emb) + rows * nbytes(emb[0])
+
+    fns = {"prefill": (prompt_len, lambda: eng._prefill(
+               eng.params, {"tokens": toks},
+               model.init_cache(1, prompt_len, device=device))),
+           "decode": (4, lambda: eng._decode(eng.params, tokens, pos,
+                                             *state))}
+    rows = []
+    for step, (m, fn) in fns.items():
+        rows.append({"step": step, "mode": "bf16", "M": m,
+                     "layers": model.cfg.n_layers, **step_times(fn),
+                     "bound_ms": weight_bytes(m) / PEAK_BYTES * 1e3,
+                     "bound_by": "bytes", "weight_bytes": weight_bytes(m)})
+    return rows
+
+
+def ssm_ragged(model, params, device, chunk: int) -> str:
+    """A prompt of ``chunk + 1`` tokens, not a whole number of scan
+    chunks, must raise on the card, before any cache write; returns the
+    message."""
+    import torch
+    toks = torch.zeros((1, chunk + 1), dtype=torch.int32, device=device)
+    try:
+        with torch.no_grad():
+            model.prefill(params, {"tokens": toks},
+                          model.init_cache(1, chunk + 1, device=device))
+    except ValueError as e:
+        return str(e)
+    raise SmokeFailure(f"{model.cfg.name}: a {chunk + 1}-token prompt "
+                       f"(chunk {chunk}) did not raise")
+
+
+def ssm_zamba2(device) -> tuple[dict, dict]:
+    """zamba2-7b: at full size (81 layers, random weights from seed 0)
+    ``Engine`` under int8 through the qmatmul kernel (39 launches a
+    prefill and a decode step: the shared block's wi, wg, wo at each of
+    its 13 calls), the bf16 times, a ragged prompt, and the launcher with
+    a bf16 and an int8 KV cache; at SSM_PLAIN_LAYERS layers, kernel
+    against plain (the engine's tokens, a 512-token prefill's and a
+    4-slot decode step's logits, bitwise); at SSM_CPU_LAYERS, card
+    against CPU in fp32 and int8. Returns (the report, the launches of
+    the kernel engines' ``run()``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+
+    arch, plen = "zamba2-7b", SSM_PROMPT["zamba2-7b"]
+    model = get_arch(arch).model()
+    cfg = model.cfg
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=device)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "param_count": model.param_count(), "prompt_len": plen,
+           "init_s": time.perf_counter() - t0}
+    out["engine"], launches = lm_engines(model, params, device,
+                                         3 * cfg.n_groups, plen,
+                                         backends=(None,))
+    out["times"] = ssm_times(model, params, device, plen)
+    out["ragged"] = ssm_ragged(model, params, device, cfg.mamba_chunk)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params
+    free_card()
+    out["launcher"] = [lm_launcher(q, arch, plen) for q in ("none", "int8")]
+    free_card()
+    cut = type(model)(dataclasses.replace(cfg, n_layers=SSM_PLAIN_LAYERS))
+    params = cut.init(0, device=device)
+    row = {"layers": SSM_PLAIN_LAYERS, "shared_block_calls":
+           cut.cfg.n_groups, "tail_layers": cut.cfg.n_tail}
+    row["engine"], grew = lm_engines(cut, params, device,
+                                     3 * cut.cfg.n_groups, plen)
+    launches = {k: v + grew[k] for k, v in launches.items()}
+    row["logits_kernel_vs_plain"] = lm_logits_bitwise(cut, params, device,
+                                                      plen)
+    out["kernel_vs_plain"] = row
+    del params
+    free_card()
+    out["card_vs_cpu"] = lm_card_vs_cpu(
+        device, arch, layers=SSM_CPU_LAYERS[arch], prompt_lens=(256,),
+        nudge=False)
+    free_card()
+    return out, launches
+
+
+def ssm_rwkv6(device) -> dict:
+    """rwkv6-1.6b at full size (24 layers, random weights from seed 0):
+    the bf16 times, a ragged prompt, the launcher with a bf16 and an int8
+    KV cache, then SSM_CPU_LAYERS layers in fp32 card against CPU. No
+    kernel launches: the reference's RWKV reaches no Pallas kernel."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    arch, plen = "rwkv6-1.6b", SSM_PROMPT["rwkv6-1.6b"]
+    model = get_arch(arch).model()
+    free_card()
+    before = counts()
+    params = model.init(0, device=device)
+    out = {"arch": arch, "layers": model.cfg.n_layers,
+           "d_model": model.cfg.d_model,
+           "param_count": model.param_count(),
+           "tensor_params": sum(t.numel() for t in _leaves_of(params)),
+           "prompt_len": plen}
+    out["times"] = ssm_times(model, params, device, plen)
+    out["ragged"] = ssm_ragged(model, params, device, model.cfg.chunk)
+    del params
+    free_card()
+    out["launcher"] = [lm_launcher(q, arch, plen) for q in ("none", "int8")]
+    free_card()
+    out["card_vs_cpu"] = lm_card_vs_cpu(
+        device, arch, layers=SSM_CPU_LAYERS[arch], modes=("none",),
+        prompt_lens=(128, 64), nudge=False)
+    free_card()
+    grew = {k: counts()[k] - before[k] for k in before}
+    check(not any(grew.values()), f"the rwkv6 path launched kernels: {grew}")
+    return out
+
+
+def phase_ssm(device) -> dict:
+    """The sub-quadratic LMs on the card: zamba2-7b (``ssm_zamba2``),
+    then rwkv6-1.6b (``ssm_rwkv6``). Returns the ssm path's launches:
+    those of zamba2's int8 engine runs through the kernel."""
+    t0 = time.perf_counter()
+    zamba2, launches = ssm_zamba2(device)
+    rwkv6 = ssm_rwkv6(device)
+    emit({"phase": "ssm", "zamba2": zamba2, "rwkv6": rwkv6,
+          "tolerances": TOL_LM, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
 
 
 # ------------------------------------------------------------------- boot
@@ -2215,12 +2420,15 @@ def odd_time_row(gen, device) -> dict:
 def lm_time_rows(gen, device) -> list[dict]:
     """qmatmul at the LMs' MLP shapes: a decode step at capacity 4 (M =
     4) and a 64-token prefill (M = 64), each (K, N) of wi/wg and wo, for
-    qwen1.5-0.5b and each LM_DENSE_ARCHS config. The library yardstick is
-    ``torch._int_mm`` (cuBLAS's int8 GEMM) followed by the two scale
-    multiplies, where it takes the shape (M > 16, K and N multiples of
-    8); its result is first held bitwise against the plain version's. The
-    dense configs' plain version (tens of ms a call, summing K in
-    chunks) is timed a call at a time behind a spin."""
+    qwen1.5-0.5b and each LM_DENSE_ARCHS config; and zamba2-7b's shared
+    MLP at M = 4, 256 and 512 (its two prompt lengths), each of those
+    first held bitwise against the plain version (127² · 14,336 < 2³¹:
+    no int32 overflow). The library yardstick is ``torch._int_mm``
+    (cuBLAS's int8 GEMM) followed by the two scale multiplies, where it
+    takes the shape (M > 16, K and N multiples of 8); its result is first
+    held bitwise against the plain version's. The large configs' plain
+    version (tens of ms a call, summing K in chunks) is timed a call at a
+    time behind a spin."""
     import torch
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
@@ -2230,10 +2438,19 @@ def lm_time_rows(gen, device) -> list[dict]:
     cases += [(arch, m, k, n, 200 + i)
               for i, (arch, k, n) in enumerate(dense_qmatmul_shapes())
               for m in (4, 64)]
+    cases += [("zamba2-7b", m, k, n, 300 + i)
+              for i, (k, n) in enumerate(((3584, 14336), (14336, 3584)))
+              for m in (4, 256, 512)]
     rows = []
     for arch, m, k, n, seed in cases:
         xc, wc, xs, ws = (qmatmul_inputs(gen, m, k, n, device) if seed is None
                           else qmatmul_inputs_on(device, seed, m, k, n))
+        if arch == "zamba2-7b":
+            got, want = qmatmul(xc, wc, xs, ws), qmatmul_ref(xc, wc, xs, ws)
+            check(bitwise(got, want), f"times qmatmul {m}x{k}x{n}: kernel "
+                                      f"vs plain max_abs "
+                                      f"{max_abs(got, want)}")
+            del got, want
         lib, note = None, "torch._int_mm needs M > 16"
         if m > 16:
             def lib(xc=xc, wc=wc, xs=xs, ws=ws):
@@ -2411,7 +2628,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
-                         "lm, moe, times, plans); prints no result line")
+                         "lm, moe, ssm, times, plans); prints no result "
+                         "line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -2431,7 +2649,8 @@ def main(argv=None) -> int:
     phases = {"kernels": phase_kernels, "serve": phase_serve,
               "eager": phase_eager, "tree": phase_tree,
               "stream": phase_stream, "boot": phase_boot,
-              "lm": phase_lm, "moe": phase_moe, "times": phase_times,
+              "lm": phase_lm, "moe": phase_moe, "ssm": phase_ssm,
+              "times": phase_times,
               "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
@@ -2460,9 +2679,12 @@ def main(argv=None) -> int:
         lm = phases["lm"](device)               # counted from 0 in there
         check(lm["qmatmul"], f"qmatmul never launched on the LM path: {lm}")
         moe = phases["moe"](device)             # counted from 0: none at all
+        ssm = phases["ssm"](device)             # counted from 0 in there
+        check(ssm["qmatmul"],
+              f"qmatmul never launched on the zamba2 path: {ssm}")
         emit({"phase": "launches", "main": launches, "boot": boot,
-              "lm": lm, "moe": moe})
-        launches = {k: v + boot[k] + lm[k] + moe[k]
+              "lm": lm, "moe": moe, "ssm": ssm})
+        launches = {k: v + boot[k] + lm[k] + moe[k] + ssm[k]
                     for k, v in launches.items()}
         rows = phases["times"](device)
         phases["plans"](device)

@@ -8,8 +8,13 @@ layer-stacked tree (``embedding``, ``layers/{attn, mlp, ln1, ln2}``,
 ``final_norm``, ``lm_head`` when untied), an MoE model's experts in
 place of ``mlp`` (``layers/moe/{router, wi, wg, wo}`` and, with shared
 experts, ``shared_{wi, wg, wo}``) and gemma2's ``ln*_post`` and
-command-r's ``ln*_bias`` norms. Any nested dict of float leaves comes
-through key for key. Both packages then compute the same function,
+command-r's ``ln*_bias`` norms; the Mamba2 hybrid's
+``mamba_layers/{mamba/{in_proj, conv_w, conv_b, A_log, D, dt_bias,
+norm, out_proj}, ln}`` and ``shared/{concat_proj, attn, mlp, ln1,
+ln2}``; and the RWKV-6 LM's ``ln0``/``ln0_b``, ``layers/{ln1, mix, w0,
+w_lora_a, u, wr, ..., ck, cv, cr}``, ``final_norm``/``final_norm_b`` and
+its untied ``lm_head``. Any nested dict of float leaves comes through
+key for key. Both packages then compute the same function,
 which is how the tests hold one against the other. Nothing here imports
 JAX.
 

@@ -12,10 +12,11 @@ __all__ = ["ArchSpec"]
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                       # cnn|dense|moe|vlm (ported so far)
+    family: str                       # cnn|dense|moe|vlm|hybrid|ssm
     build: Callable[[], Any]          # -> model instance
     source: str                       # provenance note
     notes: str = ""
+    subquadratic: bool = False        # O(1)-state decode (zamba2, rwkv6)
 
     def model(self):
         return self.build()

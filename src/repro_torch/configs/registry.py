@@ -1,10 +1,11 @@
 """Arch registry: ``--arch <id>`` resolution (port of
 ``repro.configs.registry``). Ported: the paper's ``mnist_cnn`` (Tab. I),
-``highres_cnn`` (224×224, streamed through ``repro_torch.stream``) and
-every transformer arch of the reference, dense and MoE. The three other
-LM archs (seamless-m4t-medium, zamba2-7b, rwkv6-1.6b) wait for their
-ROADMAP §A.11 items, and ``get_arch`` says which. As in the reference,
-both CNNs are servable via ``--arch`` and stay out of ``ARCH_IDS``."""
+``highres_cnn`` (224×224, streamed through ``repro_torch.stream``), every
+transformer arch of the reference, dense and MoE, and its two
+sub-quadratic LMs, the Mamba2 hybrid zamba2-7b and rwkv6-1.6b. The one
+LM arch left (seamless-m4t-medium) waits for its ROADMAP §A.11 item, and
+``get_arch`` says which. As in the reference, both CNNs are servable via
+``--arch`` and stay out of ``ARCH_IDS``."""
 from __future__ import annotations
 
 import importlib
@@ -21,6 +22,8 @@ _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_16b",
     "mnist_cnn": "repro_torch.configs.mnist_cnn",
     "highres_cnn": "repro_torch.configs.highres_cnn",
 }
@@ -28,8 +31,6 @@ _MODULES = {
 # ROADMAP §A.11 item each waits for
 _NOT_PORTED = {
     "seamless-m4t-medium": "encdec.py (the encoder-decoder)",
-    "zamba2-7b": "mamba2.py and hybrid.py (the Mamba2 hybrid)",
-    "rwkv6-1.6b": "rwkv6.py and rwkv_lm.py (the RWKV-6 LM)",
 }
 # the vision workloads are servable via --arch but are not LM archs
 ARCH_IDS = [a for a in _MODULES if a not in ("mnist_cnn", "highres_cnn")]

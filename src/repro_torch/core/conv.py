@@ -4,7 +4,11 @@ Port of ``repro.core.conv``'s 2-D half: ``Conv2DConfig`` carries an
 ``ExecPolicy`` (or None, deferring to the ambient ``use_policy``), and
 ``conv2d_apply`` is one registry call — or, when its input is a
 ``TracedArray`` (repro_torch.graph.trace), records a Conv2D node.
-``causal_conv1d`` waits for the sequence-model slice.
+
+``causal_conv1d``: the 1-D window pipeline of Mamba2 (DESIGN.md §5),
+re-exported from the op registry; its decode-time ``causal_conv1d_step``
+keeps a (K-1)-deep ring state, the paper's WINDOW_BUFFER holding the
+last K-1 samples.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import torch
 from repro_torch.core.window import conv_output_size
 from repro_torch.ops.policy import ExecPolicy
 
-__all__ = ["Conv2DConfig", "conv2d_init", "conv2d_apply"]
+__all__ = ["Conv2DConfig", "conv2d_init", "conv2d_apply",
+           "causal_conv1d", "causal_conv1d_step"]
 
 
 @dataclass(frozen=True)
@@ -56,3 +61,31 @@ def conv2d_apply(params: dict, x, cfg: Conv2DConfig):
     from repro_torch.ops import conv2d
     return conv2d(x, params["w"], params.get("b"), stride=cfg.stride,
                   policy=cfg.policy)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None = None, *,
+                  policy: ExecPolicy | None = None) -> torch.Tensor:
+    """Compat re-export of ``repro_torch.ops.causal_conv1d`` (the 1-D
+    window pipeline, DESIGN.md §5)."""
+    from repro_torch.ops import causal_conv1d as op
+    return op(x, w, b, policy=policy)
+
+
+def causal_conv1d_step(x_t: torch.Tensor, state: torch.Tensor,
+                       w: torch.Tensor, b: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token decode step with the (K-1)-deep window state.
+
+    x_t: (B, C); state: (B, K-1, C) holding the previous K-1 inputs
+    (oldest first). Returns (y_t, new_state): the ring shifted by one,
+    the paper's WINDOW_BUFFER shift (step 2 of §III.B.2) in one
+    dimension. The window sum is one contraction over K, as the
+    reference's einsum, so a bf16 window accumulates in fp32."""
+    k = w.shape[0]
+    window = torch.cat([state, x_t[:, None, :]], dim=1)     # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window, w)
+    if b is not None:
+        y = y + b
+    new_state = window[:, 1:, :] if k > 1 else state
+    return y, new_state

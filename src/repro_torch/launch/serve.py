@@ -8,10 +8,14 @@ seeded synthetic workload of ``--requests`` prompts (half of them
 ``--decode-steps`` tokens each, over ``--capacity`` KV slots of
 ``--max-seq`` positions (default prompt + decode), in the model's dtype
 (bf16 for qwen1.5-0.5b), with an int8 KV cache under ``--kv-quant int8``.
-``--reduced`` serves a 2-layer, d_model 64 model of the same family. The
-weights are random from seed 0, drawn by a generator on the serving
-device, so ``--device cpu`` and the card serve different weights and
-their tokens cannot be compared (the CNNs draw on the CPU for any
+A sub-quadratic arch takes prompts that are whole scan chunks (a
+ragged one raises): zamba2-7b ``--prompt-len 512`` (chunk 256),
+rwkv6-1.6b ``--prompt-len 128`` (chunk 64); neither has a
+``--reduced``, as in the reference. ``--reduced`` serves a 2-layer,
+d_model 64 model of a transformer arch's family. The weights are random
+from seed 0, drawn by a generator on the serving device, so ``--device
+cpu`` and the card serve different weights and their tokens cannot be
+compared (the CNNs draw on the CPU for any
 device). The int8 compute path has no flag, as in the reference: it is
 ``EngineConfig(policy=ExecPolicy(quant="int8"))``. The report is the
 reference's: occupancy, tokens/s and the SLO view.

@@ -12,9 +12,11 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "stacked_init", "rms_norm", "layer_norm",
-           "rope_freqs", "apply_rope", "softcap", "ACTIVATIONS",
-           "take_last_logits", "decode_q_pos"]
+__all__ = ["dense_init", "stacked_init", "layer_view", "chunk_scan",
+           "rms_norm",
+           "layer_norm", "rope_freqs", "apply_rope", "softcap", "ACTIVATIONS",
+           "sigmoid_per_op", "silu_per_op", "take_last_logits",
+           "decode_q_pos"]
 
 
 def decode_q_pos(pos, batch: int) -> torch.Tensor:
@@ -64,6 +66,27 @@ def stacked_init(init_fn: Callable[[torch.Generator], dict],
     for i in range(1, n):
         put(stacked, init_fn(gen), i)
     return stacked
+
+
+def layer_view(tree: dict, i: int) -> dict:
+    """Layer ``i``'s params of a layer-stacked tree: views into the
+    stacked tensors (the reference's ``lax.scan`` slices)."""
+    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def chunk_scan(init: torch.Tensor, decay: torch.Tensor,
+               inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scans' inter-chunk recurrence (the reference's
+    ``lax.scan`` over chunks): carry ← carry · decay[:, z] + inputs[:, z]
+    for each chunk z, ``decay`` already broadcastable against a carry.
+    Returns (the state BEFORE each chunk, stacked on dim 1; the final
+    state)."""
+    carry, prev = init, []
+    for z in range(inputs.shape[1]):
+        prev.append(carry)
+        carry = carry * decay[:, z] + inputs[:, z]
+    return torch.stack(prev, dim=1), carry
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
@@ -135,6 +158,21 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 def _silu(x: torch.Tensor) -> torch.Tensor:
     # the reference's jax.nn.silu: x · sigmoid(x), rounded after each op
     return x * torch.sigmoid(x)
+
+
+def sigmoid_per_op(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA computes it on the CPU, jitted or not:
+    1 / (1 + exp(-x)), each op rounded to ``x``'s dtype. In bf16 about a
+    third of its values lie an ulp from the fp32 sigmoid rounded once
+    (``ACTIVATIONS["silu"]``'s, which the transformer keeps); the Mamba2
+    and RWKV-6 blocks use this one, and so match the reference's bf16
+    bitwise."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu_per_op(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` rounded as the reference's: x · ``sigmoid_per_op``."""
+    return x * sigmoid_per_op(x)
 
 
 # jax.nn.gelu defaults to the tanh approximation, so "gelu" is it too

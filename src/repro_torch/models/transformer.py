@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.common import (decode_q_pos, dense_init, layer_norm,
-                                       rms_norm, softcap, stacked_init)
+                                       layer_view, rms_norm, softcap,
+                                       stacked_init)
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
                                        attn_init, mlp_apply, mlp_init)
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
@@ -217,7 +218,7 @@ class TransformerLM:
         flags = [False] * self.cfg.n_layers if flags is None \
             else flags.tolist()
         for i, flag in enumerate(flags):
-            p = _layer_view(params["layers"], i)
+            p = layer_view(params["layers"], i)
             cache_kv = None if cache is None \
                 else (cache["k"][i], cache["v"][i])
             x, _ = self._block(p, x, ctx, q_pos=q_pos, window_active=flag,
@@ -289,9 +290,3 @@ class TransformerLM:
 
     def param_count(self) -> int:
         return self.cfg.param_count()
-
-
-def _layer_view(tree: dict, i: int) -> dict:
-    """Layer ``i``'s params: views into the stacked tensors."""
-    return {k: _layer_view(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}

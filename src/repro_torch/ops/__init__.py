@@ -6,8 +6,9 @@ from repro_torch.ops.policy import (BACKENDS, QUANT_MODES, ExecPolicy,
 from repro_torch.ops.registry import (REGISTRY, BackendUnavailableError,
                                       dispatch, list_backends, list_ops,
                                       register)
-from repro_torch.ops.impls import (conv2d, dense, fused_conv_block, qdense,
-                                   qmatmul, quantize_conv_int8, split_requant,
+from repro_torch.ops.impls import (causal_conv1d, conv2d, dense,
+                                   fused_conv_block, qdense, qmatmul,
+                                   quantize_conv_int8, split_requant,
                                    tree_reduce_sum)
 from repro_torch.ops.tiling import TUNING_CACHE, TuningCache, tile_params
 from repro_torch.ops.autotune import ensure_tuned, resolved_backend
@@ -16,5 +17,6 @@ __all__ = ["ExecPolicy", "use_policy", "current_policy", "BACKENDS",
            "QUANT_MODES", "REGISTRY", "BackendUnavailableError", "dispatch",
            "register", "list_ops", "list_backends", "conv2d",
            "fused_conv_block", "tree_reduce_sum", "qmatmul", "qdense",
-           "dense", "quantize_conv_int8", "split_requant", "TUNING_CACHE",
-           "TuningCache", "tile_params", "ensure_tuned", "resolved_backend"]
+           "dense", "causal_conv1d", "quantize_conv_int8", "split_requant",
+           "TUNING_CACHE", "TuningCache", "tile_params", "ensure_tuned",
+           "resolved_backend"]

@@ -1,6 +1,6 @@
 """Backend registrations + the public op entry points (DESIGN.md §7).
 
-Port of ``repro.ops.impls`` for four op families, three backends each:
+Port of ``repro.ops.impls`` for its five op families:
 
   op               ref (oracle)          torch (plain)        cuda (kernel)
   ---------------  --------------------  -------------------  ----------------
@@ -10,10 +10,14 @@ Port of ``repro.ops.impls`` for four op families, three backends each:
   fused_conv_block unfused ref chain     im2col+relu+pool     csrc/fused_cwp
   tree_reduce_sum  pairwise_sum          torch.sum            csrc/addtree
   qmatmul          int32-exact sum       int32-exact sum      csrc/qmatmul
+  causal_conv1d    stacked-window        shifted adds         —
+                   einsum
 
 Device priorities: on a CUDA tensor only ``cuda`` is auto-selected; on a
 CPU tensor the order is ``torch`` > ``cuda`` (whose wrapper then runs its
-plain version) > ``ref``, the JAX CPU order.
+plain version) > ``ref``, the JAX CPU order. ``causal_conv1d`` is the one
+exception: the reference has no Pallas kernel for it, so its shifted
+adds are its design on every device and carry a ``cuda`` priority.
 
 Quantization (paper C4) is applied here, once, per ``ExecPolicy.quant``,
 exactly as in the reference: ``qformat`` snaps operands and results to
@@ -33,7 +37,8 @@ from repro_torch.ops.registry import dispatch, register
 from repro_torch.ops.tiling import TREE_MAX_ETA
 
 __all__ = ["conv2d", "fused_conv_block", "tree_reduce_sum", "qmatmul",
-           "qdense", "dense", "quantize_conv_int8", "split_requant"]
+           "qdense", "dense", "causal_conv1d", "quantize_conv_int8",
+           "split_requant"]
 
 # the reference pins fp32 matmul precision; the fp32 fc product that stays
 # on torch.matmul must not run in TF32 on the card. Its bf16 contractions
@@ -297,3 +302,44 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
         return out if b is None else q.quantize(out + q.quantize(b))
     out = torch.matmul(x, w)
     return out if b is None else out + b
+
+
+# --------------------------------------------------------- causal_conv1d
+
+@register("causal_conv1d", "ref", priority=_REF_CPU)
+def _causal_conv1d_ref(x, w, b=None, *, policy=None):
+    """Oracle: materialize every K-deep window, one einsum (B, T, K, C)."""
+    k = w.shape[0]
+    t = x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    win = torch.stack([pad[:, i:i + t, :] for i in range(k)], dim=2)
+    y = torch.einsum("btkc,kc->btc", win, w)
+    return y if b is None else y + b
+
+
+# The reference has no Pallas kernel for this family (its roster's "—"),
+# so there is no kernel to port: the K shifted adds are the family's
+# design on the card too, not a fallback from one. Hence this family,
+# and only this one, gives its plain backend a "cuda" priority.
+@register("causal_conv1d", "torch", priority={"cpu": 10, "cuda": 10})
+def _causal_conv1d_torch(x, w, b=None, *, policy=None):
+    """K shifted adds (the unrolled window walk)."""
+    k = w.shape[0]
+    t = x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):          # K is tiny (2-4): unrolled
+        out = out + pad[:, i:i + t, :] * w[i]
+    return out if b is None else out + b
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None = None, *,
+                  policy: ExecPolicy | None = None) -> torch.Tensor:
+    """Depthwise causal 1-D conv, the 1-D window pipeline (DESIGN.md §5).
+
+    x: (B, T, C), w: (K, C) -> (B, T, C); y[t] = Σ_k w[k]·x[t-K+1+k] + b.
+    Left-padded so every output sees exactly K (zero-extended) samples,
+    matching Mamba's conv1d."""
+    assert x.shape[-1] == w.shape[-1], (x.shape, w.shape)
+    return dispatch("causal_conv1d", x, w, b, policy=policy)

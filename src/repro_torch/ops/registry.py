@@ -6,7 +6,9 @@ priority map** keyed on the device type of the call's first tensor
 auto-selected there: on a CUDA tensor only the ``cuda`` backend (the
 hand-written kernel) is a candidate, so the main path cannot drift onto a
 plain PyTorch version. On a CPU tensor the order follows the JAX CPU
-order, ``torch`` > ``cuda`` > ``ref``.
+order, ``torch`` > ``cuda`` > ``ref``. The one family the reference gives
+no Pallas kernel, ``causal_conv1d``, registers its plain backend for
+``cuda`` as well (``ops/impls.py``).
 
 An explicit ``policy.backend`` keeps the reference's rules:
 

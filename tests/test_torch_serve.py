@@ -171,7 +171,7 @@ def test_launcher_defaults_to_the_card():
 
 def test_launcher_refuses_unported_archs():
     with pytest.raises(KeyError):
-        launcher.main(["--arch", "zamba2-7b", "--device", "cpu"])
+        launcher.main(["--arch", "seamless-m4t-medium", "--device", "cpu"])
 
 
 # ------------------------------------------------------------ front-end
