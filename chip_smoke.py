@@ -260,6 +260,24 @@ MOE_INIT_BYTES = 60e9
 SSM_PROMPT = {"zamba2-7b": 512, "rwkv6-1.6b": 128}
 SSM_PLAIN_LAYERS = 13
 SSM_CPU_LAYERS = {"zamba2-7b": 7, "rwkv6-1.6b": 2}
+# the train phase: the launcher trains qwen1.5-0.5b at full size, is
+# killed after its step-10 checkpoint and resumes; the loss and backward
+# alone (no optimizer: weights + gradients) of four more archs at full
+# width and the least depth that reaches every block kind (None: full
+# depth), on a (2, 256) token batch (whole SSD and WKV chunks)
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "20", "--global-batch", "8",
+              "--seq", "128", "--ckpt-every", "10"]
+TRAIN_KILL_AT = 10
+TRAIN_BWD_ARCHS = {"gemma2-2b": 2, "dbrx-132b": 1, "zamba2-7b": 7,
+                   "rwkv6-1.6b": None}
+TRAIN_BWD_BATCH = (2, 256)
+# kernel vs plain gradients, relative to 1 + max|g|: fp32 sums in
+# another order (the kernel's forward, cuDNN's backward vs im2col)
+TOL_GRAD = 1e-5
+# the bf16 dense tensor-core peak (H100 SXM data sheet), for the train
+# step's operations bound
+PEAK_BF16 = 989e12
 # a whole bf16 model, relative to 1 + max|logit| (tests/test_torch_lm.py's
 # TOL_BF16): a decode step's rows served together against each alone
 TOL_BF16 = 2.0 ** -4
@@ -1878,6 +1896,507 @@ def phase_ssm(device) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ train
+
+def _tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def train_forward_kernel_vs_plain(model, params, batch) -> dict:
+    """The training forward's two convs at the step-0 batch (B = 128),
+    as ``PaperCNN.forward`` runs them under autograd (the parameters
+    require grad): conv1 on the images, then conv2 on the plain route's
+    pooled conv1, each through the kernel (``ConvWindowFn``, one
+    ``conv_window`` launch, an output autograd sees) and through the
+    plain conv on the card, held to the kernels phase's fp32 bar."""
+    import torch
+    from repro_torch.core.conv import conv2d_apply
+    from repro_torch.core.window import maxpool2
+    from repro_torch.ops import ExecPolicy, use_policy
+    cfg = model.cfg
+    x, out = batch["images"], {}
+    for stage, conv_cfg in (("conv1", cfg.conv1_cfg),
+                            ("conv2", cfg.conv2_cfg)):
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in params[stage].items()}
+        before = counts()["conv_window"]
+        got = conv2d_apply(leaves, x, conv_cfg)
+        check(counts()["conv_window"] == before + 1
+              and got.grad_fn is not None,
+              f"train mnist forward {stage}: not one kernel launch that "
+              f"autograd sees")
+        with use_policy(ExecPolicy(backend="torch")):
+            want = conv2d_apply(leaves, x, conv_cfg).detach()
+        out[stage] = hold(f"train mnist forward {stage}", "none",
+                          got.detach(), want)
+        x = maxpool2(torch.relu(want))
+    return out
+
+
+def eval_logits_kernel_vs_plain(params, device) -> dict:
+    """The evaluation's first held-out batch (B = 256) in each format,
+    through the route ``mnist.evaluate_formats`` takes (two
+    ``conv_window`` launches, and under int8 one ``qmatmul``) and through
+    the plain ops on the card: the logits held to the kernels phase's
+    bars (``hold``: int8 bitwise, Q8.8 one step, fp32 TOL_FP32)."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticMNIST, shard_batch
+    from repro_torch.models.cnn import PaperCNN, PaperCNNConfig
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.train.mnist import FORMATS
+    images = shard_batch(SyntheticMNIST(seed=0).batch(
+        256, step=10_000, seed=999), device=device)["images"]
+    out = {}
+    with torch.no_grad():
+        for fmt in FORMATS:
+            quant = "none" if fmt == "float32" else fmt
+            kern = PaperCNN(PaperCNNConfig(
+                policy=None if fmt == "float32" else ExecPolicy(quant=fmt)))
+            plain = PaperCNN(PaperCNNConfig(
+                policy=ExecPolicy(backend="torch", quant=quant)))
+            before = counts()
+            got = kern.forward(params, images)
+            grew = {k: counts()[k] - before[k] for k in before}
+            want = {"conv_window": 2, "qmatmul": int(fmt == "int8")}
+            check(all(grew[k] == n for k, n in want.items()),
+                  f"train mnist eval {fmt}: launched {grew}, want {want}")
+            out[fmt] = hold(f"train mnist eval {fmt}", quant, got,
+                            plain.forward(params, images))
+    return out
+
+
+def train_grads_kernel_vs_plain(model, params, batch) -> dict:
+    """One loss and backward of the CNN through the kernel route
+    (``conv_window`` under ``ConvWindowFn``) and through the plain conv
+    on the card: every parameter has a gradient, conv1's and conv2's
+    among them, finite, and the two routes agree within TOL_GRAD."""
+    import torch
+    from repro_torch.core.tree import tree_items
+    from repro_torch.ops import ExecPolicy, use_policy
+    from repro_torch.train.steps import loss_and_grads
+    _, _, kern = loss_and_grads(model, params, batch)
+    with use_policy(ExecPolicy(backend="torch")):
+        _, _, plain = loss_and_grads(model, params, batch)
+    out = {}
+    for path, g in tree_items(kern):
+        name = "/".join(path)
+        want = _tree_get(plain, path)
+        check(g is not None and want is not None,
+              f"train mnist: no gradient for {name}")
+        check(bool(torch.isfinite(g).all()),
+              f"train mnist: non-finite gradient for {name}")
+        err = max_abs(g, want)
+        tol = TOL_GRAD * (1 + float(want.abs().max()))
+        check(err <= tol, f"train mnist: d/d{name} kernel vs plain "
+                          f"max_abs {err}, tolerance {tol}")
+        out[name] = err / (1 + float(want.abs().max()))
+    check({"conv1/w", "conv1/b", "conv2/w", "conv2/b"} <= set(out),
+          f"train mnist: conv gradients missing: {sorted(out)}")
+    return out
+
+
+def train_conv_times(device, bsz: int = 128) -> dict:
+    """At the training batch, each conv of the CNN: the ``conv_window``
+    forward launch, the ``ConvWindowFn`` backward (cuDNN input and weight
+    gradients, bias sum; conv1's input needs none), and cuDNN's forward
+    for the same conv, each the median device time of 100 calls; beside
+    each direction its bound (``conv_work``'s for the forward; for the
+    backward x, w and the output gradient read once, the gradients
+    written once, one conv's operations for each of gw and gx)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv_window import ops as cw
+    rows = {}
+    gen = torch.Generator().manual_seed(7)
+    for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
+        x, w, b, _ = conv_inputs(gen, bsz, shape, "none", device)
+        x.requires_grad_(stage == "conv2")
+        leaves = [t.requires_grad_(True) for t in (w, b)]
+        y = cw.conv_window(x, w, b)
+        g = torch.randn(y.shape, generator=gen).to(device)
+        inputs = ([x] if x.requires_grad else []) + leaves
+        with torch.no_grad():
+            fwd, _ = device_ms(lambda: cw.conv_window(x, w, b))
+            lib, _ = device_ms(lambda: F.conv2d(x, w, b))
+        bwd, _ = device_ms(lambda: torch.autograd.grad(
+            y, inputs, g, retain_graph=True))
+        n, h, w_, m, k = shape
+        fwd_bytes, ops = conv_work(bsz, shape, pooled=False)
+        grads = 1 + int(stage == "conv2")
+        bwd_bytes = 4 * (bsz * n * h * w_ * grads + 2 * m * n * k * k
+                         + m + g.numel())
+        rows[stage] = {
+            "B": bsz, "forward_ms": fwd, "backward_ms": bwd,
+            "cudnn_forward_ms": lib,
+            "forward_bound_ms": max(fwd_bytes / PEAK_BYTES,
+                                    ops / PEAK_FP32) * 1e3,
+            "backward_bound_ms": max(bwd_bytes / PEAK_BYTES,
+                                     grads * ops / PEAK_FP32) * 1e3}
+    return rows
+
+
+def train_mnist(device) -> tuple[dict, dict]:
+    """(a) The paper's experiment at full size, as
+    ``python -m repro_torch.train.mnist`` runs it with the reference's
+    defaults: first the step-0 forward's conv outputs and gradients
+    kernel vs plain; then, counted from 0, the 300 training steps
+    (conv_window launches > 0) and the evaluation in float32, Q8.8 and
+    int8 (conv_window and qmatmul launch); float32 accuracy above 0.9;
+    then one evaluation batch's logits kernel vs plain in each format.
+    Returns (report, launches)."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticMNIST, shard_batch
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.train import mnist
+    model = PaperCNN()
+    params = model.init(0, device=device)
+    batch = shard_batch(SyntheticMNIST(seed=0).batch(128, step=0),
+                        device=device)
+    fwd_err = train_forward_kernel_vs_plain(model, params, batch)
+    grad_err = train_grads_kernel_vs_plain(model, params, batch)
+    reset_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        trained, hist = mnist.train(device=device)
+    torch.cuda.synchronize()
+    in_training = counts()
+    check(in_training["conv_window"] > 0,
+          f"train mnist: conv_window never launched in training: "
+          f"{in_training}")
+    reset_counts()
+    acc = mnist.evaluate_formats(trained, device=device)
+    in_eval = counts()
+    check(in_eval["conv_window"] > 0 and in_eval["qmatmul"] > 0,
+          f"train mnist: the evaluation launched {in_eval}")
+    check(acc["float32"] > 0.9,
+          f"train mnist: float32 accuracy {acc['float32']}")
+    launches = {k: in_training[k] + in_eval[k] for k in in_training}
+    logits_err = eval_logits_kernel_vs_plain(trained, device)
+    report = {"steps": len(hist["losses"]), "step_ms": hist["step_ms"],
+              "final_loss": hist["losses"][-1], "accuracy": acc,
+              "delta": {f: acc[f] - acc["float32"]
+                        for f in ("qformat", "int8")},
+              "launches_training": in_training, "launches_eval": in_eval,
+              "forward_kernel_vs_plain": fwd_err,
+              "eval_logits_kernel_vs_plain": logits_err,
+              "grad_rel_err_kernel_vs_plain": max(grad_err.values()),
+              "conv": train_conv_times(device)}
+    return report, launches
+
+
+def _launch_train(work: Path, tag: str, *extra: str,
+                  kill_after: int | None = None) -> dict:
+    """``python -m repro_torch.launch.train`` (TRAIN_ARGV + ``extra``)
+    in a process of its own, checkpoints under ``work/tag``; with
+    ``kill_after`` it is killed as soon as it reports that step's
+    checkpoint saved. The report's ``losses``: step -> the loss it
+    printed (at full precision)."""
+    import os
+    argv = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+            "--ckpt", str(work / tag), *extra]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, env=env, cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if kill_after is not None and \
+                    line.startswith(f"saved step {kill_after}"):
+                proc.kill()
+                break
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print("\n".join(lines[-4:]), file=sys.stderr, flush=True)
+    check(kill_after is not None or rc == 0,
+          f"train launcher {tag}: exit {rc}: {lines[-8:]}")
+    losses = {int(ln.split()[1]): float(ln.split("loss=")[1].split()[0])
+              for ln in lines if ln.startswith("step ")}
+    return {"tag": tag, "rc": rc, "seconds": time.perf_counter() - t0,
+            "losses": losses,
+            "lines": [ln for ln in lines
+                      if ln.startswith(("arch=", "auto-resumed", "peak",
+                                        "saved"))]}
+
+
+def train_lm_launcher() -> dict:
+    """(b) qwen1.5-0.5b at full size through the launcher: 20 steps
+    uninterrupted; the same run killed after its step-10 checkpoint and
+    invoked again, whose losses 11-20 must equal the uninterrupted run's
+    bitwise; and one step under ``--microbatches 2``, whose loss must be
+    step 1's within 1e-5 relative."""
+    import shutil
+    work = ROOT / "build" / "train_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        runs = [_launch_train(work, "whole"),
+                _launch_train(work, "killed", kill_after=TRAIN_KILL_AT),
+                _launch_train(work, "killed"),
+                _launch_train(work, "mb2", "--microbatches", "2",
+                              "--steps", "1")]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    whole, resumed, mb2 = (runs[i]["losses"] for i in (0, 2, 3))
+    check(sorted(whole) == list(range(1, 21)),
+          f"train launcher: steps {sorted(whole)}")
+    check(any(ln == f"auto-resumed from step {TRAIN_KILL_AT}"
+              for ln in runs[2]["lines"]),
+          f"train launcher: no resume line in {runs[2]['lines']}")
+    after = range(TRAIN_KILL_AT + 1, 21)
+    check(sorted(resumed) == list(after),
+          f"train launcher: the resumed run took steps {sorted(resumed)}")
+    check(all(resumed[s] == whole[s] for s in after),
+          f"train launcher: resumed losses "
+          f"{[resumed[s] for s in after]} vs "
+          f"{[whole[s] for s in after]}")
+    rel = abs(mb2[1] - whole[1]) / abs(whole[1])
+    check(rel <= 1e-5, f"train launcher: --microbatches 2 step-1 loss "
+                       f"{mb2[1]} vs {whole[1]} ({rel:.3g} relative)")
+    return {"losses": [whole[s] for s in (1, 10, 20)],
+            "resumed_bitwise": True, "microbatches2_rel": rel,
+            "runs": runs}
+
+
+def train_lm_times(device) -> dict:
+    """(b) The launcher's train step on the full-size qwen1.5-0.5b, in
+    this process: wall, device busy (torch.profiler) and event time a
+    step, tokens/s, peak memory, beside the step's bound: the larger of
+    6 · params · tokens at the bf16 peak and AdamW's bytes (p, g, m, v
+    read, p, m, v written, fp32: 28 B a parameter) at the memory rate."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           SyntheticTextIterator,
+                                           shard_batch)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+    model = get_arch(TRAIN_ARCH).model()
+    params = model.init(0, device=device)
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(total_steps=20))
+    bsz, seq = 8, 128
+    batch = shard_batch(SyntheticTextIterator(SyntheticTextConfig(
+        model.cfg.vocab, seq, bsz)).next_batch(), device=device)
+    torch.cuda.reset_peak_memory_stats()
+    times = step_times(lambda: step(params, opt, batch))
+    peak = torch.cuda.max_memory_allocated()
+    n = model.param_count()
+    ops_s = 6 * n * bsz * seq / PEAK_BF16
+    bytes_s = 28 * n / PEAK_BYTES
+    return {"params": n, "tokens": bsz * seq,
+            "wall_ms": times["wall_ms"],
+            "device_busy_ms": times["device_busy_ms"],
+            "event_ms": times["event_ms"],
+            "queue_ran_dry": times["queue_ran_dry"],
+            "tokens_per_s": bsz * seq / times["wall_ms"] * 1e3,
+            "max_memory_allocated": peak,
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "operations_ms": ops_s * 1e3, "bytes_ms": bytes_s * 1e3,
+            "profile": times["profile"]}
+
+
+def _grads_ok(grads) -> tuple[bool, bool]:
+    """(every gradient present, every gradient finite)."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    leaves = tree_leaves(grads)
+    present = all(g is not None for g in leaves)
+    return present, present and all(bool(torch.isfinite(g).all())
+                                    for g in leaves)
+
+
+def train_encdec(device) -> dict:
+    """(c) seamless-m4t-medium at full size: a prefill from stub frames
+    (B = 4, 512 frames, 128 tokens) and 16 greedy decode steps, finite
+    logits of the vocab's width; one loss and backward (every gradient
+    present and finite) and one train step (finite loss and params)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import loss_and_grads, make_train_step
+    spec = get_arch("seamless-m4t-medium")
+    model = spec.model()
+    cfg = model.cfg
+    params = model.init(0, device=device)
+    bsz, t_enc = 4, 512
+    s_dec = t_enc // spec.dec_frac
+    g = torch.Generator(device).manual_seed(4)
+    frames = torch.randn((bsz, t_enc, cfg.d_model), generator=g,
+                         device=device)
+    toks, labels = (torch.randint(0, cfg.vocab, (bsz, s_dec), generator=g,
+                                  device=device) for _ in range(2))
+    out = {"params": model.param_count(), "B": bsz, "frames": t_enc,
+           "tokens": s_dec}
+    cache = model.init_cache(bsz, s_dec + 16, enc_seq=t_enc, device=device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"frames": frames,
+                                               "tokens": toks}, cache)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        check(logits.shape == (bsz, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"train encdec: prefill logits {tuple(logits.shape)}")
+        nxt = logits.argmax(-1)
+        t0 = time.perf_counter()
+        for i in range(16):
+            logits, cache = model.decode_step(params, nxt, s_dec + i, cache)
+            nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / 16
+        check(bool(torch.isfinite(logits).all()),
+              "train encdec: non-finite decode logits")
+    batch = {"frames": frames, "tokens": toks, "labels": labels}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    out["loss_backward_ms"] = (time.perf_counter() - t0) * 1e3
+    present, finite = _grads_ok(grads)
+    check(present and finite and bool(torch.isfinite(loss)),
+          f"train encdec: loss {float(loss)}, gradients present "
+          f"{present}, finite {finite}")
+    del grads
+    step = make_train_step(model, AdamWConfig(total_steps=1))
+    t0 = time.perf_counter()
+    new, _, metrics = step(params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    out["train_step_ms"] = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(metrics["loss"])) and all(
+        bool(torch.isfinite(p).all()) for p in tree_leaves(new)),
+          "train encdec: a non-finite loss or param after the step")
+    out.update(loss=float(loss), step_loss=float(metrics["loss"]),
+               grads_present=present, grads_finite=finite,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    return out
+
+
+def train_backward(arch: str, layers: int | None, device) -> dict:
+    """(d) One loss and backward of ``arch`` at full width and
+    ``layers`` layers (None: full depth), fp32 weights from seed 0, no
+    optimizer: the bytes are reckoned first (weights and gradients,
+    fp32), then the loss, every gradient present and finite, the wall
+    time and the peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.train import loss_and_grads
+    full = get_arch(arch).model()
+    cfg = full.cfg if layers is None else dataclasses.replace(
+        full.cfg, n_layers=layers)
+    model = type(full)(cfg)
+    n = model.param_count()
+    check(8 * n < 72e9, f"train backward {arch}: {n} parameters need "
+                        f"{8 * n / 1e9:.1f} GB for weights and gradients")
+    params = model.init(0, device=device)
+    g = torch.Generator(device).manual_seed(5)
+    toks, labels = (torch.randint(0, cfg.vocab, TRAIN_BWD_BATCH,
+                                  generator=g, device=device)
+                    for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, metrics, grads = loss_and_grads(
+        model, params, {"tokens": toks, "labels": labels})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    present, finite = _grads_ok(grads)
+    check(present and finite and bool(torch.isfinite(loss)),
+          f"train backward {arch}: loss {float(loss)}, gradients present "
+          f"{present}, finite {finite}")
+    return {"arch": arch, "layers": cfg.n_layers, "params": n,
+            "weights_and_grads_gb": 8 * n / 1e9, "loss": float(loss),
+            **{k: float(v) for k, v in metrics.items() if k != "ce"},
+            "grads_present": present, "grads_finite": finite, "ms": ms,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def train_card_vs_cpu(device) -> dict:
+    """qwen1.5-0.5b at full width, 2 layers, fp32, drawn on the card and
+    copied to the CPU: the loss of a (2, 64) batch card against CPU
+    within TOL_LM["none"] of 1 + |loss|."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    full = get_arch(TRAIN_ARCH).model()
+    model = type(full)(dataclasses.replace(full.cfg, n_layers=2,
+                                           dtype=torch.float32))
+    params = model.init(torch.Generator(device).manual_seed(0),
+                        device=device)
+    g = torch.Generator().manual_seed(6)
+    batch = {k: torch.randint(0, model.cfg.vocab, (2, 64), generator=g)
+             for k in ("tokens", "labels")}
+    with torch.no_grad():
+        got = float(model.loss(params, {k: v.to(device)
+                                        for k, v in batch.items()})[0])
+        want = float(model.loss(to_device(params, "cpu"), batch)[0])
+    err = abs(got - want)
+    tol = TOL_LM["none"] * (1 + abs(want))
+    check(err <= tol, f"train card vs cpu: loss {got} vs {want}, "
+                      f"tolerance {tol}")
+    return {"arch": TRAIN_ARCH, "layers": 2, "loss": want, "abs_err": err,
+            "tolerance": tol}
+
+
+def phase_train(device) -> dict:
+    """(a) the paper's MNIST experiment, (b) qwen1.5-0.5b through the
+    training launcher (resume, microbatches) and its step times, (c)
+    seamless-m4t-medium served and trained, (d) a loss and backward of
+    four more archs, and a card-vs-CPU loss. Prints a short line and
+    writes the whole report to build/chip_smoke_train.json.
+    Returns the train path's launches: MNIST's training and evaluation,
+    counted from 0 after the gradients' kernel-vs-plain check."""
+    t0 = time.perf_counter()
+    mnist, launches = train_mnist(device)
+    free_card()
+    report = {"mnist": mnist, "qwen_launcher": train_lm_launcher(),
+              "qwen_step": train_lm_times(device)}
+    free_card()
+    report["seamless"] = train_encdec(device)
+    free_card()
+    report["backward"] = []
+    for arch, layers in TRAIN_BWD_ARCHS.items():
+        report["backward"].append(train_backward(arch, layers, device))
+        free_card()
+    report["card_vs_cpu"] = train_card_vs_cpu(device)
+    report["seconds"] = time.perf_counter() - t0
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_train.json").write_text(json.dumps(report, indent=1))
+    step = report["qwen_step"]
+    emit({"phase": "train",
+          "mnist": {k: mnist[k] for k in
+                    ("step_ms", "accuracy", "delta", "launches_training",
+                     "grad_rel_err_kernel_vs_plain", "conv")}
+          | {"forward_max_abs": {k: v["max_abs"] for k, v in
+                                 mnist["forward_kernel_vs_plain"].items()},
+             "eval_logits_max_abs": {
+                 k: v["max_abs"] for k, v in
+                 mnist["eval_logits_kernel_vs_plain"].items()}},
+          "qwen": {k: step[k] for k in
+                   ("wall_ms", "device_busy_ms", "event_ms", "tokens_per_s",
+                    "max_memory_allocated", "bound_ms", "bound_by")}
+          | {k: report["qwen_launcher"][k] for k in
+             ("losses", "resumed_bitwise", "microbatches2_rel")},
+          "seamless": {k: v for k, v in report["seamless"].items()},
+          "backward": [{k: r[k] for k in ("arch", "layers", "loss", "ms",
+                                          "max_memory_allocated")}
+                       for r in report["backward"]],
+          "card_vs_cpu": report["card_vs_cpu"],
+          "seconds": report["seconds"]})
+    return launches
+
+
 # ------------------------------------------------------------------- boot
 
 # the served ladders booted in the boot phase
@@ -2628,8 +3147,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
-                         "lm, moe, ssm, times, plans); prints no result "
-                         "line")
+                         "lm, moe, ssm, train, times, plans); prints no "
+                         "result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -2650,7 +3169,7 @@ def main(argv=None) -> int:
               "eager": phase_eager, "tree": phase_tree,
               "stream": phase_stream, "boot": phase_boot,
               "lm": phase_lm, "moe": phase_moe, "ssm": phase_ssm,
-              "times": phase_times,
+              "train": phase_train, "times": phase_times,
               "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
@@ -2682,9 +3201,12 @@ def main(argv=None) -> int:
         ssm = phases["ssm"](device)             # counted from 0 in there
         check(ssm["qmatmul"],
               f"qmatmul never launched on the zamba2 path: {ssm}")
+        train = phases["train"](device)         # counted from 0 in there
+        check(train["conv_window"] and train["qmatmul"],
+              f"a kernel of the training path never launched: {train}")
         emit({"phase": "launches", "main": launches, "boot": boot,
-              "lm": lm, "moe": moe, "ssm": ssm})
-        launches = {k: v + boot[k] + lm[k] + moe[k] + ssm[k]
+              "lm": lm, "moe": moe, "ssm": ssm, "train": train})
+        launches = {k: v + boot[k] + lm[k] + moe[k] + ssm[k] + train[k]
                     for k, v in launches.items()}
         rows = phases["times"](device)
         phases["plans"](device)

@@ -1,0 +1,6 @@
+"""Atomic keep-k checkpoints in the reference's format (port of
+``repro.checkpoint``)."""
+from repro_torch.checkpoint.manager import (CheckpointManager, load_pytree,
+                                            save_pytree)
+
+__all__ = ["CheckpointManager", "save_pytree", "load_pytree"]

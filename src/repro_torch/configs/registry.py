@@ -1,11 +1,10 @@
 """Arch registry: ``--arch <id>`` resolution (port of
-``repro.configs.registry``). Ported: the paper's ``mnist_cnn`` (Tab. I),
-``highres_cnn`` (224×224, streamed through ``repro_torch.stream``), every
-transformer arch of the reference, dense and MoE, and its two
-sub-quadratic LMs, the Mamba2 hybrid zamba2-7b and rwkv6-1.6b. The one
-LM arch left (seamless-m4t-medium) waits for its ROADMAP §A.11 item, and
-``get_arch`` says which. As in the reference, both CNNs are servable via
-``--arch`` and stay out of ``ARCH_IDS``."""
+``repro.configs.registry``). Every arch of the reference resolves: the
+paper's ``mnist_cnn`` (Tab. I), ``highres_cnn`` (224×224, streamed
+through ``repro_torch.stream``), every transformer arch, dense and MoE,
+the two sub-quadratic LMs (the Mamba2 hybrid zamba2-7b and rwkv6-1.6b)
+and the encoder-decoder seamless-m4t-medium. As in the reference, both
+CNNs are servable via ``--arch`` and stay out of ``ARCH_IDS``."""
 from __future__ import annotations
 
 import importlib
@@ -22,25 +21,18 @@ _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_16b",
     "mnist_cnn": "repro_torch.configs.mnist_cnn",
     "highres_cnn": "repro_torch.configs.highres_cnn",
-}
-# the reference's archs whose model families are not ported yet: the
-# ROADMAP §A.11 item each waits for
-_NOT_PORTED = {
-    "seamless-m4t-medium": "encdec.py (the encoder-decoder)",
 }
 # the vision workloads are servable via --arch but are not LM archs
 ARCH_IDS = [a for a in _MODULES if a not in ("mnist_cnn", "highres_cnn")]
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in _NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: it waits for "
-                       f"{_NOT_PORTED[arch_id]}, ROADMAP §A.11")
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; ported so far: "
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
                        f"{sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id]).ARCH

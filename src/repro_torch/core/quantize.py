@@ -6,7 +6,9 @@ Port of ``repro.core.quantize``:
    round half to even, saturate; ``quantize_int`` gives the integer codes.
 2. int8 symmetric quantization — ``quantize_int8`` produces the codes and
    scales the ``qmatmul`` kernel and the int8 conv epilogue consume;
-   ``dequantize_int8`` maps them back.
+   ``dequantize_int8`` maps them back; ``fake_quant_int8`` is the pair
+   with a straight-through gradient (quantization-aware training) and
+   ``quantize_tree`` quantizes a params tree's matrices.
 
 ``requant_epilogue`` keeps the multiply-round-then-add-round order that
 the JAX reference pins with an optimization barrier: PyTorch's eager ops
@@ -21,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["QFormat", "QTensor", "quantize_int8", "dequantize_int8",
-           "requant_epilogue", "conv_epilogue"]
+           "fake_quant_int8", "quantize_tree", "requant_epilogue",
+           "conv_epilogue"]
 
 # fp32(1 / 127), the constant ``quantize_int8`` multiplies by
 _INV127 = torch.tensor(1.0, dtype=torch.float32) / 127.0
@@ -101,6 +104,39 @@ def dequantize_int8(q: QTensor, dtype: torch.dtype = torch.float32
                     ) -> torch.Tensor:
     """``codes · scale`` in fp32, cast to ``dtype``."""
     return (q.codes.to(torch.float32) * q.scale).to(dtype)
+
+
+class _FakeQuantInt8(torch.autograd.Function):
+    """quantize → dequantize forward, identity backward (the reference's
+    ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return dequantize_int8(quantize_int8(x, axis), x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant_int8(x: torch.Tensor, axis: int | None = -1) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient — used for
+    quantization-aware training of the paper CNN."""
+    return _FakeQuantInt8.apply(x, axis)
+
+
+def quantize_tree(params, axis: int | None = -1, min_size: int = 16):
+    """Every float tensor leaf of a nested-dict tree of ndim >= 2 and at
+    least ``min_size`` elements as an int8 ``QTensor``; the small leaves
+    (biases, norms, scalars) stay in float, as deployment keeps them and
+    as the paper keeps its accumulators at full width."""
+    if isinstance(params, dict):
+        return {k: quantize_tree(v, axis, min_size)
+                for k, v in params.items()}
+    if (isinstance(params, torch.Tensor) and params.is_floating_point()
+            and params.ndim >= 2 and params.numel() >= min_size):
+        return quantize_int8(params, axis)
+    return params
 
 
 def requant_epilogue(acc: torch.Tensor, scale: torch.Tensor,

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.kernels.addtree.ref import tree_reduce_sum_ref
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
+from repro_torch.kernels.common import (check_tensor, launch, launch_args,
+                                       ptr, refuse_grad)
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import TREE_MAX_ETA, tree_tiles
 
@@ -46,6 +47,7 @@ def tree_reduce_sum(x: torch.Tensor, *,
                          f"{TREE_MAX_ETA}")
     if r > _MAX_ROWS:
         raise ValueError(f"{r} rows: the kernel takes at most {_MAX_ROWS}")
+    refuse_grad("tree_reduce_sum", x)
     if dev.type == "cpu":
         return tree_reduce_sum_ref(x)
     pol = policy if policy is not None else current_policy()

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-__all__ = ["check_tensor", "ptr", "launch_args", "launch"]
+__all__ = ["check_tensor", "refuse_grad", "ptr", "launch_args", "launch"]
 
 
 def check_tensor(t: torch.Tensor, name: str, *, dtype: torch.dtype,
@@ -30,6 +30,21 @@ def check_tensor(t: torch.Tensor, name: str, *, dtype: torch.dtype,
                          f"rank {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous; pass .contiguous()")
+
+
+def refuse_grad(name: str, *ts: torch.Tensor | None) -> None:
+    """Raise when grad mode is on and an input requires grad: a kernel's
+    output is a fresh tensor filled through a raw pointer, which autograd
+    cannot see, so the caller would get no gradient and no error. Only
+    ``conv_window`` has a backward (an ``autograd.Function``); the other
+    kernels serve inference, under ``torch.no_grad``. Checked on every
+    device, so a call the card would refuse fails on the CPU too."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the {name} kernel has no "
+            f"backward and its output would be detached from the graph; "
+            f"call it under torch.no_grad() or detach the inputs")
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -5,6 +5,14 @@ Registered as the ``cuda`` backend of the ``conv2d`` op family
 and launches ``csrc/conv_window.cu`` on the current stream, or raises; on
 a CPU tensor it runs the plain version (``ref.py``). ``launches`` counts
 kernel launches and nothing else.
+
+Every call goes through ``ConvWindowFn``: its forward is the kernel
+launch (or, on the CPU, the plain version), so the training forward of
+the CNN runs on the kernel; its backward is the VALID strided conv's
+gradient in plain PyTorch ops. Outside autograd (no grad, or no input
+that requires it) the Function records nothing. The reference has no backward Pallas kernel (JAX
+differentiates its conv), so neither is there a backward kernel here; a
+hand-written one is kernel work for later (ROADMAP §B).
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ from repro_torch.kernels.conv_window.ref import conv2d_window_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import fused_tiles, platform_key
 
-__all__ = ["conv_window", "launches"]
+__all__ = ["conv_window", "ConvWindowFn", "launches"]
 
 launches = 0
 
@@ -32,12 +40,44 @@ def _launcher():
     return fn
 
 
+class ConvWindowFn(torch.autograd.Function):
+    """The window conv with a gradient: forward = ``conv_window``'s launch
+    (the plain version on the CPU); backward = the input and weight
+    gradients of a VALID strided conv (``torch.nn.grad``; cuDNN on the
+    card, TF32 off as ``repro_torch.ops.impls`` sets it) and the bias
+    gradient as a sum over batch and space."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, policy):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.has_b = stride, b is not None
+        return _conv_window(x, w, b, stride=stride, policy=policy)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w, g, ctx.stride)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x, w.shape, g, ctx.stride)
+        if ctx.has_b and ctx.needs_input_grad[2]:
+            gb = g.sum(dim=(0, 2, 3))
+        return gx, gw, gb, None, None
+
+
 def conv_window(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor | None = None, *,
                 stride: tuple[int, int] = (1, 1),
                 policy: ExecPolicy | None = None) -> torch.Tensor:
     """x: (B,N,H,W) f32 · w: (M,N,Kh,Kw) f32 -> (B,M,Ho,Wo) f32, VALID
-    padding, ``+b`` (M,) when given."""
+    padding, ``+b`` (M,) when given. Differentiable (``ConvWindowFn``)."""
+    return ConvWindowFn.apply(x, w, b, tuple(stride), policy)
+
+
+def _conv_window(x, w, b, *, stride, policy) -> torch.Tensor:
+    """The launch (or, on the CPU, the plain version)."""
     global launches
     dev = x.device
     check_tensor(x, "x", dtype=torch.float32, ndim=4, device=dev)

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.core.window import pool_output_size
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
+from repro_torch.kernels.common import (check_tensor, launch, launch_args,
+                                       ptr, refuse_grad)
 from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import fused_tiles, platform_key
@@ -59,6 +60,7 @@ def fused_cwp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if n != n2 or h < kh or wd < kw or sh < 1 or sw < 1:
         raise ValueError(f"conv shapes x={tuple(x.shape)} "
                          f"w={tuple(w.shape)} stride={tuple(stride)}")
+    refuse_grad("fused_cwp", x, w, b, scale)
     ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
     po, qo = pool_output_size(ho, odd), pool_output_size(wo, odd)
     if dev.type == "cpu":

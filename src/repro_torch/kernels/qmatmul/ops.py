@@ -14,7 +14,8 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
+from repro_torch.kernels.common import (check_tensor, launch, launch_args,
+                                       ptr, refuse_grad)
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import platform_key, qmatmul_tiles
@@ -64,6 +65,7 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
                          f" · w_codes {tuple(w_codes.shape)}")
     xs = _scale(x_scale, (m, 1), dev)
     ws = _scale(w_scale, (1, n), dev)
+    refuse_grad("qmatmul", xs, ws)
     if dev.type == "cpu":
         return qmatmul_ref(x_codes, w_codes, xs, ws, out_dtype)
     pol = policy if policy is not None else current_policy()

@@ -298,6 +298,13 @@ def main(argv=None):
             f"(ROADMAP §A.10)")
     _load_tuning_cache(args.tuning_cache)
     spec = get_arch(args.arch)
+    if spec.frames:
+        # the reference's launcher fails here too: EncDecLM.prefill reads
+        # batch["frames"], and the Engine's prefill batch has only tokens
+        raise KeyError(f"frames: {args.arch} is an encoder-decoder, and the "
+                       f"serving Engine feeds its prefill no 'frames' "
+                       f"(only tokens); call its prefill/decode_step "
+                       f"directly")
     model = spec.model()
     if spec.family == "cnn":
         out = serve_vision(model, args)

@@ -1,18 +1,44 @@
-"""Training launcher helpers (port of ``repro.launch.train``, the part the
-serving launcher uses): ``reduced_config``. The training loop, its mesh
-and its checkpoints wait for ROADMAP §A.12 and §A.10."""
+"""Training launcher: ``--arch <id>`` + checkpoints + auto-resume (port
+of ``repro.launch.train``).
+
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 20 \
+        --global-batch 8 --seq 128 --ckpt DIR --ckpt-every 10
+
+trains the arch at full size on the card (``--device cpu --reduced`` runs
+a small same-family model on the CPU). It draws the reference's weights'
+shapes from seed 0, feeds the synthetic Markov token stream and takes
+AdamW steps (``train.steps``); every ``--ckpt-every`` steps and at the
+end it saves params, optimizer state and the data iterator's state
+atomically (keep 3). On start it resumes from the newest checkpoint in
+``--ckpt``, so a run killed and invoked again with the same arguments
+continues where its last checkpoint left it, bit for bit: the launcher
+turns on ``torch.use_deterministic_algorithms`` (with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before the first CUDA call), so
+the embedding's backward (an index accumulate) and cuBLAS reduce in a
+fixed order. Each step prints its loss at full precision (``repr``),
+so that two runs' losses can be compared bitwise from their output.
+
+The mesh and the multi-host runtime wait for ROADMAP §A.10: ``--mesh``
+takes ``auto`` or ``1`` (one device). Encoder-decoder archs, whose batch
+needs frames, are trained through ``train.steps`` directly, as the
+reference's launcher, whose stream has only tokens, cannot feed them.
+"""
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
+import tempfile
+import time
 
-__all__ = ["reduced_config"]
+__all__ = ["reduced_config", "main"]
 
 
 def reduced_config(model):
     """A small same-family model: 2 layers, d_model 64, 4 heads, d_ff 128,
     vocab 2,048, and an MoE config cut to 4 experts of d_ff 128 with
-    top-k at most 2 — what ``--reduced`` serves, so the whole loop runs
-    on the CPU."""
+    top-k at most 2 — what ``--reduced`` trains and serves, so the whole
+    loop runs on the CPU."""
     from repro_torch.models.transformer import LMConfig
     cfg = model.cfg
     if isinstance(cfg, LMConfig):
@@ -26,3 +52,112 @@ def reduced_config(model):
             sliding_window=64 if cfg.sliding_window else None, remat="none")
         return type(model)(small)
     raise SystemExit(f"--reduced supports LM archs; got {type(cfg)}")
+
+
+def _parser() -> argparse.ArgumentParser:
+    from repro_torch.device import DEFAULT_DEVICE
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--mesh", default="auto",
+                    help="'auto' or '1' (one device) until the mesh is "
+                         "ported")
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
+                                                   "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--reduced", action="store_true",
+                    help="small same-family config (CPU debugging)")
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="torch device; the default needs a CUDA card")
+    return ap
+
+
+def main(argv=None) -> dict:
+    """Train; returns {"start": the step resumed from, "losses": {step:
+    loss}} of this invocation."""
+    args = _parser().parse_args(argv)
+    # before the first CUDA call: cuBLAS reads it when it makes a handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _train(args)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+
+
+def _train(args) -> dict:
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           SyntheticTextIterator,
+                                           shard_batch)
+    from repro_torch.device import resolve_device
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    if args.mesh not in ("auto", "1"):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the mesh is not ported yet (ROADMAP "
+            f"§A.10); 'auto' and '1' train on one device")
+    spec = get_arch(args.arch)
+    if spec.frames:
+        raise NotImplementedError(
+            f"{args.arch}: the encoder's frames are not in the token "
+            f"stream; train it through repro_torch.train.make_train_step "
+            f"with a batch that holds them")
+    dev = resolve_device(args.device)
+    model = spec.model()
+    if args.reduced:
+        model = reduced_config(model)
+    print(f"arch={args.arch} params={model.cfg.param_count() / 1e6:.1f}M "
+          f"device={dev}", flush=True)
+
+    opt_cfg = AdamWConfig(total_steps=args.steps)
+    step_fn = make_train_step(model, opt_cfg,
+                              microbatches=args.microbatches)
+    dcfg = SyntheticTextConfig(vocab=model.cfg.vocab, seq_len=args.seq,
+                               global_batch=args.global_batch)
+    mgr = CheckpointManager(args.ckpt, keep=3)
+    start = 0
+    if mgr.latest_step() is not None:
+        # shapes and dtypes only (the reference's eval_shape): nothing drawn
+        meta = model.init(torch.Generator(), device="meta")
+        start, params, opt, extra = mgr.restore(
+            params_template=meta, opt_template=adamw_init(meta, opt_cfg),
+            device=dev)
+        data = SyntheticTextIterator.from_state(dcfg, extra["data"])
+        print(f"auto-resumed from step {start}", flush=True)
+    else:
+        params = model.init(0, device=dev)
+        opt = adamw_init(params)
+        data = SyntheticTextIterator(dcfg)
+
+    losses = {}
+    t0 = time.perf_counter()
+    for i in range(start, args.steps):
+        batch = shard_batch(data.next_batch(), device=dev)
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses[i + 1] = loss = float(metrics["loss"])
+        print(f"step {i + 1:5d}  loss={loss!r}  "
+              f"{(time.perf_counter() - t0) / (i + 1 - start):.2f}s/step",
+              flush=True)
+        if (i + 1) % args.ckpt_every == 0 or i + 1 == args.steps:
+            mgr.save(i + 1, params=params, opt_state=opt,
+                     extra={"data": data.state_dict()})
+            print(f"saved step {i + 1}", flush=True)
+    if dev.type == "cuda":
+        print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+              f" GB", flush=True)
+    print("training complete", flush=True)
+    return {"start": start, "losses": losses}
+
+
+if __name__ == "__main__":
+    main()

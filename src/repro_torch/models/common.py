@@ -1,6 +1,7 @@
 """Shared model building blocks (port of ``repro.models.common``): init
 helpers, the norms, rotary embeddings, soft-capping, the activations and
-the decode-position helper. The losses wait for ROADMAP §A.12.
+the decode-position helper, the two cross entropies the models' losses
+use, and ``remat``, the per-layer activation checkpoint of training.
 
 The norms and rope upcast to fp32 and cast back, as the reference does,
 so a bf16 model keeps fp32 statistics.
@@ -11,12 +12,16 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["dense_init", "stacked_init", "layer_view", "chunk_scan",
+from repro_torch.core.tree import tree_leaves, tree_map
+
+__all__ = ["dense_init", "stacked_init", "layer_views", "chunk_scan",
            "rms_norm",
            "layer_norm", "rope_freqs", "apply_rope", "softcap", "ACTIVATIONS",
            "sigmoid_per_op", "silu_per_op", "take_last_logits",
-           "decode_q_pos"]
+           "decode_q_pos", "cross_entropy_loss", "chunked_cross_entropy",
+           "classifier_loss", "remat"]
 
 
 def decode_q_pos(pos, batch: int) -> torch.Tensor:
@@ -35,7 +40,11 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], fan_in: int,
                device: torch.device) -> torch.Tensor:
     """Truncated-normal fan-in init (std = 1/sqrt(fan_in), cut at ±2σ),
     drawn from ``gen`` on the generator's own device, then moved to
-    ``device``."""
+    ``device``. On the meta device nothing is drawn: ``init(gen,
+    device="meta")`` gives a tree of shapes and dtypes (the reference's
+    ``eval_shape``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device=device)
     w = torch.empty(shape, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * fan_in ** -0.5).to(device)
@@ -68,11 +77,16 @@ def stacked_init(init_fn: Callable[[torch.Generator], dict],
     return stacked
 
 
-def layer_view(tree: dict, i: int) -> dict:
-    """Layer ``i``'s params of a layer-stacked tree: views into the
-    stacked tensors (the reference's ``lax.scan`` slices)."""
-    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def layer_views(tree: dict) -> list[dict]:
+    """Each layer's params of a layer-stacked tree (the reference's
+    ``lax.scan`` slices): views into the stacked tensors, from one
+    ``torch.unbind`` of each. Under autograd the layers' gradients reach
+    a stack through unbind's one backward (a ``stack``), where a view a
+    layer (``select``) would zero-fill and add a whole stack for each
+    layer: L² traffic."""
+    unbound = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda u: u[i], unbound)
+            for i in range(len(tree_leaves(unbound)[0]))]
 
 
 def chunk_scan(init: torch.Tensor, decay: torch.Tensor,
@@ -183,6 +197,106 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": torch.relu,
     "relu_sq": lambda x: torch.square(torch.relu(x)),
 }
+
+
+def remat(policy: str, fn: Callable, *args):
+    """``fn(*args)``, under an activation checkpoint when ``policy`` is not
+    ``"none"`` and grad mode is on: the reference's per-layer
+    ``jax.checkpoint`` (``"full"``: nothing saved; its ``"dots"`` policy,
+    which keeps the matmul outputs, is taken as ``"full"`` here). The
+    forward is recomputed in the backward, op for op, so the gradients
+    are those of the plain call."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _mean(nll: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """The token mean of ``nll``, over ``mask``'s tokens when given, as a
+    true division on every device."""
+    if mask is not None:
+        m = mask.reshape(nll.shape).to(torch.float32)
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.sum() / _const(nll.numel(), nll)
+
+
+def _ce_chunk(xt, wc, run_max, run_sum, lab_logit, lab, lo: int,
+              chunk: int, transpose_weight: bool, final_softcap):
+    """One vocab chunk of ``chunked_cross_entropy``: the chunk's logits,
+    padded to ``chunk`` columns with -inf, folded into the running max,
+    the running sum of exponentials and the label's logit."""
+    wc = wc.to(torch.float32)
+    logits = xt @ (wc if transpose_weight else wc.T)
+    if final_softcap is not None:
+        cap = _const(final_softcap, logits)
+        logits = cap * torch.tanh(logits / cap)
+    if logits.shape[1] < chunk:
+        logits = F.pad(logits, (0, chunk - logits.shape[1]),
+                       value=float("-inf"))
+    new_max = torch.maximum(run_max, logits.amax(-1))
+    run_sum = run_sum * torch.exp(run_max - new_max) + \
+        torch.exp(logits - new_max[:, None]).sum(-1)
+    local = lab - lo
+    in_chunk = (local >= 0) & (local < chunk)
+    picked = torch.gather(logits, 1, local.clamp(0, chunk - 1)[:, None])
+    lab_logit = lab_logit + torch.where(in_chunk, picked[:, 0], 0.0)
+    return new_max, run_sum, lab_logit
+
+
+def chunked_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
+                          labels: torch.Tensor, *,
+                          transpose_weight: bool = False,
+                          final_softcap: float | None = None,
+                          mask: torch.Tensor | None = None,
+                          chunk: int = 8_192) -> torch.Tensor:
+    """Cross entropy without materializing the (B,S,V) logits: an online
+    logsumexp over vocab chunks of ``chunk`` columns, each chunk under an
+    activation checkpoint so that the backward keeps only the running
+    reductions (3 × B·S floats a chunk) and recomputes the chunk's
+    logits. The last chunk's missing columns are -inf (the reference pads
+    the weight with zero rows and masks them; the weight is not copied
+    here). ``final_softcap`` caps each logit; ``mask`` (B,S) averages over
+    its tokens. Functionally the softmax CE on full logits.
+
+    x: (B,S,D) final hidden; weight: (V,D) tied embedding or (D,V)
+    lm_head (transpose_weight=True); labels: (B,S) int."""
+    b, s, d = x.shape
+    v = weight.shape[1] if transpose_weight else weight.shape[0]
+    xt = x.reshape(b * s, d).to(torch.float32)
+    lab = labels.reshape(b * s).to(device=x.device, dtype=torch.long)
+    run_max = torch.full((b * s,), float("-inf"), device=x.device)
+    run_sum = torch.zeros((b * s,), device=x.device)
+    lab_logit = torch.zeros((b * s,), device=x.device)
+    for lo in range(0, v, chunk):
+        wc = weight[:, lo:lo + chunk] if transpose_weight \
+            else weight[lo:lo + chunk]
+        run_max, run_sum, lab_logit = remat(
+            "full", lambda *a, lo=lo: _ce_chunk(
+                *a, lo, chunk, transpose_weight, final_softcap),
+            xt, wc, run_max, run_sum, lab_logit, lab)
+    nll = (run_max + torch.log(run_sum)) - lab_logit
+    return _mean(nll, mask)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32. logits (B,S,V), labels (B,S)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return _mean(lse - ll, mask)
+
+
+def classifier_loss(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> tuple[torch.Tensor, dict]:
+    """The CNNs' loss: mean NLL of log-softmax in fp32 over (B, classes)
+    logits, with ``{"ce", "accuracy"}``."""
+    labels = labels.to(device=logits.device, dtype=torch.long)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -_mean(torch.gather(logp, -1, labels[:, None])[:, 0], None)
+    acc = _mean((logits.argmax(-1) == labels).to(torch.float32), None)
+    return nll, {"ce": nll, "accuracy": acc}
 
 
 def take_last_logits(logits: torch.Tensor) -> torch.Tensor:

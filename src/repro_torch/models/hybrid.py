@@ -25,9 +25,10 @@ Both are written in place, as the transformer's KV cache is. Prompts
 must be a whole number of SSD chunks (``mamba_chunk``).
 
 Simplification kept from the reference: ONE shared block (the release
-alternates two; DESIGN.md §5). ``loss`` waits for ROADMAP §A.12;
-``axes``, ``cache_axes`` and ``remat`` (a config field that means
-nothing when serving) for §A.10.
+alternates two; DESIGN.md §5). ``loss`` runs the layers with no cache
+(nothing is written) and, unless ``remat`` is ``"none"``, each Mamba
+layer and each shared-block call under an activation checkpoint.
+``axes`` and ``cache_axes`` wait for ROADMAP §A.10.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ from typing import Any
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models.common import (decode_q_pos, dense_init, layer_view,
+from repro_torch.models.common import (chunked_cross_entropy, decode_q_pos,
+                                       dense_init, layer_views, remat,
                                        rms_norm, stacked_init)
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
                                        attn_init, mlp_apply, mlp_init)
@@ -63,7 +65,7 @@ class HybridConfig:
     mamba_chunk: int = 128
     ssd_bf16: bool = False
     dtype: Any = torch.bfloat16
-    remat: str = "full"            # training only
+    remat: str = "full"            # training: "none" | "full"
 
     @property
     def n_groups(self) -> int:
@@ -157,14 +159,20 @@ class HybridLM:
         h = h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"]), cfg.mlp_cfg, ctx)
         return x + h
 
-    def _mamba_layer(self, params: dict, i: int, x: torch.Tensor,
-                     ctx: ShardingCtx | None, states: dict,
+    def _mamba_layer(self, p: dict, i: int, x: torch.Tensor,
+                     ctx: ShardingCtx | None, states: dict | None,
                      decode: bool) -> torch.Tensor:
-        """Mamba layer ``i`` on ``x``; its new recurrent state is written
-        into row ``i`` of ``states`` (a prefill's from the chunked scan, a
-        decode step's from the state it read there)."""
+        """Mamba layer ``i`` (params ``p``) on ``x``; its new recurrent
+        state is written into row ``i`` of ``states`` (a prefill's from
+        the chunked scan, a decode step's from the state it read there).
+        ``states`` None (training) writes nothing and runs under
+        ``remat``."""
         cfg = self.cfg
-        p = layer_view(params["mamba_layers"], i)
+        if states is None:
+            def layer(x, p):
+                h = rms_norm(x, p["ln"])
+                return x + mamba2_apply(p["mamba"], h, cfg.mamba_cfg, ctx)
+            return remat(cfg.remat, layer, x, p)
         h = rms_norm(x, p["ln"])
         if decode:
             out, new = mamba2_decode_step(
@@ -179,24 +187,32 @@ class HybridLM:
         return x + out
 
     def _run(self, params: dict, x: torch.Tensor, ctx: ShardingCtx | None,
-             *, q_pos: torch.Tensor, cache: dict, cache_index,
+             *, q_pos: torch.Tensor, cache: dict | None, cache_index,
              decode: bool) -> torch.Tensor:
         """Groups of [interval × mamba] + the shared block, then the tail.
         Group ``g``'s shared-block call reads and writes the attention
-        cache's slice ``g``."""
+        cache's slice ``g``; with no cache (training) nothing is written
+        and each call runs under ``remat``."""
         cfg = self.cfg
         si = cfg.shared_interval
         x0 = x
-        states, kv = cache["mamba"], cache["attn"]
+        states = None if cache is None else cache["mamba"]
+        layers = layer_views(params["mamba_layers"])
         for g in range(cfg.n_groups):
             for i in range(g * si, (g + 1) * si):
-                x = self._mamba_layer(params, i, x, ctx, states, decode)
+                x = self._mamba_layer(layers[i], i, x, ctx, states, decode)
+            if cache is None:
+                x = remat(cfg.remat, lambda x, p: self._shared_block(
+                    p, x, x0, ctx, q_pos=q_pos, cache_kv=None,
+                    cache_index=None), x, params["shared"])
+                continue
+            kv = cache["attn"]
             x = self._shared_block(params["shared"], x, x0, ctx,
                                    q_pos=q_pos,
                                    cache_kv=(kv["k"][g], kv["v"][g]),
                                    cache_index=cache_index)
         for i in range(cfg.n_groups * si, cfg.n_layers):
-            x = self._mamba_layer(params, i, x, ctx, states, decode)
+            x = self._mamba_layer(layers[i], i, x, ctx, states, decode)
         return x
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -209,6 +225,24 @@ class HybridLM:
                               params["embedding"].to(x.dtype))
         return shard(logits.to(torch.float32), ctx,
                      "batch", "act_seq", "act_vocab")
+
+    # ---------- public: train ----------
+    def loss(self, params: dict, batch: dict,
+             ctx: ShardingCtx | None = None
+             ) -> tuple[torch.Tensor, dict]:
+        """batch: tokens (B,S) (a whole number of SSD chunks), labels
+        (B,S), optional loss_mask -> (ce, {"ce"}); the tied embedding is
+        the head."""
+        x = self._embed(params, batch["tokens"])
+        b, s = x.shape[:2]
+        q_pos = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+        x = self._run(params, x, ctx, q_pos=q_pos, cache=None,
+                      cache_index=None, decode=False)
+        x = rms_norm(x, params["final_norm"])
+        ce = chunked_cross_entropy(x, params["embedding"], batch["labels"],
+                                   mask=batch.get("loss_mask"))
+        return ce, {"ce": ce}
 
     # ---------- public: serve ----------
     def init_cache(self, batch: int, max_seq: int, *,

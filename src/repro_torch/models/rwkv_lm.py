@@ -6,9 +6,10 @@ state {wkv, shift_t, shift_c}, constant in sequence length, stacked on a
 leading layer dim with batch at axis 1 (so ``SlotKVCache`` carries it
 unchanged) and written in place. A prefill overwrites a row's whole
 state, so a reused slot keeps nothing of its previous tenant. The
-decode step is position-free. ``loss`` waits for ROADMAP §A.12; the
-logical-axis annotations and ``remat`` (a config field that means
-nothing when serving) for §A.10.
+decode step is position-free. ``loss`` runs the blocks with no state
+(each under an activation checkpoint unless ``remat`` is ``"none"``) and
+the chunked cross entropy over the untied head. The logical-axis
+annotations wait for ROADMAP §A.10.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from typing import Any
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models.common import (dense_init, layer_norm, layer_view,
+from repro_torch.models.common import (chunked_cross_entropy, dense_init,
+                                       layer_norm, layer_views, remat,
                                        stacked_init)
 from repro_torch.models.rwkv6 import (RWKV6Config, rwkv6_apply, rwkv6_init,
                                       rwkv6_state_shape)
@@ -37,7 +39,7 @@ class RWKVLMConfig:
     head_dim: int = 64
     chunk: int = 64
     dtype: Any = torch.bfloat16
-    remat: str = "full"            # training only
+    remat: str = "full"            # training: "none" | "full"
 
     @property
     def block_cfg(self) -> RWKV6Config:
@@ -85,11 +87,20 @@ class RWKVLM:
         }
 
     def _run(self, params: dict, x: torch.Tensor, ctx: ShardingCtx | None,
-             cache: dict) -> torch.Tensor:
+             cache: dict | None) -> torch.Tensor:
         """Every block in order; block ``i`` reads its state from row
-        ``i`` of ``cache`` and writes its new state there."""
-        for i in range(self.cfg.n_layers):
-            x, new = rwkv6_apply(layer_view(params["layers"], i), x,
+        ``i`` of ``cache`` and writes its new state there. With no cache
+        (training) each block starts from zero state, writes nothing and
+        runs under ``remat``."""
+        cfg = self.cfg
+        layers = layer_views(params["layers"])
+        if cache is None:
+            for p in layers:
+                x = remat(cfg.remat, lambda x, p: rwkv6_apply(
+                    p, x, cfg.block_cfg, ctx, None)[0], x, p)
+            return x
+        for i, p in enumerate(layers):
+            x, new = rwkv6_apply(p, x,
                                  self.cfg.block_cfg, ctx,
                                  {k: v[i] for k, v in cache.items()})
             for k, v in new.items():
@@ -107,6 +118,20 @@ class RWKVLM:
                               params["lm_head"].to(x.dtype))
         return shard(logits.to(torch.float32), ctx,
                      "batch", "act_seq", "act_vocab")
+
+    # ---------- public: train ----------
+    def loss(self, params: dict, batch: dict,
+             ctx: ShardingCtx | None = None
+             ) -> tuple[torch.Tensor, dict]:
+        """batch: tokens (B,T) (a whole number of WKV chunks), labels
+        (B,T), optional loss_mask -> (ce, {"ce"})."""
+        x = self._embed(params, batch["tokens"])
+        x = self._run(params, x, ctx, None)
+        x = layer_norm(x, params["final_norm"], params["final_norm_b"])
+        ce = chunked_cross_entropy(x, params["lm_head"], batch["labels"],
+                                   transpose_weight=True,
+                                   mask=batch.get("loss_mask"))
+        return ce, {"ce": ce}
 
     # ---------- public: serve ----------
     def init_cache(self, batch: int, max_seq: int, *,

@@ -5,14 +5,15 @@ One config class covers the reference's whole family: dbrx (MoE top-4),
 llama4-scout (MoE top-1 + a shared expert), qwen1.5 (QKV bias),
 command-r (parallel block, LayerNorm), qwen3 (qk_norm), gemma2
 (local/global alternation, softcaps, sandwich norms, embed scaling) and
-the internvl2 backbone (vision-prefix embeddings). ``loss`` waits for
-training (ROADMAP §A.12); so does the MoE aux loss's sum over layers,
-which serving discards.
+the internvl2 backbone (vision-prefix embeddings). ``loss`` is the
+training loss: the chunked (or full) cross entropy plus the MoE aux loss
+summed over layers, which serving discards.
 
 Layers are stacked on a leading L dim as in the reference, whose
 ``lax.scan`` over them becomes a Python loop over views of the stacked
-tensors here; each layer's slice of the KV cache is written in place.
-``remat`` is kept as a config field and means nothing when serving.
+tensors here (their gradients accumulate into the stacks); each layer's
+slice of the KV cache is written in place. ``remat`` other than
+``"none"`` checkpoints each layer under autograd (``common.remat``).
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ from typing import Any
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models.common import (decode_q_pos, dense_init, layer_norm,
-                                       layer_view, rms_norm, softcap,
+from repro_torch.models.common import (chunked_cross_entropy,
+                                       cross_entropy_loss, decode_q_pos,
+                                       dense_init, layer_norm, layer_views,
+                                       remat, rms_norm, softcap,
                                        stacked_init)
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
                                        attn_init, mlp_apply, mlp_init)
@@ -60,9 +63,9 @@ class LMConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False            # gemma: × sqrt(d_model)
     vision_prefix: bool = False          # internvl: embeds prepended
-    chunked_ce: bool = True              # the loss's (ROADMAP §A.12)
+    chunked_ce: bool = True              # the loss's vocab-chunked CE
     dtype: Any = torch.bfloat16
-    remat: str = "full"                  # training only
+    remat: str = "full"                  # training: "none" | "full"
 
     @property
     def hd(self) -> int:
@@ -173,7 +176,8 @@ class TransformerLM:
 
     def _block(self, p: dict, x: torch.Tensor, ctx: ShardingCtx | None, *,
                q_pos: torch.Tensor, window_active, cache_kv, cache_index):
-        """One transformer block. Returns (x, cache_kv written)."""
+        """One transformer block. Returns (x, cache_kv written, the MoE
+        aux loss () fp32, or None without experts)."""
         cfg = self.cfg
         h = self._norm(x, p["ln1"], p, "ln1_bias")
         attn_out, new_kv = attention(
@@ -183,21 +187,21 @@ class TransformerLM:
         if cfg.sandwich_norm:
             attn_out = rms_norm(attn_out, p["ln1_post"],
                                 plus_one=cfg.norm_plus_one)
+        aux = None
         if cfg.parallel_block:
             # command-r: mlp on the same normed input, one residual add
             mlp_out = mlp_apply(p["mlp"], h, cfg.mlp_cfg, ctx)
-            return x + attn_out + mlp_out, new_kv
+            return x + attn_out + mlp_out, new_kv, aux
         x = x + attn_out
         h2 = self._norm(x, p["ln2"], p, "ln2_bias")
         if cfg.moe is not None:
-            # the aux loss is the training loss's (ROADMAP §A.12)
-            ffn_out, _ = moe_apply(p["moe"], h2, cfg.moe, ctx)
+            ffn_out, aux = moe_apply(p["moe"], h2, cfg.moe, ctx)
         else:
             ffn_out = mlp_apply(p["mlp"], h2, cfg.mlp_cfg, ctx)
         if cfg.sandwich_norm:
             ffn_out = rms_norm(ffn_out, p["ln2_post"],
                                plus_one=cfg.norm_plus_one)
-        return x + ffn_out, new_kv
+        return x + ffn_out, new_kv, aux
 
     def _layer_flags(self) -> torch.Tensor | None:
         cfg = self.cfg
@@ -211,19 +215,31 @@ class TransformerLM:
     def _run_layers(self, params: dict, x: torch.Tensor,
                     ctx: ShardingCtx | None, *, q_pos: torch.Tensor,
                     cache: dict | None, cache_index) -> tuple:
-        """Run the stacked layers in order; returns (x, cache). cache:
-        {"k", "v"}: (L, B, S, KV, hd) or None; layer i reads and writes
-        the views ``cache["k"][i]``, ``cache["v"][i]`` in place."""
+        """Run the stacked layers in order; returns (x, the MoE aux losses
+        summed () fp32, or None without experts, cache). cache: {"k",
+        "v"}: (L, B, S, KV, hd) or None (training: each layer then runs
+        under ``remat``); layer i reads and writes the views
+        ``cache["k"][i]``, ``cache["v"][i]`` in place."""
         flags = self._layer_flags()
         flags = [False] * self.cfg.n_layers if flags is None \
             else flags.tolist()
+        aux_sum = None
+        layers = layer_views(params["layers"])
         for i, flag in enumerate(flags):
-            p = layer_view(params["layers"], i)
             cache_kv = None if cache is None \
                 else (cache["k"][i], cache["v"][i])
-            x, _ = self._block(p, x, ctx, q_pos=q_pos, window_active=flag,
-                               cache_kv=cache_kv, cache_index=cache_index)
-        return x, cache
+
+            def block(x, p, flag=flag, cache_kv=cache_kv):
+                x, _, aux = self._block(
+                    p, x, ctx, q_pos=q_pos, window_active=flag,
+                    cache_kv=cache_kv, cache_index=cache_index)
+                return x, aux
+
+            x, aux = remat(self.cfg.remat if cache is None else "none",
+                           block, x, layers[i])
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        return x, aux_sum, cache
 
     # ---------- embedding / logits ----------
     def _embed(self, params: dict, tokens: torch.Tensor,
@@ -250,6 +266,43 @@ class TransformerLM:
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
         return shard(logits, ctx, "batch", "act_seq", "act_vocab")
 
+    # ---------- public: train ----------
+    def loss(self, params: dict, batch: dict,
+             ctx: ShardingCtx | None = None
+             ) -> tuple[torch.Tensor, dict]:
+        """batch: tokens (B,S), labels (B,S), optional loss_mask (B,S),
+        optional vision_embeds (B,P,D), whose positions are sliced off
+        before the loss. Returns (ce + aux, {"ce", "aux"})."""
+        cfg = self.cfg
+        vis = batch.get("vision_embeds")
+        x = self._embed(params, batch["tokens"], ctx, vis)
+        b, s = x.shape[:2]
+        q_pos = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+        x, aux, _ = self._run_layers(params, x, ctx, q_pos=q_pos,
+                                     cache=None, cache_index=None)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.chunked_ce:
+            if vis is not None:
+                x = x[:, vis.shape[1]:, :]
+            x = self._norm(x, params["final_norm"], params,
+                           "final_norm_bias")
+            w = params["embedding"] if cfg.tie_embeddings \
+                else params["lm_head"]
+            ce = chunked_cross_entropy(
+                x, w, batch["labels"],
+                transpose_weight=not cfg.tie_embeddings,
+                final_softcap=cfg.final_softcap,
+                mask=batch.get("loss_mask"))
+        else:
+            logits = self._logits(params, x, ctx)
+            if vis is not None:
+                logits = logits[:, vis.shape[1]:, :]
+            ce = cross_entropy_loss(logits, batch["labels"],
+                                    batch.get("loss_mask"))
+        return ce + aux, {"ce": ce, "aux": aux}
+
     # ---------- public: serve ----------
     def init_cache(self, batch: int, max_seq: int, *,
                    device: str | torch.device = DEFAULT_DEVICE) -> dict:
@@ -269,8 +322,8 @@ class TransformerLM:
         b, s = x.shape[:2]
         q_pos = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-        x, cache = self._run_layers(params, x, ctx, q_pos=q_pos,
-                                    cache=cache, cache_index=0)
+        x, _, cache = self._run_layers(params, x, ctx, q_pos=q_pos,
+                                       cache=cache, cache_index=0)
         logits = self._logits(params, x[:, -1:, :], ctx)
         return logits[:, 0, :], cache
 
@@ -283,8 +336,8 @@ class TransformerLM:
         if torch.is_tensor(pos):
             pos = pos.to(device=x.device, dtype=torch.int32)
         q_pos = decode_q_pos(pos, x.shape[0]).to(x.device)
-        x, cache = self._run_layers(params, x, ctx, q_pos=q_pos,
-                                    cache=cache, cache_index=pos)
+        x, _, cache = self._run_layers(params, x, ctx, q_pos=q_pos,
+                                       cache=cache, cache_index=pos)
         logits = self._logits(params, x, ctx)
         return logits[:, 0, :], cache
 

@@ -16,7 +16,7 @@ Implements the same model protocol as ``PaperCNN`` (``input_shape`` /
 Parameters are a plain dict in the JAX layout (``block<i>`` → ``w``
 (M, N, K, K), ``b`` (M,); ``fc_w`` (K, N); ``fc_b`` (N,)), so
 ``repro_torch.bridge`` carries the reference's ``init`` across. ``loss``
-is training and waits for ROADMAP §A.12.
+is the reference's: mean NLL and accuracy.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro_torch.core.conv import Conv2DConfig, conv2d_apply, conv2d_init
 from repro_torch.core.window import maxpool2
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.graph.trace import dense, flatten, relu
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import classifier_loss, dense_init
 from repro_torch.ops.policy import ExecPolicy
 
 if TYPE_CHECKING:
@@ -148,6 +148,14 @@ class VGGStyleCNN:
         x = flatten(x)
         return dense(x, params["fc_w"], params["fc_b"],
                      policy=cfg.exec_policy())
+
+    def loss(self, params: dict, batch: dict, ctx=None
+             ) -> tuple[torch.Tensor, dict]:
+        """batch: images (B, C, H, W), labels (B,) int -> (mean NLL,
+        {"ce", "accuracy"}). On the card each conv is a ``conv_window``
+        launch, and its gradient comes from ``ConvWindowFn``."""
+        return classifier_loss(self.forward(params, batch["images"]),
+                               batch["labels"])
 
     def compile(self, policy: ExecPolicy | None = None, *,
                 fuse: bool = True, batch: int = 1, mesh=None,

@@ -41,9 +41,11 @@ __all__ = ["conv2d", "fused_conv_block", "tree_reduce_sum", "qmatmul",
            "split_requant"]
 
 # the reference pins fp32 matmul precision; the fp32 fc product that stays
-# on torch.matmul must not run in TF32 on the card. Its bf16 contractions
+# on torch.matmul must not run in TF32 on the card, nor may the conv
+# gradients (cuDNN, ``ConvWindowFn.backward``). Its bf16 contractions
 # accumulate in fp32, so cuBLAS may not reduce bf16 partials in bf16
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 _PLAIN_CPU = {"cpu": 10}

@@ -720,3 +720,66 @@ def test_moe_apply_card_matches_cpu(card, n_shared, top_k):
     err = float((got.cpu() - want).abs()[whole].max())
     assert err <= 1e-4 * (1 + float(want.abs().max())), err
     assert abs(float(aux) - float(want_aux)) <= 1e-6
+
+
+# ---------------------------------------------------- kernels under autograd
+
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_conv_window_function_gradients_match_plain(card, stage):
+    """``ConvWindowFn`` (the kernel forward, cuDNN's conv gradients with
+    TF32 off) against autograd through the plain conv on the card: the
+    output and the three gradients within 1e-5 of 1 + max|want|."""
+    x, w, b, _ = _operands(stage, "none", 3, card)
+    g = torch.randn(conv2d_window_ref(x, w, b).shape,
+                    generator=torch.Generator().manual_seed(5)).to(card)
+    got, want = [], []
+    for fn, out in ((cw_ops.conv_window, got), (conv2d_window_ref, want)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        y = fn(*leaves)
+        out.append(y.detach())
+        out.extend(torch.autograd.grad((y * g).sum(), leaves))
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        tol = TOL_FP32 * (1 + float(e.abs().max()))
+        assert float((a - e).abs().max()) <= tol
+
+
+def test_conv_window_function_passes_gradcheck_against_its_backward(card):
+    """``torch.autograd.gradcheck`` of the Function at a tiny shape: its
+    analytic gradients against finite differences of its forward, in
+    float32 (the kernel's only type), at float32's step and tolerance;
+    cuDNN's weight gradient may sum in another order each call, hence
+    ``nondet_tol``."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((1, 2, 6, 5), generator=gen).to(card)
+    w = (torch.randn((3, 2, 3, 2), generator=gen) * 0.3).to(card)
+    b = torch.randn((3,), generator=gen).to(card)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    assert torch.autograd.gradcheck(
+        lambda *a: cw_ops.conv_window(*a, stride=(2, 1)), leaves,
+        eps=1e-2, atol=1e-2, rtol=1e-2, nondet_tol=1e-5)
+
+
+def test_the_other_kernels_refuse_inputs_that_require_grad(card):
+    """``fused_cwp``, ``qmatmul`` and ``tree_reduce_sum`` have no
+    backward: under grad mode an input that requires grad raises, naming
+    the op, before any launch; under ``torch.no_grad`` they launch."""
+    x, w, b, _ = _operands("conv2", "none", 2, card)
+    xq = torch.randint(-127, 128, (4, 32), dtype=torch.int8).to(card)
+    wq = torch.randint(-127, 128, (32, 8), dtype=torch.int8).to(card)
+    xs = torch.rand((4, 1), device=card, requires_grad=True)
+    calls = {
+        "fused_cwp": lambda: fc_ops.fused_cwp(
+            x, w.clone().requires_grad_(True), b),
+        "qmatmul": lambda: qm_ops.qmatmul(xq, wq, xs, 0.5),
+        "tree_reduce_sum": lambda: at_ops.tree_reduce_sum(
+            torch.rand((8, 9), device=card, requires_grad=True)),
+    }
+    for name, call in calls.items():
+        before = (fc_ops.launches, qm_ops.launches, at_ops.launches)
+        with pytest.raises(RuntimeError, match=name):
+            call()
+        assert (fc_ops.launches, qm_ops.launches, at_ops.launches) == before
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
