@@ -81,20 +81,27 @@ Phases, each printing one JSON line:
            under three stream budgets (untiled, the default 1 MiB,
            256 KiB): device time between CUDA events, and wall time;
   lm       qwen1.5-0.5b at full width and depth (24 layers, d_model
-           1,024, vocab 151,936, bf16, random weights from seed 0): the
-           launcher (``--capacity 4 --requests 8 --prompt-len 64
-           --decode-steps 16``) with a bf16 and an int8 KV cache, then
-           ``Engine`` under ``ExecPolicy(quant="int8")`` over the same
-           requests, whose qmatmul launches must be 72 (24 layers x wi, wg,
-           wo) a prefill and a decode step, and whose tokens must equal
-           the same engine's through the plain qmatmul
-           (``backend="torch"``) on the card, as must, bitwise, the logits
-           of a 64-token prefill and of a decode step over 4 full slots
-           at their own positions; a 2-layer
-           model at full width, fp32 and int8, card against CPU (each
-           request's prefill logits and the first decode step's); the
-           device and wall time of a 64-token prefill and of a decode step
-           at capacity 4 in bf16 and int8, with a profile of a decode step.
+           1,024, vocab 151,936, bf16, random weights from seed 0). Every
+           engine serves through its step graphs (``serve/graphs.py``: a
+           CUDA graph a prompt length and one for the decode step, the
+           weights cast once at build). The launcher (``--capacity 4
+           --requests 8 --prompt-len 64 --decode-steps 16``) with a bf16
+           and an int8 KV cache, then ``Engine`` under
+           ``ExecPolicy(quant="int8")`` over the same requests: each
+           graph captured 72 qmatmul launches (24 layers x wi, wg, wo),
+           the replays launched 72 a prefill and a decode step, and the
+           tokens equal the same engine's run eagerly (``graphs=False``)
+           and through the plain qmatmul (``backend="torch"``); the
+           engine in bf16 and with an int8 KV cache, graphs against
+           eager, the same tokens; the logits of a 64-token prefill and
+           of a decode step over 4 full slots at their own positions,
+           bitwise kernel vs plain, and bitwise graph replay vs eager in
+           bf16, int8 KV and int8; a 2-layer model at full width, fp32
+           and int8, card against CPU (each request's prefill logits and
+           the first decode step's); the wall, busy and event time of
+           that prefill and decode step, eager and as a graph replay, in
+           bf16 and int8, with profiles, each graph's capture ms and
+           pool bytes.
            Then qwen3-14b, gemma2-2b, command-r-35b and internvl2-26b at
            full width and 2 layers: ``Engine`` under int8, kernel against
            plain (qmatmul launches 3 x 2 a prefill and a decode step,
@@ -106,14 +113,17 @@ Phases, each printing one JSON line:
   moe      dbrx-132b (16 experts of d_ff 10,752, top-4) and
            llama4-scout-17b-a16e (16 experts of d_ff 8,192, top-1 + a
            shared expert) at full width and the deepest depth L >= 2 whose
-           fp32 init stays under 60 GB, cast once to bf16: ``Engine`` over
-           the launcher's mix (8 requests, 16 tokens each, capacity 4), the
+           fp32 init stays under 60 GB, cast once to bf16 as the engine
+           casts (the router stays fp32): ``Engine`` over the launcher's
+           mix (8 requests, 16 tokens each, capacity 4) through its step
+           graphs and eagerly, the same tokens, the
            assignments dropped in each layer of a 64-token prefill, a
            decode step at capacity 4 against each row decoded alone
            (within 2^-4 of 1 + max|logit|, the rows whose routing differs
            counted), the device and wall time of a 64-token prefill and of
            a decode step beside their bytes bound (every expert weight read
-           once a layer), with a torch.profiler breakdown; then one
+           once a layer), eager and as a graph replay with the logits
+           bitwise between them, with a torch.profiler breakdown; then one
            ``moe_apply`` at full dbrx width in fp32, card against CPU
            (every assignment clear of a 1e-5 near-tie with the same expert
            and keep, those tokens within 1e-4 of 1 + max|out|, aux within
@@ -123,31 +133,50 @@ Phases, each printing one JSON line:
            chunks. zamba2-7b (the Mamba2 hybrid: 81 layers, d_model
            3,584, one shared attention + MLP block after every 6, bf16,
            6.66 B parameters) at full size: ``Engine`` under int8 over the
-           launcher's mix at ``--prompt-len 512`` (39 qmatmul launches a
-           prefill and a decode step, the shared MLP's 3 at each of its
-           13 calls), the device and wall time of a 512-token prefill and
-           of a decode step at capacity 4 in bf16 beside their bytes
-           bound (every weight once, as stored) with a torch.profiler
-           breakdown, a ragged prompt raising, and the launcher with a
+           launcher's mix at ``--prompt-len 512`` through its step
+           graphs and eagerly, the same tokens (39 qmatmul launches in
+           each graph, replayed a prefill and a decode step: the shared
+           MLP's 3 at each of its 13 calls), the device and wall time of a
+           512-token prefill and of a decode step at capacity 4 in bf16,
+           eager and as a graph replay with the logits bitwise between
+           them, beside their bytes bound (every weight once, as the
+           engine stores it) with a torch.profiler breakdown, a ragged
+           prompt raising, and the launcher with a
            bf16 and an int8 KV cache (tokens/s, peak memory); cut to 13
            layers, the int8 engine's tokens and a 512-token prefill's and
            a 4-slot decode step's logits bitwise kernel vs plain; cut to
            7, a 256-token prefill's and the first decode step's logits
            card vs CPU in fp32 and int8. rwkv6-1.6b (24 layers, d_model
-           2,048) at full size: the same times, a ragged prompt and the
+           2,048) at full size: ``Engine`` in bf16 graphs against eager,
+           the same times, a ragged prompt and the
            launcher at ``--prompt-len 128`` (bf16 and int8 KV), then 2
            layers fp32 card vs CPU; no kernel launches (the reference's
            RWKV reaches no Pallas kernel).
+  train    (a) the paper's MNIST experiment at the reference's defaults
+           (300 steps, B = 128), each step a replay of one train graph
+           holding 2 conv_window launches (600 replayed), float32
+           accuracy above 0.9, the step-0 conv outputs and gradients and
+           an evaluation batch's logits kernel vs plain; (b) qwen1.5-0.5b
+           at full size through the training launcher's train graph: 20
+           steps, a kill after the step-10 checkpoint and a resume whose
+           losses are bitwise, ``--microbatches 2``, and ``--eager``
+           whose first 5 losses equal the graph run's bitwise; its step
+           eager and as a replay (wall, busy, event ms, capture, pool);
+           (c) seamless-m4t-medium served and trained eagerly; (d) a loss
+           and backward of four more archs; a card-vs-CPU loss.
 
-Then the kernels line (one JSON object; its times are the paper CNN's
-served batch at B = 8, its launches the wrapper launches of the serve,
-eager, tree and stream phases, of the boot phase, of the lm phase's
-int8 engine runs (qwen1.5-0.5b and the four dense configs), of the
-moe phase (none) and of the ssm phase's int8 zamba2 engine runs through
-the kernel, each counted from 0 just before it; a CUDA graph's
-kernels are counted once, at capture; the lm phase's warm-up, its
-card-vs-CPU models and its kernel-vs-plain comparisons are left out),
-the card's ``nvidia-smi`` name and power limit, and as the last line
+Then one compact line a model of step times (eager and graph wall, busy
+and event ms; capture ms and pool MiB), the kernels line (one JSON
+object; its times are the paper CNN's served batch at B = 8, its
+launches the wrapper launches of the serve, eager, tree and stream
+phases, of the boot phase, of the lm phase's int8 engine runs
+(qwen1.5-0.5b and the four dense configs), of the moe phase (none), of
+the ssm phase's int8 zamba2 engine runs through the kernel and of the
+train phase's MNIST run, each counted from 0 just before it; a CUDA
+graph's kernels are counted at its warm-up and at its capture, and its
+replays by the graph; the lm phase's card-vs-CPU models and its
+kernel-vs-plain comparisons are left out), the card's ``nvidia-smi``
+name and power limit, and as the last line
 ``{"ok": true, "device": ...}``. ``--phases boot,kernels`` runs only the
 named phases (after device and build) and prints no result.
 Any failed check exits non-zero before that line. Without a GPU, or
@@ -269,6 +298,7 @@ TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "20", "--global-batch", "8",
               "--seq", "128", "--ckpt-every", "10"]
 TRAIN_KILL_AT = 10
+TRAIN_EAGER_STEPS = 5       # the launcher's eager steps held to the graph's
 TRAIN_BWD_ARCHS = {"gemma2-2b": 2, "dbrx-132b": 1, "zamba2-7b": 7,
                    "rwkv6-1.6b": None}
 TRAIN_BWD_BATCH = (2, 256)
@@ -1043,11 +1073,16 @@ def lm_engines(model, params, device, per_pass: int | None = None,
     """``Engine`` under ExecPolicy(quant="int8") over the launcher's
     requests (``prompt_len`` or half as many tokens), through the qmatmul
     kernel (the default backend on the card) and through its plain
-    version (backend="torch"), both on the card (``backends``):
-    ``per_pass`` launches (default 3 a layer: wi, wg, wo) a prefill and
-    a decode step, none for the plain run, and the same tokens. Returns
-    (the report, the launches of the kernel run's ``run()``: the LM
-    path's, counted from 0 there)."""
+    version (backend="torch"), both on the card (``backends``), each
+    through its step graphs; the kernel's also with ``graphs=False``
+    (the same steps eagerly on the same buffers). Every prefill and
+    decode step of a graph run is a replay: each graph captured
+    ``per_pass`` qmatmul launches (default 3 a layer: wi, wg, wo), its
+    replays launched ``per_pass`` x (prefills + decode steps), and the
+    wrappers counted each graph's twice (its warm-up and its capture);
+    the plain run captured none; all runs give the same tokens. Returns
+    (the report, the launches of the kernel graph run: the LM path's,
+    counted from 0 before its engine was built)."""
     import torch
     from repro_torch.ops import ExecPolicy
     from repro_torch.serve import Engine, EngineConfig
@@ -1055,54 +1090,141 @@ def lm_engines(model, params, device, per_pass: int | None = None,
     per_pass = per_pass or 3 * model.cfg.n_layers
     prompts = lm_prompts(model.cfg.vocab, prompt_len)
     runs = {}
-    for backend in backends:
+    for backend, graphs in [(b, g) for b in backends
+                            for g in ((True, False) if b is None
+                                      else (True,))]:
+        name = (backend or "cuda") + ("" if graphs else "_eager")
+        if name == "cuda":
+            reset_counts()                  # the LM path starts here
         eng = Engine(model, params, EngineConfig(
             capacity=4, max_seq=prompt_len + 16,
             policy=ExecPolicy(quant="int8", backend=backend),
-            device=str(device)))
+            device=str(device), graphs=graphs))
         for length in sorted({len(p) for p in prompts}):
-            eng.warm_prefill(length)            # first calls stay untimed
+            eng.warm_prefill(length)        # captured before the clock
+        eng.warm_decode()
         for p in prompts:
             eng.add_request(p, 16)
-        reset_counts()                      # the LM path starts here
         t0 = time.perf_counter()
         fin = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        grew = counts()
-        if backend is None:
-            path = grew
         s = eng.stats
-        runs[backend or "cuda"] = {
+        runs[name] = {
             "tokens": {r.uid: r.generated for r in fin},
             "prefills": s.prefills,
             "decode_steps": s.decode_lane_steps // eng.config.capacity,
-            "qmatmul_launches": grew["qmatmul"],
+            "qmatmul_replayed": eng.graph_launches().get("qmatmul", 0),
             "cache_quant": eng.config.cache_quant, "wall_s": wall,
             "tokens_per_s": (s.prefill_tokens + s.decode_tokens) / wall}
+        if graphs:
+            runs[name].update(compiled_engine(f"lm engine int8 {name}",
+                                              eng))
+        if name == "cuda":
+            path = counts()
+            captured = {k: sum(g.kernels.get(k, 0) for g in eng.graphs())
+                        for k in path}
+            check(all(g.kernels.get("qmatmul") == per_pass
+                      for g in eng.graphs()),
+                  f"lm engine int8: graphs captured "
+                  f"{[g.kernels for g in eng.graphs()]}, expected "
+                  f"{per_pass} qmatmul launches each")
+            check(path == {k: 2 * v for k, v in captured.items()},
+                  f"lm engine int8: wrapper launches {path}, expected a "
+                  f"warm-up and a capture of each graph: {captured} x 2")
+        del eng
     k = runs["cuda"]
     want = per_pass * (k["prefills"] + k["decode_steps"])
-    check(path == dict(path, qmatmul=want),
-          f"lm engine int8: launches {path}, expected {per_pass} x "
+    check(k["qmatmul_replayed"] == want,
+          f"lm engine int8: the replays launched qmatmul "
+          f"{k['qmatmul_replayed']} times, expected {per_pass} x "
           f"({k['prefills']} prefills + {k['decode_steps']} decode steps) "
-          f"= {want} of qmatmul and none of any other kernel")
+          f"= {want}")
     check(len(k["tokens"]) == 8 and all(
         len(t) == 16 and all(0 <= x < model.cfg.vocab for x in t)
         for t in k["tokens"].values()),
         f"lm engine int8: tokens {k['tokens']}")
+    check(k["tokens"] == runs["cuda_eager"]["tokens"],
+          f"lm engine int8: graph tokens {k['tokens']} vs eager "
+          f"{runs['cuda_eager']['tokens']}")
     p = runs.get("torch")
     if p is not None:
-        check(p["qmatmul_launches"] == 0,
-              f"lm engine int8 backend=torch launched qmatmul "
-              f"{p['qmatmul_launches']} times")
+        check(p["qmatmul_replayed"] == 0,
+              f"lm engine int8 backend=torch replayed qmatmul "
+              f"{p['qmatmul_replayed']} times")
         check(k["tokens"] == p["tokens"],
               f"lm engine int8: kernel tokens {k['tokens']} vs plain "
               f"{p['tokens']}")
     return {"path": "engine", "policy": "int8", "per_pass": per_pass,
             "prompt_len": prompt_len, "expected_launches": want,
             "tokens_vs_plain": "equal" if p is not None else "not run",
+            "tokens_graph_vs_eager": "equal", "wrapper_launches": path,
             **{f"{name}_{key}": v for name, r in runs.items()
                for key, v in r.items() if key != "tokens"}}, path
+
+
+def compiled_engine(label, eng) -> dict:
+    """An engine that served through its step graphs: every graph
+    captured, the prefill graphs' replays equal to its prefills and the
+    decode graph's to its decode steps. Returns the graphs' capture ms
+    and pool bytes."""
+    graphs = eng.graphs()
+    steps = eng.stats.decode_lane_steps // eng.config.capacity
+    prefills = sum(g.calls for g in graphs if g is not eng._decode_graph)
+    check(all(g.captured or g.released for g in graphs)
+          and prefills == eng.stats.prefills
+          and eng._decode_graph.calls == steps,
+          f"{label}: {prefills} prefill replays for {eng.stats.prefills} "
+          f"prefills, {eng._decode_graph.calls} decode replays for "
+          f"{steps} steps, captured {[g.captured for g in graphs]}")
+    return {"graphs": len(graphs),
+            "capture_ms": sum(g.capture_s for g in graphs) * 1e3,
+            "pool_bytes": sum(g.pool_bytes for g in graphs)}
+
+
+def engine_graph_vs_eager(label, model, params, device,
+                          prompt_len: int = 64, **config) -> dict:
+    """``Engine`` (``config``: kv_quant, policy) through its step graphs
+    and with ``graphs=False`` over the launcher's requests (``prompt_len``
+    or half, 16 new tokens, capacity 4): the same tokens, every step of
+    the graph run a replay; each run's wall time and tokens/s."""
+    import torch
+    from repro_torch.serve import Engine, EngineConfig
+    prompts = lm_prompts(model.cfg.vocab, prompt_len)
+    out, toks = {"label": label}, {}
+    for graphs in (True, False):
+        eng = Engine(model, params, EngineConfig(
+            capacity=4, max_seq=prompt_len + 16, device=str(device),
+            graphs=graphs, **config))
+        for length in sorted({len(p) for p in prompts}):
+            eng.warm_prefill(length)
+        eng.warm_decode()
+        for p in prompts:
+            eng.add_request(p, 16)
+        t0 = time.perf_counter()
+        fin = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = eng.stats
+        key = "graph" if graphs else "eager"
+        toks[key] = {r.uid: r.generated for r in fin}
+        out[f"{key}_wall_s"] = wall
+        out[f"{key}_tokens_per_s"] = (s.prefill_tokens
+                                      + s.decode_tokens) / wall
+        if graphs:
+            out.update(compiled_engine(label, eng))
+        del eng
+    vocab = model.cfg.vocab
+    check(len(toks["graph"]) == 8 and all(
+        len(t) == 16 and all(0 <= x < vocab for x in t)
+        for t in toks["graph"].values()),
+        f"{label}: {len(toks['graph'])} requests, tokens {toks['graph']}")
+    check(toks["graph"] == toks["eager"],
+          f"{label}: graph tokens {toks['graph']} vs eager "
+          f"{toks['eager']}")
+    out["sample"] = toks["graph"][0][:8]
+    out["tokens_graph_vs_eager"] = "equal"
+    return out
 
 
 def lm_step_logits(model, params, prompts, policy, device, first=None,
@@ -1211,15 +1333,16 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH, layers: int = 2,
 
 
 def filled_engine(model, params, device, policy=None, prompts=None,
-                  max_seq: int = 80):
-    """An engine at capacity 4 under ``policy`` with every slot prefilled
-    from ``prompts`` (default: the launcher's first 4): (engine, the next
-    tokens (4,), the slots' positions (4,))."""
+                  max_seq: int = 80, kv_quant=None):
+    """An engine at capacity 4 under ``policy`` (and ``kv_quant``) with
+    every slot prefilled from ``prompts`` (default: the launcher's first
+    4): (engine, the next tokens (4,), the slots' positions (4,))."""
     import torch
     from repro_torch.ops import ExecPolicy
     from repro_torch.serve import Engine, EngineConfig
     eng = Engine(model, params, EngineConfig(capacity=4, max_seq=max_seq,
                                              policy=policy or ExecPolicy(),
+                                             kv_quant=kv_quant,
                                              device=str(device)))
     for p in (prompts or lm_prompts(model.cfg.vocab))[:4]:
         eng.add_request(p, 16)
@@ -1272,36 +1395,116 @@ def lm_logits_bitwise(model, params, device, prompt_len: int = 64) -> dict:
 
 
 def lm_times(model, params, device) -> list[dict]:
-    """Wall time (one call to its synchronize), device busy time (the
-    sum of its kernels under torch.profiler) and CUDA-event time (one
-    call queued alone behind a ~0.25 s spin) of one 64-token prefill and
-    one decode step at capacity 4 with every slot live, in bf16 and under
-    int8, as the engine runs them. A call of over ~1,000 launches fills
-    the launch queue behind the spin (``queue_ran_dry``), and its event
-    time then holds host time too: the busy time is the device's own."""
-    import torch
+    """qwen1.5's steps as the engine runs them, each as a StepGraph
+    replay and eagerly on the same buffers (``step_graphs``): a 64-token
+    prefill and a decode step at capacity 4 with every slot live, logits
+    bitwise graph vs eager in bf16, with an int8 KV cache and under int8
+    compute; both timed in bf16 and under int8."""
     from repro_torch.ops import ExecPolicy
 
     prompts = [p for p in lm_prompts(model.cfg.vocab) if len(p) == 64]
-    toks = torch.as_tensor(prompts[0][None], device=device)
     rows = []
-    for mode, pol in (("bf16", ExecPolicy()),
-                      ("int8", ExecPolicy(quant="int8"))):
-        eng, tokens, pos = filled_engine(model, params, device, pol,
-                                         prompts)
-        state = eng.kv.device_state()
-        fns = {"prefill": lambda: eng._prefill(
-                   eng.params, {"tokens": toks},
-                   model.init_cache(1, 64, device=device)),
-               "decode": lambda: eng._decode(eng.params, tokens, pos,
-                                             *state)}
-        for step, fn in fns.items():
+    for mode, pol, kv in (("bf16", ExecPolicy(), None),
+                          ("int8_kv", ExecPolicy(), "int8"),
+                          ("int8", ExecPolicy(quant="int8"), None)):
+        eng, _, _ = filled_engine(model, params, device, pol, prompts,
+                                  kv_quant=kv)
+        steps = step_graphs(f"{model.cfg.name} {mode}", model, eng,
+                            prompts[0], device, timed=mode != "int8_kv")
+        for step, row in steps.items():
             rows.append({"step": step, "mode": mode,
                          "M": 64 if step == "prefill" else 4,
-                         "cache_quant": eng.config.cache_quant,
-                         **step_times(fn)})
+                         "cache_quant": eng.config.cache_quant, **row})
+        del eng
     rows.append({"weight_costs": lm_weight_costs(model, params)})
     return rows
+
+
+# one compact line of step times a model, printed before the result
+STEP_LINES: list[dict] = []
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def step_graphs(label, model, eng, prompt, device, timed=True) -> dict:
+    """A prefill of ``prompt`` and a decode step over ``eng``'s filled
+    slots at their own positions, each returning its logits, built as
+    the engine builds its steps (``engine_decode_step``, the prefill
+    from a zeroed batch-1 cache) twice: a StepGraph captured on the card
+    and one run eagerly on buffers of its own (``compiled=False``), the
+    decode each from its own copy of the slot state. Their first calls'
+    logits must be bitwise equal. With ``timed``, ``step_times`` of both
+    (the graph's busy time is its replay's kernels). Each step's capture
+    ms and graph pool bytes; one compact line in STEP_LINES."""
+    import torch
+    from repro_torch.ops import use_policy
+    from repro_torch.serve.engine import engine_decode_step
+    from repro_torch.serve.graphs import StepGraph, tree_tensors
+
+    pol = eng.config.policy
+    decode = engine_decode_step(model, eng.config, sample=False)
+
+    def prefill(params, tokens, cache):
+        for leaf in tree_tensors(cache):
+            leaf.zero_()
+        with use_policy(pol), torch.no_grad():
+            return model.prefill(params, {"tokens": tokens}, cache)[0]
+
+    def step(params, tokens, pos, state):
+        return decode(params, tokens, pos, *state)[0]
+
+    def build(name, compiled):
+        if name == "prefill":
+            ins, state = {"params": eng.params,
+                          "tokens": torch.as_tensor(prompt[None],
+                                                    device=device),
+                          "cache": model.init_cache(1, len(prompt),
+                                                    device=device)}, ()
+        else:
+            state = _clone_tree(eng.kv.device_state())
+            ins = {"params": eng.params,
+                   "tokens": torch.as_tensor(eng._last_token, device=device),
+                   "pos": torch.as_tensor(eng.kv.positions(), device=device),
+                   "state": state}
+        return StepGraph(prefill if name == "prefill" else step, ins,
+                         state=state, device=device, compiled=compiled,
+                         name=f"{label} {name}")
+
+    out, line = {}, {"steps": label}
+    for name in ("prefill", "decode"):
+        eager, graph = build(name, False), build(name, True)
+        want = eager().clone()
+        got = graph().clone()
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        check(graph.captured and bitwise(got, want),
+              f"{label} {name} logits: graph vs eager max_abs {err}")
+        row = {"graph_vs_eager_max_abs": err, "bitwise": True,
+               "capture_ms": graph.capture_s * 1e3,
+               "pool_bytes": graph.pool_bytes,
+               "graph_kernels": {k: v for k, v in graph.kernels.items()
+                                 if v}}
+        line.setdefault("capture_ms", []).append(round(row["capture_ms"],
+                                                       1))
+        line.setdefault("pool_mb", []).append(
+            round(graph.pool_bytes / 2 ** 20, 1))
+        if timed:
+            row["eager"] = step_times(eager)
+            row["graph"] = step_times(graph)
+            line[name] = {k: [round(row[k][m], 3) for m in
+                              ("wall_ms", "device_busy_ms", "event_ms")]
+                          for k in ("eager", "graph")}
+        out[name] = row
+        del eager, graph
+    STEP_LINES.append(line)
+    free_card()
+    return out
 
 
 def step_times(fn) -> dict:
@@ -1418,8 +1621,10 @@ def lm_dense(arch: str, device) -> tuple[dict, dict]:
 def phase_lm(device) -> dict:
     """qwen1.5-0.5b on the card: Engine under int8 through the kernel and
     through the plain qmatmul, the launcher (bf16 and an int8 KV cache),
-    and a 2-layer full-width model card vs CPU; then a prefill's and a
-    full decode step's logits kernel vs plain, and the times. Then each
+    and a 2-layer full-width model card vs CPU; the engine in bf16 and
+    with an int8 KV cache through its step graphs and eagerly (the same
+    tokens); then a prefill's and a full decode step's logits kernel vs
+    plain, and graph vs eager with the times. Then each
     LM_DENSE_ARCHS config at full width (``lm_dense``), and the launcher
     at full size for each LM_FULL_ARCHS config. Returns the LM path's
     launches: those of the int8 engines' ``run()``."""
@@ -1435,6 +1640,9 @@ def phase_lm(device) -> dict:
     out["launcher"] = [lm_launcher(q) for q in ("none", "int8")]
     params = model.init(0, device=device)
     out["card_vs_cpu"] = lm_card_vs_cpu(device)
+    out["graph_vs_eager"] = [engine_graph_vs_eager(
+        f"{LM_ARCH} kv_quant={q}", model, params, device, kv_quant=q)
+        for q in ("none", "int8")]
     out["logits_kernel_vs_plain"] = lm_logits_bitwise(model, params,
                                                       device)
     out["times"] = lm_times(model, params, device)
@@ -1489,47 +1697,13 @@ def moe_routing_log():
         moe._slots = slots
 
 
-def to_dtype(tree, dtype):
-    """Each leaf cast once (numerically the per-call ``.to(x.dtype)``),
-    the fp32 leaf freed before the next is cast."""
-    for k in list(tree):
-        if isinstance(tree[k], dict):
-            to_dtype(tree[k], dtype)
-        else:
-            tree[k] = tree[k].to(dtype)
-    return tree
-
-
 def moe_engine(model, params, device) -> dict:
     """``Engine`` over the launcher's synthetic mix (8 requests, prompts
-    of 64 or 32 tokens, 16 new tokens each, capacity 4): every request
-    served with its tokens."""
-    import torch
-    from repro_torch.serve import Engine, EngineConfig
-    prompts = lm_prompts(model.cfg.vocab)
-    eng = Engine(model, params, EngineConfig(capacity=4, max_seq=80,
-                                             device=str(device)))
-    for length in sorted({len(p) for p in prompts}):
-        eng.warm_prefill(length)
-    for p in prompts:
-        eng.add_request(p, 16)
-    t0 = time.perf_counter()
-    fin = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    vocab = model.cfg.vocab
-    check(len(fin) == 8 and all(len(r.generated) == 16 and all(
-        0 <= t < vocab for t in r.generated) for r in fin),
-        f"moe engine {model.cfg.name}: {len(fin)} requests, "
-        f"{[len(r.generated) for r in fin]} tokens")
-    s = eng.stats
-    return {"requests": len(fin), "prefills": s.prefills,
-            "decode_steps": s.decode_lane_steps // eng.config.capacity,
-            "wall_s": wall,
-            "tokens_per_s": (s.prefill_tokens + s.decode_tokens) / wall,
-            "sample": fin[0].generated[:8]}
-
-
+    of 64 or 32 tokens, 16 new tokens each, capacity 4), through its
+    step graphs and eagerly: every request served with its tokens, the
+    same both ways (``engine_graph_vs_eager``)."""
+    return engine_graph_vs_eager(f"moe engine {model.cfg.name}", model,
+                                 params, device)
 
 
 def moe_group_independence(model, params, device) -> dict:
@@ -1592,10 +1766,12 @@ def moe_drops(model, params, device) -> dict:
 def moe_times(model, params, device) -> list[dict]:
     """Device time (one call behind a spin, CUDA events), device busy
     time (torch.profiler's kernel sum), wall time, and a top-ops profile
-    of a 64-token prefill and of a decode step at capacity 4, beside the
-    bytes bound: every expert weight read once a layer (and the other
-    weights: attention, router, the head), at PEAK_BYTES; and the same
-    with only the experts this call's routing reached."""
+    of a 64-token prefill and of a decode step at capacity 4, each
+    eagerly and as a graph replay with its logits bitwise between the
+    two (``step_graphs``), beside the bytes bound: every expert weight
+    read once a layer (and the other weights: attention, router, the
+    head), at PEAK_BYTES; and the same with only the experts this call's
+    routing reached."""
     import torch
     eng, tokens, pos = filled_engine(model, params, device)
     prompt = next(p for p in lm_prompts(model.cfg.vocab) if len(p) == 64)
@@ -1614,6 +1790,8 @@ def moe_times(model, params, device) -> list[dict]:
                eng.params, {"tokens": toks},
                model.init_cache(1, 64, device=device)),
            "decode": lambda: eng._decode(eng.params, tokens, pos, *state)}
+    steps = step_graphs(f"{cfg.name} L={cfg.n_layers}", model, eng,
+                        prompt, device)
     rows = []
     for step, fn in fns.items():
         with moe_routing_log() as log:
@@ -1624,7 +1802,7 @@ def moe_times(model, params, device) -> list[dict]:
         all_bytes = base + cfg.n_layers * m.n_experts * expert_bytes
         routed_bytes = base + sum(reached) * expert_bytes
         rows.append({"step": step, "M": rows_read, "layers": cfg.n_layers,
-                     **step_times(fn),
+                     **steps[step],
                      "bound_ms": all_bytes / PEAK_BYTES * 1e3,
                      "bound_by": "bytes",
                      "expert_bound_ms_per_layer":
@@ -1691,7 +1869,8 @@ def moe_card_vs_cpu(device) -> dict:
 
 def phase_moe(device) -> dict:
     """Both MoE models at full width and reduced depth on the card, bf16
-    weights (drawn in fp32 from seed 0 on the card, then cast once):
+    weights (drawn in fp32 from seed 0 on the card, then cast once as the
+    engine casts them: the router stays fp32):
     ``Engine`` over the launcher's mix, the drops of a 64-token prefill,
     group independence at capacity 4, the times; then one full-width
     dbrx ``moe_apply`` card against CPU. No kernel launches: the
@@ -1700,6 +1879,7 @@ def phase_moe(device) -> dict:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve.weights import cast_serving_params
 
     reset_counts()
     out = {"phase": "moe", "models": []}
@@ -1718,7 +1898,7 @@ def phase_moe(device) -> dict:
                "init_s": time.perf_counter() - t0,
                "fp32_init_max_memory_allocated":
                    torch.cuda.max_memory_allocated()}
-        to_dtype(params, cfg.dtype)
+        params = cast_serving_params(model, params, device, donate=True)
         free_card()
         row["bf16_memory_allocated"] = torch.cuda.memory_allocated()
         row["engine"] = moe_engine(model, params, device)
@@ -1745,36 +1925,31 @@ def ssm_times(model, params, device, prompt_len: int) -> list[dict]:
     """Wall time (one call to its synchronize), device busy time
     (torch.profiler's kernel sum) and CUDA-event time (one call behind a
     spin) of one ``prompt_len``-token prefill and of one decode step at
-    capacity 4 with every slot live, in bf16, as the engine runs them;
-    beside each, the bytes bound: every weight read once at its stored
-    dtype (fp32), the input embedding only at the call's rows where the
-    head is a matrix of its own, at PEAK_BYTES."""
-    import torch
+    capacity 4 with every slot live, in bf16, as the engine runs them,
+    each eagerly and as a graph replay with its logits bitwise between
+    the two (``step_graphs``); beside each, the bytes bound: every weight
+    read once as the engine stores it (the cast set in bf16, the rest
+    fp32), the input embedding only at the call's rows where the head is
+    a matrix of its own, at PEAK_BYTES."""
     prompts = lm_prompts(model.cfg.vocab, prompt_len)
-    eng, tokens, pos = filled_engine(model, params, device, prompts=prompts,
-                                     max_seq=prompt_len + 16)
-    toks = torch.as_tensor(
-        next(p for p in prompts if len(p) == prompt_len)[None],
-        device=device)
-    state = eng.kv.device_state()
+    eng, _, _ = filled_engine(model, params, device, prompts=prompts,
+                              max_seq=prompt_len + 16)
+    prompt = next(p for p in prompts if len(p) == prompt_len)
     nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
-    weights = sum(nbytes(t) for t in _leaves_of(params))
-    emb = params["embedding"]
+    stored = eng.params
+    weights = sum(nbytes(t) for t in _leaves_of(stored))
+    emb = stored["embedding"]
 
     def weight_bytes(rows: int) -> int:
-        if "lm_head" not in params:          # tied: the head reads it all
+        if "lm_head" not in stored:          # tied: the head reads it all
             return weights
         return weights - nbytes(emb) + rows * nbytes(emb[0])
 
-    fns = {"prefill": (prompt_len, lambda: eng._prefill(
-               eng.params, {"tokens": toks},
-               model.init_cache(1, prompt_len, device=device))),
-           "decode": (4, lambda: eng._decode(eng.params, tokens, pos,
-                                             *state))}
+    steps = step_graphs(model.cfg.name, model, eng, prompt, device)
     rows = []
-    for step, (m, fn) in fns.items():
+    for step, m in (("prefill", prompt_len), ("decode", 4)):
         rows.append({"step": step, "mode": "bf16", "M": m,
-                     "layers": model.cfg.n_layers, **step_times(fn),
+                     "layers": model.cfg.n_layers, **steps[step],
                      "bound_ms": weight_bytes(m) / PEAK_BYTES * 1e3,
                      "bound_by": "bytes", "weight_bytes": weight_bytes(m)})
     return rows
@@ -1798,9 +1973,11 @@ def ssm_ragged(model, params, device, chunk: int) -> str:
 
 def ssm_zamba2(device) -> tuple[dict, dict]:
     """zamba2-7b: at full size (81 layers, random weights from seed 0)
-    ``Engine`` under int8 through the qmatmul kernel (39 launches a
-    prefill and a decode step: the shared block's wi, wg, wo at each of
-    its 13 calls), the bf16 times, a ragged prompt, and the launcher with
+    ``Engine`` under int8 through the qmatmul kernel, through its step
+    graphs (39 launches captured in each graph and replayed a prefill and
+    a decode step: the shared block's wi, wg, wo at each of its 13 calls)
+    and eagerly (the same tokens), the bf16 times, a ragged prompt, and
+    the launcher with
     a bf16 and an int8 KV cache; at SSM_PLAIN_LAYERS layers, kernel
     against plain (the engine's tokens, a 512-token prefill's and a
     4-slot decode step's logits, bitwise); at SSM_CPU_LAYERS, card
@@ -1852,8 +2029,10 @@ def ssm_zamba2(device) -> tuple[dict, dict]:
 
 def ssm_rwkv6(device) -> dict:
     """rwkv6-1.6b at full size (24 layers, random weights from seed 0):
-    the bf16 times, a ragged prompt, the launcher with a bf16 and an int8
-    KV cache, then SSM_CPU_LAYERS layers in fp32 card against CPU. No
+    ``Engine`` in bf16 through its step graphs and eagerly (the same
+    tokens), the bf16 times, a ragged prompt, the launcher with a bf16
+    and an int8 KV cache, then SSM_CPU_LAYERS layers in fp32 card against
+    CPU. No
     kernel launches: the reference's RWKV reaches no Pallas kernel."""
     import torch
     from repro_torch.configs import get_arch
@@ -1868,6 +2047,8 @@ def ssm_rwkv6(device) -> dict:
            "param_count": model.param_count(),
            "tensor_params": sum(t.numel() for t in _leaves_of(params)),
            "prompt_len": plen}
+    out["engine"] = engine_graph_vs_eager(f"{arch} bf16", model, params,
+                                          device, plen)
     out["times"] = ssm_times(model, params, device, plen)
     out["ragged"] = ssm_ragged(model, params, device, model.cfg.chunk)
     del params
@@ -2041,14 +2222,17 @@ def train_mnist(device) -> tuple[dict, dict]:
     """(a) The paper's experiment at full size, as
     ``python -m repro_torch.train.mnist`` runs it with the reference's
     defaults: first the step-0 forward's conv outputs and gradients
-    kernel vs plain; then, counted from 0, the 300 training steps
-    (conv_window launches > 0) and the evaluation in float32, Q8.8 and
+    kernel vs plain; then, counted from 0, the 300 training steps, each a
+    replay of the train graph (2 conv_window launches captured, 2 x 300
+    replayed; the wrappers count the warm-up's and the capture's 4) and
+    the evaluation in float32, Q8.8 and
     int8 (conv_window and qmatmul launch); float32 accuracy above 0.9;
     then one evaluation batch's logits kernel vs plain in each format.
     Returns (report, launches)."""
     import torch
     from repro_torch.data.pipeline import SyntheticMNIST, shard_batch
     from repro_torch.models.cnn import PaperCNN
+    from repro_torch.serve.graphs import graph_launches
     from repro_torch.train import mnist
     model = PaperCNN()
     params = model.init(0, device=device)
@@ -2061,9 +2245,19 @@ def train_mnist(device) -> tuple[dict, dict]:
         trained, hist = mnist.train(device=device)
     torch.cuda.synchronize()
     in_training = counts()
-    check(in_training["conv_window"] > 0,
-          f"train mnist: conv_window never launched in training: "
-          f"{in_training}")
+    graph = hist["graph"]
+    replayed = graph_launches([graph])
+    steps = len(hist["losses"])
+    check(graph.captured and graph.calls == steps
+          and graph.kernels["conv_window"] == 2
+          and replayed["conv_window"] == 2 * steps,
+          f"train mnist: the train graph captured {graph.kernels}, "
+          f"replayed {graph.calls} times for {steps} steps: "
+          f"{replayed['conv_window']} conv_window launches, expected "
+          f"2 x {steps}")
+    check(in_training["conv_window"] == 4,
+          f"train mnist: conv_window launched {in_training} times in "
+          f"training, expected 4 (the graph's warm-up and its capture)")
     reset_counts()
     acc = mnist.evaluate_formats(trained, device=device)
     in_eval = counts()
@@ -2074,6 +2268,9 @@ def train_mnist(device) -> tuple[dict, dict]:
     launches = {k: in_training[k] + in_eval[k] for k in in_training}
     logits_err = eval_logits_kernel_vs_plain(trained, device)
     report = {"steps": len(hist["losses"]), "step_ms": hist["step_ms"],
+              "capture_ms": graph.capture_s * 1e3,
+              "pool_bytes": graph.pool_bytes,
+              "conv_window_replayed": replayed["conv_window"],
               "final_loss": hist["losses"][-1], "accuracy": acc,
               "delta": {f: acc[f] - acc["float32"]
                         for f in ("qformat", "int8")},
@@ -2081,17 +2278,38 @@ def train_mnist(device) -> tuple[dict, dict]:
               "forward_kernel_vs_plain": fwd_err,
               "eval_logits_kernel_vs_plain": logits_err,
               "grad_rel_err_kernel_vs_plain": max(grad_err.values()),
-              "conv": train_conv_times(device)}
+              "conv": train_conv_times(device),
+              "step_split": mnist_step_split(graph)}
     return report, launches
 
 
+def mnist_step_split(graph) -> dict:
+    """Where an MNIST training step's wall goes, after the run (the
+    replays go on training the params the checks above used): the host
+    drawing one B = 128 batch (numpy, as ``mnist.train`` does every
+    step), and the train graph's replay on the batch it holds, timed by
+    ``step_times``."""
+    from repro_torch.data.pipeline import SyntheticMNIST
+    data = SyntheticMNIST(seed=0)
+    draws = []
+    for i in range(20):
+        t0 = time.perf_counter()
+        data.batch(128, step=i)
+        draws.append((time.perf_counter() - t0) * 1e3)
+    replay = step_times(graph)
+    replay.pop("profile")
+    return {"batch_draw_ms": statistics.median(draws), "replay": replay}
+
+
 def _launch_train(work: Path, tag: str, *extra: str,
-                  kill_after: int | None = None) -> dict:
+                  kill_after: int | None = None,
+                  stop_after: int | None = None) -> dict:
     """``python -m repro_torch.launch.train`` (TRAIN_ARGV + ``extra``)
     in a process of its own, checkpoints under ``work/tag``; with
     ``kill_after`` it is killed as soon as it reports that step's
-    checkpoint saved. The report's ``losses``: step -> the loss it
-    printed (at full precision)."""
+    checkpoint saved, with ``stop_after`` as soon as it prints that
+    step's loss. The report's ``losses``: step -> the loss it printed
+    (at full precision)."""
     import os
     argv = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
             "--ckpt", str(work / tag), *extra]
@@ -2104,8 +2322,10 @@ def _launch_train(work: Path, tag: str, *extra: str,
     try:
         for line in proc.stdout:
             lines.append(line.rstrip())
-            if kill_after is not None and \
-                    line.startswith(f"saved step {kill_after}"):
+            if (kill_after is not None and
+                    line.startswith(f"saved step {kill_after}")) or (
+                    stop_after is not None and
+                    line.startswith(f"step {stop_after:5d} ")):
                 proc.kill()
                 break
         rc = proc.wait(timeout=900)
@@ -2114,7 +2334,7 @@ def _launch_train(work: Path, tag: str, *extra: str,
             proc.kill()
             proc.wait()
     print("\n".join(lines[-4:]), file=sys.stderr, flush=True)
-    check(kill_after is not None or rc == 0,
+    check(kill_after is not None or stop_after is not None or rc == 0,
           f"train launcher {tag}: exit {rc}: {lines[-8:]}")
     losses = {int(ln.split()[1]): float(ln.split("loss=")[1].split()[0])
               for ln in lines if ln.startswith("step ")}
@@ -2122,15 +2342,18 @@ def _launch_train(work: Path, tag: str, *extra: str,
             "losses": losses,
             "lines": [ln for ln in lines
                       if ln.startswith(("arch=", "auto-resumed", "peak",
-                                        "saved"))]}
+                                        "saved", "captured"))]}
 
 
 def train_lm_launcher() -> dict:
-    """(b) qwen1.5-0.5b at full size through the launcher: 20 steps
-    uninterrupted; the same run killed after its step-10 checkpoint and
-    invoked again, whose losses 11-20 must equal the uninterrupted run's
-    bitwise; and one step under ``--microbatches 2``, whose loss must be
-    step 1's within 1e-5 relative."""
+    """(b) qwen1.5-0.5b at full size through the launcher, each step a
+    replay of its train graph: 20 steps uninterrupted; the same run
+    killed after its step-10 checkpoint and invoked again, whose losses
+    11-20 must equal the uninterrupted run's bitwise; one step under
+    ``--microbatches 2``, whose loss must be step 1's within 1e-5
+    relative; and ``--eager`` (the same steps without a graph) stopped
+    after TRAIN_EAGER_STEPS, whose losses must equal the graph run's
+    bitwise."""
     import shutil
     work = ROOT / "build" / "train_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -2140,10 +2363,20 @@ def train_lm_launcher() -> dict:
                 _launch_train(work, "killed", kill_after=TRAIN_KILL_AT),
                 _launch_train(work, "killed"),
                 _launch_train(work, "mb2", "--microbatches", "2",
-                              "--steps", "1")]
+                              "--steps", "1"),
+                _launch_train(work, "eager", "--eager",
+                              stop_after=TRAIN_EAGER_STEPS)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    whole, resumed, mb2 = (runs[i]["losses"] for i in (0, 2, 3))
+    whole, resumed, mb2, eager = (runs[i]["losses"] for i in (0, 2, 3, 4))
+    first = range(1, TRAIN_EAGER_STEPS + 1)
+    check(sorted(eager) == list(first) and
+          all(eager[s] == whole[s] for s in first),
+          f"train launcher: graph losses {[whole[s] for s in first]} vs "
+          f"eager {[eager.get(s) for s in first]}")
+    check(any(ln.startswith("captured the train step")
+              for ln in runs[0]["lines"]),
+          f"train launcher: no capture line in {runs[0]['lines']}")
     check(sorted(whole) == list(range(1, 21)),
           f"train launcher: steps {sorted(whole)}")
     check(any(ln == f"auto-resumed from step {TRAIN_KILL_AT}"
@@ -2161,46 +2394,62 @@ def train_lm_launcher() -> dict:
                        f"{mb2[1]} vs {whole[1]} ({rel:.3g} relative)")
     return {"losses": [whole[s] for s in (1, 10, 20)],
             "resumed_bitwise": True, "microbatches2_rel": rel,
-            "runs": runs}
+            "graph_vs_eager_steps": TRAIN_EAGER_STEPS,
+            "graph_vs_eager": "bitwise", "runs": runs}
 
 
 def train_lm_times(device) -> dict:
     """(b) The launcher's train step on the full-size qwen1.5-0.5b, in
-    this process: wall, device busy (torch.profiler) and event time a
-    step, tokens/s, peak memory, beside the step's bound: the larger of
+    this process, eagerly and as its train graph's replay (both over the
+    same static params, optimizer state and batch): wall, device busy
+    (torch.profiler) and event time a step, tokens/s, the capture's ms
+    and pool bytes, peak memory, beside the step's bound: the larger of
     6 · params · tokens at the bf16 peak and AdamW's bytes (p, g, m, v
     read, p, m, v written, fp32: 28 B a parameter) at the memory rate."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import (SyntheticTextConfig,
-                                           SyntheticTextIterator,
-                                           shard_batch)
+                                           SyntheticTextIterator)
     from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.serve.graphs import train_graph
     from repro_torch.train import make_train_step
     model = get_arch(TRAIN_ARCH).model()
     params = model.init(0, device=device)
     opt = adamw_init(params)
     step = make_train_step(model, AdamWConfig(total_steps=20))
     bsz, seq = 8, 128
-    batch = shard_batch(SyntheticTextIterator(SyntheticTextConfig(
-        model.cfg.vocab, seq, bsz)).next_batch(), device=device)
+    batch = SyntheticTextIterator(SyntheticTextConfig(
+        model.cfg.vocab, seq, bsz)).next_batch()
     torch.cuda.reset_peak_memory_stats()
-    times = step_times(lambda: step(params, opt, batch))
-    peak = torch.cuda.max_memory_allocated()
+    times, peaks = {}, {}
+    for name, compiled in (("eager", False), ("graph", True)):
+        g = train_graph(step, params, opt, batch, device=device,
+                        compiled=compiled)
+        t = step_times(g)
+        peaks[name] = torch.cuda.max_memory_allocated()
+        times[name] = {k: t[k] for k in ("wall_ms", "device_busy_ms",
+                                         "event_ms", "queue_ran_dry")}
+        times[name]["tokens_per_s"] = bsz * seq / t["wall_ms"] * 1e3
+        if compiled:
+            times[name].update(capture_ms=g.capture_s * 1e3,
+                               pool_bytes=g.pool_bytes)
+            profile = t["profile"]
+        del g
     n = model.param_count()
     ops_s = 6 * n * bsz * seq / PEAK_BF16
     bytes_s = 28 * n / PEAK_BYTES
-    return {"params": n, "tokens": bsz * seq,
-            "wall_ms": times["wall_ms"],
-            "device_busy_ms": times["device_busy_ms"],
-            "event_ms": times["event_ms"],
-            "queue_ran_dry": times["queue_ran_dry"],
-            "tokens_per_s": bsz * seq / times["wall_ms"] * 1e3,
-            "max_memory_allocated": peak,
+    STEP_LINES.append({"steps": f"{TRAIN_ARCH} train B={bsz}x{seq}", **{
+        k: [round(v[m], 3) for m in ("wall_ms", "device_busy_ms",
+                                     "event_ms")]
+        for k, v in times.items()},
+        "capture_ms": round(times["graph"]["capture_ms"], 1),
+        "pool_mb": round(times["graph"]["pool_bytes"] / 2 ** 20, 1)})
+    return {"params": n, "tokens": bsz * seq, **times,
+            "max_memory_allocated": peaks,
             "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "operations_ms": ops_s * 1e3, "bytes_ms": bytes_s * 1e3,
-            "profile": times["profile"]}
+            "profile": profile}
 
 
 def _grads_ok(grads) -> tuple[bool, bool]:
@@ -2376,7 +2625,9 @@ def phase_train(device) -> dict:
     step = report["qwen_step"]
     emit({"phase": "train",
           "mnist": {k: mnist[k] for k in
-                    ("step_ms", "accuracy", "delta", "launches_training",
+                    ("step_ms", "step_split", "capture_ms",
+                     "conv_window_replayed",
+                     "accuracy", "delta", "launches_training",
                      "grad_rel_err_kernel_vs_plain", "conv")}
           | {"forward_max_abs": {k: v["max_abs"] for k, v in
                                  mnist["forward_kernel_vs_plain"].items()},
@@ -2384,10 +2635,11 @@ def phase_train(device) -> dict:
                  k: v["max_abs"] for k, v in
                  mnist["eval_logits_kernel_vs_plain"].items()}},
           "qwen": {k: step[k] for k in
-                   ("wall_ms", "device_busy_ms", "event_ms", "tokens_per_s",
-                    "max_memory_allocated", "bound_ms", "bound_by")}
+                   ("eager", "graph", "max_memory_allocated", "bound_ms",
+                    "bound_by")}
           | {k: report["qwen_launcher"][k] for k in
-             ("losses", "resumed_bitwise", "microbatches2_rel")},
+             ("losses", "resumed_bitwise", "microbatches2_rel",
+              "graph_vs_eager")},
           "seamless": {k: v for k, v in report["seamless"].items()},
           "backward": [{k: r[k] for k in ("arch", "layers", "loss", "ms",
                                           "max_memory_allocated")}
@@ -3179,6 +3431,8 @@ def main(argv=None) -> int:
         if args.phases is not None:
             for name in args.phases.split(","):
                 phases[name](device)
+            for line in STEP_LINES:
+                emit(line)
             print("chip_smoke: ran only --phases; no result", file=sys.stderr)
             return 4
         max_err = phases["kernels"](device)
@@ -3215,6 +3469,8 @@ def main(argv=None) -> int:
         return 1
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr)
+    for line in STEP_LINES:             # eager and graph step ms, compact
+        emit(line)
     emit(kernels_line(launches, max_err, rows))
     print(info["nvidia_smi"])
     emit({"ok": True, "device": {"platform": "gpu",

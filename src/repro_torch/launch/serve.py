@@ -18,7 +18,12 @@ cpu`` and the card serve different weights and their tokens cannot be
 compared (the CNNs draw on the CPU for any
 device). The int8 compute path has no flag, as in the reference: it is
 ``EngineConfig(policy=ExecPolicy(quant="int8"))``. The report is the
-reference's: occupancy, tokens/s and the SLO view.
+reference's: occupancy, tokens/s and the SLO view. The engine takes the
+weights over (cast once to the compute dtype) and, before the first
+request, compiles its steps for the workload's two prompt lengths and
+its decode shape (on the card a CUDA graph each, ``serve/graphs.py``);
+on the card the report ends with that time to ready and the graphs'
+pool bytes, and ``--warmup-report`` prints the phase table.
 
 A CNN arch serves through the bucketed vision engine over compiled plans:
 a synthetic workload of ``--requests`` seeded images submitted through
@@ -195,19 +200,27 @@ def serve_lm(model, args):
     (engine, {rid: Request})."""
     from repro_torch.serve import (Engine, EngineConfig, LMAdapter,
                                    MonotonicClock)
+    from repro_torch.artifact.warmup import collect_warmup
     clock = MonotonicClock()
-    params = model.init(0, device=args.device)
     max_seq = args.max_seq or (args.prompt_len + args.decode_steps)
-    engine = Engine(model, params,
-                    EngineConfig(capacity=args.capacity, max_seq=max_seq,
-                                 kv_quant=args.kv_quant, device=args.device),
-                    clock=clock)
-    frontend = _frontend(LMAdapter(engine), args, clock)
-
     # mixed-length synthetic workload: jittered prompts, fixed budget
     rng = np.random.RandomState(1)
     lens = rng.choice([args.prompt_len // 2, args.prompt_len],
                       size=args.requests)
+    with collect_warmup() as boot:
+        # the weights are handed over: cast once, never held twice
+        engine = Engine(model, model.init(0, device=args.device),
+                        EngineConfig(capacity=args.capacity,
+                                     max_seq=max_seq,
+                                     kv_quant=args.kv_quant,
+                                     device=args.device),
+                        clock=clock, donate=True)
+        # the step graphs of the workload's shapes, captured on the card
+        for plen in sorted({int(p) for p in lens if p <= max_seq}):
+            engine.warm_prefill(plen)
+        engine.warm_decode()
+    frontend = _frontend(LMAdapter(engine), args, clock)
+
     shed = _submit_all(frontend,
                        (rng.randint(0, model.cfg.vocab, size=int(plen))
                         for plen in lens),
@@ -239,6 +252,14 @@ def serve_lm(model, args):
     rejected = len(finished) - len(served)
     if rejected:
         print(f"rejected {rejected} requests (prompt > max_seq {max_seq})")
+    if engine.device.type == "cuda":
+        graphs = engine.graphs()
+        print(f"time to ready {boot.total_s * 1e3:.1f} ms: "
+              f"{boot.phase_s('compile') * 1e3:.1f} ms capturing "
+              f"{sum(g.captured for g in graphs)} step graphs "
+              f"({sum(g.pool_bytes for g in graphs):,} pool bytes)")
+    if args.warmup_report:
+        print(boot.pretty())
     return engine, results
 
 

@@ -18,6 +18,14 @@ the embedding's backward (an index accumulate) and cuBLAS reduce in a
 fixed order. Each step prints its loss at full precision (``repr``),
 so that two runs' losses can be compared bitwise from their output.
 
+The step is compiled as the reference's ``jax.jit`` compiles it: one
+``serve.graphs.train_graph`` for the run's (batch, seq, microbatches),
+whose static buffers are the params and optimizer state the run starts
+from (a fresh init, or the restored checkpoint's trees). On the card
+each step is a replay of its CUDA graph, captured at the first step
+(``--eager`` runs the same steps on the same buffers without one); the
+checkpoints read the static trees, which each step writes in place.
+
 The mesh and the multi-host runtime wait for ROADMAP §A.10: ``--mesh``
 takes ``auto`` or ``1`` (one device). Encoder-decoder archs, whose batch
 needs frames, are trained through ``train.steps`` directly, as the
@@ -72,6 +80,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="small same-family config (CPU debugging)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="torch device; the default needs a CUDA card")
+    ap.add_argument("--eager", action="store_true",
+                    help="run each step eagerly on the same static "
+                         "buffers, no CUDA graph (to compare against)")
     return ap
 
 
@@ -96,10 +107,10 @@ def _train(args) -> dict:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import (SyntheticTextConfig,
-                                           SyntheticTextIterator,
-                                           shard_batch)
+                                           SyntheticTextIterator)
     from repro_torch.device import resolve_device
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.serve.graphs import train_graph
     from repro_torch.train.steps import make_train_step
 
     if args.mesh not in ("auto", "1"):
@@ -139,11 +150,16 @@ def _train(args) -> dict:
         opt = adamw_init(params)
         data = SyntheticTextIterator(dcfg)
 
+    # the compiled step (serve/graphs.py): params and opt are its static
+    # buffers from here on, each step writes them in place
+    first = data.next_batch()
+    graph = train_graph(step_fn, params, opt, first, device=dev,
+                        compiled=not args.eager)
     losses = {}
     t0 = time.perf_counter()
     for i in range(start, args.steps):
-        batch = shard_batch(data.next_batch(), device=dev)
-        params, opt, metrics = step_fn(params, opt, batch)
+        batch = first if i == start else data.next_batch()
+        metrics = graph(batch=batch)
         losses[i + 1] = loss = float(metrics["loss"])
         print(f"step {i + 1:5d}  loss={loss!r}  "
               f"{(time.perf_counter() - t0) / (i + 1 - start):.2f}s/step",
@@ -152,6 +168,9 @@ def _train(args) -> dict:
             mgr.save(i + 1, params=params, opt_state=opt,
                      extra={"data": data.state_dict()})
             print(f"saved step {i + 1}", flush=True)
+    if dev.type == "cuda" and graph.captured:
+        print(f"captured the train step in {graph.capture_s * 1e3:.1f} ms "
+              f"({graph.pool_bytes:,} pool bytes)", flush=True)
     if dev.type == "cuda":
         print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
               f" GB", flush=True)

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core.quantize import quantize_int8
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.serve.graphs import copy_tree
 
 __all__ = ["SlotKVCache", "dequantize_leaves"]
 
@@ -129,10 +130,10 @@ class SlotKVCache:
         return (self.data,)
 
     def set_device_state(self, *state) -> None:
-        if self.quant == "int8":
-            self.codes, self.scales = state
-        else:
-            (self.data,) = state
+        """Write a step's new cache trees into the device leaves in place
+        (a leaf that already is one is skipped). The leaves are never
+        rebound: the decode graph reads them at fixed addresses."""
+        copy_tree(self.device_state(), state)
 
     # ---------- slot operations ----------
     def write_prefill(self, slot: int, prefill_cache: Any, length: int

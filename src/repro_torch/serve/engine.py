@@ -16,9 +16,27 @@ The decode step always runs at the full slot batch (inactive lanes carry
 token 0 at position 0 and are ignored host-side), so its shapes are fixed
 whatever the occupancy. Every step runs on ``EngineConfig.device``, the
 card unless the caller asks for the CPU.
+
+The steps are compiled as the reference's ``jax.jit`` compiles them
+(``serve/graphs.py``): the decode step is one ``StepGraph`` over static
+``tokens`` and ``pos`` (C,) buffers and the slot cache's own leaves,
+which it writes in place (a state the model returns anew is copied into
+them); each prompt length has its batch-1 prefill ``StepGraph`` over a
+static (1, length) token buffer and a batch-1 cache, at most
+``MAX_PREFILL_GRAPHS`` of them, the least recently used evicted (and
+captured again when its length comes back). On the card every step is a
+replay of its CUDA graph, all of an engine's graphs in one memory pool:
+one runs at a time, so a replay may overwrite the pool memory another
+graph's outputs live in. Only the sampled tokens live there, and the
+engine reads them before it replays anything else; a prefill's cache is
+a static buffer allocated outside the pool, written by its own graph
+alone, and scattered into its slot right after that graph's replay. On
+the CPU the same objects call the steps on the same buffers. The serving weights are cast
+to the compute dtype once, at build (``serve/weights.py``).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -28,15 +46,22 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.ops import ExecPolicy
 from repro_torch.serve.cache import (SlotKVCache, _quantize_leaves,
-                                     _tree_map, dequantize_leaves)
+                                     dequantize_leaves)
 from repro_torch.serve.clock import Clock, MonotonicClock
+from repro_torch.serve.graphs import StepGraph, graph_launches, tree_tensors
 from repro_torch.serve.queue import RequestQueue
 from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import ServeStats
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
+from repro_torch.serve.weights import cast_serving_params
 
-__all__ = ["EngineConfig", "EngineStats", "Engine"]
+__all__ = ["EngineConfig", "EngineStats", "Engine", "MAX_PREFILL_GRAPHS",
+           "engine_decode_step"]
+
+# prefill graphs an engine holds at once, one a prompt length (the
+# reference's jit keeps one executable a length, unbounded)
+MAX_PREFILL_GRAPHS = 8
 
 
 @dataclass(frozen=True)
@@ -53,6 +78,10 @@ class EngineConfig:
     # DESIGN.md §7): backend preference, compute quant, tiling overrides
     policy: ExecPolicy = field(default_factory=ExecPolicy)
     device: str = DEFAULT_DEVICE
+    # on the card each step replays its CUDA graph; False runs the same
+    # steps eagerly on the same static buffers (the reference under
+    # jax.disable_jit), for comparisons: never a fallback
+    graphs: bool = True
 
     @property
     def cache_quant(self) -> str:
@@ -93,21 +122,70 @@ class EngineStats(ServeStats):
         return self.lane_utilization
 
 
+def engine_decode_step(model, config: EngineConfig, ctx=None,
+                       sample: bool = True):
+    """The engine's decode step over its cache state: (params, tokens,
+    pos, *state) -> (next tokens, or logits without ``sample``; *the new
+    state). Under an int8 cache the state is (codes, scales) and the
+    whole cache round-trips through the model dtype every step, in the
+    reference's order; otherwise it is the model's cache tree."""
+    decode = make_decode_step(model, ctx, sample=sample,
+                              policy=config.policy)
+    if config.cache_quant != "int8":
+        return decode
+    dtype = model.cfg.dtype
+
+    def decode_int8(params, tokens, pos, codes, scales):
+        cache = dequantize_leaves(codes, scales, dtype)
+        out, cache = decode(params, tokens, pos, cache)
+        codes, scales = _quantize_leaves(cache)
+        return out, codes, scales
+
+    return decode_int8
+
+
+def _decode_static(decode, kv: SlotKVCache):
+    """The decode step over the static buffers: the next tokens, the new
+    cache written into the slot cache's own leaves."""
+
+    def step(params, tokens, pos, state):
+        out = decode(params, tokens, pos, *state)
+        kv.set_device_state(*out[1:])
+        return out[0]
+
+    return step
+
+
+def _prefill_static(prefill):
+    """A batch-1 prefill over the static buffers, from a zero cache
+    (``init_cache``'s), which it fills in place."""
+
+    def step(params, tokens, cache):
+        for leaf in tree_tensors(cache):
+            leaf.zero_()
+        return prefill(params, {"tokens": tokens}, cache)[0]
+
+    return step
+
+
 class Engine:
     """Continuous-batching engine over one model + params.
 
     The model exposes the cache protocol: ``init_cache(batch, max_seq,
-    device=)`` (batch at leaf axis 1), ``prefill``, and a
-    ``decode_step`` taking per-row (B,) positions.
+    device=)`` (batch at leaf axis 1, all zeros), ``prefill``, and a
+    ``decode_step`` taking per-row (B,) positions. ``donate``: the caller
+    hands ``params`` over (the reference's ``donate_argnums``), and the
+    engine empties it as it moves and casts the weights.
     """
 
     def __init__(self, model, params: Any,
                  config: EngineConfig = EngineConfig(), ctx=None,
-                 clock: Clock | None = None):
+                 clock: Clock | None = None, *, donate: bool = False):
         self.model = model
         self.config = config
         self.device = resolve_device(config.device)
-        self.params = _tree_map(lambda t: t.to(self.device), params)
+        self.params = cast_serving_params(model, params, self.device,
+                                          donate=donate)
         self.clock = clock if clock is not None else MonotonicClock()
         self.queue = RequestQueue(maxlen=config.max_queue)
         self.scheduler = Scheduler(config.capacity)
@@ -119,21 +197,66 @@ class Engine:
         self._last_token = np.zeros((config.capacity,), np.int32)
 
         self._prefill = make_prefill_step(model, ctx, policy=config.policy)
-        decode = make_decode_step(model, ctx, policy=config.policy)
-        if config.cache_quant == "int8":
-            dtype = model.cfg.dtype
+        self._decode = engine_decode_step(model, config, ctx)
 
-            def decode_int8(params, tokens, pos, codes, scales):
-                # the whole cache round-trips through the model dtype
-                # every step, in the reference's order
-                cache = dequantize_leaves(codes, scales, dtype)
-                tok, cache = decode(params, tokens, pos, cache)
-                codes, scales = _quantize_leaves(cache)
-                return tok, codes, scales
+        # the compiled steps (serve/graphs.py): one pool for all of them
+        self._pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        self._tokens = torch.zeros((config.capacity,), dtype=torch.int32,
+                                   device=self.device)
+        self._pos = torch.zeros((config.capacity,), dtype=torch.int32,
+                                device=self.device)
+        # the step functions close over what they run, not the engine:
+        # no reference cycle keeps a dropped engine's graphs alive
+        self._decode_static = _decode_static(self._decode, self.kv)
+        self._prefill_static = _prefill_static(self._prefill)
+        state = self.kv.device_state()
+        self._decode_graph = StepGraph(
+            self._decode_static,
+            {"params": self.params, "tokens": self._tokens,
+             "pos": self._pos, "state": state},
+            state=state, device=self.device, pool=self._pool,
+            policy=config.policy, compiled=config.graphs, name="decode")
+        self._prefill_graphs: OrderedDict[int, StepGraph] = OrderedDict()
+        self.evicted: list[StepGraph] = []      # their calls still count
+        self.captures: dict[int, int] = {}      # prompt length -> builds
 
-            self._decode = decode_int8
-        else:
-            self._decode = decode
+    def _prefill_graph(self, length: int) -> StepGraph:
+        """The prefill graph of ``length``, built (on the card: captured
+        at its first call) if it is not held, the least recently used one
+        evicted past MAX_PREFILL_GRAPHS."""
+        graph = self._prefill_graphs.get(length)
+        if graph is not None:
+            self._prefill_graphs.move_to_end(length)
+            return graph
+        while len(self._prefill_graphs) >= MAX_PREFILL_GRAPHS:
+            _, old = self._prefill_graphs.popitem(last=False)
+            old.release()
+            self.evicted.append(old)
+        graph = self._prefill_graphs[length] = self._new_prefill(length)
+        return graph
+
+    def _new_prefill(self, length: int) -> StepGraph:
+        """A prefill graph of ``length`` over fresh static buffers."""
+        self.captures[length] = self.captures.get(length, 0) + 1
+        return StepGraph(
+            self._prefill_static,
+            {"params": self.params,
+             "tokens": torch.zeros((1, length), dtype=torch.int32,
+                                   device=self.device),
+             "cache": self.model.init_cache(1, length, device=self.device)},
+            device=self.device, pool=self._pool, policy=self.config.policy,
+            compiled=self.config.graphs, name=f"prefill[{length}]")
+
+    def graphs(self) -> list[StepGraph]:
+        """Every step graph the engine has built, evicted ones included."""
+        return [self._decode_graph, *self.evicted,
+                *self._prefill_graphs.values()]
+
+    def graph_launches(self) -> dict[str, int]:
+        """Kernel launches the engine's graph replays made: each graph's
+        captured launches × its replays."""
+        return graph_launches(self.graphs())
 
     # ---------- request intake ----------
     def add_request(self, prompt, max_new_tokens: int,
@@ -150,15 +273,19 @@ class Engine:
 
     # ---------- phases ----------
     def warm_prefill(self, length: int) -> None:
-        """Run (and discard) one batch-1 prefill of ``length`` tokens, so
-        a timed region pays no first-call cost (the kernel build on the
-        card)."""
-        cache0 = self.model.init_cache(1, length, device=self.device)
-        tok, _ = self._prefill(
-            self.params,
-            {"tokens": torch.zeros((1, length), dtype=torch.int32,
-                                   device=self.device)}, cache0)
-        tok.cpu()
+        """Compile the batch-1 prefill of ``length`` tokens (the
+        reference's "compile and discard"): on the card its graph is
+        captured now, so a timed region pays no first-call cost. Nothing
+        is replayed and no slot is written."""
+        graph = self._prefill_graph(length)
+        if graph.compiled and not graph.captured:
+            graph.capture()
+
+    def warm_decode(self) -> None:
+        """Capture the decode step's graph now (on the card; the slot
+        cache is put back as it was)."""
+        if self._decode_graph.compiled and not self._decode_graph.captured:
+            self._decode_graph.capture()
 
     def _admit(self) -> None:
         admitted = self.scheduler.admit(self.queue,
@@ -169,12 +296,10 @@ class Engine:
         for req in admitted:
             req.admit_step = self.stats.steps
             p = req.prompt_len
-            cache0 = self.model.init_cache(1, p, device=self.device)
-            tok, cache0 = self._prefill(
-                self.params,
-                {"tokens": torch.as_tensor(req.prompt[None, :],
-                                           device=self.device)}, cache0)
-            self.kv.write_prefill(req.slot, cache0, p)
+            graph = self._prefill_graph(p)
+            tok = graph(tokens=torch.from_numpy(req.prompt[None, :]))
+            # read the replay's outputs before any other replay
+            self.kv.write_prefill(req.slot, graph.inputs["cache"], p)
             first = int(tok[0])
             req.generated.append(first)
             self._last_token[req.slot] = first
@@ -186,11 +311,8 @@ class Engine:
     def _decode_all(self) -> None:
         if self.scheduler.num_running == 0:
             return
-        tokens = torch.as_tensor(self._last_token, device=self.device)
-        pos = torch.as_tensor(self.kv.positions(), device=self.device)
-        out = self._decode(self.params, tokens, pos, *self.kv.device_state())
-        tok, state = out[0], out[1:]
-        self.kv.set_device_state(*state)
+        tok = self._decode_graph(tokens=torch.from_numpy(self._last_token),
+                                 pos=torch.from_numpy(self.kv.positions()))
         tok_host = tok.cpu().numpy()
         active = self.scheduler.num_running
         self.stats.lane_steps += active                      # kept tokens

@@ -6,8 +6,11 @@ the accuracy. Port of ``examples/train_mnist_cnn.py``, with its defaults
 
     python -m repro_torch.train.mnist [--steps 300] [--device cpu]
 
-On the card each conv of every training forward is a ``conv_window``
-launch and its gradient comes from ``ConvWindowFn``; the int8
+The train step is compiled as the reference's ``jax.jit`` compiles it:
+one ``serve.graphs.train_graph`` over static params, optimizer state and
+batch buffers. On the card each step is a replay of its CUDA graph, in
+which each conv of the training forward is a ``conv_window`` launch and
+its gradient comes from ``ConvWindowFn`` (cuDNN); the int8
 evaluation runs ``conv_window`` on int8 codes and the fc through
 ``qmatmul``. Fails (SystemExit) if float32 accuracy is not above 0.9,
 as the reference asserts.
@@ -28,6 +31,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.cnn import PaperCNN, PaperCNNConfig
 from repro_torch.ops.policy import ExecPolicy
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.serve.graphs import train_graph
 from repro_torch.train.steps import make_train_step
 
 __all__ = ["train", "evaluate", "evaluate_formats", "main"]
@@ -40,9 +44,11 @@ def train(steps: int = 300, batch: int = 128, *,
           ckpt: str | None = None) -> tuple[dict, dict]:
     """Train ``PaperCNN`` from seed 0 on ``SyntheticMNIST(seed=0)``;
     every 50 steps print the loss and accuracy and, with ``ckpt``, save
-    a checkpoint (keep 2). Returns (params, {"losses", "step_ms"}):
-    the per-step losses and the mean wall ms a step (each step ends in
-    the host reading its loss)."""
+    a checkpoint (keep 2). Returns (params, {"losses", "step_ms",
+    "graph"}): the per-step losses, the mean wall ms a step (each step
+    ends in the host reading its loss), and the step's ``StepGraph``
+    (on the card its capture and its 2 ``conv_window`` launches a
+    replay)."""
     dev = resolve_device(device)
     model = PaperCNN(PaperCNNConfig())
     params = model.init(0, device=dev)
@@ -51,12 +57,13 @@ def train(steps: int = 300, batch: int = 128, *,
     opt = adamw_init(params)
     step_fn = make_train_step(model, opt_cfg)
     data = SyntheticMNIST(seed=0)
+    graph = train_graph(step_fn, params, opt, data.batch(batch, step=0),
+                        device=dev)
     mgr = CheckpointManager(ckpt, keep=2) if ckpt else None
     losses = []
     t0 = time.perf_counter()
     for i in range(steps):
-        b = shard_batch(data.batch(batch, step=i), device=dev)
-        params, opt, metrics = step_fn(params, opt, b)
+        metrics = graph(batch=data.batch(batch, step=i))
         losses.append(float(metrics["loss"]))
         if (i + 1) % 50 == 0:
             print(f"step {i + 1:4d}  loss={losses[-1]:.4f}  "
@@ -66,7 +73,8 @@ def train(steps: int = 300, batch: int = 128, *,
             if mgr is not None:
                 mgr.save(i + 1, params=params, opt_state=opt)
     step_ms = (time.perf_counter() - t0) / max(steps, 1) * 1e3
-    return params, {"losses": losses, "step_ms": step_ms}
+    return params, {"losses": losses, "step_ms": step_ms,
+                    "graph": graph}
 
 
 def evaluate(model, params, data, steps: int = 10, batch: int = 256,

@@ -783,3 +783,200 @@ def test_the_other_kernels_refuse_inputs_that_require_grad(card):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ step graphs
+# The compiled LM and train steps (serve/graphs.py): every graph replay
+# is held bitwise against the same step run eagerly on the same buffers.
+
+GRAPH_MODES = ("bf16", "int8_kv", "int8")
+
+
+def _engine_config(mode, **kw):
+    """bf16 weights and cache; bf16 with an int8 KV cache; int8 compute
+    (the MLP through qmatmul, the cache in int8)."""
+    from repro_torch.serve import EngineConfig
+    return EngineConfig(
+        policy=ExecPolicy(quant="int8") if mode == "int8" else ExecPolicy(),
+        kv_quant="int8" if mode == "int8_kv" else None, device="cuda", **kw)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _step_logits(model, eng, prompt, compiled):
+    """A prefill's logits and a decode step's over the engine's filled
+    slots, through StepGraphs (captured, or run eagerly on the same
+    buffers), the decode from its own copy of the slot state."""
+    from repro_torch.ops import use_policy
+    from repro_torch.serve.engine import engine_decode_step
+    from repro_torch.serve.graphs import StepGraph, tree_tensors
+    dev, pol = eng.device, eng.config.policy
+    decode = engine_decode_step(model, eng.config, sample=False)
+
+    def prefill(params, tokens, cache):
+        for leaf in tree_tensors(cache):
+            leaf.zero_()
+        with use_policy(pol), torch.no_grad():
+            return model.prefill(params, {"tokens": tokens}, cache)[0]
+
+    def step(params, tokens, pos, state):
+        return decode(params, tokens, pos, *state)[0]
+
+    state = _clone_tree(eng.kv.device_state())
+    pre = StepGraph(prefill, {
+        "params": eng.params,
+        "tokens": torch.as_tensor(prompt[None], device=dev),
+        "cache": model.init_cache(1, len(prompt), device=dev)},
+        device=dev, compiled=compiled)
+    dec = StepGraph(step, {
+        "params": eng.params,
+        "tokens": torch.as_tensor(eng._last_token, device=dev),
+        "pos": torch.as_tensor(eng.kv.positions(), device=dev),
+        "state": state}, state=state, device=dev, compiled=compiled)
+    out = pre().clone(), dec().clone()
+    assert pre.captured == dec.captured == compiled
+    return out
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_engine_graphs_are_bitwise_to_eager_steps(card, mode):
+    """The engine through its graphs and with ``graphs=False`` (the same
+    steps eagerly on the same buffers): the same tokens; under int8 the
+    replays launched qmatmul 3 x layers a prefill and a decode step; a
+    prefill's and a 2-slot decode step's logits bitwise graph vs eager."""
+    from repro_torch.serve import Engine
+    model = _lm_model(layers=2, d_model=256, vocab=1000)
+    params = model.init(0, device=card)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 1000, size=p) for p in (16, 32, 16, 32)]
+    out = {}
+    for graphs in (True, False):
+        eng = Engine(model, params, _engine_config(
+            mode, capacity=2, max_seq=48, graphs=graphs))
+        for p in prompts:
+            eng.add_request(p, 8)
+        out[graphs] = {r.uid: r.generated for r in eng.run()}
+        if graphs:
+            steps = eng.stats.decode_lane_steps // 2
+            assert all(g.captured for g in eng.graphs())
+            launched = eng.graph_launches().get("qmatmul", 0)
+            want = 6 * (eng.stats.prefills + steps) if mode == "int8" else 0
+            assert launched == want, (launched, want)
+    assert out[True] == out[False] and len(out[True]) == 4
+    eng = Engine(model, params, _engine_config(mode, capacity=2,
+                                               max_seq=48))
+    for p in prompts[:2]:
+        eng.add_request(p, 8)
+    eng._admit()
+    got = _step_logits(model, eng, prompts[1], compiled=True)
+    want = _step_logits(model, eng, prompts[1], compiled=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_prefill_graphs_evict_and_capture_again_in_one_pool(card,
+                                                            monkeypatch):
+    """Two prefill graphs at most: a third length evicts the least
+    recently used, which is captured again when its length comes back;
+    the tokens are those of the eager engine, so no replay overwrote a
+    prefill's output before the engine read it."""
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.serve import Engine
+    monkeypatch.setattr(engine_mod, "MAX_PREFILL_GRAPHS", 2)
+    model = _lm_model(layers=2, d_model=256, vocab=1000)
+    params = model.init(0, device=card)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 1000, size=p) for p in (8, 16, 24, 8, 16)]
+    out = {}
+    for graphs in (True, False):
+        eng = Engine(model, params, _engine_config(
+            "bf16", capacity=1, max_seq=40, graphs=graphs))
+        for p in prompts:
+            eng.add_request(p, 4)
+        out[graphs] = {r.uid: r.generated for r in eng.run()}
+        if graphs:
+            assert eng.captures == {8: 2, 16: 2, 24: 1}
+            assert len(eng.evicted) == 3
+            prefill_calls = sum(g.calls for g in eng.graphs()) - \
+                eng._decode_graph.calls
+            assert prefill_calls == eng.stats.prefills == 5
+    assert out[True] == out[False]
+
+
+def test_step_graphs_refuse_an_autotuning_policy(card):
+    """The tuner measures launches, which a capture cannot hold: an
+    engine under an autotuning policy is refused on the card."""
+    from repro_torch.serve import Engine, EngineConfig
+    model = _lm_model(layers=1, d_model=256, vocab=1000)
+    params = model.init(0, device=card)
+    with pytest.raises(ValueError, match="autotun"):
+        Engine(model, params, EngineConfig(
+            policy=ExecPolicy(quant="int8", autotune=True), device="cuda"))
+
+
+def _train_runs(card, monkeypatch, model, batches, opt_cfg):
+    """Three steps of ``model`` through the train graph and eagerly on
+    the same buffers (deterministic algorithms on, as the launcher runs):
+    {compiled: (losses, params, graph)}."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve.graphs import train_graph
+    from repro_torch.train import make_train_step
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    try:
+        for compiled in (True, False):
+            params = model.init(0, device=card)
+            opt = adamw_init(params)
+            g = train_graph(make_train_step(model, opt_cfg), params, opt,
+                            {k: v.to(card) for k, v in batches[0].items()},
+                            device=card, compiled=compiled)
+            losses = [g(batch=b)["loss"].clone() for b in batches]
+            out[compiled] = (losses, params, g)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return out
+
+
+def test_lm_train_graph_is_bitwise_to_eager(card, monkeypatch):
+    """A 2-layer LM at d_model 256: three train steps through the graph
+    and eagerly, losses and new params bitwise."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    model = _lm_model(layers=2, d_model=256, vocab=1000)
+    g = torch.Generator().manual_seed(0)
+    batches = [{k: torch.randint(0, 1000, (4, 32), generator=g,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")} for _ in range(3)]
+    out = _train_runs(card, monkeypatch, model, batches,
+                      AdamWConfig(total_steps=3, warmup_steps=1))
+    (gl, gp, graph), (el, ep, _) = out[True], out[False]
+    assert graph.captured and graph.calls == 3
+    assert all(torch.equal(a, b) for a, b in zip(gl, el))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(gp),
+                                                 tree_leaves(ep)))
+
+
+def test_mnist_train_graph_replays_conv_window(card, monkeypatch):
+    """``PaperCNN`` through ``ConvWindowFn``: the train graph holds 2
+    ``conv_window`` launches a replay (the forward convs; cuDNN's
+    backward), and three steps are bitwise to the eager ones."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import SyntheticMNIST
+    from repro_torch.optim import AdamWConfig
+    data = SyntheticMNIST(seed=0)
+    batches = [data.batch(32, step=i) for i in range(3)]
+    out = _train_runs(card, monkeypatch, PaperCNN(PaperCNNConfig()),
+                      batches, AdamWConfig(lr=2e-3, warmup_steps=2,
+                                           total_steps=3))
+    (gl, gp, graph), (el, ep, _) = out[True], out[False]
+    assert graph.kernels["conv_window"] == 2 and graph.calls == 3
+    assert all(torch.equal(a, b) for a, b in zip(gl, el))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(gp),
+                                                 tree_leaves(ep)))
