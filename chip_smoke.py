@@ -164,15 +164,36 @@ Phases, each printing one JSON line:
            eager and as a replay (wall, busy, event ms, capture, pool);
            (c) seamless-m4t-medium served and trained eagerly; (d) a loss
            and backward of four more archs; a card-vs-CPU loss.
+  launch   the launch tooling: (a) the dry run of every (arch x shape)
+           at full size on the meta device (``launch/dryrun.py``),
+           LAUNCH_JOBS cells at a time in worker processes, each cell's
+           JSON under reports/dryrun_torch/: no cell in error, exactly
+           the 8 long_500k cells of the full-attention archs skipped
+           with the reference's reason; (b) qwen1.5-0.5b's compiled
+           steps at full size (the engine's decode graph at capacity 4
+           and its 64-token prefill graph, in bf16 and under int8, the
+           launcher's train graph at B = 8 x 128), each the median
+           of 20 replays between CUDA events beside the same step
+           counted on meta: FLOPs by dtype, bytes, the roofline's terms,
+           mfu and bound_share (at most 1.05), and the int8 decode's 72
+           qmatmul calls, each priced by its shape; (c) the eager int8
+           decode step's top 5 ops by counted bytes beside
+           torch.profiler's top 5 kernels by device time; (d) the train
+           step's predicted peak within 0.5 to 2x of the eager step's
+           ``max_memory_allocated``. The whole report goes to
+           build/chip_smoke_launch.json.
 
 Then one compact line a model of step times (eager and graph wall, busy
-and event ms; capture ms and pool MiB), the kernels line (one JSON
+and event ms; capture ms and pool MiB), the launch phase's compact lines
+(one an arch of the dry run, the sweep's seconds, one a measured
+roofline, the train peak), the kernels line (one JSON
 object; its times are the paper CNN's served batch at B = 8, its
 launches the wrapper launches of the serve, eager, tree and stream
 phases, of the boot phase, of the lm phase's int8 engine runs
 (qwen1.5-0.5b and the four dense configs), of the moe phase (none), of
-the ssm phase's int8 zamba2 engine runs through the kernel and of the
-train phase's MNIST run, each counted from 0 just before it; a CUDA
+the ssm phase's int8 zamba2 engine runs through the kernel, of the
+train phase's MNIST run and of the launch phase's int8 engine, each
+counted from 0 just before it; a CUDA
 graph's kernels are counted at its warm-up and at its capture, and its
 replays by the graph; the lm phase's card-vs-CPU models and its
 kernel-vs-plain comparisons are left out), the card's ``nvidia-smi``
@@ -186,6 +207,7 @@ no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import statistics
@@ -324,6 +346,18 @@ MODES = ("none", "qformat", "int8")
 # highres_cnn's stream budgets timed in the plans phase (None = the
 # default 1 MiB)
 PLAN_BUDGETS = {"untiled": 1 << 40, "1MiB": None, "256KiB": 256 * 1024}
+# the launch phase: the dry run's cells LAUNCH_JOBS at a time in worker
+# processes (the sweep is CPU work: ~140 s serially); each compiled step
+# timed over LAUNCH_REPLAYS replays; a step's roofline time may not pass
+# its measured wall by more than LAUNCH_BOUND_SHARE_MAX (5% for the
+# event timing's noise), and the train step's predicted peak must lie
+# within LAUNCH_PEAK_RATIO of the measured one
+LAUNCH_JOBS = 4
+LAUNCH_REPLAYS = 20
+LAUNCH_BOUND_SHARE_MAX = 1.05
+LAUNCH_PEAK_RATIO = (0.5, 2.0)
+# the launch phase's compact lines, printed after STEP_LINES
+LAUNCH_LINES: list[dict] = []
 
 
 class SmokeFailure(RuntimeError):
@@ -2649,6 +2683,262 @@ def phase_train(device) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- launch
+
+def launch_sweep() -> dict:
+    """(a) The dry run of every (arch × shape) at full size on the meta
+    device (``launch/dryrun.py``), LAUNCH_JOBS cells at a time in worker
+    processes: no cell may end in ``error``, and exactly the 8
+    ``long_500k`` cells of the full-attention archs are ``skipped``, with
+    the reference's reason. Each cell's JSON goes under
+    reports/dryrun_torch/; one compact line an arch goes to LAUNCH_LINES
+    (status, bottleneck, roofline step ms and peak GB a shape), and one
+    with the sweep's seconds."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import REPORTS, run_cell
+
+    t0 = time.perf_counter()
+    cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(LAUNCH_JOBS, mp_context=ctx) as pool:
+        recs = list(pool.map(run_cell, *zip(*cells)))
+    seconds = time.perf_counter() - t0
+    errors = [(r["arch"], r["shape"], r["error"]) for r in recs
+              if r["status"] == "error"]
+    check(not errors, f"dry run cells in error: {errors}")
+    skipped = {(r["arch"], r["shape"]): r["reason"] for r in recs
+               if r["status"] == "skipped"}
+    want = {(a, "long_500k"): get_arch(a).skip_reason("long_500k")
+            for a in ARCH_IDS if not get_arch(a).subquadratic}
+    check(skipped == want and len(want) == 8,
+          f"dry run skipped {sorted(skipped)}, expected {sorted(want)}")
+    for a in ARCH_IDS:
+        line = {"dryrun": a}
+        for r in recs:
+            if r["arch"] != a:
+                continue
+            if r["status"] == "skipped":
+                line[r["shape"]] = "skipped"
+                continue
+            rf = r["roofline"]
+            line[r["shape"]] = [rf["bottleneck"],
+                                round(rf["step_time_s"] * 1e3, 3),
+                                round(r["memory"]["peak_bytes"] / 1e9, 1),
+                                round(r["count_s"], 1)]
+        LAUNCH_LINES.append(line)
+    LAUNCH_LINES.append({"dryrun_sweep_s": round(seconds, 1),
+                         "cells": len(recs), "ok": len(recs) - len(skipped),
+                         "skipped": len(skipped), "jobs": LAUNCH_JOBS,
+                         "reports": str(REPORTS.relative_to(ROOT))})
+    return {"seconds": seconds, "cells": len(recs),
+            "skipped": sorted(skipped)}
+
+
+def replay_ms(fn, reps: int = LAUNCH_REPLAYS) -> dict:
+    """A compiled step's wall: the median of ``reps`` calls, each between
+    two CUDA events and synchronized before the next (so a call's host
+    launch latency is inside it), and the host clock's median beside."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events, hosts = [], []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        events.append(e0.elapsed_time(e1))
+    return {"wall_ms": statistics.median(events),
+            "host_wall_ms": statistics.median(hosts), "replays": reps}
+
+
+def launch_row(label, kind, seq, batch, stats, times) -> dict:
+    """One step's count beside its measured wall: the RooflineReport's
+    terms, ``mfu`` = model_flops / (wall × 989 TFLOP/s) and
+    ``bound_share`` = the roofline step time / wall, which may not pass
+    LAUNCH_BOUND_SHARE_MAX (a count that lets a step beat its bound is
+    wrong)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import MESH, model_flops_for
+    from repro_torch.launch.roofline import RooflineReport
+    report = RooflineReport(
+        arch=LM_ARCH, shape=label, mesh=MESH, chips=1,
+        flops_per_device=stats.flops, bytes_per_device=stats.bytes_accessed,
+        collective_bytes_per_device=stats.collective_bytes,
+        model_flops=model_flops_for(get_arch(LM_ARCH), kind, seq, batch),
+        peak_memory_per_device=stats.peak_bytes,
+        flops_by_dtype=stats.flops_by_dtype)
+    measured = report.measured(times["wall_ms"] / 1e3)
+    check(measured["bound_share"] <= LAUNCH_BOUND_SHARE_MAX,
+          f"{label}: bound_share {measured['bound_share']:.3f} > "
+          f"{LAUNCH_BOUND_SHARE_MAX}: the count lets the step beat its "
+          f"bound ({report.to_dict()}, {times})")
+    return {"step": label, "count": {
+                "flops_by_dtype": stats.flops_by_dtype,
+                "bytes": stats.bytes_accessed, "peak_bytes": stats.peak_bytes,
+                "qmatmul": dataclasses.asdict(stats.ops["qmatmul"])
+                if "qmatmul" in stats.ops else None},
+            "roofline": report.to_dict(), **times, **measured}
+
+
+def launch_roofline(device) -> dict:
+    """(b) qwen1.5-0.5b at full size through its compiled steps: the
+    engine's decode graph at capacity 4 (every slot filled with a
+    64-token prompt) and its 64-token prefill graph, in bf16 and under
+    int8 (72 qmatmul a step), and the launcher's train graph at
+    B = 8 × 128; each beside the same step counted on the meta device (a
+    meta Engine or train graph of the same shapes and policy). The int8
+    decode's count must hold 72 qmatmul calls, each priced by its shape.
+    (c) The eager int8 decode step: the count's top 5 ops by bytes beside
+    torch.profiler's top 5 kernels by device time. (d) The train step's
+    predicted peak beside ``max_memory_allocated`` of the eager step,
+    within LAUNCH_PEAK_RATIO."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           SyntheticTextIterator)
+    from repro_torch.launch.op_stats import count
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.graphs import train_graph
+    from repro_torch.train import make_train_step
+
+    meta = torch.device("meta")
+    model = get_arch(LM_ARCH).model()
+    cfg = model.cfg
+    meta_params = model.init(torch.Generator(), device=meta)
+    params = model.init(0, device=device)
+    prompts = [p for p in lm_prompts(cfg.vocab) if len(p) == 64]
+    rows, out = [], {}
+    for mode, pol in (("bf16", ExecPolicy()),
+                      ("int8", ExecPolicy(quant="int8"))):
+        eng, _, _ = filled_engine(model, params, device, pol, prompts)
+        meng = Engine(model, meta_params, EngineConfig(
+            capacity=4, max_seq=eng.config.max_seq, policy=pol,
+            device="meta", graphs=False))
+        mg = meng._decode_graph
+        _, stats = count(mg.fn, **mg.inputs)
+        if mode == "int8":
+            calls = [(4, cfg.d_model, cfg.d_ff)] * 2 + \
+                [(4, cfg.d_ff, cfg.d_model)]
+            calls *= cfg.n_layers
+            q = stats.ops.get("qmatmul")
+            check(q is not None and q.count == len(calls) == 72
+                  and q.flops == sum(2 * m * k * n for m, k, n in calls)
+                  and q.bytes == sum(m * k + k * n + 4 * (m + n) + 4 * m * n
+                                     for m, k, n in calls),
+                  f"int8 decode count: qmatmul {q}, expected 72 calls "
+                  f"priced by {calls[:3]}")
+        eng.warm_decode()
+        times = replay_ms(eng._decode_graph)
+        rows.append(launch_row(f"decode {mode} C=4", "decode", 80, 4, stats,
+                               times))
+        g = eng._prefill_graph(64)
+        g(tokens=torch.as_tensor(prompts[0][None]))
+        mg = meng._prefill_graph(64)
+        _, pstats = count(mg.fn, **mg.inputs)
+        rows.append(launch_row(f"prefill {mode} S=64", "prefill", 64, 1,
+                               pstats, replay_ms(g)))
+        if mode == "int8":
+            # (c) per-op cost: the count's top 5 by bytes, the profiler's
+            # top 5 kernels by device time, of the decode step run eagerly
+            g = eng._decode_graph
+            prof = lm_profile(lambda: g.fn(**g.inputs))
+            out["per_op"] = {
+                "count_top5_by_bytes": [
+                    {"op": k, "calls": c.count, "bytes": c.bytes,
+                     "flops": c.flops} for k, c in stats.top(5)],
+                "profiler_top5_by_device_us": prof.get("kernels", [])[:5],
+                "profiler_kernel_us": prof.get("kernel_us")}
+        del eng, meng, g, mg
+        free_card()
+    del params
+    free_card()
+
+    # the train step: (d) eager peak, then its graph's replays
+    bsz, seq = 8, 128
+    step_fn = make_train_step(model, AdamWConfig(total_steps=20))
+    batch = SyntheticTextIterator(SyntheticTextConfig(
+        cfg.vocab, seq, bsz)).next_batch()
+    mg = train_graph(step_fn, meta_params, adamw_init(meta_params),
+                     {k: v.to(meta) for k, v in batch.items()}, device=meta,
+                     compiled=False)
+    _, tstats = count(mg.fn, **mg.inputs)
+    params = model.init(0, device=device)
+    opt = adamw_init(params)
+    eager = train_graph(step_fn, params, opt, batch, device=device,
+                        compiled=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager()
+    torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated()
+    ratio = tstats.peak_bytes / measured_peak
+    lo, hi = LAUNCH_PEAK_RATIO
+    check(lo <= ratio <= hi,
+          f"train peak: predicted {tstats.peak_bytes} vs measured "
+          f"{measured_peak} (ratio {ratio:.3f} outside {LAUNCH_PEAK_RATIO})")
+    out["train_peak"] = {"predicted_bytes": tstats.peak_bytes,
+                         "measured_bytes": measured_peak, "ratio": ratio}
+    del eager
+    free_card()
+    graph = train_graph(step_fn, params, opt, batch, device=device)
+    graph()
+    rows.append(launch_row(f"train B={bsz}x{seq}", "train", seq, bsz,
+                           tstats, replay_ms(graph)))
+    del graph, params, opt
+    free_card()
+    out["steps"] = rows
+    for r in rows:
+        rf = r["roofline"]
+        LAUNCH_LINES.append({
+            "roofline": r["step"], "wall_ms": round(r["wall_ms"], 4),
+            "step_time_ms": round(rf["step_time_s"] * 1e3, 4),
+            "bound": rf["bottleneck"],
+            "compute_ms": round(rf["compute_s"] * 1e3, 4),
+            "memory_ms": round(rf["memory_s"] * 1e3, 4),
+            "mfu": round(r["mfu"], 6),
+            "bound_share": round(r["bound_share"], 4),
+            "flops": rf["flops_per_device"],
+            "bytes": rf["bytes_per_device"]})
+    LAUNCH_LINES.append({"train_peak_gb": [
+        round(out["train_peak"]["predicted_bytes"] / 1e9, 2),
+        round(measured_peak / 1e9, 2)], "ratio": round(ratio, 3)})
+    return out
+
+
+def phase_launch(device) -> dict:
+    """The launch tooling (ROADMAP §A.12): (a) ``launch_sweep``, (b)-(d)
+    ``launch_roofline``. Prints a short line, the compact LAUNCH_LINES at
+    the end, and writes the whole report to build/chip_smoke_launch.json.
+    Returns the launches of its int8 engine's graphs and eager steps,
+    counted from 0 here."""
+    t0 = time.perf_counter()
+    reset_counts()
+    report = {"sweep": launch_sweep()}
+    report.update(launch_roofline(device))
+    launches = counts()
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_launch.json").write_text(
+        json.dumps(report, indent=1, default=str))
+    emit({"phase": "launch", "seconds": report["seconds"],
+          "sweep_s": report["sweep"]["seconds"],
+          "per_op": report["per_op"], "train_peak": report["train_peak"],
+          "launches": launches})
+    return launches
+
+
 # ------------------------------------------------------------------- boot
 
 # the served ladders booted in the boot phase
@@ -3399,8 +3689,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
-                         "lm, moe, ssm, train, times, plans); prints no "
-                         "result line")
+                         "lm, moe, ssm, train, launch, times, plans); prints "
+                         "no result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -3421,8 +3711,8 @@ def main(argv=None) -> int:
               "eager": phase_eager, "tree": phase_tree,
               "stream": phase_stream, "boot": phase_boot,
               "lm": phase_lm, "moe": phase_moe, "ssm": phase_ssm,
-              "train": phase_train, "times": phase_times,
-              "plans": phase_plans}
+              "train": phase_train, "launch": phase_launch,
+              "times": phase_times, "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
     try:
@@ -3431,7 +3721,7 @@ def main(argv=None) -> int:
         if args.phases is not None:
             for name in args.phases.split(","):
                 phases[name](device)
-            for line in STEP_LINES:
+            for line in STEP_LINES + LAUNCH_LINES:
                 emit(line)
             print("chip_smoke: ran only --phases; no result", file=sys.stderr)
             return 4
@@ -3458,10 +3748,14 @@ def main(argv=None) -> int:
         train = phases["train"](device)         # counted from 0 in there
         check(train["conv_window"] and train["qmatmul"],
               f"a kernel of the training path never launched: {train}")
+        launch = phases["launch"](device)       # counted from 0 in there
+        check(launch["qmatmul"],
+              f"qmatmul never launched on the launch path: {launch}")
         emit({"phase": "launches", "main": launches, "boot": boot,
-              "lm": lm, "moe": moe, "ssm": ssm, "train": train})
+              "lm": lm, "moe": moe, "ssm": ssm, "train": train,
+              "launch": launch})
         launches = {k: v + boot[k] + lm[k] + moe[k] + ssm[k] + train[k]
-                    for k, v in launches.items()}
+                    + launch[k] for k, v in launches.items()}
         rows = phases["times"](device)
         phases["plans"](device)
     except SmokeFailure as e:
@@ -3470,6 +3764,8 @@ def main(argv=None) -> int:
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr)
     for line in STEP_LINES:             # eager and graph step ms, compact
+        emit(line)
+    for line in LAUNCH_LINES:           # the dry run and the rooflines
         emit(line)
     emit(kernels_line(launches, max_err, rows))
     print(info["nvidia_smi"])

@@ -4,9 +4,8 @@ task spec: a prefill takes precomputed patch embeddings
 (``batch["vision_embeds"]``, (B, VISION_PATCHES, D)) prepended to the
 text tokens. [arXiv:2404.16821; hf]
 
-Port of ``repro.configs.internvl2_26b``. ``VISION_PATCHES`` stays a
-module constant until the dry-run input specs that read
-``ArchSpec.vision_patches`` are ported (ROADMAP §A.12).
+Port of ``repro.configs.internvl2_26b``; ``ArchSpec.input_specs`` reads
+``vision_patches`` for its train and prefill cells.
 """
 import torch
 
@@ -28,6 +27,7 @@ ARCH = ArchSpec(
     arch_id="internvl2-26b", family="vlm",
     build=lambda: TransformerLM(CONFIG),
     source="arXiv:2404.16821; hf",
+    vision_patches=VISION_PATCHES,
     notes=("Backbone only; the ViT frontend is a stub: a prefill takes "
            "precomputed patch embeddings."),
 )

@@ -3,7 +3,9 @@
 Registered as the ``cuda`` backend of the ``tree_reduce_sum`` op family
 (repro_torch.ops). On a CUDA tensor ``tree_reduce_sum`` checks its
 argument and launches ``csrc/addtree.cu`` on the current stream, or
-raises; on a CPU tensor it runs the plain version (``ref.py``).
+raises; on a CPU tensor it runs the plain version (``ref.py``); on a
+meta tensor it returns an empty output and charges the kernel's work
+(``charge_meta``: R·(η − 1) fp32 adds, 4·R·η + 4·R bytes).
 ``launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
@@ -15,8 +17,8 @@ import torch
 
 from repro_torch.kernels.addtree.ref import tree_reduce_sum_ref
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import (check_tensor, launch, launch_args,
-                                       ptr, refuse_grad)
+from repro_torch.kernels.common import (charge_meta, check_tensor, launch,
+                                       launch_args, ptr, refuse_grad)
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import TREE_MAX_ETA, tree_tiles
 
@@ -50,6 +52,10 @@ def tree_reduce_sum(x: torch.Tensor, *,
     refuse_grad("tree_reduce_sum", x)
     if dev.type == "cpu":
         return tree_reduce_sum_ref(x)
+    if dev.type == "meta":
+        charge_meta("addtree", ops=r * (eta - 1), dtype=torch.float32,
+                    nbytes=4 * r * (eta + 1), dot=False)
+        return torch.empty((r,), dtype=torch.float32, device=dev)
     pol = policy if policy is not None else current_policy()
     t = tree_tiles(r, eta, pol.tile_overrides)
     out = torch.empty((r,), dtype=torch.float32, device=dev)

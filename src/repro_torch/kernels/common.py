@@ -3,7 +3,11 @@
 A wrapper checks device, dtype, shape and contiguity before it hands raw
 pointers to a kernel, and raises on anything the kernel does not take.
 The same checks run for CPU tensors, whose wrapper call goes to the
-kernel's plain version, so the CPU tests exercise them too.
+kernel's plain version, so the CPU tests exercise them too, and for meta
+tensors (the dry run's shapes), whose call returns an empty output of
+the kernel's shape and dtype and charges the kernel's own work
+(``charge_meta``): a meta call neither launches nor runs the plain
+version.
 """
 from __future__ import annotations
 
@@ -11,7 +15,8 @@ import ctypes
 
 import torch
 
-__all__ = ["check_tensor", "refuse_grad", "ptr", "launch_args", "launch"]
+__all__ = ["check_tensor", "refuse_grad", "ptr", "launch_args", "launch",
+           "charge_meta"]
 
 
 def check_tensor(t: torch.Tensor, name: str, *, dtype: torch.dtype,
@@ -67,3 +72,17 @@ def launch(fn, name: str, device: torch.device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def charge_meta(name: str, *, ops: float, dtype: torch.dtype,
+                nbytes: float, dot: bool = True) -> None:
+    """On a meta call: charge kernel ``name``'s own work (``ops``
+    operations in ``dtype``, ``nbytes`` read and written, each input once
+    and each output once) to every op counter active around the call
+    (``launch/op_stats.py``'s ``OpCounter``, a dispatch mode); nothing
+    happens outside one."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in _get_current_dispatch_mode_stack():
+        charge = getattr(mode, "charge_kernel", None)
+        if charge is not None:
+            charge(name, ops=ops, dtype=dtype, nbytes=nbytes, dot=dot)

@@ -3,8 +3,10 @@
 Registered as the ``cuda`` backend of the ``conv2d`` op family
 (repro_torch.ops). On a CUDA tensor ``conv_window`` checks its arguments
 and launches ``csrc/conv_window.cu`` on the current stream, or raises; on
-a CPU tensor it runs the plain version (``ref.py``). ``launches`` counts
-kernel launches and nothing else.
+a CPU tensor it runs the plain version (``ref.py``); on a meta tensor it
+returns an empty output and charges the kernel's work (``charge_meta``:
+2 fp32 operations a window MAC, each input read and the output written
+once). ``launches`` counts kernel launches and nothing else.
 
 Every call goes through ``ConvWindowFn``: its forward is the kernel
 launch (or, on the CPU, the plain version), so the training forward of
@@ -22,7 +24,8 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_tensor, launch, launch_args, ptr
+from repro_torch.kernels.common import (charge_meta, check_tensor, launch,
+                                       launch_args, ptr)
 from repro_torch.kernels.conv_window.ref import conv2d_window_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import fused_tiles, platform_key
@@ -96,6 +99,13 @@ def _conv_window(x, w, b, *, stride, policy) -> torch.Tensor:
     if dev.type == "cpu":
         return conv2d_window_ref(x, w, b, stride=tuple(stride))
     ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
+    if dev.type == "meta":
+        charge_meta("conv_window", ops=2 * bsz * m * ho * wo * n * kh * kw,
+                    dtype=torch.float32,
+                    nbytes=4 * (x.numel() + w.numel() + bsz * m * ho * wo
+                                + (0 if b is None else m)))
+        return torch.empty((bsz, m, ho, wo), dtype=torch.float32,
+                           device=dev)
     pol = policy if policy is not None else current_policy()
     if pol.autotune:
         from repro_torch.ops.autotune import ensure_tuned

@@ -3,8 +3,10 @@
 Registered as the ``cuda`` backend of the ``fused_conv_block`` op family
 (repro_torch.ops). On a CUDA tensor ``fused_cwp`` checks its arguments
 and launches ``csrc/fused_cwp.cu`` on the current stream, or raises; on a
-CPU tensor it runs the plain version (``ref.py``). ``launches`` counts
-kernel launches and nothing else.
+CPU tensor it runs the plain version (``ref.py``); on a meta tensor it
+returns an empty output and charges the kernel's work (``charge_meta``:
+2 fp32 operations a window MAC, each input read and the pooled output
+written once). ``launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import torch
 
 from repro_torch.core.window import pool_output_size
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import (check_tensor, launch, launch_args,
-                                       ptr, refuse_grad)
+from repro_torch.kernels.common import (charge_meta, check_tensor, launch,
+                                       launch_args, ptr, refuse_grad)
 from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import fused_tiles, platform_key
@@ -65,6 +67,14 @@ def fused_cwp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     po, qo = pool_output_size(ho, odd), pool_output_size(wo, odd)
     if dev.type == "cpu":
         return fused_cwp_ref(x, w, b, tuple(stride), odd=odd, scale=scale)
+    if dev.type == "meta":
+        vec = sum(m for v in (b, scale) if v is not None)
+        charge_meta("fused_cwp", ops=2 * bsz * m * ho * wo * n * kh * kw,
+                    dtype=torch.float32,
+                    nbytes=4 * (x.numel() + w.numel() + vec
+                                + bsz * m * po * qo))
+        return torch.empty((bsz, m, po, qo), dtype=torch.float32,
+                           device=dev)
     pol = policy if policy is not None else current_policy()
     if pol.autotune:
         from repro_torch.ops.autotune import ensure_tuned

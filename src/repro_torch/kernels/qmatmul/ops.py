@@ -3,8 +3,10 @@
 Registered as the ``cuda`` backend of the ``qmatmul`` op family
 (repro_torch.ops). On a CUDA tensor ``qmatmul`` checks its arguments and
 launches ``csrc/qmatmul.cu`` on the current stream, or raises; on a CPU
-tensor it runs the plain version (``ref.py``). ``launches`` counts kernel
-launches and nothing else.
+tensor it runs the plain version (``ref.py``); on a meta tensor it
+returns an empty output and charges the kernel's work (``charge_meta``:
+2·M·K·N int8 operations; M·K + K·N + 4·(M + N) + 4·M·N bytes).
+``launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -14,8 +16,8 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import (check_tensor, launch, launch_args,
-                                       ptr, refuse_grad)
+from repro_torch.kernels.common import (charge_meta, check_tensor, launch,
+                                       launch_args, ptr, refuse_grad)
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import platform_key, qmatmul_tiles
@@ -68,6 +70,11 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
     refuse_grad("qmatmul", xs, ws)
     if dev.type == "cpu":
         return qmatmul_ref(x_codes, w_codes, xs, ws, out_dtype)
+    if dev.type == "meta":
+        charge_meta("qmatmul", ops=2 * m * k * n, dtype=torch.int8,
+                    nbytes=m * k + k * n + 4 * (m + n) + 4 * m * n)
+        return torch.empty((m, n), dtype=torch.float32,
+                           device=dev).to(out_dtype)
     pol = policy if policy is not None else current_policy()
     if pol.autotune:
         from repro_torch.ops.autotune import ensure_tuned

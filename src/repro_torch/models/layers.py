@@ -89,25 +89,30 @@ def make_attn_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
 def _write_cache(c: torch.Tensor, new: torch.Tensor, index) -> None:
     """Write ``new`` (B, s, …) into ``c`` (B, T, …) in place at sequence
     offset ``index``, clamped into [0, T - s] as the reference's
-    ``dynamic_update_slice`` clamps. A scalar index is one slice write; a
+    ``dynamic_update_slice`` clamps. A Python int is one slice write; a
     (B,) index writes each row at its own offset (the reference's
-    ``vmap(dynamic_update_slice)``), as one advanced-index assignment."""
+    ``vmap(dynamic_update_slice)``), as one advanced-index assignment. A
+    0-d tensor (the reference's decode ``pos``) takes the per-row path,
+    expanded to (B,): the same writes, and no read of the index on the
+    host (a sync on the card; impossible on the meta device)."""
     t, s = c.shape[1], new.shape[1]
     new = new.to(c.dtype)
-    if not torch.is_tensor(index) or index.ndim == 0:
+    if not torch.is_tensor(index):
         i = min(max(int(index), 0), t - s)
         c[:, i:i + s] = new
         return
-    start = index.to(device=c.device, dtype=torch.long).clamp(0, t - s)
+    start = index.to(device=c.device, dtype=torch.long).expand(c.shape[0])
+    start = start.clamp(0, t - s)
     cols = start[:, None] + torch.arange(s, device=c.device)
     rows = torch.arange(c.shape[0], device=c.device)[:, None]
     c[rows, cols] = new
 
 
 def _kv_len(cache_index, s: int, b: int, device) -> torch.Tensor:
-    """The number of valid cache entries a row after the write."""
-    if torch.is_tensor(cache_index) and cache_index.ndim == 1:
-        return cache_index.to(device) + s
+    """The number of valid cache entries a row after the write; a 0-d
+    tensor index is expanded to (B,) on its device, never read."""
+    if torch.is_tensor(cache_index):
+        return cache_index.to(device).expand(b) + s
     return torch.full((b,), int(cache_index) + s, dtype=torch.int32,
                       device=device)
 

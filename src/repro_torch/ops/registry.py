@@ -10,6 +10,14 @@ order, ``torch`` > ``cuda`` > ``ref``. The one family the reference gives
 no Pallas kernel, ``causal_conv1d``, registers its plain backend for
 ``cuda`` as well (``ops/impls.py``).
 
+A ``meta`` tensor (the dry run's shapes, ``launch/dryrun.py``) selects
+by the ``cuda`` priorities: the step is priced as the card runs it. So
+``causal_conv1d`` takes its plain shifted adds there, and each kernel
+family its ``cuda`` wrapper, whose meta branch returns an empty output
+and charges the kernel's own work to the op counter
+(``launch/op_stats.py``); a call the card would refuse raises on meta
+too.
+
 An explicit ``policy.backend`` keeps the reference's rules:
 
   * family registers it and its predicate accepts → it runs (this is how
@@ -45,6 +53,10 @@ def call_platform(args) -> str:
     return "cpu"
 
 
+# the dry run's shapes-only tensors select as the card's do
+_SELECTS_AS = {"meta": "cuda"}
+
+
 @dataclass(frozen=True)
 class OpImpl:
     op: str
@@ -55,7 +67,7 @@ class OpImpl:
 
     def rank(self, platform: str) -> int | None:
         """Auto-selection rank on ``platform``; None = never auto-picked."""
-        return self.priority.get(platform)
+        return self.priority.get(_SELECTS_AS.get(platform, platform))
 
     def accepts(self, *args, **kwargs) -> bool:
         if self.supports is None:

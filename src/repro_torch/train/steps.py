@@ -14,14 +14,12 @@ accumulate fp32 gradients. Collectives and the cross-pod compression
 """
 from __future__ import annotations
 
-from typing import Callable
-
 import torch
 
 from repro_torch.core.tree import tree_from_items, tree_items, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
-__all__ = ["loss_and_grads", "make_train_step"]
+__all__ = ["loss_and_grads", "make_train_step", "TrainStep"]
 
 
 def loss_and_grads(model, params, batch: dict, ctx=None):
@@ -40,9 +38,92 @@ def loss_and_grads(model, params, batch: dict, ctx=None):
                              in zip(items, grads)]))
 
 
+class TrainStep:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, in the parts the dry run counts apart
+    (``launch/dryrun.py``: one microbatch counted and multiplied by
+    their number, as the reference's HLO walk multiplies a ``while``
+    body by its trip count). A call runs ``cast``, then either ``grads``
+    on the whole batch or, for each microbatch of ``split``,
+    ``accumulate`` into one ``accumulator`` and then ``mean``, and last
+    ``update``."""
+
+    def __init__(self, model, opt_cfg: AdamWConfig, ctx=None,
+                 microbatches: int = 1, cast_params_once: bool = False):
+        self.model, self.opt_cfg, self.ctx = model, opt_cfg, ctx
+        self.microbatches = microbatches
+        self.cast_params_once = cast_params_once
+        self.compute_dtype = getattr(model.cfg, "dtype", None)
+
+    def cast(self, params):
+        if not self.cast_params_once or self.compute_dtype is None:
+            return params
+        return tree_map(lambda p: p.to(self.compute_dtype)
+                        if (p.dtype == torch.float32 and p.ndim >= 2)
+                        else p, params)
+
+    def grads(self, params, mb):
+        """(loss, metrics, grads), a zero gradient where the loss does
+        not reach a parameter."""
+        loss, metrics, grads = loss_and_grads(self.model, params, mb,
+                                              self.ctx)
+        return loss, metrics, tree_map(
+            lambda g, p: torch.zeros_like(p) if g is None else g,
+            grads, params)
+
+    def split(self, batch: dict) -> list[dict]:
+        n = self.microbatches
+        return [{k: _slice(x, i, n) for k, x in batch.items()}
+                for i in range(n)]
+
+    def accumulator(self, params) -> dict:
+        """fp32 zeros shaped as ``params`` and a 0-d loss sum (0 + the
+        first loss is that loss, bit for bit)."""
+        dev = tree_items(params)[0][1].device
+        return {"grads": tree_map(lambda p: torch.zeros(p.shape,
+                                                        device=p.device),
+                                  params),
+                "loss": torch.zeros((), device=dev)}
+
+    def accumulate(self, params, acc: dict, mb: dict) -> dict:
+        """One microbatch: its gradients added into ``acc`` in fp32 and
+        its loss into the running sum; returns its metrics."""
+        loss, metrics, grads = self.grads(params, mb)
+        tree_map(lambda a, g: a.add_(g.to(torch.float32)), acc["grads"],
+                 grads)
+        del grads
+        acc["loss"] = acc["loss"] + loss
+        return metrics
+
+    def mean(self, acc: dict, per_mb: list[dict]):
+        """(loss, metrics, grads): the microbatches' means."""
+        n = torch.full((), self.microbatches, dtype=torch.float32,
+                       device=acc["loss"].device)
+        grads = tree_map(lambda g: g / n, acc["grads"])
+        metrics = {k: torch.stack([m[k] for m in per_mb]).sum() / n
+                   for k in per_mb[0]}
+        return acc["loss"] / n, metrics, grads
+
+    def update(self, params, opt_state, grads, loss, metrics):
+        params, opt_state, opt_metrics = adamw_update(
+            grads, opt_state, params, self.opt_cfg)
+        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
+    def __call__(self, params, opt_state, batch):
+        cast = self.cast(params)
+        if self.microbatches == 1:
+            loss, metrics, grads = self.grads(cast, batch)
+        else:
+            acc = self.accumulator(params)
+            per_mb = [self.accumulate(cast, acc, mb)
+                      for mb in self.split(batch)]
+            loss, metrics, grads = self.mean(acc, per_mb)
+        return self.update(params, opt_state, grads, loss, metrics)
+
+
 def make_train_step(model, opt_cfg: AdamWConfig, ctx=None,
                     microbatches: int = 1,
-                    cast_params_once: bool = False) -> Callable:
+                    cast_params_once: bool = False) -> TrainStep:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). ``batch`` leaves have a leading global-batch dim divisible
     by ``microbatches``.
@@ -51,48 +132,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, ctx=None,
     once, before the microbatch loop, so each use's cast is a no-op; the
     gradients then come back in that dtype and are accumulated in fp32
     (standard mixed precision)."""
-    compute_dtype = getattr(model.cfg, "dtype", None)
-
-    def maybe_cast(params):
-        if not cast_params_once or compute_dtype is None:
-            return params
-        return tree_map(lambda p: p.to(compute_dtype)
-                        if (p.dtype == torch.float32 and p.ndim >= 2)
-                        else p, params)
-
-    def grads_of(params, mb):
-        loss, metrics, grads = loss_and_grads(model, params, mb, ctx)
-        return loss, metrics, tree_map(
-            lambda g, p: torch.zeros_like(p) if g is None else g,
-            grads, params)
-
-    def train_step(params, opt_state, batch):
-        cast = maybe_cast(params)
-        if microbatches == 1:
-            loss, metrics, grads = grads_of(cast, batch)
-        else:
-            n = torch.full((), microbatches, dtype=torch.float32,
-                           device=tree_items(params)[0][1].device)
-            acc = tree_map(lambda p: torch.zeros(p.shape, device=p.device),
-                           params)
-            loss_sum, per_mb = None, []
-            for i in range(microbatches):
-                mb = {k: _slice(x, i, microbatches) for k, x in batch.items()}
-                loss, metrics, grads = grads_of(cast, mb)
-                tree_map(lambda a, g: a.add_(g.to(torch.float32)), acc,
-                         grads)
-                del grads
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-                per_mb.append(metrics)
-            grads = tree_map(lambda g: g / n, acc)
-            loss = loss_sum / n
-            metrics = {k: torch.stack([m[k] for m in per_mb]).sum() / n
-                       for k in per_mb[0]}
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, opt_cfg)
-        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
-
-    return train_step
+    return TrainStep(model, opt_cfg, ctx, microbatches, cast_params_once)
 
 
 def _slice(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
