@@ -182,6 +182,24 @@ Phases, each printing one JSON line:
            step's predicted peak within 0.5 to 2x of the eager step's
            ``max_memory_allocated``. The whole report goes to
            build/chip_smoke_launch.json.
+  mesh     channel parallelism on the one card: an NCCL world of 1
+           (mesh (1, 1)) whose VisionEngine serves mnist_cnn in all 3
+           modes through its graphs, bitwise to the engine without a
+           mesh; then gloo worlds of 2 and 4 ranks sharing cuda:0
+           (meshes (1, 2), (1, 4), (2, 2), ``run_spmd``), each rank
+           running mnist_cnn and highres_cnn (224²) placed plans (auto,
+           forced ``input`` and ``output``, 3 modes, lattice and random
+           data, B = 8) against the unsharded plan (int8 and the lattice
+           bitwise but highres ``none``; fp32 rtol 1e-5, atol 1e-6 of
+           the largest |logit|; qformat one Q8.8 step), a VisionEngine
+           serving eagerly (``graphs: off (gloo)``), every per-shard
+           launch shape against its plain version, the per-rank batch
+           walls with each collective's share (every rank time-shares
+           the card: no scaling evidence), weight bytes a rank; the
+           ranks' launches return to the parent; then highres_cnn's
+           OCP shards against the whole stage pinned to the shard's
+           ``split`` (why fp32 OCP is not bitwise on the card); then the
+           per-shard shapes timed alone.
 
 Then one compact line a model of step times (eager and graph wall, busy
 and event ms; capture ms and pool MiB), the launch phase's compact lines
@@ -192,8 +210,9 @@ launches the wrapper launches of the serve, eager, tree and stream
 phases, of the boot phase, of the lm phase's int8 engine runs
 (qwen1.5-0.5b and the four dense configs), of the moe phase (none), of
 the ssm phase's int8 zamba2 engine runs through the kernel, of the
-train phase's MNIST run and of the launch phase's int8 engine, each
-counted from 0 just before it; a CUDA
+train phase's MNIST run, of the launch phase's int8 engine and of the
+mesh phase's NCCL world-1 engines on a mesh and placed plans on every
+rank, each counted from 0 just before it; a CUDA
 graph's kernels are counted at its warm-up and at its capture, and its
 replays by the graph; the lm phase's card-vs-CPU models and its
 kernel-vs-plain comparisons are left out), the card's ``nvidia-smi``
@@ -358,6 +377,22 @@ LAUNCH_BOUND_SHARE_MAX = 1.05
 LAUNCH_PEAK_RATIO = (0.5, 2.0)
 # the launch phase's compact lines, printed after STEP_LINES
 LAUNCH_LINES: list[dict] = []
+# the mesh phase: gloo worlds of ranks sharing cuda:0, mesh shape ->
+# world; the models at full width, B = 8, the overrides run; the CPU
+# tests' fp32 bar (rtol, atol of the largest |logit|); batches timed a
+# rank; the per-shard shapes timed alone: (label, kernel, (N, H, W, M, K))
+MESH_WORLDS = {(1, 2): 2, (1, 4): 4, (2, 2): 4}
+MESH_ARCHS = ("mnist_cnn", "highres_cnn")
+MESH_OVERRIDES = (None, "input", "output")
+MESH_BATCH = 8
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
+MESH_TIMED = 5
+MESH_TIMEOUT_S = 600
+MESH_TIMED_SHAPES = [
+    ("highres_cnn block0 ocp4", "fused_cwp", (3, 224, 224, 2, 5)),
+    ("highres_cnn block1 icp2xocp2", "conv_window", (4, 110, 110, 8, 3)),
+    ("mnist_cnn conv2 ocp4", "fused_cwp", (15, 13, 13, 5, 6)),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -3293,6 +3328,480 @@ def phase_boot(device):
     emit(out)
 
 
+# ------------------------------------------------------------- the mesh
+
+def mesh_lattice(rng, shape, frac=6, maxcode=31):
+    """The reference's lattice (tests/test_shard_plan.py): integer
+    multiples of 2^-frac, the first element pinned to 127·2^-frac."""
+    import numpy as np
+    v = rng.randint(-maxcode, maxcode + 1, size=shape).astype(np.float32)
+    v = v * np.float32(2.0 ** -frac)
+    v.reshape(-1)[0] = 127 * 2.0 ** -frac
+    return v
+
+
+def mesh_inputs(model, device):
+    """{"lattice" | "random": (params, images)} at B = MESH_BATCH, made
+    alike on every rank: the lattice from numpy seed 7, the random
+    weights from the model's seed-0 init and images from a CPU
+    generator."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(7)
+
+    def lat(tree):
+        if isinstance(tree, dict):
+            return {k: lat(v) for k, v in tree.items()}
+        return torch.from_numpy(mesh_lattice(rng, tuple(tree.shape))).to(
+            device)
+
+    shape = model.input_shape(MESH_BATCH)
+    params = model.init(0, device="cpu")
+    lattice = (lat(params),
+               torch.from_numpy(mesh_lattice(rng, shape)).to(device))
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    return {"lattice": lattice,
+            "random": (to_device(params, device), x.to(device))}
+
+
+def mesh_exact(arch, mode, data) -> bool:
+    """Is the placed plan owed bitwise parity with the unsharded plan?
+    int8 always (integer codes); on lattice data the sums stay exact but
+    under ``none`` on highres_cnn: past its first blocks the activations
+    reach ~168 in steps of 2^-18 and finer, past fp32's 24 bits (as
+    tests/test_torch_mesh.py finds at 48²), so the order of a sum shows.
+    On the CPU an OCP shard sums each channel in the whole stage's order;
+    on the card the conv kernel's ``split`` (the lanes that share a
+    window's kernel rows, ``ops.tiling.choose_fused_blocks``) follows the
+    grid's size, hence M/ocp and the rank's batch rows, and with it the
+    order: ``mesh_split_checks`` shows it on the card, at highres_cnn's
+    OCP shard shapes."""
+    if mode == "int8":
+        return True
+    return data == "lattice" and not (arch == "highres_cnn"
+                                      and mode == "none")
+
+
+def mesh_sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_hold(label, arch, mode, data, got, want) -> dict:
+    """A placed plan's logits against the unsharded plan's: bitwise where
+    ``mesh_exact``, else the CPU tests' bars (fp32 rtol 1e-5, atol 1e-6
+    of the largest |logit|; qformat one Q8.8 step)."""
+    import torch
+    mesh_sync(got.device)
+    got, want = got.cpu(), want.cpu()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{label}: shape {tuple(got.shape)} or non-finite values")
+    err = max_abs(got, want)
+    if mesh_exact(arch, mode, data):
+        ok, bar = bitwise(got, want), "bitwise"
+    elif mode == "qformat":
+        ok, bar = err <= QSTEP, QSTEP
+    else:
+        atol = MESH_ATOL * max(1.0, float(want.abs().max()))
+        ok, bar = bool(torch.allclose(got, want, rtol=MESH_RTOL,
+                                      atol=atol)), atol
+    check(ok, f"{label}: max_abs {err} against the unsharded plan, bar "
+              f"{bar}")
+    return {"max_abs": err, "bar": bar}
+
+
+def mesh_shard_shapes(plan) -> list[tuple[str, tuple]]:
+    """(kernel, (N, H, W, M, K)) of each placed stage's per-shard launch:
+    OCP runs the stage's kernel on M/ocp channels; ICP and BOTH run
+    conv_window on the (N/icp, M/ocp) block before the ring."""
+    from repro_torch.graph.ir import FusedConvBlockNode
+    from repro_torch.graph.passes import stage_input_spec
+    out = []
+    for nid, grid in plan.grids.items():
+        node = plan.graph.node(nid)
+        _, n, h, w = stage_input_spec(plan.graph, node).shape
+        m, _, k, _ = node.w.shape
+        kern = ("fused_cwp" if grid.ki == 1
+                and isinstance(node, FusedConvBlockNode) else "conv_window")
+        out.append((kern, (n // grid.ki, h, w, m // grid.ko, k)))
+    return out
+
+
+def mesh_kernel_vs_plain(shapes, bsz, fc, device) -> list[dict]:
+    """Each per-shard shape's kernel against its plain version on the
+    card, in the three number formats (int8 and qformat bitwise, fp32
+    TOL_FP32 of 1 + max|y|), and qmatmul at the rank's fc shape."""
+    import torch
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    from repro_torch.kernels.qmatmul.ops import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    gen = torch.Generator().manual_seed(12)
+    rows = []
+    for kern, shape in shapes:
+        for mode in MODES:
+            x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
+            if kern == "fused_cwp":
+                got, want = (fused_cwp(x, w, b, scale=s),
+                             fused_cwp_ref(x, w, b, scale=s))
+            else:
+                got, want = conv_window(x, w, None), conv2d_window_ref(
+                    x, w, None)
+            mesh_sync(device)
+            err = max_abs(got, want)
+            tol = 0.0 if mode != "none" else TOL_FP32 * (
+                1 + float(want.abs().max()))
+            check(err <= tol and (mode == "none" or bitwise(got, want)),
+                  f"mesh {kern} shard {shape} B={bsz} {mode}: kernel vs "
+                  f"plain max_abs {err}, tolerance {tol}")
+            rows.append({"kernel": kern, "shape": list(shape), "B": bsz,
+                         "mode": mode, "max_abs": err})
+    xc, wc, xs, ws = fc_inputs(gen, bsz, device, fc)
+    got, want = qmatmul(xc, wc, xs, ws), qmatmul_ref(xc, wc, xs, ws)
+    check(bitwise(got, want), f"mesh qmatmul {bsz}x{fc}: kernel vs plain "
+                              f"max_abs {max_abs(got, want)}")
+    rows.append({"kernel": "qmatmul", "shape": [bsz, *fc], "B": bsz,
+                 "mode": "int8", "max_abs": 0.0})
+    return rows
+
+
+def mesh_walls(bound, x) -> dict:
+    """Wall ms of one batch through ``bound`` on this rank (median of
+    MESH_TIMED, each to its synchronize) and the share of it each
+    collective took (COMM_STATS's host seconds over the same calls)."""
+    import torch
+    from repro_torch.core.parallelism import COMM_STATS
+    with torch.inference_mode():
+        bound(x)
+        mesh_sync(x.device)
+        COMM_STATS.reset()
+        walls = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            bound(x)
+            mesh_sync(x.device)
+            walls.append(time.perf_counter() - t0)
+    total = sum(walls)
+    return {"batch_wall_ms": statistics.median(walls) * 1e3,
+            "share": {k: v / total for k, v in COMM_STATS.seconds.items()},
+            "calls_per_batch": {k: v / MESH_TIMED
+                                for k, v in COMM_STATS.calls.items()},
+            "bytes_per_batch": {k: v / MESH_TIMED
+                                for k, v in COMM_STATS.bytes.items()}}
+
+
+def mesh_rank(rank, world, shape) -> dict:
+    """One rank of a gloo world whose ranks all share cuda:0: the placed
+    plans of mnist_cnn and highres_cnn (auto placement and the forced
+    input and output schedules, every number format, lattice and random
+    data, B = MESH_BATCH) against the unsharded plan; the launches of the
+    mesh path alone; each per-shard kernel launch against its plain
+    version; the batch walls, collective shares and weight bytes."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.parallelism import COMM_STATS
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.ops import ExecPolicy
+    device = torch.device("cuda", 0)
+    mesh = make_test_mesh(shape, device="cuda")
+    cases, plains = [], {}
+    for arch in MESH_ARCHS:
+        model = get_arch(arch).model()
+        for data, (params, x) in mesh_inputs(model, device).items():
+            for mode in MODES:
+                with torch.inference_mode():
+                    plains[(arch, data, mode)] = model.compile(
+                        ExecPolicy(quant=mode), batch=MESH_BATCH).bind(
+                        params)(x)
+                for ov in MESH_OVERRIDES:
+                    cases.append((arch, model, data, params, x, mode, ov))
+    mesh_sync(device)
+    reset_counts()                      # the mesh path alone from here
+    COMM_STATS.reset()
+    rows, plans, refused, failures = [], {}, [], []
+    for arch, model, data, params, x, mode, ov in cases:
+        label = f"mesh {shape} rank {rank} {arch} {data} {mode} {ov}"
+        try:
+            plan = model.compile(ExecPolicy(quant=mode, channel_parallel=ov),
+                                 batch=MESH_BATCH, mesh=mesh)
+        except ValueError as e:         # no stage can take the override
+            check("applies to none" in str(e), f"{label}: {e}")
+            refused.append([arch, data, mode, ov])
+            continue
+        placements = [str(n.sharding) for n in plan.graph
+                      if getattr(n, "sharding", None) is not None]
+        bound = plan.bind(params)
+        with torch.inference_mode():
+            got = bound(x)
+        try:                            # every case runs; all misses named
+            row = mesh_hold(label, arch, mode, data, got,
+                            plains[(arch, data, mode)])
+        except SmokeFailure as e:
+            failures.append(str(e))
+            continue
+        rows.append({"arch": arch, "data": data, "mode": mode,
+                     "override": ov, "placement": placements, **row})
+        plans[(arch, data, mode, ov)] = (plan, bound, x)
+    check(not failures, "; ".join(failures))
+    launches = counts()
+    staged = {k: "gloo, host-staged" if COMM_STATS.staged[k] else "gloo"
+              for k in COMM_STATS.calls}
+    engine = mesh_engine(mesh, device)
+    # timed after the launches were read: the walls, the shares, bytes
+    walls, weights = {}, {}
+    for arch in MESH_ARCHS:
+        for mode in ("none", "int8"):
+            plan, bound, x = plans[(arch, "random", mode, None)]
+            walls[f"{arch} {mode}"] = mesh_walls(bound, x)
+        plan, bound, x = plans[(arch, "random", "none", None)]
+        mine = bound.stage_weight_bytes()
+        whole = get_arch(arch).model().compile(batch=MESH_BATCH).bind(
+            bound.params).stage_weight_bytes()
+        weights[arch] = {
+            "rank_bytes": sum(mine.values()),
+            "whole_bytes": sum(whole.values()),
+            "stages": {f"%{nid} {plan.graph.node(nid).sharding}":
+                       [mine[nid], whole[nid]] for nid in mine}}
+    # each per-shard launch shape of the placed plans against its plain
+    # version, at this rank's batch rows (not counted: read above)
+    shapes = sorted({s for plan, _, _ in plans.values()
+                     for s in mesh_shard_shapes(plan)})
+    plan, _, x = next(iter(plans.values()))
+    rows_b = bound_rows(plan, x)
+    checks = (mesh_kernel_vs_plain(shapes, rows_b, FC, device)
+              + mesh_kernel_vs_plain([], rows_b, highres_fc(), device))
+    return {"rank": rank, "launches": launches, "rows": rows,
+            "refused": refused, "collectives": staged, "walls": walls,
+            "weights": weights, "engine": engine,
+            "shard_checks": len(checks)}
+
+
+def mesh_engine(mesh, device) -> dict:
+    """VisionEngine on a gloo mesh on the card: it serves eagerly (gloo
+    collectives cannot be captured), says so, and its int8 logits for a
+    full bucket equal the unsharded bound plan's bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import VisionEngine, VisionEngineConfig
+    model = PaperCNN()
+    params = model.init(0, device="cpu")
+    pol = ExecPolicy(quant="int8")
+    eng = VisionEngine(model, params, VisionEngineConfig(
+        batch=MESH_BATCH, buckets="auto", policy=pol, device="cuda",
+        mesh=mesh))
+    check(eng.graphs == "off (gloo)" and "graphs: off (gloo)" in eng.pretty(),
+          f"mesh engine: graphs {eng.graphs!r}")
+    images = np.random.RandomState(4).randn(
+        MESH_BATCH, *model.input_shape()[1:]).astype(np.float32)
+    uids = [eng.submit(img) for img in images]
+    got = eng.run()
+    with torch.inference_mode():
+        want = model.compile(pol, batch=MESH_BATCH).bind(
+            to_device(params, device))(torch.from_numpy(images).to(
+                device)).cpu().numpy()
+    check(all(np.array_equal(got[u]["logits"], want[i])
+              for i, u in enumerate(uids)),
+          "mesh engine: int8 logits differ from the unsharded plan's")
+    return {"buckets": list(eng.buckets), "graphs": eng.graphs,
+            "stats_graphs": eng.stats.graphs, "requests": len(uids)}
+
+
+def bound_rows(plan, x) -> int:
+    """The batch rows this rank's plan computes: its data-axis slice."""
+    from repro_torch.core.parallelism import batch_shard
+    rows = batch_shard(plan.mesh, x.shape[0])
+    return x.shape[0] if rows is None else rows[1] - rows[0]
+
+
+def mesh_nccl_world1(device) -> tuple[list[dict], dict[str, int]]:
+    """World 1 over NCCL on cuda:0, mesh (1, 1): VisionEngine serves
+    mnist_cnn at full width in every number format through its CUDA
+    graphs, bitwise to the engine without a mesh. The engines without a
+    mesh run first; the launch counts, returned, are the mesh engines'
+    alone (counted from 0 just before them, read just after)."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.artifact import clear_graph_cache
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import VisionEngine, VisionEngineConfig
+    mesh = build_mesh("1x1", None, "cuda")
+    out = []
+    try:
+        check(dist.get_backend() == "nccl",
+              f"world 1 resolved to {dist.get_backend()}, not nccl")
+        model = PaperCNN()
+        params = model.init(0, device="cpu")
+        rng = np.random.RandomState(3)
+        images = [rng.randn(*model.input_shape()[1:]).astype(np.float32)
+                  for _ in range(19)]
+        def serve(label, m, mode):
+            clear_graph_cache()
+            eng = VisionEngine(model, params, VisionEngineConfig(
+                batch=8, buckets="auto", policy=ExecPolicy(quant=mode),
+                device="cuda", mesh=m))
+            check(eng.graphs == "on", f"nccl world 1 {label}: graphs "
+                                      f"{eng.graphs}")
+            for img in images:
+                eng.submit(img)
+            return eng.run()
+
+        plain = {mode: serve("plain", None, mode) for mode in MODES}
+        mesh_sync(device)
+        reset_counts()                  # the mesh engines alone from here
+        placed = {mode: serve("mesh", mesh, mode) for mode in MODES}
+        mesh_sync(device)
+        launches = counts()
+        for mode in MODES:
+            for uid, r in plain[mode].items():
+                check(np.array_equal(r["logits"],
+                                     placed[mode][uid]["logits"]),
+                      f"nccl world 1 {mode}: request {uid} differs from "
+                      f"the engine without a mesh")
+            out.append({"mode": mode, "requests": len(images),
+                        "bitwise": True, "graphs": "on"})
+    finally:
+        dist.destroy_process_group()
+    return out, launches
+
+
+def mesh_split_checks(device) -> list[dict]:
+    """Why an OCP shard is not bitwise to the unsharded stage under fp32
+    on the card: at each highres_cnn conv stage (224², B = 8 and the 2 × 2
+    mesh's 4 rows) and OCP at model 2 and 4, the fused_cwp shard on its
+    first M/ocp channels, with its own tiles, is held bitwise against the
+    whole stage's launch pinned to the shard's ``split`` (the same
+    channels): the per-channel sum depends on ``split`` alone. Beside it,
+    the splits the tiler picks for the shard and the whole stage, and the
+    shard against the whole stage at its own tiles (0 where the splits
+    agree; checked)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.graph.ir import FusedConvBlockNode
+    from repro_torch.graph.passes import stage_input_spec
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.ops.tiling import fused_tiles, platform_key
+    gen = torch.Generator().manual_seed(14)
+    card = platform_key(device)
+    plan = get_arch("highres_cnn").model().compile(batch=MESH_BATCH)
+    rows = []
+    for node in plan.graph:
+        if not isinstance(node, FusedConvBlockNode):
+            continue
+        _, n, h, w = stage_input_spec(plan.graph, node).shape
+        m, _, k, _ = node.w.shape
+        for bsz in (MESH_BATCH, MESH_BATCH // 2):
+            x, wt, b, _ = conv_inputs(gen, bsz, (n, h, w, m, k), "none",
+                                      device)
+            whole = fused_cwp(x, wt, b)
+            for ko in (2, 4):
+                mo = m // ko
+                sw = fused_tiles(bsz, n, h, w, m, k, k, 1, 1,
+                                 platform=card)["split"]
+                ss = fused_tiles(bsz, n, h, w, mo, k, k, 1, 1,
+                                 platform=card)["split"]
+                shard = fused_cwp(x, wt[:mo].contiguous(), b[:mo].contiguous())
+                pinned = fused_cwp(x, wt, b, policy=ExecPolicy(
+                    tiling={"fused_conv_block.split": ss}))[:, :mo]
+                mesh_sync(device)
+                label = (f"highres_cnn %{node.id} ({n}->{m}, {h}²) B={bsz} "
+                         f"ocp{ko}")
+                check(bitwise(shard, pinned),
+                      f"{label}: the shard (split {ss}) differs from the "
+                      f"whole stage pinned to split {ss} by "
+                      f"{max_abs(shard, pinned)}")
+                err = max_abs(shard, whole[:, :mo])
+                check(ss != sw or err == 0.0,
+                      f"{label}: split {ss} at both, yet the shard differs "
+                      f"from the whole stage by {err}")
+                rows.append({"stage": label, "split_shard": ss,
+                             "split_whole": sw, "max_abs_own_tiles": err,
+                             "max_abs_pinned": 0.0})
+    return rows
+
+
+def mesh_shard_times(device) -> list[dict]:
+    """Per-shard launch shapes timed alone on the card (B = 8, fp32), each
+    beside its plain version, the library call and the bound:
+    highres_cnn's block 0 under OCP at model 4 (fused_cwp, M = 2), its
+    block 1 under BOTH icp2 x ocp2 (conv_window on the (N/2, M/2) block),
+    and mnist_cnn's conv2 under OCP at model 4 (fused_cwp, M = 5)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    gen = torch.Generator().manual_seed(13)
+    rows = []
+    for label, kern, shape in MESH_TIMED_SHAPES:
+        x, w, b, _ = conv_inputs(gen, 8, shape, "none", device)
+        pooled = kern == "fused_cwp"
+        nbytes, ops = conv_work(8, shape, pooled)
+        if pooled:
+            fns = (lambda: fused_cwp(x, w, b), lambda: fused_cwp_ref(x, w, b),
+                   lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2))
+        else:
+            nbytes -= 4 * 2 * shape[3]          # no bias on a partial
+            fns = (lambda: conv_window(x, w, None),
+                   lambda: conv2d_window_ref(x, w, None),
+                   lambda: F.conv2d(x, w))
+        rows.append(_time_row(kern, label, 8, *fns, nbytes, ops / PEAK_FP32,
+                              exact=False, model="mesh shard"))
+    return rows
+
+
+def phase_mesh(device) -> dict:
+    """Channel parallelism on one card: NCCL world 1, then gloo worlds 2
+    and 4 whose ranks share cuda:0 (meshes (1, 2), (1, 4), (2, 2)), then
+    the per-shard shapes timed alone. Returns the launches of the mesh
+    path summed over every rank (counted from 0 in each)."""
+    from repro_torch.launch.mesh import run_spmd
+    free_card()                         # the ranks share this card
+    world1, world1_launches = mesh_nccl_world1(device)
+    total = dict(world1_launches)
+    worlds = []
+    for shape, world in MESH_WORLDS.items():
+        t0 = time.perf_counter()
+        ranks = run_spmd(mesh_rank, world, "gloo", "cuda", shape,
+                         timeout=MESH_TIMEOUT_S)
+        for r in ranks:
+            check(r["launches"]["fused_cwp"] and r["launches"]["conv_window"]
+                  and r["launches"]["qmatmul"],
+                  f"mesh {shape} rank {r['rank']}: a kernel of the mesh "
+                  f"path never launched: {r['launches']}")
+            total = {k: total[k] + r["launches"][k] for k in total}
+        worlds.append({
+            "mesh": list(shape), "world": world, "backend": "gloo",
+            "seconds": time.perf_counter() - t0,
+            "cases": len(ranks[0]["rows"]), "refused": ranks[0]["refused"],
+            "placements": sorted({(r["arch"], str(r["override"]),
+                                   " ".join(r["placement"]))
+                                  for r in ranks[0]["rows"]}),
+            "max_abs": max(row["max_abs"] for r in ranks
+                           for row in r["rows"]),
+            "collectives": ranks[0]["collectives"],
+            "launches": [r["launches"] for r in ranks],
+            "shard_checks": [r["shard_checks"] for r in ranks],
+            "walls": [r["walls"] for r in ranks],
+            "weights": [r["weights"] for r in ranks],
+            "note": "every rank time-shares one card: these walls say "
+                    "nothing about scaling"})
+    splits = mesh_split_checks(device)
+    times = mesh_shard_times(device)
+    emit({"phase": "mesh", "nccl_world1": world1,
+          "world1_launches": world1_launches, "worlds": worlds,
+          "split_checks": splits, "shard_times": times})
+    return total
+
+
 def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
     """Median device time of ``reps`` calls of ``fn``, each between two
     CUDA events, all queued behind a spin kernel so the host's launch
@@ -3689,8 +4198,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
-                         "lm, moe, ssm, train, launch, times, plans); prints "
-                         "no result line")
+                         "lm, moe, ssm, train, launch, mesh, times, plans); "
+                         "prints no result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -3712,7 +4221,8 @@ def main(argv=None) -> int:
               "stream": phase_stream, "boot": phase_boot,
               "lm": phase_lm, "moe": phase_moe, "ssm": phase_ssm,
               "train": phase_train, "launch": phase_launch,
-              "times": phase_times, "plans": phase_plans}
+              "mesh": phase_mesh, "times": phase_times,
+              "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
     try:
@@ -3751,11 +4261,14 @@ def main(argv=None) -> int:
         launch = phases["launch"](device)       # counted from 0 in there
         check(launch["qmatmul"],
               f"qmatmul never launched on the launch path: {launch}")
+        mesh = phases["mesh"](device)           # counted from 0 per rank
+        check(mesh["fused_cwp"] and mesh["conv_window"] and mesh["qmatmul"],
+              f"a kernel of the mesh path never launched: {mesh}")
         emit({"phase": "launches", "main": launches, "boot": boot,
               "lm": lm, "moe": moe, "ssm": ssm, "train": train,
-              "launch": launch})
+              "launch": launch, "mesh": mesh})
         launches = {k: v + boot[k] + lm[k] + moe[k] + ssm[k] + train[k]
-                    + launch[k] for k, v in launches.items()}
+                    + launch[k] + mesh[k] for k, v in launches.items()}
         rows = phases["times"](device)
         phases["plans"](device)
     except SmokeFailure as e:

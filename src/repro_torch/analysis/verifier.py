@@ -1,7 +1,6 @@
 """The compile-time plan verifier (DESIGN.md §14).
 
-Port of ``repro.analysis.verifier`` on a single device.
-``verify_plan(plan_or_bound)`` statically re-derives and checks every
+Port of ``repro.analysis.verifier``. ``verify_plan(plan_or_bound)`` statically re-derives and checks every
 stage of a compiled ``ExecutionPlan`` (or ``BoundPlan``) **before any
 dispatch**: a malformed plan is rejected with a *named violation* (code +
 stage + fix hint), never a stack trace from the middle of a kernel
@@ -15,15 +14,16 @@ codes as the reference):
   * ``quant-*`` — the lowered graph matches the plan's baked quant mode:
     no fp weight reaches an int8 stage, QTensor scale shapes match
     out-channels, QFormat bits agree (paper C4);
+  * ``shard-*`` — ICP/OCP/2-D divisibility against the mesh (Eq. 6/7,
+    icp × ocp factorization of the model axis, gather-axis purity), data
+    axis presence, flatten-gather placement at the conv→fc boundary;
   * ``stream-*`` — band cuts never straddle a 2×2 pool window, per-band
     working set fits the budget, halo accounting matches K/stride
-    (``repro_torch.stream.tiling.check_tiling``);
+    (``repro_torch.stream.tiling.check_tiling``), banding not stamped on
+    a sharded stage;
   * ``artifact-coherence`` — every fingerprint input serializes (graph
     doc roundtrip, policies, tuned tiles, params dict keys), so the plan
     can become an artifact (DESIGN.md §12).
-
-The reference's ``shard-*`` family waits for the mesh slice (ROADMAP
-§A.10): the port's plans carry no sharding yet.
 
 Verification is read-only: it never mutates the plan, so verified and
 unverified compiles are identical. It runs in ``compile_model`` and
@@ -241,18 +241,41 @@ def _check_quant(plan, out: list[Violation]) -> None:
                             "int8 kernel", hint=_HINT_QUANT))
 
 
+def _shard_blocks(bound) -> dict[int, tuple[int, int]]:
+    """{constant quantize id: (ki, ko)} of the weight-side operands a mesh
+    ``bind`` replaced by this rank's block (every bind of a plan with
+    placed stages does)."""
+    if not bound.plan.grids:
+        return {}
+    blocks = {}
+    msize = _mesh_axes(bound.plan.mesh).get("model", 1)
+    for node in bound.plan.graph:
+        spec = getattr(node, "sharding", None)
+        if spec is None or spec.mode == "none":
+            continue
+        for q in node.inputs[1:]:
+            blocks[q] = spec.split(msize)
+    return blocks
+
+
 def _check_folded(bound, out: list[Violation]) -> None:
     """Bound-level quant invariants: the folded payloads really are what
-    the int8/qformat kernels expect (scale shapes match out-channels)."""
+    the int8/qformat kernels expect (scale shapes match out-channels). On
+    a mesh a placed stage's payload is this rank's (M/ocp, N/icp) block."""
     from repro_torch.core.quantize import QTensor
     plan = bound.plan
     graph = plan.graph
+    blocks = _shard_blocks(bound)
     for node in graph:
         if isinstance(node, QuantizeNode) and node.constant:
             val = bound.folded.get(node.id)
             if val is None:        # unfolded: executor refetches — legal
                 continue
             want = tuple(node.ref.shape) if node.ref is not None else None
+            if want and node.id in blocks:
+                ki, ko = blocks[node.id]
+                want = ((want[0] // ko,) if len(want) == 1 else
+                        (want[0] // ko, want[1] // ki, *want[2:]))
             if node.kind == "int8_conv_weight":
                 if not isinstance(val, QTensor):
                     out.append(Violation(
@@ -299,6 +322,155 @@ def _check_folded(bound, out: list[Violation]) -> None:
                             f"{tuple(val.codes.shape)} / scale "
                             f"{tuple(val.scale.shape)} inconsistent with "
                             f"weight ({k}, {n})"))
+
+
+# ---------------------------------------------------------------------------
+# sharding legality (paper Eq. 6/7; DESIGN.md §9)
+
+def _mesh_axes(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` (or of anything shaped like
+    one: ``mesh_dim_names`` and a ``mesh`` array of ranks)."""
+    if mesh is None:
+        return {}
+    return {name: int(size) for name, size in
+            zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+
+
+def _check_sharding(plan, out: list[Violation]) -> None:
+    graph = plan.graph
+    axes = _mesh_axes(plan.mesh)
+    sharded: set[int] = set()
+    for node in graph:
+        spec = getattr(node, "sharding", None)
+        if spec is None:
+            continue
+        if spec.mode == "none":
+            # a pure-data stage must not carry model-axis factors: the
+            # executor would run it replicated while the spec claims a
+            # collective
+            if spec.icp > 1 or spec.ocp > 1:
+                out.append(Violation(
+                    code="shard-pure-data-collective", node=node.id,
+                    message=f"pure data-parallel stage (mode=none) carries "
+                            f"model-axis factors icp={spec.icp} "
+                            f"ocp={spec.ocp} — no collective runs on this "
+                            f"stage",
+                    hint="clear the factors or set mode to the split "
+                         "they describe"))
+            continue
+        sharded.add(node.id)
+        if plan.mesh is None:
+            out.append(Violation(
+                code="shard-mesh", node=node.id,
+                message=f"stage placed ({spec}) but the plan has no mesh",
+                hint="compile with mesh= or strip the placement"))
+            continue
+        if "model" not in axes:
+            out.append(Violation(
+                code="shard-mesh", node=node.id,
+                message=f"mesh {axes} has no 'model' axis for the {spec} "
+                        f"schedule"))
+            continue
+        msize = axes["model"]
+        m, n = node.w.shape[0], node.w.shape[1]
+        ki, ko = spec.split(msize)
+        if (spec.icp or spec.ocp) and ki * ko != msize:
+            out.append(Violation(
+                code="shard-factorization", node=node.id,
+                message=f"{spec} factors do not cover the model axis: "
+                        f"icp={ki} x ocp={ko} = {ki * ko} != {msize} "
+                        f"devices",
+                hint="icp * ocp must equal the model-axis extent"))
+        if spec.mode == "both":
+            if n % ki != 0:
+                out.append(Violation(
+                    code="shard-divisibility", node=node.id,
+                    message=f"Eq. 7/ICP side of {spec}: N (in channels)="
+                            f"{n} does not divide the icp factor "
+                            f"({ki} groups)",
+                    hint="use divisible channel counts or let "
+                         "auto-placement pick the split"))
+            if m % ko != 0:
+                out.append(Violation(
+                    code="shard-divisibility", node=node.id,
+                    message=f"Eq. 6/OCP side of {spec}: M (out channels)="
+                            f"{m} does not divide the ocp factor "
+                            f"({ko} groups)",
+                    hint="use divisible channel counts or let "
+                         "auto-placement pick the split"))
+        else:
+            dim, name, eq = (m, "M (out channels)", "Eq. 6/OCP") \
+                if spec.mode == "output" \
+                else (n, "N (in channels)", "Eq. 7/ICP")
+            if dim % msize != 0:
+                out.append(Violation(
+                    code="shard-divisibility", node=node.id,
+                    message=f"{eq}: {name}={dim} does not divide the model "
+                            f"axis ({msize} devices)",
+                    hint="use divisible channel counts or let "
+                         "auto-placement pick the schedule"))
+        if spec.data and "data" not in axes:
+            out.append(Violation(
+                code="shard-mesh", node=node.id,
+                message=f"stage opts into data-axis sharding but mesh "
+                        f"{axes} has no 'data' axis"))
+        if getattr(node, "tiling", None) is not None:
+            out.append(Violation(
+                code="stream-sharded-stage", node=node.id,
+                message="spatial banding stamped on a channel-sharded "
+                        "stage — the executor cannot compose them",
+                hint="the placement pass skips sharded stages; re-place"))
+
+    if not sharded:
+        return
+    # flatten-gather placement: a sharded activation is gathered (at a
+    # FlattenNode) before it reaches the dense tail
+    for node in graph:
+        if not isinstance(node, DenseNode):
+            continue
+        if _reaches(graph, node, lambda nid, src: nid in sharded):
+            out.append(Violation(
+                code="shard-gather", node=node.id,
+                message="dense stage reads a channel-sharded stage with "
+                        "no flatten gather between them",
+                hint="the conv->fc boundary gathers at FlattenNode"))
+
+    # gather-axis purity: the flatten gather moves ONLY the model axis;
+    # a model-sharded stage that opted out of data sharding feeding a
+    # flatten on a mesh with a data axis would move the batch too
+    if "data" not in axes:
+        return
+    for node in graph:
+        if not isinstance(node, FlattenNode):
+            continue
+        if _reaches(graph, node, lambda nid, src: nid in sharded
+                    and not src.sharding.data):
+            out.append(Violation(
+                code="shard-gather-axis", node=node.id,
+                message="flatten gathers a model-sharded stage placed "
+                        "with data=False on a mesh with a 'data' axis — "
+                        "the gather would move the batch axis, not just "
+                        "the model axis",
+                hint="place the stage with data=True or drop the "
+                     "mesh's data axis"))
+
+
+def _reaches(graph: Graph, node: Node, hit) -> bool:
+    """True when a producer path of ``node`` that crosses no FlattenNode
+    holds a node ``hit(id, node)`` accepts."""
+    frontier, seen = list(node.inputs), set()
+    while frontier:
+        nid = frontier.pop()
+        if nid in seen:
+            continue
+        seen.add(nid)
+        src = graph.node(nid)
+        if isinstance(src, FlattenNode):
+            continue                # gather point — stop this path
+        if hit(nid, src):
+            return True
+        frontier.extend(src.inputs)
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +577,7 @@ def verify_plan(plan_or_bound, *, raise_on_violation: bool = True
                 message=f"could not re-derive {node.op} output: "
                         f"{type(e).__name__}: {e}"))
     _check_quant(plan, out)
+    _check_sharding(plan, out)
     _check_streaming(plan, out)
     _check_artifact_coherence(plan, bound, out)
     if bound is not None:

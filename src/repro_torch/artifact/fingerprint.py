@@ -9,7 +9,8 @@ fingerprint is a sha256 over a canonical JSON document covering
     ``ir_codec.graph_to_doc``),
   * the baked quantization mode + ``QFormat`` lattice,
   * the ExecPolicy essentials (compile and bind policy: backend, quant,
-    tiling overrides, autotune),
+    tiling overrides, channel_parallel, autotune),
+  * the mesh shape (``mesh_shape_doc``: axis names and sizes, no ranks),
   * the bind-time tuned tiles (``BoundPlan.tuned``),
   * the weight content (a digest over every params leaf: path, dtype,
     shape, raw bytes),
@@ -23,7 +24,7 @@ tiles, another card, an edited kernel — yields a distinct fingerprint, so
 a replica never silently serves a stale artifact. The document is
 deterministic (sorted keys, integer ids from the tracer's creation
 order, no floats), so the same model + policy fingerprints identically
-across processes. The reference's mesh shape waits for ROADMAP §A.10.
+across processes.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ from repro_torch.ops.policy import ExecPolicy
 
 __all__ = ["SCHEMA_VERSION", "REPRO_PLAN_VERSION", "flatten_params",
            "params_digest", "params_device", "device_doc", "policy_to_doc",
-           "policy_from_doc", "fingerprint_doc", "plan_fingerprint"]
+           "policy_from_doc", "mesh_shape_doc", "fingerprint_doc",
+           "plan_fingerprint"]
 
 # version of the on-disk artifact schema (manifest layout + payload
 # naming); loaders refuse other versions and the caller compiles fresh
@@ -107,6 +109,7 @@ def policy_to_doc(policy: ExecPolicy | None) -> dict | None:
         "quant": policy.quant,
         "qformat": [policy.qformat.int_bits, policy.qformat.frac_bits],
         "tiling": [[k, int(v)] for k, v in policy.tiling],
+        "channel_parallel": policy.channel_parallel,
         "autotune": bool(policy.autotune),
     }
 
@@ -118,7 +121,18 @@ def policy_from_doc(doc: dict | None) -> ExecPolicy | None:
         backend=doc["backend"], quant=doc["quant"],
         qformat=QFormat(*doc["qformat"]),
         tiling=tuple((k, int(v)) for k, v in doc["tiling"]),
+        channel_parallel=doc.get("channel_parallel"),
         autotune=bool(doc["autotune"]))
+
+
+def mesh_shape_doc(mesh) -> list | None:
+    """Mesh identity = (axis name, size) pairs in axis order. Ranks are
+    deliberately not part of it: an artifact restores onto any group of
+    processes of that shape."""
+    if mesh is None:
+        return None
+    return [[name, int(size)] for name, size in
+            zip(mesh.mesh_dim_names, mesh.mesh.shape)]
 
 
 def fingerprint_doc(plan, *, params=None, tuned=None,
@@ -136,6 +150,7 @@ def fingerprint_doc(plan, *, params=None, tuned=None,
         "qformat": [plan.qformat.int_bits, plan.qformat.frac_bits],
         "compile_policy": policy_to_doc(plan.compile_policy),
         "bind_policy": policy_to_doc(bind_policy),
+        "mesh": mesh_shape_doc(plan.mesh),
         "tuned": {str(int(k)): {kk: int(vv) for kk, vv in sorted(v.items())}
                   for k, v in sorted((tuned or {}).items())},
         "params_digest": None if params is None else params_digest(params),

@@ -1,8 +1,8 @@
 """Graph IR ↔ JSON codec for plan artifacts (DESIGN.md §12).
 
-Port of ``repro.artifact.ir_codec`` on a single device. The artifact
-store persists a *compiled* graph — fusion, quantization lowering and
-the streaming tilings already applied — so a replica reconstructs its
+Port of ``repro.artifact.ir_codec``. The artifact store persists a
+*compiled* graph — fusion, quantization lowering, the channel-parallel
+placement and the streaming tilings already applied — so a replica reconstructs its
 ``ExecutionPlan`` by decoding nodes, never by re-running trace or the
 pass pipeline. The encoding is canonical (sorted keys, no float
 formatting, ids kept verbatim), so the same document doubles as the
@@ -11,15 +11,16 @@ equal (``Graph`` is a frozen dataclass, so equality is structural).
 
 Every node type carries exactly its dataclass fields; an unknown ``op``
 on decode raises ``ValueError``, which the store maps to the
-schema-mismatch arm of the fallback ladder. The reference's
-``sharding`` field waits for the mesh slice (ROADMAP §A.10).
+schema-mismatch arm of the fallback ladder. A conv stage's
+``ShardingSpec`` encodes as its four fields, so a port document equals
+the reference's node for node.
 """
 from __future__ import annotations
 
 from repro_torch.graph.ir import (Conv2DNode, DenseNode, FlattenNode,
                                   FusedConvBlockNode, Graph, InputNode,
                                   MaxPool2Node, ParamRef, QuantizeNode,
-                                  ReluNode, TensorSpec)
+                                  ReluNode, ShardingSpec, TensorSpec)
 from repro_torch.stream.tiling import tiling_from_doc, tiling_to_doc
 
 __all__ = ["graph_to_doc", "graph_from_doc"]
@@ -58,6 +59,22 @@ def _ref_from(doc: dict | None) -> ParamRef | None:
                     dtype=doc["dtype"])
 
 
+def _shard_doc(spec: ShardingSpec | None) -> dict | None:
+    if spec is None:
+        return None
+    return {"mode": spec.mode, "data": bool(spec.data),
+            "icp": int(spec.icp), "ocp": int(spec.ocp)}
+
+
+def _shard_from(doc: dict | None) -> ShardingSpec | None:
+    if doc is None:
+        return None
+    # icp/ocp absent: 0 = derive the split from mode
+    return ShardingSpec(mode=doc["mode"], data=bool(doc["data"]),
+                        icp=int(doc.get("icp", 0)),
+                        ocp=int(doc.get("ocp", 0)))
+
+
 def _node_doc(node) -> dict:
     doc = {"op": node.op, "id": int(node.id),
            "inputs": [int(i) for i in node.inputs],
@@ -65,6 +82,7 @@ def _node_doc(node) -> dict:
     if isinstance(node, (Conv2DNode, FusedConvBlockNode)):
         doc.update(w=_ref_doc(node.w), b=_ref_doc(node.b),
                    stride=list(node.stride),
+                   sharding=_shard_doc(node.sharding),
                    tiling=tiling_to_doc(node.tiling))
         if isinstance(node, FusedConvBlockNode):
             doc["odd"] = node.odd
@@ -89,6 +107,7 @@ def _node_from(doc: dict):
     if cls in (Conv2DNode, FusedConvBlockNode):
         kw.update(w=_ref_from(doc["w"]), b=_ref_from(doc["b"]),
                   stride=tuple(doc["stride"]),
+                  sharding=_shard_from(doc.get("sharding")),
                   tiling=tiling_from_doc(doc.get("tiling")))
         if cls is FusedConvBlockNode:
             kw["odd"] = doc["odd"]

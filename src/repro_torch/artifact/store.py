@@ -7,7 +7,8 @@ replica boots by **reading**, not deriving.
 On-disk artifact (a directory, written atomically via tmp + rename):
 
     manifest.json   schema version, content fingerprint, graph IR doc,
-                    quant/QFormat, ExecPolicy docs, baked tuned tiles,
+                    quant/QFormat, ExecPolicy docs, mesh shape, baked
+                    tuned tiles,
                     tuning-cache rows for the plan's stages, params
                     digest, the build it was made by (torch and CUDA
                     versions, device, kernel-source digest)
@@ -16,7 +17,11 @@ On-disk artifact (a directory, written atomically via tmp + rename):
 
 ``load_plan`` reconstructs a ``BoundPlan`` on the caller's device without
 re-tracing, re-running passes or re-tuning, and runs ``verify_plan`` over
-it. The reference also ships AOT-compiled executables; a CUDA graph
+it. A mesh plan's payloads hold the whole weights (the fold is redone
+from the params at save, since a rank keeps only its blocks); each rank
+that loads it keeps its own blocks again (``_place_weights``), on the
+caller's mesh or on one rebuilt from the recorded shape. On a mesh only
+global rank 0 writes, and every rank waits for it. The reference also ships AOT-compiled executables; a CUDA graph
 cannot be serialized, so the port captures one per bucket in-process at
 boot instead (``repro_torch.artifact.aot``), from the restored plan.
 
@@ -45,7 +50,8 @@ import torch
 
 from repro_torch.artifact import warmup
 from repro_torch.artifact.fingerprint import (SCHEMA_VERSION, device_doc,
-                                              flatten_params, params_digest,
+                                              flatten_params, mesh_shape_doc,
+                                              params_digest,
                                               plan_fingerprint,
                                               policy_from_doc, policy_to_doc)
 from repro_torch.artifact.ir_codec import graph_from_doc, graph_to_doc
@@ -155,7 +161,11 @@ def save_plan(bound, path) -> str:
     plan = bound.plan
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    arrays, folded_kinds = _payload_arrays(bound.params, bound.folded)
+    # a mesh rank holds only its blocks of the placed stages: persist the
+    # whole fold
+    folded = (bound.folded if plan.mesh is None
+              else plan._fold_constants(bound.params))
+    arrays, folded_kinds = _payload_arrays(bound.params, folded)
     fp = plan_fingerprint(plan, params=bound.params, tuned=bound.tuned,
                           bind_policy=bound.policy)
     manifest = {
@@ -169,6 +179,7 @@ def save_plan(bound, path) -> str:
         "qformat": [plan.qformat.int_bits, plan.qformat.frac_bits],
         "compile_policy": policy_to_doc(plan.compile_policy),
         "bind_policy": policy_to_doc(bound.policy),
+        "mesh": mesh_shape_doc(plan.mesh),
         "graph": graph_to_doc(plan.graph),
         "tuned": {str(int(k)): {kk: int(vv) for kk, vv in v.items()}
                   for k, v in bound.tuned.items()},
@@ -176,6 +187,20 @@ def save_plan(bound, path) -> str:
         "params_digest": params_digest(bound.params),
         "folded": folded_kinds,
     }
+    if plan.mesh is None:
+        _write(path, arrays, manifest)
+        return fp
+    import torch.distributed as dist
+    try:
+        if dist.get_rank() == 0:            # one writer; every rank waits
+            _write(path, arrays, manifest)
+    finally:
+        dist.barrier()
+    return fp
+
+
+def _write(path: pathlib.Path, arrays: dict, manifest: dict) -> None:
+    """Write the artifact directory atomically (tmp + rename)."""
     tmp = pathlib.Path(tempfile.mkdtemp(dir=path.parent, prefix=".tmp_"))
     try:
         with open(tmp / PAYLOADS, "wb") as f:
@@ -188,7 +213,34 @@ def save_plan(bound, path) -> str:
     finally:
         if tmp.exists():
             shutil.rmtree(tmp, ignore_errors=True)
-    return fp
+
+
+def _mesh_for(doc, mesh, device):
+    """The mesh a loaded plan runs on: None for a one-device plan; else
+    the caller's mesh, which must have the recorded shape, or one built
+    over the running world's first ranks."""
+    if doc is None:
+        if mesh is not None:
+            raise ArtifactError("artifact holds a one-device plan but a "
+                                "mesh was given")
+        return None
+    if mesh is not None:
+        if mesh_shape_doc(mesh) != doc:
+            raise ArtifactError(f"artifact was compiled for mesh "
+                                f"{dict(doc)}, the caller's mesh is "
+                                f"{dict(mesh_shape_doc(mesh))}")
+        return mesh
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    need = int(np.prod([size for _, size in doc]))
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < need:
+        raise ArtifactError(f"plan was compiled for mesh {dict(doc)} "
+                            f"({need} ranks) but this process group has "
+                            f"{have}")
+    return make_test_mesh(tuple(size for _, size in doc),
+                          tuple(name for name, _ in doc), device)
 
 
 # ---------------------------------------------------------------------------
@@ -206,14 +258,17 @@ class PlanArtifact:
 
 
 def load_plan(path, *, params=None,
-              device: str | torch.device = DEFAULT_DEVICE) -> PlanArtifact:
+              device: str | torch.device = DEFAULT_DEVICE,
+              mesh=None) -> PlanArtifact:
     """Reconstruct a ``BoundPlan`` on ``device`` from an artifact
     directory — no tracing, no passes, no tuning — and verify it.
 
     ``params``: when given (a serving replica holding its own weights),
     their digest must match the artifact's; a mismatch raises
     ``ArtifactStaleError``. The bound plan uses the artifact's own
-    (identical) payload weights.
+    (identical) payload weights. ``mesh``: the ``DeviceMesh`` a mesh
+    plan runs on (every rank loads together); None rebuilds one of the
+    recorded shape.
 
     Raises ``ArtifactError`` on any corruption, schema, build or device
     mismatch, or failed verification; ``PlanStore.load`` wraps this with
@@ -247,7 +302,8 @@ def load_plan(path, *, params=None,
                 graph=graph_from_doc(manifest["graph"]),
                 quant=manifest["quant"],
                 qformat=QFormat(*manifest["qformat"]),
-                compile_policy=policy_from_doc(manifest["compile_policy"]))
+                compile_policy=policy_from_doc(manifest["compile_policy"]),
+                mesh=_mesh_for(manifest.get("mesh"), mesh, dev))
             bind_policy = policy_from_doc(manifest["bind_policy"])
             tuned = {int(k): {kk: int(vv) for kk, vv in v.items()}
                      for k, v in manifest.get("tuned", {}).items()}
@@ -284,8 +340,9 @@ def load_plan(path, *, params=None,
         TUNING_CACHE.merge_rows(manifest.get("tuning_cache", ()),
                                 keep_existing=True,
                                 source=f"plan artifact {path}")
+        placed = plan._place_weights(loaded_params, folded)
         bound = BoundPlan(plan=plan, params=loaded_params, folded=folded,
-                          policy=bind_policy, tuned=tuned)
+                          policy=bind_policy, placed=placed, tuned=tuned)
         # a manifest can pass the fingerprint check and still describe an
         # illegal plan (its producer recomputed the fingerprint): re-derive
         # every invariant before serving it
@@ -328,10 +385,11 @@ class PlanStore:
         return save_plan(bound, self.path(name))
 
     def load(self, name: str, *, params=None,
-             device: str | torch.device = DEFAULT_DEVICE
+             device: str | torch.device = DEFAULT_DEVICE, mesh=None
              ) -> PlanArtifact | None:
         try:
-            return load_plan(self.path(name), params=params, device=device)
+            return load_plan(self.path(name), params=params, device=device,
+                             mesh=mesh)
         except ArtifactError as e:
             warnings.warn(
                 f"plan store: artifact {name!r} unusable, falling back "

@@ -11,7 +11,7 @@ again from the template's dtype on load; a step directory
 to a temporary file or directory that ``os.replace`` moves into place
 last, so a run killed mid-write never corrupts the latest checkpoint.
 Restoring onto another mesh (the reference's elastic restore) waits for
-ROADMAP §A.10; ``device`` names the one device a tree lands on.
+the LM half of ROADMAP §A.10; ``device`` names the one device a tree lands on.
 """
 from __future__ import annotations
 

@@ -138,7 +138,7 @@ class ArchSpec:
     def cache_specs(self, shape_id: str):
         """(the serve cache of a prefill or decode cell as meta tensors,
         its logical axes). The axes are None until the models'
-        ``cache_axes()`` are ported with the mesh (ROADMAP §A.10)."""
+        ``cache_axes()`` are ported (the LM half of ROADMAP §A.10)."""
         kind, seq, batch = SHAPES[shape_id]
         m = self.model()
         if self.frames:

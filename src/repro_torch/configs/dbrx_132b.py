@@ -5,7 +5,7 @@ vocab=100352, MoE 16 experts top-4, fine-grained.
 Port of ``repro.configs.dbrx_132b``. About 132 B parameters (264 GB in
 bf16): one card serves it at full width and reduced depth
 (``dataclasses.replace(CONFIG, n_layers=L)``); full depth needs its
-experts sharded over a mesh (ROADMAP §A.10).
+experts sharded over a mesh (the LM half of ROADMAP §A.10).
 """
 import torch
 

@@ -4,7 +4,7 @@ vocab=202048, MoE 16 experts top-1 + 1 shared expert, early fusion.
 
 Port of ``repro.configs.llama4_scout_17b_a16e``. About 109 B parameters:
 one card serves it at full width and reduced depth; full depth needs
-its experts sharded over a mesh (ROADMAP §A.10), which is also where the
+its experts sharded over a mesh (the LM half of ROADMAP §A.10), which is also where the
 reference's sequence-parallel rule override comes back.
 """
 import torch

@@ -79,10 +79,13 @@ class QTensor(NamedTuple):
     scale: torch.Tensor   # fp32, broadcastable against codes
 
 
-def quantize_int8(x: torch.Tensor, axis: int | None = -1) -> QTensor:
+def quantize_int8(x: torch.Tensor, axis: int | None = -1,
+                  amax: torch.Tensor | None = None) -> QTensor:
     """Symmetric int8 quantization, one scale per slice along the dims
     other than ``axis`` (``axis`` is reduced away, kept as size 1);
-    ``axis=None`` is per-tensor with a 0-d scale.
+    ``axis=None`` is per-tensor with a 0-d scale. ``amax`` replaces the
+    absmax where the tensor's parts lie on several ranks (the mesh
+    executor passes the max over all of them).
 
     scale = max(absmax, 1e-8) / 127; codes = clip(round(x / scale), ±127).
     The reference's compiler folds the division by the constant 127 into
@@ -91,10 +94,9 @@ def quantize_int8(x: torch.Tensor, axis: int | None = -1) -> QTensor:
     parity is bitwise.
     """
     xf = x.to(torch.float32)
-    if axis is None:
-        amax = xf.abs().amax()
-    else:
-        amax = xf.abs().amax(dim=axis, keepdim=True)
+    if amax is None:
+        amax = (xf.abs().amax() if axis is None
+                else xf.abs().amax(dim=axis, keepdim=True))
     scale = torch.clamp(amax, min=1e-8) * _INV127
     codes = torch.clamp(torch.round(xf / scale), -127, 127)
     return QTensor(codes.to(torch.int8), scale)

@@ -118,10 +118,10 @@ def shard_batch(batch: dict, mesh=None, *,
                 device: str | torch.device = DEFAULT_DEVICE) -> dict:
     """Put a host batch on ``device`` (the card unless the caller names
     the CPU). Placing it over a mesh, the batch dim split over its data
-    axes, waits for channel parallelism (ROADMAP §A.10)."""
+    axes, waits for the LM half of ROADMAP §A.10."""
     if mesh is not None:
         raise NotImplementedError(
-            "shard_batch over a mesh: the mesh is not ported yet "
-            "(ROADMAP §A.10)")
+            "shard_batch over a mesh is not ported yet (ROADMAP "
+            "§A.10, the LM half)")
     dev = resolve_device(device)
     return {k: v.to(dev) for k, v in batch.items()}

@@ -4,8 +4,8 @@ Port of ``repro.graph.ir`` on a single device: the same frozen node
 dataclasses, ids, ``TensorSpec``s and ``ParamRef`` paths, and the conv
 stages' streaming ``tiling`` (``repro_torch.stream``, DESIGN.md §13), so
 a port plan prints (``Graph.pretty``) exactly like the reference plan it
-mirrors. The reference's ``ShardingSpec`` waits for the mesh slice
-(ROADMAP §A.10).
+mirrors, and the conv stages' ``ShardingSpec`` placement on a
+(data × model) mesh (DESIGN.md §9/§15).
 """
 from __future__ import annotations
 
@@ -15,8 +15,8 @@ from typing import TYPE_CHECKING, Iterator
 if TYPE_CHECKING:
     from repro_torch.stream.tiling import SpatialTiling
 
-__all__ = ["TensorSpec", "ParamRef", "Node", "InputNode", "Conv2DNode",
-           "ReluNode", "MaxPool2Node", "FlattenNode", "DenseNode",
+__all__ = ["TensorSpec", "ParamRef", "ShardingSpec", "Node", "InputNode",
+           "Conv2DNode", "ReluNode", "MaxPool2Node", "FlattenNode", "DenseNode",
            "QuantizeNode", "FusedConvBlockNode", "Graph"]
 
 
@@ -47,6 +47,58 @@ class ParamRef:
 
     def __str__(self) -> str:
         return "/".join(self.path)
+
+
+@dataclass(frozen=True)
+class ShardingSpec:
+    """Placement of one conv stage on a 2-D (data × model) mesh.
+
+    ``mode`` is the paper's §III.A channel-parallelism choice, in
+    ``ChannelParallelism`` value spelling: ``"output"`` (Eq. 6 / OCP: M
+    sharded over ``model``, no collective), ``"input"`` (Eq. 7 / ICP: N
+    sharded, one ring reduce), ``"both"`` (the ``model`` axis factored
+    into an ``icp × ocp`` sub-grid, each rank owning an (M/ocp, N/icp)
+    weight block; the reduce runs over the icp groups only) or
+    ``"none"`` (replicated compute, data parallelism only).
+
+    ``icp``/``ocp`` are the model-axis factors (``0`` = derive from
+    ``mode``: ``input`` is the whole axis ICP, ``output`` the whole axis
+    OCP); ``split()`` resolves either form against a mesh. ``data`` opts
+    the stage's batch into sharding over the ``data`` axis. ``None`` on
+    a node means the graph was never placed.
+    """
+
+    mode: str = "none"
+    data: bool = True
+    icp: int = 0
+    ocp: int = 0
+
+    def __post_init__(self):
+        if self.mode not in ("none", "input", "output", "both"):
+            raise ValueError(f"unknown sharding mode {self.mode!r}; "
+                             "expected none|input|output|both")
+        if self.icp < 0 or self.ocp < 0:
+            raise ValueError(f"negative sharding factors "
+                             f"icp={self.icp} ocp={self.ocp}")
+
+    def split(self, model_size: int) -> tuple[int, int]:
+        """Resolve the (icp, ocp) group sizes against a mesh's model-axis
+        extent. Explicit factors win; specs without factors derive the
+        whole axis from ``mode``."""
+        if self.icp or self.ocp:
+            return (max(self.icp, 1), max(self.ocp, 1))
+        if self.mode == "input":
+            return (model_size, 1)
+        if self.mode == "output":
+            return (1, model_size)
+        return (1, 1)
+
+    def __str__(self) -> str:
+        if self.mode == "none":
+            return "none"
+        if self.mode == "both":
+            return f"icp{self.icp}xocp{self.ocp}"
+        return {"input": "icp", "output": "ocp"}[self.mode]
 
 
 @dataclass(frozen=True)
@@ -86,15 +138,17 @@ class Conv2DNode(Node):
     w: ParamRef = None
     b: ParamRef | None = None
     stride: tuple[int, int] = (1, 1)
+    sharding: ShardingSpec | None = None
     # streaming row-band spec (repro_torch.stream, DESIGN.md §13); None =
     # untiled
     tiling: "SpatialTiling | None" = None
 
     def describe(self) -> str:
+        shard = "" if self.sharding is None else f" shard={self.sharding}"
         tile = "" if self.tiling is None else f" tile={self.tiling}"
         return (f"w={self.w} k={self.w.shape[2]}x{self.w.shape[3]} "
                 f"s={self.stride[0]}x{self.stride[1]}"
-                + ("" if self.b is None else f" b={self.b}") + tile)
+                + ("" if self.b is None else f" b={self.b}") + shard + tile)
 
 
 @dataclass(frozen=True)
@@ -163,14 +217,16 @@ class FusedConvBlockNode(Node):
     b: ParamRef | None = None
     stride: tuple[int, int] = (1, 1)
     odd: str = "raise"
+    sharding: ShardingSpec | None = None
     # streaming row-band spec in POOLED rows (DESIGN.md §13); None = untiled
     tiling: "SpatialTiling | None" = None
 
     def describe(self) -> str:
+        shard = "" if self.sharding is None else f" shard={self.sharding}"
         tile = "" if self.tiling is None else f" tile={self.tiling}"
         return (f"w={self.w} k={self.w.shape[2]}x{self.w.shape[3]} "
                 f"s={self.stride[0]}x{self.stride[1]} odd={self.odd}"
-                + tile)
+                + shard + tile)
 
 
 @dataclass(frozen=True)

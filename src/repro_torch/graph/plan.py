@@ -31,8 +31,19 @@ As in the reference:
   * ``BoundPlan.save`` / ``.load`` persist a bound plan as a versioned
     artifact (``repro_torch.artifact``, DESIGN.md §12).
 
-Mesh placement is a later slice (ROADMAP §A.10) and raises
-``NotImplementedError``.
+Compiling with ``mesh=`` (a ``DeviceMesh`` with a ``model`` axis and
+optionally a ``data`` axis, ``repro_torch.launch.mesh``) makes the plan
+**sharded** (DESIGN.md §9/§15): the placement pass stamps a
+``ShardingSpec`` on every conv stage, and every rank runs the plan
+(SPMD). The rank takes its data-axis slice of the batch on entry
+(``_scatter``), runs each placed stage's shard through the per-shard
+schedules of ``repro_torch.core.parallelism`` (the conv kernels at the
+shard's shapes, the icp ring between them), keeps channel-sharded
+activations sharded until a stage needs other channels, all-gathers the
+model axis at the conv→fc boundary (``_gather``) and the data axis at
+the end, so the call returns the whole batch's output on every rank.
+``bind`` keeps on each rank only its (M/ocp, N/icp) block of every
+placed stage's weight, bias and requant scale.
 """
 from __future__ import annotations
 
@@ -47,7 +58,9 @@ from repro_torch.core.window import maxpool2
 from repro_torch.graph.ir import (Conv2DNode, DenseNode, FlattenNode,
                                   FusedConvBlockNode, Graph, InputNode,
                                   MaxPool2Node, QuantizeNode, ReluNode)
-from repro_torch.graph.passes import default_passes, stage_input_spec
+from repro_torch.graph.passes import (default_passes,
+                                      place_channel_parallel,
+                                      stage_input_spec, tunable_stages)
 from repro_torch.graph.trace import trace
 from repro_torch.ops.policy import ExecPolicy, current_policy
 
@@ -78,8 +91,29 @@ class ExecutionPlan:
     quant: str = "none"
     qformat: QFormat = field(default_factory=QFormat)
     compile_policy: ExecPolicy | None = None
+    mesh: object | None = None
     # measured launch shapes at bind time (DESIGN.md §10)
     autotune: bool = False
+    # {node id: StageGrid} of the placed stages, built with the plan on
+    # every rank in graph order (building one may create process groups)
+    grids: dict = field(default=None, init=False, compare=False,
+                        repr=False)
+
+    def __post_init__(self):
+        from torch.distributed.device_mesh import DeviceMesh
+        grids = {}
+        # a mesh that is only a shape (the verifier's tests) places nothing
+        if isinstance(self.mesh, DeviceMesh):
+            from repro_torch.core.parallelism import (ChannelParallelism,
+                                                      axis_size, stage_grid)
+            msize = axis_size(self.mesh, "model")
+            for node in self.graph:
+                spec = getattr(node, "sharding", None)
+                if spec is not None and spec.mode != "none":
+                    ki, ko = spec.split(msize)
+                    grids[node.id] = stage_grid(
+                        self.mesh, ChannelParallelism(spec.mode), ki, ko)
+        object.__setattr__(self, "grids", grids)
 
     def _base_policy(self, policy: ExecPolicy | None) -> ExecPolicy:
         pol = policy
@@ -106,24 +140,43 @@ class ExecutionPlan:
         return base.with_options(tiling={**base.tile_overrides, **tiles})
 
     def __call__(self, params, x, *, policy: ExecPolicy | None = None,
-                 _folded: dict | None = None, _tuned: dict | None = None):
+                 _folded: dict | None = None, _placed: dict | None = None,
+                 _tuned: dict | None = None):
         from repro_torch.ops import conv2d, dense, fused_conv_block, qdense
         from repro_torch.stream.executor import (stream_conv2d,
                                                  stream_fused_conv_block)
         base = self._base_policy(policy)
         dense_pol = base.with_options(quant=self.quant, qformat=self.qformat)
         env: dict[int, object] = {}
+        # {node id: (ko, ki)} of activations held channel-sharded over the
+        # model axis (see core.parallelism.gather_channels); absent = whole
+        layout: dict[int, tuple[int, int]] = {}
         folded = _folded or {}
+        # a bound plan's placed stages hold this rank's blocks already
+        blocked = _placed is not None
+        placed = _placed or {}
         tuned = _tuned or {}
 
         def _weight(node, idx, attr):
-            """Weight operand: through the lowered graph's quantize node
-            (possibly pre-folded), else read from the ParamRef."""
+            """Weight operand: this rank's block, pre-placed by a mesh
+            ``bind``; else through the lowered graph's quantize node
+            (possibly pre-folded); else read from the ParamRef."""
+            if (node.id, attr) in placed:
+                return placed[(node.id, attr)]
             if len(node.inputs) > idx:
                 return env[node.inputs[idx]]
             ref = getattr(node, attr)
             return None if ref is None else ref.fetch(params)
 
+        def _whole(nid):
+            """%nid with every channel (gathered over the model axis)."""
+            v = env[nid]
+            if nid not in layout:
+                return v
+            return self._gather_channels(v, layout[nid])
+
+        batch = x.shape[0]
+        x, batch_rows = self._scatter(x)
         for node in self.graph:
             if isinstance(node, InputNode):
                 env[node.id] = x
@@ -131,11 +184,30 @@ class ExecutionPlan:
                 if node.id in folded:
                     env[node.id] = folded[node.id]
                     continue
-                val = (node.ref.fetch(params) if node.constant
-                       else env[node.inputs[0]])
-                env[node.id] = _apply_quantize(node, val, self.qformat)
+                if node.constant:
+                    val = node.ref.fetch(params)
+                else:
+                    val = env[node.inputs[0]]
+                    if node.inputs[0] in layout:
+                        layout[node.id] = layout[node.inputs[0]]
+                if (node.kind == "int8_act" and self.mesh is not None
+                        and (node.id in layout or batch_rows is not None)):
+                    # one scale over the whole batch and every channel,
+                    # as the unsharded plan computes it
+                    from repro_torch.core.parallelism import all_reduce_max
+                    amax = all_reduce_max(
+                        val.to(torch.float32).abs().amax(), self.mesh)
+                    env[node.id] = quantize_int8(val, axis=None, amax=amax)
+                else:
+                    env[node.id] = _apply_quantize(node, val, self.qformat)
+            elif node.id in self.grids:
+                env[node.id] = self._sharded_stage(
+                    node, env, layout, _weight, blocked, base, batch=batch)
+                out_layout = self.grids[node.id].out_layout
+                if out_layout is not None:
+                    layout[node.id] = out_layout
             elif isinstance(node, FusedConvBlockNode):
-                args = (env[node.inputs[0]], _weight(node, 1, "w"),
+                args = (_whole(node.inputs[0]), _weight(node, 1, "w"),
                         _weight(node, 2, "b"))
                 pol = self._stage_policy(base, tuned.get(node.id))
                 if node.tiling is not None:
@@ -148,7 +220,7 @@ class ExecutionPlan:
                         *args, stride=node.stride, odd=node.odd,
                         policy=pol)
             elif isinstance(node, Conv2DNode):
-                args = (env[node.inputs[0]], _weight(node, 1, "w"),
+                args = (_whole(node.inputs[0]), _weight(node, 1, "w"),
                         _weight(node, 2, "b"))
                 pol = self._stage_policy(base, tuned.get(node.id))
                 if node.tiling is not None:
@@ -158,12 +230,14 @@ class ExecutionPlan:
                 else:
                     env[node.id] = conv2d(*args, stride=node.stride,
                                           policy=pol)
-            elif isinstance(node, ReluNode):
-                env[node.id] = torch.relu(env[node.inputs[0]])
-            elif isinstance(node, MaxPool2Node):
-                env[node.id] = maxpool2(env[node.inputs[0]], odd=node.odd)
-            elif isinstance(node, FlattenNode):
+            elif isinstance(node, (ReluNode, MaxPool2Node)):
                 v = env[node.inputs[0]]
+                env[node.id] = (torch.relu(v) if isinstance(node, ReluNode)
+                                else maxpool2(v, odd=node.odd))
+                if node.inputs[0] in layout:
+                    layout[node.id] = layout[node.inputs[0]]
+            elif isinstance(node, FlattenNode):
+                v = _whole(node.inputs[0])        # the conv→fc gather
                 env[node.id] = v.reshape(v.shape[0], -1)
             elif isinstance(node, DenseNode):
                 wq = folded.get(node.id)
@@ -181,7 +255,85 @@ class ExecutionPlan:
                         _weight(node, 2, "b"), policy=dense_pol)
             else:
                 raise TypeError(f"no executor for node {node.pretty()}")
-        return env[self.graph.output_id]
+        out = _whole(self.graph.output_id)
+        if batch_rows is not None:
+            from repro_torch.core.parallelism import gather_batch
+            out = gather_batch(out, self.mesh)
+        return out
+
+    # ---------- the mesh ----------
+    def _scatter(self, x):
+        """This rank's data-axis slice of the batch, with its (start,
+        stop) rows, or the whole batch and None: off a mesh, without a
+        data axis, or when the batch does not divide it (it then stays
+        replicated, as in the reference). The rule is
+        ``core.parallelism.batch_shard``'s alone; the engine's bucket
+        ladder keeps the buckets it slices."""
+        if self.mesh is None:
+            return x, None
+        from repro_torch.core.parallelism import batch_shard
+        rows = batch_shard(self.mesh, x.shape[0])
+        return (x, None) if rows is None else (x[rows[0]:rows[1]], rows)
+
+    def _gather_channels(self, v, layout):
+        """All-gather a channel-sharded value over the model axis only
+        (the batch keeps its data-axis slice): a tensor, or an int8
+        activation's codes (its per-tensor scale is already global)."""
+        from repro_torch.core.parallelism import gather_channels
+        if isinstance(v, QTensor):
+            return QTensor(gather_channels(v.codes, self.mesh, layout),
+                           v.scale)
+        return gather_channels(v, self.mesh, layout)
+
+    def _stage_input(self, nid, env, layout, grid, n: int):
+        """The input channels a placed stage reads on this rank: block
+        ``i`` of ``ki`` of the N channels (all of them under OCP), sliced
+        from what the rank holds when every rank's shard holds its block,
+        else from the all-gathered value. The choice depends on the
+        layouts alone, so every rank of the group makes it alike (a
+        gather one rank skips would hang the others)."""
+        v = env[nid]
+        lo, hi = _needed(grid, grid.o * grid.ki + grid.i, n)
+        if nid in layout:
+            held = layout[nid]
+            size = grid.ki * grid.ko
+            if all(_held(held, r, n)[0] <= _needed(grid, r, n)[0]
+                   and _needed(grid, r, n)[1] <= _held(held, r, n)[1]
+                   for r in range(size)):
+                a = _held(held, grid.o * grid.ki + grid.i, n)[0]
+                return _channel_slice(v, lo - a, hi - a)
+            v = self._gather_channels(v, held)
+        return _channel_slice(v, lo, hi)
+
+    def _sharded_stage(self, node, env, layout, weight, blocked, base, *,
+                       batch: int):
+        """One placed conv stage on this rank: its input channels, its
+        weight block (placed by ``bind`` when ``blocked``, else sliced
+        now), then the per-shard schedule of ``core.parallelism``.
+        ``batch`` is the whole batch's size, which a data-sharded stage
+        must split."""
+        from repro_torch.core.parallelism import (axis_size, conv2d_shard,
+                                                  fused_conv_block_shard)
+        from repro_torch.ops.impls import split_requant
+        spec, grid = node.sharding, self.grids[node.id]
+        dsize = axis_size(self.mesh, "data")
+        if spec.data and batch % dsize:
+            raise ValueError(
+                f"batch {batch} does not divide the 'data' axis ({dsize} "
+                f"devices); pad the batch or pass data_axis=None to "
+                f"replicate it")
+        xin = self._stage_input(node.inputs[0], env, layout, grid,
+                                node.w.shape[1])
+        wv, bv = weight(node, 1, "w"), weight(node, 2, "b")
+        if not blocked:
+            wv, bv = _w_block(wv, grid), grid.v_block(bv)
+        x_arr, w_arr, scale = split_requant(xin, wv)
+        if isinstance(node, FusedConvBlockNode):
+            return fused_conv_block_shard(x_arr, w_arr, bv, scale, grid=grid,
+                                          stride=node.stride, odd=node.odd,
+                                          policy=base)
+        return conv2d_shard(x_arr, w_arr, bv, scale, grid=grid,
+                            stride=node.stride, policy=base)
 
     def _fold_constants(self, params) -> dict:
         """Every constant QuantizeNode, plus each dense layer's QTensor
@@ -207,10 +359,7 @@ class ExecutionPlan:
         from repro_torch.ops.impls import split_requant
         dev = _params_device(params)
         rng = np.random.RandomState(0)
-        for node in self.graph:
-            if not isinstance(node, (Conv2DNode, FusedConvBlockNode,
-                                     DenseNode)):
-                continue
+        for node in tunable_stages(self.graph):
             spec = stage_input_spec(self.graph, node)
             x = torch.from_numpy(rng.standard_normal(spec.shape).astype(
                 np.float32)).to(dev)
@@ -298,12 +447,37 @@ class ExecutionPlan:
         if self.autotune:
             with phase("tune"):
                 tuned = self._autotune_stages(params, folded, policy=policy)
+        placed = self._place_weights(params, folded)
         bound = BoundPlan(plan=self, params=params, folded=folded,
-                          policy=policy, tuned=tuned)
+                          policy=policy, placed=placed, tuned=tuned)
         if verify:
             from repro_torch.analysis.verifier import verify_plan
             verify_plan(bound)
         return bound
+
+    def _place_weights(self, params, folded: dict) -> dict:
+        """The mesh half of ``bind``: keep on this rank only its block of
+        every placed stage's weight-side operands: OCP the M/S rows (and
+        their bias and int8 scale), ICP the N/S columns (the bias whole),
+        a composed split the (M/ocp, N/icp) block. A lowered (folded)
+        operand's block replaces it in ``folded``, so the whole fold is
+        not kept; an operand read from params has its block returned,
+        keyed by (node id, attr). Each block lives in one of the two. The
+        artifact loader runs this on restored payloads without re-running
+        the placement."""
+        placed: dict = {}
+        for nid, grid in self.grids.items():
+            node = self.graph.node(nid)
+            if len(node.inputs) > 1:            # quantize-lowered weight
+                folded[node.inputs[1]] = _w_block(folded[node.inputs[1]],
+                                                  grid)
+            else:
+                placed[(nid, "w")] = _w_block(node.w.fetch(params), grid)
+            if len(node.inputs) > 2:            # qformat-lowered bias
+                folded[node.inputs[2]] = grid.v_block(folded[node.inputs[2]])
+            elif node.b is not None:
+                placed[(nid, "b")] = grid.v_block(node.b.fetch(params))
+        return placed
 
     def save(self, params, path, *, policy: ExecPolicy | None = None
              ) -> str:
@@ -318,10 +492,51 @@ class ExecutionPlan:
     def num_fused(self) -> int:
         return sum(isinstance(n, FusedConvBlockNode) for n in self.graph)
 
+    def num_sharded(self) -> int:
+        return sum(getattr(n, "sharding", None) is not None
+                   and n.sharding.mode != "none" for n in self.graph)
+
     def pretty(self) -> str:
+        mesh = ""
+        if self.mesh is not None:
+            from repro_torch.artifact.fingerprint import mesh_shape_doc
+            mesh = f", mesh={dict(mesh_shape_doc(self.mesh))}"
         head = (f"ExecutionPlan(quant={self.quant}, "
-                f"{len(self.graph)} nodes, {self.num_fused()} fused)")
+                f"{len(self.graph)} nodes, {self.num_fused()} fused{mesh})")
         return head + "\n" + self.graph.pretty()
+
+
+def _needed(grid, r: int, n: int) -> tuple[int, int]:
+    """The input channels [lo, hi) of N that model coordinate ``r``
+    reads under ``grid``: block ``r % ki`` of ``ki``."""
+    if grid.ki == 1:
+        return 0, n
+    i = r % grid.ki
+    return i * n // grid.ki, (i + 1) * n // grid.ki
+
+
+def _held(layout, r: int, n: int) -> tuple[int, int]:
+    """The channels [lo, hi) of N that model coordinate ``r`` holds of
+    an activation laid out ``(ko, ki)``: block ``r // ki`` of ``ko``."""
+    ko, ki = layout
+    o = r // ki
+    return o * n // ko, (o + 1) * n // ko
+
+
+def _channel_slice(v, lo: int, hi: int):
+    """Channels [lo, hi) of a tensor or of an int8 activation's codes
+    (its per-tensor scale is shared)."""
+    if isinstance(v, QTensor):
+        return QTensor(v.codes[:, lo:hi], v.scale)
+    return v[:, lo:hi]
+
+
+def _w_block(w, grid):
+    """This rank's block of a conv weight: a tensor, or a folded int8
+    QTensor (codes blocked, per-output-channel scale sliced with M)."""
+    if isinstance(w, QTensor):
+        return QTensor(grid.w_block(w.codes), grid.v_block(w.scale))
+    return grid.w_block(w)
 
 
 def _params_device(params) -> torch.device:
@@ -339,13 +554,44 @@ class BoundPlan:
     params: object
     folded: dict
     policy: ExecPolicy | None = None
+    # {(node id, "w" | "b"): this rank's block} of each placed stage's
+    # operand read from params (a lowered one's block is in ``folded``)
+    placed: dict = field(default_factory=dict)
     # {node id: namespaced tiling overrides} measured at bind time
     tuned: dict = field(default_factory=dict)
 
     def __call__(self, x, *, policy: ExecPolicy | None = None):
         return self.plan(self.params, x,
                          policy=policy if policy is not None else self.policy,
-                         _folded=self.folded, _tuned=self.tuned)
+                         _folded=self.folded, _placed=self.placed,
+                         _tuned=self.tuned)
+
+    def operand(self, node, idx: int, attr: str):
+        """The weight-side operand (``idx`` 1 ``"w"``, 2 ``"b"``) this
+        rank keeps for a conv stage: a lowered one from ``folded``, else
+        a placed stage's block from ``placed``, else the whole param."""
+        if len(node.inputs) > idx:
+            return self.folded.get(node.inputs[idx])
+        if (node.id, attr) in self.placed:
+            return self.placed[(node.id, attr)]
+        ref = getattr(node, attr)
+        return None if ref is None else ref.fetch(self.params)
+
+    def stage_weight_bytes(self) -> dict[int, int]:
+        """{conv stage id: bytes of the weight, bias and requant scale
+        this rank keeps for it}: a placed stage's block, else the whole
+        operand."""
+        def nbytes(v):
+            if v is None:
+                return 0
+            if isinstance(v, QTensor):
+                return nbytes(v.codes) + nbytes(v.scale)
+            return v.numel() * v.element_size()
+
+        return {node.id: nbytes(self.operand(node, 1, "w"))
+                + nbytes(self.operand(node, 2, "b"))
+                for node in self.plan.graph
+                if isinstance(node, (Conv2DNode, FusedConvBlockNode))}
 
     @property
     def device(self) -> torch.device:
@@ -390,9 +636,17 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
     policy > ambient ``use_policy``); backend and launch shape stay
     dynamic through the registry.
 
+    ``mesh`` (a ``DeviceMesh`` with a ``model`` axis, optionally a
+    ``data`` axis) runs the channel-parallel placement pass (DESIGN.md
+    §9/§15) and bakes the mesh into the plan: an icp × ocp split of the
+    model axis per conv stage from its arithmetic intensity, overridable
+    with ``ExecPolicy.channel_parallel``; batches scatter over ``data``.
+    Every rank of the mesh compiles the same plan.
+
     ``autotune=True`` (or ``ExecPolicy.autotune``): ``plan.bind``
     measures launch shapes per stage on the card and bakes the winners
-    into the BoundPlan (DESIGN.md §10).
+    into the BoundPlan (DESIGN.md §10). A mesh refuses it: ranks tuning
+    apart could bake different tiles.
 
     ``stream_budget`` (bytes, default
     ``repro_torch.stream.STREAM_VMEM_BUDGET_BYTES``) is the per-image
@@ -403,10 +657,6 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
     (``repro_torch.analysis.verify_plan``, DESIGN.md §14) over the
     finished plan, raising ``PlanVerificationError`` with named
     violations; it is read-only."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-placed plans are not ported yet (ROADMAP §A.10, "
-            "channel parallelism)")
     if input_shape is None:
         input_shape = model.input_shape()
     pol = policy
@@ -419,6 +669,19 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
     with phase("fuse"):
         graph = default_passes(graph, quant=quant_pol.quant,
                                qformat=quant_pol.qformat, fuse=fuse)
+    if mesh is not None:
+        from repro_torch.core.parallelism import axis_size, check_mesh
+        names = check_mesh(mesh)
+        if autotune or quant_pol.autotune:
+            raise ValueError(
+                "autotune=True with a mesh: ranks tuning apart could bake "
+                "different launch shapes; tune on one device and serve "
+                "the TuningCache")
+        with phase("place"):
+            graph = place_channel_parallel(
+                graph, axis_size(mesh, "model"),
+                override=quant_pol.channel_parallel,
+                data="data" in names)
     # runs on every compile: under-budget graphs (all MNIST-sized plans)
     # come back node for node identical. Imported here: repro_torch.stream
     # imports the graph IR, whose package imports this module.
@@ -427,7 +690,7 @@ def compile_model(model, input_shape: tuple[int, ...] | None = None, *,
         graph = place_spatial_tiling(graph, budget_bytes=stream_budget)
     plan = ExecutionPlan(graph=graph, quant=quant_pol.quant,
                          qformat=quant_pol.qformat, compile_policy=pol,
-                         autotune=autotune or quant_pol.autotune)
+                         mesh=mesh, autotune=autotune or quant_pol.autotune)
     if verify:
         from repro_torch.analysis.verifier import verify_plan
         verify_plan(plan)

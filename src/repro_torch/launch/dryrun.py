@@ -20,7 +20,7 @@ A train cell counts one microbatch and multiplies it by their number
 (``count_train_step``), as the reference's HLO walk multiplies a
 ``while`` body by its trip count. Nothing runs on a card: meta needs
 neither the card nor memory, so the dry run runs on the CPU as well as
-beside the card. The production and multi-pod meshes wait for ROADMAP
+beside the card. The multi-pod dry run waits for the LM half of ROADMAP
 §A.10: ``--multi-pod on`` and ``both`` raise.
 
 Usage:
@@ -52,7 +52,7 @@ __all__ = ["model_flops_for", "SkipCell", "train_opt_config",
 
 REPORTS = Path(__file__).resolve().parents[3] / "reports" / "dryrun_torch"
 TRAIN_MICROBATCHES = 16
-MESH = "h100x1"                     # one card; the meshes are ROADMAP §A.10
+MESH = "h100x1"                     # one card; LM meshes: ROADMAP §A.10
 
 
 def model_flops_for(arch_spec, kind: str, seq: int, batch: int) -> float:
@@ -164,8 +164,8 @@ def run_cell(arch_id: str, shape_id: str, *, multi_pod: bool = False,
     so a sweep runs on)."""
     if multi_pod:
         raise NotImplementedError(
-            "the multi-pod dry run needs the production meshes and "
-            "launch/mesh.py, which are not ported yet (ROADMAP §A.10)")
+            "the multi-pod dry run is not ported yet (ROADMAP §A.10, "
+            "the LM half)")
     rec = {"arch": arch_id, "shape": shape_id, "mesh": MESH, "chips": 1,
            "status": "ok"}
     t0 = time.perf_counter()
@@ -227,8 +227,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.multi_pod != "off":
         raise NotImplementedError(
-            f"--multi-pod {args.multi_pod}: the production and multi-pod "
-            f"meshes are not ported yet (ROADMAP §A.10); the port's dry "
+            f"--multi-pod {args.multi_pod}: the multi-pod dry run is not "
+            f"ported yet (ROADMAP §A.10, the LM half); the port's dry "
             f"run is one device (--multi-pod off)")
 
     archs = ARCH_IDS if args.arch == "all" else [args.arch]

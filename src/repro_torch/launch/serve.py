@@ -43,8 +43,15 @@ reference's:
     place, tune, compile — the nvcc build and the CUDA graph captures on
     the card —, artifact, first_dispatch).
 
-``--mesh`` other than ``auto`` waits for channel parallelism (ROADMAP
-§A.10).
+``--mesh DxM`` (data × model) compiles a CNN arch's plans
+channel-parallel (DESIGN.md §9/§15) over a ``DeviceMesh`` built by
+``repro_torch.launch.mesh.build_mesh``: every rank of the process group
+(``torchrun``, or one rank alone) serves the same requests, each running
+its shards. ``--dist-backend`` names the process-group backend: NCCL
+when every rank has a card of its own (the default resolves to it and
+raises otherwise), ``gloo`` for several ranks on one card or on the CPU.
+``auto`` keeps the vision path on one device, as in the reference. An LM
+arch on a mesh is ROADMAP §A.10's LM half and raises.
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --capacity 4 \
         --requests 8 --prompt-len 64 --decode-steps 16 [--kv-quant int8]
@@ -53,6 +60,8 @@ reference's:
         --device cpu
     python -m repro_torch.launch.serve --arch mnist_cnn --capacity 8 \
         --requests 32
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch mnist_cnn --mesh 1x4 --dist-backend gloo
     python -m repro_torch.launch.serve --arch highres_cnn --capacity 8 \
         --requests 16 --autotune --tuning-cache tuned.tuning.json \
         --save-plan plans/ --warmup-report
@@ -127,10 +136,11 @@ def _print_slo(stats, args) -> None:
           f"({stats.miss_rate:.0%}) | rejected at intake {stats.rejected}")
 
 
-def serve_vision(model, args):
+def serve_vision(model, args, mesh=None):
     """Micro-batched image serving through bucketed bound plans behind
-    the front-end (on the card, a CUDA graph a bucket). Returns (engine,
-    {rid: {"label", "logits"}})."""
+    the front-end (on the card, a CUDA graph a bucket; on a ``mesh``,
+    channel-parallel plans on every rank). Returns (engine, {rid:
+    {"label", "logits"}})."""
     from repro_torch.artifact.warmup import collect_warmup
     from repro_torch.serve import (MonotonicClock, VisionAdapter,
                                    VisionEngine, VisionEngineConfig)
@@ -140,19 +150,25 @@ def serve_vision(model, args):
         # prewarm (on by default) compiles or loads EVERY bucket here
         engine = VisionEngine(
             model, params,
-            VisionEngineConfig(batch=args.capacity,
+            VisionEngineConfig(batch=args.capacity, mesh=mesh,
                                buckets=None if args.fixed_batch else "auto",
                                device=args.device, autotune=args.autotune,
                                artifact_dir=args.plan_artifact),
             clock=clock)
     plan = engine.plan
+    sharded = ""
+    if mesh is not None:
+        from repro_torch.artifact.fingerprint import mesh_shape_doc
+        sharded = (f", {plan.num_sharded()} sharded stages over "
+                   f"mesh={dict(mesh_shape_doc(mesh))} (graphs: "
+                   f"{engine.graphs})")
     tuned = ""
     if args.autotune:
         baked = engine._bounds[args.capacity].tuned
         tuned = f", {len(baked)} autotuned stages"
     print(f"arch={args.arch} vision path on {engine.device}: compiled plan "
           f"with {plan.num_fused()} fused conv blocks, quant={plan.quant}"
-          f"{tuned}, batch buckets {list(engine.buckets)}")
+          f"{sharded}{tuned}, batch buckets {list(engine.buckets)}")
     if args.warmup_report:
         print(boot.pretty())
     if args.plan_artifact:
@@ -277,8 +293,12 @@ def main(argv=None):
                     help="per-slot budget (default prompt+decode)")
     ap.add_argument("--kv-quant", choices=("none", "int8"), default="none")
     ap.add_argument("--mesh", default="auto",
-                    help="only 'auto' (one device) until channel "
-                         "parallelism is ported")
+                    help="'auto' (one device) or DxM (data x model) for a "
+                         "channel-parallel CNN")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="process-group backend of --mesh (default: NCCL "
+                         "when every rank has a card of its own)")
     ap.add_argument("--reduced", action="store_true",
                     help="a small same-family LM (2 layers, d_model 64)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
@@ -313,12 +333,12 @@ def main(argv=None):
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import reduced_config
-    if args.mesh != "auto":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: channel parallelism is not ported yet "
-            f"(ROADMAP §A.10)")
-    _load_tuning_cache(args.tuning_cache)
     spec = get_arch(args.arch)
+    if args.mesh != "auto" and spec.family != "cnn":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: an LM on a mesh is not ported yet "
+            f"(ROADMAP §A.10, the LM half: logical-axis rules)")
+    _load_tuning_cache(args.tuning_cache)
     if spec.frames:
         # the reference's launcher fails here too: EncDecLM.prefill reads
         # batch["frames"], and the Engine's prefill batch has only tokens
@@ -327,13 +347,36 @@ def main(argv=None):
                        f"(only tokens); call its prefill/decode_step "
                        f"directly")
     model = spec.model()
-    if spec.family == "cnn":
+    if spec.family == "cnn" and args.mesh != "auto":
+        out = _serve_vision_on_mesh(model, args)
+    elif spec.family == "cnn":
         out = serve_vision(model, args)
     else:
         out = serve_lm(reduced_config(model) if args.reduced else model,
                        args)
     _save_tuning_cache(args.tuning_cache)
     return out
+
+
+def _serve_vision_on_mesh(model, args):
+    """``serve_vision`` on every rank of a ``--mesh``; rank 0 prints the
+    report. A process group this call joined is left before returning."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import build_mesh
+    joined = not dist.is_initialized()
+    try:
+        mesh = build_mesh(args.mesh, args.dist_backend, args.device)
+        quiet = (contextlib.redirect_stdout(io.StringIO())
+                 if dist.get_rank() else contextlib.nullcontext())
+        with quiet:
+            return serve_vision(model, args, mesh=mesh)
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ each step is a replay of its CUDA graph, captured at the first step
 (``--eager`` runs the same steps on the same buffers without one); the
 checkpoints read the static trees, which each step writes in place.
 
-The mesh and the multi-host runtime wait for ROADMAP §A.10: ``--mesh``
+Training over a mesh waits for the LM half of ROADMAP §A.10: ``--mesh``
 takes ``auto`` or ``1`` (one device). Encoder-decoder archs, whose batch
 needs frames, are trained through ``train.steps`` directly, as the
 reference's launcher, whose stream has only tokens, cannot feed them.
@@ -115,8 +115,9 @@ def _train(args) -> dict:
 
     if args.mesh not in ("auto", "1"):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the mesh is not ported yet (ROADMAP "
-            f"§A.10); 'auto' and '1' train on one device")
+            f"--mesh {args.mesh}: training over a mesh is not ported yet "
+            f"(ROADMAP §A.10, the LM half); 'auto' and '1' train on one "
+            f"device")
     spec = get_arch(args.arch)
     if spec.frames:
         raise NotImplementedError(

@@ -133,12 +133,13 @@ class PaperCNN:
                 autotune: bool = False, stream_budget: int | None = None,
                 verify: bool = True) -> "ExecutionPlan":
         """trace → conv+relu+pool fusion → quant lowering → DQE →
-        spatial-tiling placement, as a single-device ``ExecutionPlan``
-        (DESIGN.md §8, §13). At the default ``stream_budget`` every stage
+        spatial-tiling placement, as an ``ExecutionPlan`` (DESIGN.md §8,
+        §13). At the default ``stream_budget`` every stage
         fits and the plan is untiled; a smaller budget streams the conv
         stages as row bands. ``autotune`` bakes measured launch shapes in
         at bind (DESIGN.md §10); ``verify`` (default on) runs the plan
-        verifier (§14); ``mesh`` is not ported yet and raises."""
+        verifier (§14); ``mesh`` places the conv stages channel-parallel
+        over a ``DeviceMesh`` (§9/§15)."""
         from repro_torch.graph.plan import compile_model
         return compile_model(self, self.input_shape(batch), policy=policy,
                              fuse=fuse, mesh=mesh, autotune=autotune,

@@ -28,7 +28,7 @@ Simplification kept from the reference: ONE shared block (the release
 alternates two; DESIGN.md §5). ``loss`` runs the layers with no cache
 (nothing is written) and, unless ``remat`` is ``"none"``, each Mamba
 layer and each shared-block call under an activation checkpoint.
-``axes`` and ``cache_axes`` wait for ROADMAP §A.10.
+``axes`` and ``cache_axes`` wait for the LM half of ROADMAP §A.10.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ The projections are plain matmuls, as the reference's einsums are; only
 the MLP goes through the policy-aware ``repro_torch.ops.dense``, so an
 active ``ExecPolicy(quant="int8")`` runs every MLP matmul through the
 ``qmatmul`` kernel. The logical-axis annotations (``axes``) wait for
-ROADMAP §A.10.
+the LM half of ROADMAP §A.10.
 """
 from __future__ import annotations
 

@@ -25,7 +25,8 @@ Where the semantics hide in the rounding:
   operand order: the intra-chunk one as (C·B)·L, then ·X, never through
   a (B, nc, q, q, H, P) product (3.8 GB at zamba2's 512-token prefill).
 
-The logical-axis annotations (``mamba2_axes``) wait for ROADMAP §A.10.
+The logical-axis annotations (``mamba2_axes``) wait for the LM half of
+ROADMAP §A.10.
 """
 from __future__ import annotations
 

@@ -34,8 +34,8 @@ places they hide:
 The experts do not go through the op registry, so an
 ``ExecPolicy(quant="int8")`` leaves them in ``x.dtype``, as the
 reference's einsums do. Expert parallelism over a mesh (the reference's
-``_moe_apply_ep``) and the logical axes (``moe_axes``) wait for channel
-parallelism (ROADMAP §A.10): a ``ShardingCtx`` with a mesh raises.
+``_moe_apply_ep``) and the logical axes (``moe_axes``) wait for the LM
+half of ROADMAP §A.10: a ``ShardingCtx`` with a mesh raises.
 """
 from __future__ import annotations
 
@@ -155,12 +155,12 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
     The local path (the reference's ``_moe_apply_local``): group-wise
     dispatch, each batch row a group with its own capacity. A mesh
-    raises: expert parallelism waits for ROADMAP §A.10."""
+    raises: expert parallelism waits for the LM half of ROADMAP §A.10."""
     if ctx is not None and ctx.mesh is not None:
         raise NotImplementedError(
             "moe_apply over a mesh (the reference's expert-parallel "
-            "_moe_apply_ep): channel parallelism is not ported yet "
-            "(ROADMAP §A.10)")
+            "_moe_apply_ep) is not ported yet (ROADMAP §A.10, the LM "
+            "half: expert parallelism)")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(s, cfg)

@@ -27,7 +27,8 @@ Where the semantics hide:
   XLA's do (``common.sigmoid_per_op``), so a bf16 block is bitwise to
   the reference run op by op.
 
-The logical-axis annotations (``rwkv6_axes``) wait for ROADMAP §A.10.
+The logical-axis annotations (``rwkv6_axes``) wait for the LM half of
+ROADMAP §A.10.
 """
 from __future__ import annotations
 

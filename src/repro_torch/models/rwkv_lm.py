@@ -9,7 +9,7 @@ state, so a reused slot keeps nothing of its previous tenant. The
 decode step is position-free. ``loss`` runs the blocks with no state
 (each under an activation checkpoint unless ``remat`` is ``"none"``) and
 the chunked cross entropy over the untied head. The logical-axis
-annotations wait for ROADMAP §A.10.
+annotations wait for the LM half of ROADMAP §A.10.
 """
 from __future__ import annotations
 

@@ -166,7 +166,8 @@ class VGGStyleCNN:
         the first two blocks exceed the streaming budget and execute as
         halo-overlapped row bands. ``autotune`` bakes measured launch
         shapes in at bind; ``verify`` (default on) runs the plan verifier;
-        ``mesh`` is not ported yet and raises."""
+        ``mesh`` places the conv stages channel-parallel (a sharded stage
+        is never banded)."""
         from repro_torch.graph.plan import compile_model
         return compile_model(self, self.input_shape(batch), policy=policy,
                              fuse=fuse, mesh=mesh, autotune=autotune,

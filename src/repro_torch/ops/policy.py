@@ -10,6 +10,11 @@ Port of ``repro.ops.policy``. One immutable value carries
   * ``tiling``  — per-op launch-shape overrides (e.g. ``{"threads": 128}``
     or namespaced ``{"conv2d.threads": 128}``), consulted before the
     tuning cache and the heuristics in ``repro_torch.ops.tiling``;
+  * ``channel_parallel`` — the channel-parallel schedule override of a
+    mesh-compiled plan (``repro_torch.graph`` placement pass): ``None``
+    lets the placement pick per layer, ``"input"``/``"icp"`` and
+    ``"output"``/``"ocp"`` force the paper's Eq. 7 / Eq. 6 schedule on
+    every conv stage, ``"none"`` pins the plan to data parallelism;
   * ``autotune`` — measure launch shapes on a tuning-cache miss
     (``repro_torch.ops.autotune``): a kernel wrapper's concrete call on
     the card, or every stage of a plan at bind time.
@@ -27,10 +32,14 @@ from typing import Literal, Mapping
 from repro_torch.core.quantize import QFormat
 
 __all__ = ["ExecPolicy", "use_policy", "current_policy", "BACKENDS",
-           "QUANT_MODES"]
+           "QUANT_MODES", "CHANNEL_PARALLEL_MODES"]
 
 BACKENDS = ("ref", "torch", "cuda")
 QUANT_MODES = ("none", "qformat", "int8")
+# canonical spellings of the paper's two channel-parallel schedules
+# (§III.A): "output"/"ocp" = Eq. 6 shard-M, "input"/"icp" = Eq. 7 shard-N
+CHANNEL_PARALLEL_MODES = ("none", "input", "output")
+_CHANNEL_PARALLEL_ALIASES = {"icp": "input", "ocp": "output"}
 
 
 @dataclass(frozen=True)
@@ -41,6 +50,7 @@ class ExecPolicy:
     quant: Literal["none", "qformat", "int8"] = "none"
     qformat: QFormat = field(default_factory=QFormat)
     tiling: tuple[tuple[str, int], ...] = ()
+    channel_parallel: str | None = None
     autotune: bool = False
 
     def __post_init__(self):
@@ -50,6 +60,15 @@ class ExecPolicy:
         if self.quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {self.quant!r}; "
                              f"expected one of {QUANT_MODES}")
+        if self.channel_parallel is not None:
+            cp = _CHANNEL_PARALLEL_ALIASES.get(self.channel_parallel,
+                                               self.channel_parallel)
+            if cp not in CHANNEL_PARALLEL_MODES:
+                raise ValueError(
+                    f"unknown channel_parallel mode "
+                    f"{self.channel_parallel!r}; expected one of "
+                    f"{CHANNEL_PARALLEL_MODES} (or icp/ocp) or None")
+            object.__setattr__(self, "channel_parallel", cp)
         if isinstance(self.tiling, Mapping):
             object.__setattr__(self, "tiling",
                                tuple(sorted(self.tiling.items())))

@@ -39,8 +39,23 @@ here, so no nvcc runs (the CPU builds nothing); ``"artifact"`` — the
 artifact loaded, the kernels are built first; ``"fresh"`` — compiled.
 
 The engine runs on ``config.device`` — the card unless the caller asks
-for the CPU — and moves the params there. The reference's mesh
-placement is a later slice and raises ``NotImplementedError``.
+for the CPU — and moves the params there.
+
+``VisionEngineConfig.mesh`` (a ``DeviceMesh``, ``repro_torch.launch.mesh``)
+compiles every bucket channel-parallel (DESIGN.md §9/§15) and binds its
+weights shard-resident. Every rank runs the engine on the same requests
+(SPMD); each bound plan takes the rank's data-axis slice of the bucket
+(``ExecutionPlan._scatter``) and returns the whole bucket's logits on
+every rank. ``batch`` must divide the data axis, and buckets that do not
+are dropped from the ladder, as in the reference. A mesh whose
+collectives run (more than one rank) serves eagerly, and ``graphs``
+(also in ``pretty()`` and the stats) says ``off (<backend>)``: gloo's
+collectives run on the host and cannot be captured in a CUDA graph;
+NCCL's could be, but a captured ring across cards has never run (the
+card runs have one H100), so a multi-card NCCL mesh stays eager, its
+collectives queued on the stream without a host sync, until that is
+measured (ROADMAP §A.10). A mesh of one rank captures its graphs as
+without a mesh.
 """
 from __future__ import annotations
 
@@ -78,14 +93,20 @@ class VisionEngineConfig:
     # plan artifact store directory (DESIGN.md §12): bucket plans load from
     # ``<dir>/bucket_<b>`` when present; ``save_artifacts()`` writes them
     artifact_dir: str | None = None
-    # not ported yet: raises NotImplementedError when set (ROADMAP §A.10)
+    # device mesh for a channel-parallel plan (DESIGN.md §9): compile with
+    # ICP/OCP placement and bind weights shard-resident; None serves on
+    # one device
     mesh: object | None = None
 
 
 @dataclass
 class VisionStats(ServeStats):
     """Vision view of ``ServeStats``: ``items`` counts real images served
-    (``lane_steps == items``); ``pad_lanes`` counts batch-padding lanes."""
+    (``lane_steps == items``); ``pad_lanes`` counts batch-padding lanes.
+    ``graphs`` says how buckets run: ``on`` (a CUDA graph a bucket),
+    ``off (<backend>)`` on a mesh whose collectives run, ``off (cpu)``."""
+
+    graphs: str = ""
 
     @property
     def images(self) -> int:
@@ -113,16 +134,28 @@ class VisionEngine:
     def __init__(self, model, params,
                  config: VisionEngineConfig = VisionEngineConfig(),
                  clock: Clock | None = None):
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "mesh-placed vision serving is not ported yet (ROADMAP "
-                "§A.10, channel parallelism)")
         self.model = model
         self.config = config
         self.clock = clock if clock is not None else MonotonicClock()
         self.device = resolve_device(config.device)
         self._params = _to_device(params, self.device)
-        self.buckets = self._resolve_buckets(config)
+        mesh = config.mesh
+        self._data_div = 1
+        self.graphs = "on" if self.device.type == "cuda" else "off (cpu)"
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from repro_torch.core.parallelism import axis_size, check_mesh
+            check_mesh(mesh)
+            self._data_div = axis_size(mesh, "data")
+            if config.batch % self._data_div:
+                raise ValueError(
+                    f"batch {config.batch} does not divide the mesh's data "
+                    f"axis ({self._data_div} devices); the compiled batch "
+                    f"shape is sharded over it — pick a divisible batch")
+            if mesh.mesh.numel() > 1 and self.device.type == "cuda":
+                self.graphs = f"off ({dist.get_backend()})"
+        self.buckets = self._resolve_buckets(config, self._data_div)
         self._bounds: dict[int, object] = {}    # bucket -> BoundPlan
         self._graphs: dict[int, object] = {}    # bucket -> BucketGraph
         self.replays: dict[int, int] = {}       # bucket -> graph replays
@@ -135,13 +168,16 @@ class VisionEngine:
         self.plan = self._compile_bucket(config.batch)
         if config.prewarm:
             self.warm()
-        self.stats = VisionStats()
+        self.stats = VisionStats(graphs=self.graphs)
         self._queue: deque[tuple[int, np.ndarray]] = deque()
         self.results: dict[int, dict] = {}
         self._uid = 0
 
     @staticmethod
-    def _resolve_buckets(config: VisionEngineConfig) -> tuple[int, ...]:
+    def _resolve_buckets(config: VisionEngineConfig,
+                         data_div: int = 1) -> tuple[int, ...]:
+        """The bucket ladder; on a mesh with a ``data`` axis, only the
+        buckets that divide it."""
         if config.buckets is None:
             return (config.batch,)
         if config.buckets == "auto":
@@ -151,13 +187,14 @@ class VisionEngine:
                 ladder.append(b)
                 b *= 2
             ladder.append(config.batch)
-            return tuple(ladder)
-        ladder = sorted(set(int(b) for b in config.buckets))
-        if not ladder or ladder[-1] != config.batch:
-            raise ValueError(
-                f"buckets {config.buckets} must include the full batch "
-                f"{config.batch} (it serves saturated traffic)")
-        return tuple(ladder)
+        else:
+            ladder = sorted(set(int(b) for b in config.buckets))
+            if not ladder or ladder[-1] != config.batch:
+                raise ValueError(
+                    f"buckets {config.buckets} must include the full "
+                    f"batch {config.batch} (it serves saturated traffic)")
+        return tuple(b for b in ladder
+                     if b % data_div == 0) or (config.batch,)
 
     @staticmethod
     def bucket_name(bucket: int) -> str:
@@ -176,7 +213,8 @@ class VisionEngine:
         source = "fresh"
         if self._store is not None:
             art = self._store.load(self.bucket_name(bucket),
-                                   params=self._params, device=self.device)
+                                   params=self._params, device=self.device,
+                                   mesh=self.config.mesh)
             if art is not None:
                 bound = art.bound
                 source = ("artifact+aot"
@@ -185,12 +223,13 @@ class VisionEngine:
         if bound is None:
             plan = self.model.compile(policy=self.config.policy,
                                       fuse=self.config.fuse, batch=bucket,
+                                      mesh=self.config.mesh,
                                       autotune=self.config.autotune)
             bound = plan.bind(self._params)
         self._bounds[bucket] = bound
         self.plan_source[bucket] = source
         zeros = torch.zeros(shape, device=self.device)
-        if self.device.type == "cuda":
+        if self.graphs == "on":
             from repro_torch.artifact.aot import (cache_graph, cached_graph,
                                                   capture_graph,
                                                   executable_key)
@@ -233,6 +272,16 @@ class VisionEngine:
             for k, v in self._graphs[b].kernels.items():
                 out[k] = out.get(k, 0) + v * n
         return out
+
+    def pretty(self) -> str:
+        """One line: device, mesh, buckets and how they run."""
+        mesh = ""
+        if self.config.mesh is not None:
+            from repro_torch.artifact.fingerprint import mesh_shape_doc
+            mesh = (f", mesh={dict(mesh_shape_doc(self.config.mesh))}, "
+                    f"{self.plan.num_sharded()} sharded stages")
+        return (f"VisionEngine(device={self.device}{mesh}, buckets="
+                f"{list(self.buckets)}, graphs: {self.graphs})")
 
     def warm(self) -> None:
         """Make every ladder bucket's bound plan exist now."""

@@ -5,8 +5,8 @@ The models annotate activations with *logical* axis names ("batch",
 "heads", "mlp", …) through ``shard(x, ctx, *names)``. On one device that
 is the identity, which is all the port serves today: ``shard`` returns
 ``x`` when ``ctx`` is None or has no mesh, and raises for a mesh, since
-resolving names to a device layout is channel parallelism's work
-(ROADMAP §A.10).
+resolving names to a device layout is the work of ROADMAP §A.10's LM
+half (the logical-axis rules).
 """
 from __future__ import annotations
 
@@ -48,9 +48,10 @@ class ShardingCtx:
 
 def shard(x: torch.Tensor, ctx: ShardingCtx | None, *names: str | None
           ) -> torch.Tensor:
-    """``x`` itself on one device; a mesh raises (ROADMAP §A.10)."""
+    """``x`` itself on one device; a mesh raises (ROADMAP §A.10, the LM
+    half)."""
     if ctx is None or ctx.mesh is None:
         return x
     raise NotImplementedError(
-        f"shard over a mesh (logical axes {names}): channel parallelism "
-        f"is not ported yet (ROADMAP §A.10)")
+        f"shard over a mesh (logical axes {names}) is not ported yet "
+        f"(ROADMAP §A.10, the LM half: logical-axis rules)")

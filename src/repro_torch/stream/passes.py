@@ -1,18 +1,17 @@
 """Graph pass: stamp ``SpatialTiling`` on stages that exceed the budget.
 
 Port of ``repro.stream.passes``. ``place_spatial_tiling`` is the
-streaming half of the pass pipeline (DESIGN.md §13): for every conv /
-fused-conv stage it computes the per-image activation footprint (full
+streaming half of the pass pipeline (DESIGN.md §13): for every
+*unsharded* conv / fused-conv stage it computes the per-image activation footprint (full
 input + full output, ``image_working_set``) and, when that exceeds the
 budget, attaches a ``SpatialTiling`` whose ``tile_rows`` is the largest
 band fitting the same budget. Stages that fit — every MNIST-sized
 PaperCNN stage — are left untouched, so existing plans come back node
 for node identical with streaming compiled in.
 
-The reference skips channel-sharded stages (``sharding.mode != "none"``).
-The port's IR has no sharding field until the mesh slice (ROADMAP
-§A.10), so every conv stage here is unsharded and that skip has nothing
-to skip.
+Channel-sharded stages (``sharding.mode != "none"``) are skipped, as
+the reference skips them: their per-rank shapes are the shard's, and
+spatial banding does not compose with the stage's collectives.
 """
 from __future__ import annotations
 
@@ -31,8 +30,8 @@ __all__ = ["place_spatial_tiling"]
 
 def place_spatial_tiling(graph: Graph, *,
                          budget_bytes: int | None = None) -> Graph:
-    """Attach a ``SpatialTiling`` to every over-budget conv / fused
-    stage; ``budget_bytes=None`` means ``STREAM_VMEM_BUDGET_BYTES``. A
+    """Attach a ``SpatialTiling`` to every over-budget unsharded conv /
+    fused stage; ``budget_bytes=None`` means ``STREAM_VMEM_BUDGET_BYTES``. A
     stage whose full output already fits in one band stays untiled
     (tiling would be a no-op program)."""
     budget = STREAM_VMEM_BUDGET_BYTES if budget_bytes is None \
@@ -40,6 +39,10 @@ def place_spatial_tiling(graph: Graph, *,
     placed: list[Node] = []
     for node in graph:
         if not isinstance(node, (Conv2DNode, FusedConvBlockNode)):
+            placed.append(node)
+            continue
+        spec = node.sharding
+        if spec is not None and spec.mode != "none":
             placed.append(node)
             continue
         in_spec = stage_input_spec(graph, node)

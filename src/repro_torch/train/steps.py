@@ -10,7 +10,8 @@ opt_state, metrics)``. A parameter the loss does not reach (command-r's
 gives it. Microbatches split the batch's leading dim into contiguous
 slices, run one after another (the reference's ``lax.scan``) and
 accumulate fp32 gradients. Collectives and the cross-pod compression
-(``repro.train.compression``) wait for the mesh, ROADMAP §A.10.
+(``repro.train.compression``) wait for the mesh's LM half, ROADMAP
+§A.10.
 """
 from __future__ import annotations
 

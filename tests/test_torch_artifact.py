@@ -2,8 +2,7 @@
 JAX package's (``repro.artifact``), on the CPU.
 
 Ports ``tests/test_artifact.py``: the graph codec (whose documents equal
-the reference's but for the ``sharding`` field the port does not carry
-yet), fingerprint semantics (stable across recompiles and processes;
+the reference's), fingerprint semantics (stable across recompiles and processes;
 moves with weights, quant mode, baked tiles, policies, the streaming
 budget and the kernel sources; the params digest equals the
 reference's on the same weights), save/load roundtrips, the fallback
@@ -12,8 +11,9 @@ never crash), zero-derivation serving boots, and the warmup report.
 
 Not ported here, by design: ``TestAOT`` — its counterpart, a CUDA graph
 per bucket, exists only on the card (``tests/test_torch_cuda.py`` and
-``chip_smoke.py``'s ``boot`` phase) — and ``TestShardedArtifacts``,
-which waits for the mesh slice (ROADMAP §A.10).
+``chip_smoke.py``'s ``boot`` phase). ``TestShardedArtifacts``'s
+counterparts, which need a process group, are in
+``tests/test_torch_mesh.py``.
 
 An engine booted from an artifact is held against the JAX engine by the
 bars of ``tests/test_torch_serve.py``: fp32 1e-5, qformat one Q8.8 step,
@@ -94,12 +94,6 @@ def _bound(model, params, quant="none", batch=2, **kw):
     return plan.bind(params)
 
 
-def _strip_sharding(doc):
-    for node in doc["nodes"]:
-        node.pop("sharding", None)
-    return doc
-
-
 class TestGraphCodec:
     @pytest.mark.parametrize("quant", MODES)
     @pytest.mark.parametrize("budget", [None, 10_000])
@@ -111,7 +105,7 @@ class TestGraphCodec:
         jg = JaxCNN(JaxCNNConfig()).compile(
             JPolicy(quant=quant), batch=2, stream_budget=budget,
             verify=False).graph
-        assert graph_to_doc(g) == _strip_sharding(j_graph_to_doc(jg))
+        assert graph_to_doc(g) == j_graph_to_doc(jg)
 
     def test_doc_is_json_stable(self, model):
         g = model.compile(batch=2).graph

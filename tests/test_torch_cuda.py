@@ -26,7 +26,8 @@ from repro_torch.kernels.qmatmul import ops as qm_ops
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.core.window import pool_output_size
 from repro_torch.graph.ir import Conv2DNode, FusedConvBlockNode
-from repro_torch.graph.passes import stage_input_spec
+from repro_torch.graph.passes import (place_channel_parallel,
+                                      stage_input_spec)
 from repro_torch.models.cnn import PaperCNN, PaperCNNConfig
 from repro_torch.models.vgg import VGGStyleCNN, VGGStyleCNNConfig
 from repro_torch.ops import (BackendUnavailableError, ExecPolicy, conv2d,
@@ -280,6 +281,54 @@ def test_conv_window_other_shapes_match_plain(card, mode, case):
     got = cw_ops.conv_window(x, w, cb, stride=stride,
                              policy=ExecPolicy(tiling=tiling))
     _agree(mode, got, conv2d_window_ref(x, w, cb, stride=stride))
+
+
+def _shard_shapes(model, size, override):
+    """(kernel, (N, H, W, M, K)) of each placed stage's per-shard launch
+    at a model axis of ``size``: OCP runs the stage's kernel on M/ocp
+    output channels; ICP and BOTH run conv_window on the (N/icp, M/ocp)
+    block before the ring."""
+    graph = place_channel_parallel(model.compile(batch=8).graph, size,
+                                   override=override)
+    out = []
+    for node in graph:
+        spec = getattr(node, "sharding", None)
+        if spec is None or spec.mode == "none":
+            continue
+        ki, ko = spec.split(size)
+        _, n, h, w = stage_input_spec(graph, node).shape
+        m, _, k, _ = node.w.shape
+        fused = ki == 1 and isinstance(node, FusedConvBlockNode)
+        out.append(("fused_cwp" if fused else "conv_window",
+                    (n // ki, h, w, m // ko, k)))
+    return out
+
+
+@pytest.mark.parametrize("override", [None, "input", "output"])
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("arch", ["mnist_cnn", "highres_cnn"])
+@pytest.mark.parametrize("mode", MODES)
+def test_conv_kernels_match_plain_at_per_shard_shapes(card, mode, arch,
+                                                      size, override):
+    """The conv kernels at the channel counts a mesh gives them (2 to 16
+    per shard, N slices of 4 to 8 under BOTH), at B = 8 and at a data
+    axis's B = 4."""
+    model = (PaperCNN() if arch == "mnist_cnn" else VGGStyleCNN())
+    try:
+        shapes = _shard_shapes(model, size, override)
+    except ValueError:          # no stage can take the forced schedule
+        shapes = []
+    if arch == "mnist_cnn" and override is None:
+        assert shapes           # conv2 is OCP at 2 and 4
+    for kern, shape in shapes:
+        for bsz in (8, 4):
+            x, w, b, s = _operands(shape, mode, bsz, card)
+            if kern == "fused_cwp":
+                _agree(mode, fc_ops.fused_cwp(x, w, b, scale=s),
+                       fused_cwp_ref(x, w, b, scale=s))
+            else:               # a partial: no bias, no scale
+                _agree(mode, cw_ops.conv_window(x, w, None),
+                       conv2d_window_ref(x, w, None))
 
 
 @pytest.mark.parametrize("tiling", [{"conv2d.band": 2, "conv2d.split": 4},

@@ -164,10 +164,11 @@ def test_plan_refuses_another_number_format(ref):
 @pytest.mark.parametrize("option", [{"mesh": object()}, {"autotune": True},
                                     {"verify": True}])
 def test_unported_compile_options_raise(option):
-    """Only the mesh is still unported (ROADMAP §A.10); ``autotune`` and
-    ``verify`` compile as the reference's do."""
+    """A mesh must be a ``DeviceMesh`` with a ``model`` axis (placed plans
+    are held in ``tests/test_torch_mesh.py``); ``autotune`` and ``verify``
+    compile as the reference's do."""
     if "mesh" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="no 'model' axis"):
             PaperCNN().compile(**option)
     else:
         plan = PaperCNN().compile(**option)

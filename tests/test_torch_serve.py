@@ -119,13 +119,14 @@ def test_bucket_ladder_and_prewarm():
 @pytest.mark.parametrize("option", [{"mesh": object()}, {"autotune": True},
                                     {"artifact_dir": "plans"}])
 def test_unported_engine_options_raise(option):
-    """Only the mesh is still unported (ROADMAP §A.10). ``autotune``
+    """A mesh must be a ``DeviceMesh`` with a ``model`` axis (mesh
+    serving is held in ``tests/test_torch_mesh.py``). ``autotune``
     serves (the CPU tunes nothing) and an ``artifact_dir`` without an
     artifact warns and compiles fresh, as the reference's engine does."""
     model = PaperCNN()
     params = model.init(0, device="cpu")
     if "mesh" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="no 'model' axis"):
             VisionEngine(model, params,
                          VisionEngineConfig(device="cpu", **option))
     elif "artifact_dir" in option:

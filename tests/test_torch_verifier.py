@@ -9,7 +9,7 @@ reference's node for node. The cases are the reference's
 ``TestVerifyPlan`` and ``TestVerifierWiring`` whose codes apply to a
 single-device plan, plus one per remaining ``shape-flow``,
 ``dtype-flow``, ``graph-structure`` and ``quant-*`` check. The
-``shard-*`` family waits for the mesh slice (ROADMAP §A.10).
+``shard-*`` family is held in ``tests/test_torch_mesh.py``.
 """
 import dataclasses
 import json
