@@ -91,7 +91,8 @@ Phases, each printing one JSON line:
            graph captured 72 qmatmul launches (24 layers x wi, wg, wo),
            the replays launched 72 a prefill and a decode step, and the
            tokens equal the same engine's run eagerly (``graphs=False``)
-           and through the plain qmatmul (``backend="torch"``); the
+           and through the plain qmatmul (``backend="torch"``); cut to
+           LM_STEP_LAYERS = 6 layers at full width, the
            engine in bf16 and with an int8 KV cache, graphs against
            eager, the same tokens; the logits of a 64-token prefill and
            of a decode step over 4 full slots at their own positions,
@@ -112,14 +113,13 @@ Phases, each printing one JSON line:
            tokens/s and the card's peak memory;
   moe      dbrx-132b (16 experts of d_ff 10,752, top-4) and
            llama4-scout-17b-a16e (16 experts of d_ff 8,192, top-1 + a
-           shared expert) at full width and the deepest depth L >= 2 whose
-           fp32 init stays under 60 GB, cast once to bf16 as the engine
-           casts (the router stays fp32): ``Engine`` over the launcher's
-           mix (8 requests, 16 tokens each, capacity 4) through its step
-           graphs and eagerly, the same tokens, the
-           assignments dropped in each layer of a 64-token prefill, a
-           decode step at capacity 4 against each row decoded alone
-           (within 2^-4 of 1 + max|logit|, the rows whose routing differs
+           shared expert) at full width cut to MOE_LAYERS = 2 layers,
+           cast once to bf16 as the engine casts (the router stays
+           fp32): ``Engine`` over the launcher's mix (8 requests, 16
+           tokens each, capacity 4) through its step graphs and
+           eagerly, the same tokens, the assignments dropped in each
+           layer of a 64-token prefill, a decode step at capacity 4
+           against each row decoded alone (within 2^-4 of 1 + max|logit|, the rows whose routing differs
            counted), the device and wall time of a 64-token prefill and of
            a decode step beside their bytes bound (every expert weight read
            once a layer), eager and as a graph replay with the logits
@@ -130,38 +130,41 @@ Phases, each printing one JSON line:
            1e-6). No kernel launches in the whole phase: the reference's
            MoE reaches no Pallas kernel;
   ssm      the sub-quadratic LMs, prompts a whole number of their scan
-           chunks. zamba2-7b (the Mamba2 hybrid: 81 layers, d_model
-           3,584, one shared attention + MLP block after every 6, bf16,
-           6.66 B parameters) at full size: ``Engine`` under int8 over the
-           launcher's mix at ``--prompt-len 512`` through its step
-           graphs and eagerly, the same tokens (39 qmatmul launches in
-           each graph, replayed a prefill and a decode step: the shared
-           MLP's 3 at each of its 13 calls), the device and wall time of a
-           512-token prefill and of a decode step at capacity 4 in bf16,
-           eager and as a graph replay with the logits bitwise between
-           them, beside their bytes bound (every weight once, as the
-           engine stores it) with a torch.profiler breakdown, a ragged
-           prompt raising, and the launcher with a
-           bf16 and an int8 KV cache (tokens/s, peak memory); cut to 13
-           layers, the int8 engine's tokens and a 512-token prefill's and
-           a 4-slot decode step's logits bitwise kernel vs plain; cut to
-           7, a 256-token prefill's and the first decode step's logits
-           card vs CPU in fp32 and int8. rwkv6-1.6b (24 layers, d_model
-           2,048) at full size: ``Engine`` in bf16 graphs against eager,
-           the same times, a ragged prompt and the
-           launcher at ``--prompt-len 128`` (bf16 and int8 KV), then 2
-           layers fp32 card vs CPU; no kernel launches (the reference's
-           RWKV reaches no Pallas kernel).
+           chunks. zamba2-7b (the Mamba2 hybrid: d_model 3,584, one
+           shared attention + MLP block after every 6 layers, bf16) at
+           full width cut to 27 of its 81 layers (SSM_STEP_LAYERS):
+           ``Engine`` under int8 over the launcher's mix at
+           ``--prompt-len 512`` through its step graphs and eagerly, the
+           same tokens (12 qmatmul launches in each graph, replayed a
+           prefill and a decode step: the shared MLP's 3 at each of its
+           4 calls), the device and wall time of a 512-token prefill and
+           of a decode step at capacity 4 in bf16, eager and as a graph
+           replay with the logits bitwise between them, beside their
+           bytes bound (every weight once, as the engine stores it) with
+           a torch.profiler breakdown, a ragged prompt raising; the
+           launcher at full size (81 layers, 6.66 B parameters) with a
+           bf16 and an int8 KV cache (tokens/s, peak memory); cut to 6
+           layers (one group), the int8 engine's tokens and a 512-token
+           prefill's and a 4-slot decode step's logits bitwise kernel vs
+           plain, and a 256-token prefill's and the first decode step's
+           logits card vs CPU in fp32 and int8. rwkv6-1.6b (d_model
+           2,048): at full width cut to 12 of its 24 layers, ``Engine``
+           in bf16 graphs against eager, the same times, a ragged prompt;
+           the launcher at full size at ``--prompt-len 128`` (bf16 and
+           int8 KV), then 2 layers fp32 card vs CPU; no kernel launches
+           (the reference's RWKV reaches no Pallas kernel).
   train    (a) the paper's MNIST experiment at the reference's defaults
            (300 steps, B = 128), each step a replay of one train graph
            holding 2 conv_window launches (600 replayed), float32
            accuracy above 0.9, the step-0 conv outputs and gradients and
            an evaluation batch's logits kernel vs plain; (b) qwen1.5-0.5b
-           at full size through the training launcher's train graph: 20
+           at full width cut to TRAIN_LAYERS layers through the training
+           launcher's train graph (``--layers``): 20
            steps, a kill after the step-10 checkpoint and a resume whose
            losses are bitwise, ``--microbatches 2``, and ``--eager``
            whose first 5 losses equal the graph run's bitwise; its step
-           eager and as a replay (wall, busy, event ms, capture, pool);
+           (the same cut) eager and as a replay (wall, busy, event ms,
+           capture, pool);
            (c) seamless-m4t-medium served and trained eagerly; (d) a loss
            and backward of four more archs; a card-vs-CPU loss.
   launch   the launch tooling: (a) the dry run of every (arch x shape)
@@ -200,6 +203,31 @@ Phases, each printing one JSON line:
            OCP shards against the whole stage pinned to the shard's
            ``split`` (why fp32 OCP is not bitwise on the card); then the
            per-shard shapes timed alone.
+  lm_mesh  qwen1.5-0.5b at full size over a (data, model) mesh of
+           DTensors (``repro_torch.sharding``): an NCCL world of 1, mesh
+           (1, 1), whose Engine serves 4 of the launcher's requests (8
+           new tokens, capacity 4) in bf16 and under int8 through its
+           step graphs, tokens and a prefill's and a 4-slot decode
+           step's logits bitwise to the engine without a mesh; then
+           gloo worlds of 2 and 4 ranks sharing cuda:0 (meshes (1, 2)
+           and (2, 2), ``run_spmd``, host-staged ``StagedGroup``s), each
+           rank's Engine serving eagerly (``graphs: off (gloo)``) the
+           same requests: int8 tokens and logits bitwise to the
+           unsharded int8 engine, qmatmul launched 72 a step on every
+           rank, bf16 logits within 2^-4 of 1 + max|logit|; every shard
+           launch shape of qmatmul (and its int32-accumulator mode)
+           bitwise to its plain version; the step wall and each
+           collective's calls, bytes and host seconds per rank; the
+           serve launcher (1 x 2, full size) and the train launcher
+           (2 x 2, full width cut to LM_MESH_TRAIN_LAYERS layers, then
+           again on its checkpoint: the restore onto the mesh's
+           shardings and one more step) inside the worlds, printing
+           their mesh;
+           the model at full width cut to LM_MESH_TRAIN_LAYERS layers in
+           fp32 trained LM_MESH_TRAIN_STEPS steps at 8 x 128 against the
+           single-rank run (losses rtol 1e-5, params rtol 2e-4 / atol
+           2e-5), and on 2 x 2 a checkpoint restored onto (1, 2)
+           bitwise.
 
 Then one compact line a model of step times (eager and graph wall, busy
 and event ms; capture ms and pool MiB), the launch phase's compact lines
@@ -212,7 +240,8 @@ phases, of the boot phase, of the lm phase's int8 engine runs
 the ssm phase's int8 zamba2 engine runs through the kernel, of the
 train phase's MNIST run, of the launch phase's int8 engine and of the
 mesh phase's NCCL world-1 engines on a mesh and placed plans on every
-rank, each counted from 0 just before it; a CUDA
+rank, and of the lm_mesh phase's world-1 mesh engines and every gloo
+rank's serving runs, each counted from 0 just before it; a CUDA
 graph's kernels are counted at its warm-up and at its capture, and its
 replays by the graph; the lm phase's card-vs-CPU models and its
 kernel-vs-plain comparisons are left out), the card's ``nvidia-smi``
@@ -316,32 +345,44 @@ LM_DENSE_ARCHS = ["qwen3-14b", "gemma2-2b", "command-r-35b",
                   "internvl2-26b"]
 LM_DENSE_LAYERS = 2
 LM_FULL_ARCHS = ["gemma2-2b", "qwen3-14b"]
-# the moe phase: both MoE models at full width and the deepest L >= 2
-# whose fp32 init (the stack of L layers, one more layer being drawn, and
-# both embedding matrices) stays under MOE_INIT_BYTES
+# qwen1.5's graph-vs-eager engines, kernel-vs-plain logits and step times
+# at full width cut to LM_STEP_LAYERS layers (from 24, to keep the script
+# in its time; the int8 engine and the launchers serve all 24)
+LM_STEP_LAYERS = 6
+# the moe phase: both MoE models at full width cut to MOE_LAYERS layers
+# (deeper cuts fit the card, 3 and 4 layers, but not the script's time)
 MOE_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e"]
-MOE_INIT_BYTES = 60e9
-# the ssm phase: the two sub-quadratic LMs at full size, each served at a
-# prompt length whose half is a whole number of its scan chunks (zamba2's
-# SSD chunk is 256 tokens, rwkv6's WKV chunk 64); zamba2 cut to 13 layers
-# (2 shared-block calls, 1 tail layer) for its kernel-vs-plain checks,
-# where the plain qmatmul at M = 512 costs ~0.1 s a call, and to 7 (one
-# group, one tail layer) for card against CPU; rwkv6 to 2 for the latter
+MOE_LAYERS = 2
+# the ssm phase: the two sub-quadratic LMs, each served at a prompt
+# length whose half is a whole number of its scan chunks (zamba2's SSD
+# chunk is 256 tokens, rwkv6's WKV chunk 64). zamba2 cut to 6 layers (one
+# group: 6 Mamba2 layers and a shared-block call) for its kernel-vs-plain
+# checks, where the plain qmatmul at M = 512 costs ~0.1 s a call, and for
+# card against CPU (cut from 13 and 7); rwkv6 to 2 for the latter. The
+# engines, step times and ragged prompts at full width cut to
+# SSM_STEP_LAYERS (zamba2 27 layers: 4 shared-block calls; cut from 81 and
+# 24); the launchers serve full size. Each cut keeps the
+# script in its time
 SSM_PROMPT = {"zamba2-7b": 512, "rwkv6-1.6b": 128}
-SSM_PLAIN_LAYERS = 13
-SSM_CPU_LAYERS = {"zamba2-7b": 7, "rwkv6-1.6b": 2}
-# the train phase: the launcher trains qwen1.5-0.5b at full size, is
-# killed after its step-10 checkpoint and resumes; the loss and backward
-# alone (no optimizer: weights + gradients) of four more archs at full
-# width and the least depth that reaches every block kind (None: full
-# depth), on a (2, 256) token batch (whole SSD and WKV chunks)
+SSM_PLAIN_LAYERS = 6
+SSM_STEP_LAYERS = {"zamba2-7b": 27, "rwkv6-1.6b": 12}
+SSM_CPU_LAYERS = {"zamba2-7b": 6, "rwkv6-1.6b": 2}
+# the train phase: the launcher trains qwen1.5-0.5b at full width cut to
+# TRAIN_LAYERS of its 24 layers (a checkpoint 2.8 GB, not 5.6: cut to
+# keep the script in its time), is killed after its step-10
+# checkpoint and resumes; the loss and backward alone (no optimizer:
+# weights + gradients) of four more archs at full width and the least
+# depth that reaches every block kind, on a (2, 256) token batch (whole
+# SSD and WKV chunks)
 TRAIN_ARCH = "qwen1.5-0.5b"
-TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "20", "--global-batch", "8",
-              "--seq", "128", "--ckpt-every", "10"]
+TRAIN_LAYERS = 6
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS),
+              "--steps", "20", "--global-batch", "8", "--seq", "128",
+              "--ckpt-every", "10"]
 TRAIN_KILL_AT = 10
 TRAIN_EAGER_STEPS = 5       # the launcher's eager steps held to the graph's
 TRAIN_BWD_ARCHS = {"gemma2-2b": 2, "dbrx-132b": 1, "zamba2-7b": 7,
-                   "rwkv6-1.6b": None}
+                   "rwkv6-1.6b": 2}
 TRAIN_BWD_BATCH = (2, 256)
 # kernel vs plain gradients, relative to 1 + max|g|: fp32 sums in
 # another order (the kernel's forward, cuDNN's backward vs im2col)
@@ -393,6 +434,20 @@ MESH_TIMED_SHAPES = [
     ("highres_cnn block1 icp2xocp2", "conv_window", (4, 110, 110, 8, 3)),
     ("mnist_cnn conv2 ocp4", "fused_cwp", (15, 13, 13, 5, 6)),
 ]
+
+
+# the lm_mesh phase: qwen1.5-0.5b over gloo worlds of ranks sharing
+# cuda:0, mesh shape -> world; the launcher's first LM_MESH_REQUESTS
+# prompts, LM_MESH_NEW tokens each at capacity 4; training: the model at
+# full width cut to LM_MESH_TRAIN_LAYERS layers in fp32, LM_MESH_TRAIN_STEPS
+# steps at (B, S) = LM_MESH_TRAIN_BATCH
+LM_MESH_WORLDS = {(1, 2): 2, (2, 2): 4}
+LM_MESH_REQUESTS = 4
+LM_MESH_NEW = 8
+LM_MESH_TRAIN_LAYERS = 4
+LM_MESH_TRAIN_STEPS = 3
+LM_MESH_TRAIN_BATCH = (8, 128)
+LM_MESH_TIMEOUT_S = 900
 
 
 class SmokeFailure(RuntimeError):
@@ -1705,17 +1760,23 @@ def phase_lm(device) -> dict:
     # costs (cuBLAS handles, the allocator's growth)
     out = {"phase": "lm", "arch": LM_ARCH}
     out["engine"], launches = lm_engines(model, params, device)
+    lap("lm engines")
     del params
     out["launcher"] = [lm_launcher(q) for q in ("none", "int8")]
-    params = model.init(0, device=device)
+    lap("lm launcher x2")
     out["card_vs_cpu"] = lm_card_vs_cpu(device)
+    lap("lm card_vs_cpu")
+    cut = type(model)(dataclasses.replace(
+        model.cfg, n_layers=LM_STEP_LAYERS,
+        name=f"{LM_ARCH} {LM_STEP_LAYERS}L"))
+    params = cut.init(0, device=device)
     out["graph_vs_eager"] = [engine_graph_vs_eager(
-        f"{LM_ARCH} kv_quant={q}", model, params, device, kv_quant=q)
+        f"{cut.cfg.name} kv_quant={q}", cut, params, device, kv_quant=q)
         for q in ("none", "int8")]
-    out["logits_kernel_vs_plain"] = lm_logits_bitwise(model, params,
-                                                      device)
-    out["times"] = lm_times(model, params, device)
+    out["logits_kernel_vs_plain"] = lm_logits_bitwise(cut, params, device)
+    out["times"] = lm_times(cut, params, device)
     out["tolerances"] = TOL_LM
+    lap("lm graph_vs_eager, logits, times")
     del params
     free_card()
     out["dense"] = []
@@ -1723,29 +1784,17 @@ def phase_lm(device) -> dict:
         row, grew = lm_dense(arch, device)
         out["dense"].append(row)
         launches = {k: v + grew[k] for k, v in launches.items()}
+        lap(f"lm dense {arch}")
     for arch in LM_FULL_ARCHS:
         free_card()
         out["launcher"].append(lm_launcher("none", arch))
+        lap(f"lm launcher {arch}")
     free_card()
     emit(out)
     return launches
 
 
 # -------------------------------------------------------------------- moe
-
-def moe_depth(cfg) -> int:
-    """The deepest L >= 2 at which ``cfg``'s fp32 init stays under
-    MOE_INIT_BYTES: the stack of L layers, one more layer being drawn
-    (``stacked_init`` draws a layer, then copies it in), and both
-    embedding matrices."""
-    import dataclasses
-    count = lambda n: dataclasses.replace(cfg, n_layers=n).param_count()
-    layer = count(1) - count(0)
-    depth = 2
-    while 4 * (count(depth + 1) + layer) <= MOE_INIT_BYTES:
-        depth += 1
-    return depth
-
 
 @contextlib.contextmanager
 def moe_routing_log():
@@ -1955,7 +2004,7 @@ def phase_moe(device) -> dict:
     for arch in MOE_ARCHS:
         free_card()
         cfg = get_arch(arch).model().cfg
-        depth = moe_depth(cfg)
+        depth = MOE_LAYERS
         model = TransformerLM(dataclasses.replace(cfg, n_layers=depth))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2041,13 +2090,13 @@ def ssm_ragged(model, params, device, chunk: int) -> str:
 
 
 def ssm_zamba2(device) -> tuple[dict, dict]:
-    """zamba2-7b: at full size (81 layers, random weights from seed 0)
-    ``Engine`` under int8 through the qmatmul kernel, through its step
-    graphs (39 launches captured in each graph and replayed a prefill and
-    a decode step: the shared block's wi, wg, wo at each of its 13 calls)
-    and eagerly (the same tokens), the bf16 times, a ragged prompt, and
-    the launcher with
-    a bf16 and an int8 KV cache; at SSM_PLAIN_LAYERS layers, kernel
+    """zamba2-7b at full width cut to SSM_STEP_LAYERS layers (random
+    weights from seed 0): ``Engine`` under int8 through the qmatmul
+    kernel, through its step graphs (3 launches captured in each graph
+    and replayed a prefill and a decode step at each shared-block call)
+    and eagerly (the same tokens), the bf16 times, a ragged prompt; the
+    launcher at full size with a bf16 and an int8 KV cache; at
+    SSM_PLAIN_LAYERS layers, kernel
     against plain (the engine's tokens, a 512-token prefill's and a
     4-slot decode step's logits, bitwise); at SSM_CPU_LAYERS, card
     against CPU in fp32 and int8. Returns (the report, the launches of
@@ -2057,7 +2106,10 @@ def ssm_zamba2(device) -> tuple[dict, dict]:
     from repro_torch.configs import get_arch
 
     arch, plen = "zamba2-7b", SSM_PROMPT["zamba2-7b"]
-    model = get_arch(arch).model()
+    full = get_arch(arch).model()
+    model = type(full)(dataclasses.replace(
+        full.cfg, n_layers=SSM_STEP_LAYERS[arch],
+        name=f"{arch} {SSM_STEP_LAYERS[arch]}L"))
     cfg = model.cfg
     free_card()
     torch.cuda.reset_peak_memory_stats()
@@ -2070,14 +2122,18 @@ def ssm_zamba2(device) -> tuple[dict, dict]:
     out["engine"], launches = lm_engines(model, params, device,
                                          3 * cfg.n_groups, plen,
                                          backends=(None,))
+    lap("zamba2 init, engines")
     out["times"] = ssm_times(model, params, device, plen)
     out["ragged"] = ssm_ragged(model, params, device, cfg.mamba_chunk)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    lap("zamba2 times, ragged")
     del params
     free_card()
     out["launcher"] = [lm_launcher(q, arch, plen) for q in ("none", "int8")]
+    lap("zamba2 launcher x2")
     free_card()
-    cut = type(model)(dataclasses.replace(cfg, n_layers=SSM_PLAIN_LAYERS))
+    cut = type(model)(dataclasses.replace(full.cfg,
+                                          n_layers=SSM_PLAIN_LAYERS))
     params = cut.init(0, device=device)
     row = {"layers": SSM_PLAIN_LAYERS, "shared_block_calls":
            cut.cfg.n_groups, "tail_layers": cut.cfg.n_tail}
@@ -2087,27 +2143,32 @@ def ssm_zamba2(device) -> tuple[dict, dict]:
     row["logits_kernel_vs_plain"] = lm_logits_bitwise(cut, params, device,
                                                       plen)
     out["kernel_vs_plain"] = row
+    lap(f"zamba2 {SSM_PLAIN_LAYERS} layers kernel vs plain")
     del params
     free_card()
     out["card_vs_cpu"] = lm_card_vs_cpu(
         device, arch, layers=SSM_CPU_LAYERS[arch], prompt_lens=(256,),
         nudge=False)
+    lap("zamba2 card vs cpu")
     free_card()
     return out, launches
 
 
 def ssm_rwkv6(device) -> dict:
-    """rwkv6-1.6b at full size (24 layers, random weights from seed 0):
-    ``Engine`` in bf16 through its step graphs and eagerly (the same
-    tokens), the bf16 times, a ragged prompt, the launcher with a bf16
-    and an int8 KV cache, then SSM_CPU_LAYERS layers in fp32 card against
-    CPU. No
+    """rwkv6-1.6b at full width cut to SSM_STEP_LAYERS layers (random
+    weights from seed 0): ``Engine`` in bf16 through its step graphs and
+    eagerly (the same tokens), the bf16 times, a ragged prompt; the
+    launcher at full size with a bf16 and an int8 KV cache, then
+    SSM_CPU_LAYERS layers in fp32 card against CPU. No
     kernel launches: the reference's RWKV reaches no Pallas kernel."""
     import torch
     from repro_torch.configs import get_arch
 
     arch, plen = "rwkv6-1.6b", SSM_PROMPT["rwkv6-1.6b"]
-    model = get_arch(arch).model()
+    full = get_arch(arch).model()
+    model = type(full)(dataclasses.replace(
+        full.cfg, n_layers=SSM_STEP_LAYERS[arch],
+        name=f"{arch} {SSM_STEP_LAYERS[arch]}L"))
     free_card()
     before = counts()
     params = model.init(0, device=device)
@@ -2140,6 +2201,7 @@ def phase_ssm(device) -> dict:
     t0 = time.perf_counter()
     zamba2, launches = ssm_zamba2(device)
     rwkv6 = ssm_rwkv6(device)
+    lap("rwkv6")
     emit({"phase": "ssm", "zamba2": zamba2, "rwkv6": rwkv6,
           "tolerances": TOL_LM, "launches": launches,
           "seconds": time.perf_counter() - t0})
@@ -2415,8 +2477,9 @@ def _launch_train(work: Path, tag: str, *extra: str,
 
 
 def train_lm_launcher() -> dict:
-    """(b) qwen1.5-0.5b at full size through the launcher, each step a
-    replay of its train graph: 20 steps uninterrupted; the same run
+    """(b) qwen1.5-0.5b at full width, TRAIN_LAYERS layers, through the
+    launcher (four processes at a time), each step a replay of its train
+    graph: 20 steps uninterrupted; the same run
     killed after its step-10 checkpoint and invoked again, whose losses
     11-20 must equal the uninterrupted run's bitwise; one step under
     ``--microbatches 2``, whose loss must be step 1's within 1e-5
@@ -2427,14 +2490,24 @@ def train_lm_launcher() -> dict:
     work = ROOT / "build" / "train_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def killed_then_resumed():
+        return (_launch_train(work, "killed", kill_after=TRAIN_KILL_AT),
+                _launch_train(work, "killed"))
+
+    # four processes at once on the card (each its own checkpoints; the
+    # losses do not depend on what else runs), the resume after its kill
     try:
-        runs = [_launch_train(work, "whole"),
-                _launch_train(work, "killed", kill_after=TRAIN_KILL_AT),
-                _launch_train(work, "killed"),
-                _launch_train(work, "mb2", "--microbatches", "2",
-                              "--steps", "1"),
-                _launch_train(work, "eager", "--eager",
-                              stop_after=TRAIN_EAGER_STEPS)]
+        with ThreadPoolExecutor(4) as pool:
+            whole = pool.submit(_launch_train, work, "whole")
+            chain = pool.submit(killed_then_resumed)
+            mb2 = pool.submit(_launch_train, work, "mb2", "--microbatches",
+                              "2", "--steps", "1")
+            eager = pool.submit(_launch_train, work, "eager", "--eager",
+                                stop_after=TRAIN_EAGER_STEPS)
+            runs = [whole.result(), *chain.result(), mb2.result(),
+                    eager.result()]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     whole, resumed, mb2, eager = (runs[i]["losses"] for i in (0, 2, 3, 4))
@@ -2468,7 +2541,8 @@ def train_lm_launcher() -> dict:
 
 
 def train_lm_times(device) -> dict:
-    """(b) The launcher's train step on the full-size qwen1.5-0.5b, in
+    """(b) The launcher's train step on qwen1.5-0.5b at full width cut to
+    TRAIN_LAYERS layers (the launch phase times the full-size one), in
     this process, eagerly and as its train graph's replay (both over the
     same static params, optimizer state and batch): wall, device busy
     (torch.profiler) and event time a step, tokens/s, the capture's ms
@@ -2482,7 +2556,8 @@ def train_lm_times(device) -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.serve.graphs import train_graph
     from repro_torch.train import make_train_step
-    model = get_arch(TRAIN_ARCH).model()
+    full = get_arch(TRAIN_ARCH).model()
+    model = type(full)(dataclasses.replace(full.cfg, n_layers=TRAIN_LAYERS))
     params = model.init(0, device=device)
     opt = adamw_init(params)
     step = make_train_step(model, AdamWConfig(total_steps=20))
@@ -2507,7 +2582,8 @@ def train_lm_times(device) -> dict:
     n = model.param_count()
     ops_s = 6 * n * bsz * seq / PEAK_BF16
     bytes_s = 28 * n / PEAK_BYTES
-    STEP_LINES.append({"steps": f"{TRAIN_ARCH} train B={bsz}x{seq}", **{
+    STEP_LINES.append({"steps": f"{TRAIN_ARCH} {TRAIN_LAYERS}L train "
+                                f"B={bsz}x{seq}", **{
         k: [round(v[m], 3) for m in ("wall_ms", "device_busy_ms",
                                      "event_ms")]
         for k, v in times.items()},
@@ -2676,17 +2752,23 @@ def phase_train(device) -> dict:
     counted from 0 after the gradients' kernel-vs-plain check."""
     t0 = time.perf_counter()
     mnist, launches = train_mnist(device)
+    lap("mnist")
     free_card()
-    report = {"mnist": mnist, "qwen_launcher": train_lm_launcher(),
-              "qwen_step": train_lm_times(device)}
+    report = {"mnist": mnist, "qwen_launcher": train_lm_launcher()}
+    lap("qwen launcher runs")
+    report["qwen_step"] = train_lm_times(device)
+    lap("qwen step times")
     free_card()
     report["seamless"] = train_encdec(device)
+    lap("seamless")
     free_card()
     report["backward"] = []
     for arch, layers in TRAIN_BWD_ARCHS.items():
         report["backward"].append(train_backward(arch, layers, device))
         free_card()
+        lap(f"backward {arch}")
     report["card_vs_cpu"] = train_card_vs_cpu(device)
+    lap("card vs cpu")
     report["seconds"] = time.perf_counter() - t0
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -2708,7 +2790,9 @@ def phase_train(device) -> dict:
                     "bound_by")}
           | {k: report["qwen_launcher"][k] for k in
              ("losses", "resumed_bitwise", "microbatches2_rel",
-              "graph_vs_eager")},
+              "graph_vs_eager")}
+          | {"launcher_seconds": [[r["tag"], r["seconds"]] for r in
+                                  report["qwen_launcher"]["runs"]]},
           "seamless": {k: v for k, v in report["seamless"].items()},
           "backward": [{k: r[k] for k in ("arch", "layers", "loss", "ms",
                                           "max_memory_allocated")}
@@ -3802,6 +3886,458 @@ def phase_mesh(device) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- lm_mesh
+
+def lm_mesh_serve(model, params, ctx, quant, device) -> dict:
+    """``Engine`` (graphs on where the mesh allows) on ``ctx``'s mesh, or
+    without one (``ctx`` None), under ``quant`` ("none": the model's bf16;
+    "int8": every MLP matmul a qmatmul and an int8 KV cache) over the
+    launcher's first LM_MESH_REQUESTS prompts, LM_MESH_NEW tokens each at
+    capacity 4. After its first step (every request admitted, one decode
+    step) one more decode step's logits over the 4 live slots, outside
+    the run: it writes the K/V the engine's next step writes again (an
+    int8 cache is not stored back), so the run goes on as it would. After
+    the run, a prefill's logits (the first prompt of the full length).
+    Returns the tokens, both logits whole (CPU), the run's wall, steps,
+    prefills, decode steps, and its wrapper launches and collectives'
+    calls, bytes and host seconds (the two logits steps left out)."""
+    import torch
+    from repro_torch.core.parallelism import COMM_STATS
+    from repro_torch.ops import ExecPolicy, use_policy
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.engine import engine_decode_step
+    from repro_torch.sharding.logical import whole
+    cfg = EngineConfig(capacity=4, max_seq=80, device=str(device),
+                       policy=ExecPolicy(quant=quant))
+    prompts = lm_prompts(model.cfg.vocab)[:LM_MESH_REQUESTS]
+    eng = Engine(model, params, cfg, ctx)
+    for p in prompts:
+        eng.add_request(p, LM_MESH_NEW)
+    grew = dict.fromkeys(counts(), 0)
+    comm = {"calls": {}, "bytes": {}, "host_s": {}, "staged": {}}
+    wall = 0.0
+
+    def run(fn):
+        nonlocal wall
+        mesh_sync(device)
+        before = counts()
+        COMM_STATS.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        for k in grew:
+            grew[k] += counts()[k] - before[k]
+        for key, d in (("calls", COMM_STATS.calls), ("bytes", COMM_STATS.bytes),
+                       ("host_s", COMM_STATS.seconds),
+                       ("staged", COMM_STATS.staged)):
+            for k, v in d.items():
+                comm[key][k] = comm[key].get(k, 0) + v
+        return out
+
+    run(eng.step)
+    dec = engine_decode_step(model, cfg, ctx, sample=False)(
+        eng.params, torch.as_tensor(eng._last_token, device=device),
+        torch.as_tensor(eng.kv.positions(), device=device),
+        *eng.kv.device_state())[0]
+    dec = whole(dec).float().cpu()
+    fin = run(eng.run)
+    s = eng.stats
+    full = next(p for p in lm_prompts(model.cfg.vocab) if len(p) == 64)
+    toks = torch.as_tensor(full[None], device=device)
+    with use_policy(cfg.policy), torch.no_grad():
+        pre, _ = model.prefill(eng.params, {"tokens": toks},
+                               eng._prefill_cache(toks.shape[1]), ctx)
+    out = {"tokens": {r.uid: list(r.generated) for r in fin},
+           "prefill": whole(pre).float().cpu(), "decode": dec,
+           "graphs": eng.graph_mode, "wall_s": wall, "steps": s.steps,
+           "prefills": s.prefills,
+           "decode_steps": s.decode_lane_steps // cfg.capacity,
+           "step_wall_ms": 1e3 * wall / max(s.steps, 1),
+           "launches": grew, "collectives": comm}
+    del eng
+    return out
+
+
+def lm_mesh_model():
+    """qwen1.5-0.5b at full size from seed 0, drawn on the card."""
+    from repro_torch.configs import get_arch
+    model = get_arch(LM_ARCH).model()
+    return model, model.init(0, device="cuda")
+
+
+def lm_mesh_world1(device) -> tuple[dict, dict, dict]:
+    """NCCL world 1 on cuda:0, mesh (1, 1): the Engine in bf16 and under
+    int8 through its step graphs, tokens and a prefill's and a decode
+    step's logits bitwise to the engine without a mesh. Returns (the
+    report, the mesh engines' launches (counted from 0 just before
+    them), the engines without a mesh: what the gloo worlds are held
+    to)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.sharding.logical import ShardingCtx
+    mesh = build_mesh("1x1", None, "cuda")
+    try:
+        check(dist.get_backend() == "nccl",
+              f"lm world 1 resolved to {dist.get_backend()}, not nccl")
+        ctx = ShardingCtx(mesh, get_arch(LM_ARCH).rules())
+        model, params = lm_mesh_model()
+        plain = {q: lm_mesh_serve(model, params, None, q, device)
+                 for q in ("none", "int8")}
+        mesh_sync(device)
+        reset_counts()                  # the mesh engines alone from here
+        placed = {q: lm_mesh_serve(model, params, ctx, q, device)
+                  for q in ("none", "int8")}
+        mesh_sync(device)
+        launches = counts()
+        rows = []
+        for q in ("none", "int8"):
+            a, b = placed[q], plain[q]
+            check(a["graphs"] == "on", f"lm world 1 {q}: graphs "
+                                       f"{a['graphs']}")
+            check(a["tokens"] == b["tokens"],
+                  f"lm world 1 {q}: tokens {a['tokens']} vs the engine "
+                  f"without a mesh {b['tokens']}")
+            for step in ("prefill", "decode"):
+                check(bitwise(a[step], b[step]),
+                      f"lm world 1 {q} {step} logits: max_abs "
+                      f"{max_abs(a[step], b[step])} from the engine "
+                      f"without a mesh")
+            rows.append({"quant": q, "graphs": "on", "bitwise": True,
+                         "requests": len(a["tokens"]),
+                         "step_wall_ms": a["step_wall_ms"],
+                         "plain_step_wall_ms": b["step_wall_ms"],
+                         "launches": a["launches"]})
+        del params
+    finally:
+        dist.destroy_process_group()
+    return {"mesh": [1, 1], "backend": "nccl", "engines": rows}, \
+        launches, plain
+
+
+def lm_mesh_record_shapes():
+    """Wrap the qmatmul wrappers to record each launch's (mode, M, K,
+    N); returns (the set, a function that unwraps)."""
+    from repro_torch.kernels.qmatmul import ops as qm
+    seen, real = set(), (qm.qmatmul, qm.qmatmul_acc)
+
+    def fused(x, w, *a, **k):
+        seen.add(("epilogue", *x.shape, w.shape[1]))
+        return real[0](x, w, *a, **k)
+
+    def acc(x, w, *a, **k):
+        seen.add(("acc", *x.shape, w.shape[1]))
+        return real[1](x, w, *a, **k)
+
+    qm.qmatmul, qm.qmatmul_acc = fused, acc
+
+    def undo():
+        qm.qmatmul, qm.qmatmul_acc = real
+    return seen, undo
+
+
+def lm_mesh_shard_checks(shapes, device) -> list[list]:
+    """Each recorded shard launch shape, kernel against its plain version
+    on fresh random codes, bitwise."""
+    from repro_torch.kernels.qmatmul.ops import qmatmul, qmatmul_acc
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref, qmatmul_ref
+    out = []
+    for i, (mode, m, k, n) in enumerate(sorted(shapes)):
+        xc, wc, xs, ws = qmatmul_inputs_on(device, 400 + i, m, k, n)
+        if mode == "acc":
+            got, want = qmatmul_acc(xc, wc), qmatmul_acc_ref(xc, wc)
+        else:
+            got, want = qmatmul(xc, wc, xs, ws), qmatmul_ref(xc, wc, xs, ws)
+        check(bitwise(got, want), f"lm mesh shard qmatmul {mode} "
+                                  f"{m}x{k}x{n}: kernel vs plain max_abs "
+                                  f"{max_abs(got, want)}")
+        out.append([mode, m, k, n])
+    return out
+
+
+def lm_mesh_train_model():
+    """qwen1.5-0.5b at full width cut to LM_MESH_TRAIN_LAYERS layers, in
+    fp32 (the reference's bars are fp32 bars)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model().cfg,
+                              n_layers=LM_MESH_TRAIN_LAYERS,
+                              dtype=torch.float32)
+    return TransformerLM(cfg)
+
+
+def lm_mesh_train(model, ctx, device):
+    """LM_MESH_TRAIN_STEPS AdamW steps (eps 1e-3, as the CPU parity tests
+    take it) on the synthetic stream at B x S = LM_MESH_TRAIN_BATCH from
+    seed-0 weights: (losses, params, opt state, the steps' wall)."""
+    import torch
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           SyntheticTextIterator)
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sharding.logical import distribute_tree
+    from repro_torch.train.steps import make_train_step
+    b, s = LM_MESH_TRAIN_BATCH
+    data = SyntheticTextIterator(SyntheticTextConfig(
+        vocab=model.cfg.vocab, seq_len=s, global_batch=b))
+    params = distribute_tree(model.init(0, device=device), model.axes(),
+                             ctx)
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=LM_MESH_TRAIN_STEPS,
+        eps=1e-3), ctx)
+    losses, t0 = [], time.perf_counter()
+    for _ in range(LM_MESH_TRAIN_STEPS):
+        batch = {k: v.to(device) for k, v in data.next_batch().items()}
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    return losses, params, opt, time.perf_counter() - t0
+
+
+def lm_mesh_train_hold(label, losses, params, ref) -> dict:
+    """Losses at rtol 1e-5 and every param at rtol 2e-4 / atol 2e-5
+    against the single-rank run (``tests/test_distributed.py``'s
+    bars); returns the largest excess ratios."""
+    import numpy as np
+    from repro_torch.core.tree import tree_items
+    from repro_torch.sharding.logical import whole
+    want_l = np.asarray(ref["losses"])
+    got_l = np.asarray(losses)
+    lrel = float(np.abs(got_l - want_l).max() / np.abs(want_l).max())
+    check(lrel <= 1e-5, f"{label}: losses {losses} vs single rank "
+                        f"{ref['losses']} (rel {lrel})")
+    worst = 0.0
+    for path, p in tree_items(params):
+        got = whole(p).detach().cpu().double()
+        want = ref["params"]["/".join(path)].double()
+        ratio = float(((got - want).abs()
+                       / (2e-5 + 2e-4 * want.abs())).max())
+        check(ratio <= 1.0, f"{label}: {'/'.join(path)} past rtol 2e-4 / "
+                            f"atol 2e-5 (ratio {ratio})")
+        worst = max(worst, ratio)
+    return {"losses": losses, "loss_rel": lrel, "param_bar_ratio": worst}
+
+
+def lm_mesh_launchers(shape, work) -> dict:
+    """``launch/serve.py`` at full size (mesh 1x2), or ``launch/train.py``
+    (mesh 2x2) at full width cut to LM_MESH_TRAIN_LAYERS layers, 8 x 128:
+    a step and a checkpoint, then again on that checkpoint (restored onto
+    the mesh's shardings) for one more step; inside this world over
+    gloo. Each prints its mesh and ``graphs: off (gloo)``. Returns rank
+    0's report lines."""
+    import io
+    import math
+    import torch.distributed as dist
+    buf = io.StringIO()
+    runs = []
+    with contextlib.redirect_stdout(buf):
+        if shape == (1, 2):
+            from repro_torch.launch import serve as launcher
+            launcher.main(["--arch", LM_ARCH, "--capacity", "2",
+                           "--requests", "2", "--prompt-len", "16",
+                           "--decode-steps", "2", "--mesh", "1x2",
+                           "--dist-backend", "gloo", "--device", "cuda"])
+        else:
+            from repro_torch.launch import train as launcher
+            for steps in (1, 2):
+                runs.append(launcher.main([
+                    "--arch", LM_ARCH, "--layers", str(LM_MESH_TRAIN_LAYERS),
+                    "--steps", str(steps), "--global-batch", "8",
+                    "--seq", "128", "--mesh", "2x2",
+                    "--dist-backend", "gloo", "--device", "cuda",
+                    "--ckpt", str(work)]))
+    lines = buf.getvalue().strip().splitlines()
+    if runs:
+        check([r["start"] for r in runs] == [0, 1]
+              and [sorted(r["losses"]) for r in runs] == [[1], [2]]
+              and all(math.isfinite(v) for r in runs
+                      for v in r["losses"].values()),
+              f"lm mesh 2x2 train launcher: runs {runs}, not step 1 "
+              f"then 2 resumed from the step-1 checkpoint")
+    if dist.get_rank() == 0:
+        want = "mesh={'data': 1, 'model': 2}" if shape == (1, 2) \
+            else "mesh={'data': 2, 'model': 2}"
+        check(sum(want in ln and "graphs: off (gloo)" in ln
+                  for ln in lines) == max(len(runs), 1),
+              f"lm mesh {shape} launcher: no {want!r} with graphs off "
+              f"(gloo) in {lines}")
+        if runs:
+            check(any("auto-resumed from step 1" in ln for ln in lines),
+                  f"lm mesh 2x2 train launcher: no resume in {lines}")
+    return {"argv_mesh": "x".join(map(str, shape)), "lines": lines[:12],
+            "losses": [r["losses"] for r in runs]}
+
+
+def lm_mesh_rank(rank, world, shape, ref_path, work) -> dict:
+    """One rank of a gloo world whose ranks share cuda:0, on a
+    host-staged DTensor mesh of ``shape``: qwen1.5-0.5b at full size
+    served in bf16 (logits within TOL_BF16 of 1 + max|want| of the
+    unsharded engine's) and under int8 (tokens and logits bitwise to the
+    unsharded int8 engine's, qmatmul launched 72 a step on this rank);
+    each shard launch shape kernel vs plain; the launchers; then the
+    4-layer fp32 model trained LM_MESH_TRAIN_STEPS steps against the
+    single-rank run, and on 2x2 a checkpoint restored onto (1, 2)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_items
+    from repro_torch.sharding.groups import mesh_groups
+    from repro_torch.sharding.logical import (ShardingCtx,
+                                              param_shardings, whole)
+    import os
+    # the world's ranks share the host's cores: one pool of CPU threads a
+    # rank, not the whole host's each
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    device = torch.device("cuda", 0)
+    ref = torch.load(ref_path, weights_only=False)
+    mesh = mesh_groups(shape, ("data", "model"), "cuda")
+    ctx = ShardingCtx(mesh, get_arch(LM_ARCH).rules())
+    model, params = lm_mesh_model()
+    out = {"rank": rank, "serve": {}}
+    seen, undo = lm_mesh_record_shapes()
+    try:
+        for q in ("none", "int8"):
+            r = lm_mesh_serve(model, params, ctx, q, device)
+            want = ref["serve"][q]
+            label = f"lm mesh {shape} rank {rank} {q}"
+            check(r["graphs"] == "off (gloo)", f"{label}: graphs "
+                                               f"{r['graphs']}")
+            errs = {st: max_abs(r[st], want[st])
+                    for st in ("prefill", "decode")}
+            if q == "int8":
+                check(r["tokens"] == want["tokens"],
+                      f"{label}: tokens {r['tokens']} vs unsharded "
+                      f"{want['tokens']}")
+                for st, err in errs.items():
+                    check(err == 0.0, f"{label} {st} logits: max_abs {err} "
+                                      f"from the unsharded int8 engine")
+                per_step = 3 * model.cfg.n_layers
+                steps = r["prefills"] + r["decode_steps"]
+                check(r["launches"]["qmatmul"] == per_step * steps,
+                      f"{label}: qmatmul launched "
+                      f"{r['launches']['qmatmul']} times, expected "
+                      f"{per_step} x {steps} steps")
+            else:
+                for st, err in errs.items():
+                    bar = TOL_BF16 * (1 + float(want[st].abs().max()))
+                    check(err <= bar, f"{label} {st} logits: max_abs {err} "
+                                      f"> {bar}")
+            del r["prefill"], r["decode"]
+            r["max_abs"] = errs
+            r["tokens_equal"] = r.pop("tokens") == want["tokens"]
+            out["serve"][q] = r
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = {k: sum(r["launches"][k] for r in out["serve"].values())
+                for k in counts()}
+    out["shard_checks"] = lm_mesh_shard_checks(seen, device)
+    out["launcher"] = lm_mesh_launchers(shape, Path(work) / "launch")
+    del params
+    free_card()
+    tmodel = lm_mesh_train_model()
+    losses, tparams, _, wall = lm_mesh_train(tmodel, ctx, device)
+    out["train"] = lm_mesh_train_hold(f"lm mesh {shape} rank {rank} train",
+                                      losses, tparams, ref["train"])
+    out["train"]["wall_s"] = wall
+    if shape == (2, 2):
+        # the params alone: the optimizer state's elastic restore is held
+        # on the CPU (tests/test_torch_lm_mesh.py)
+        ckpt = Path(work) / "ckpt22"
+        CheckpointManager(ckpt).save(LM_MESH_TRAIN_STEPS, params=tparams)
+        saved = [whole(t) for _, t in tree_items(tparams)]  # every rank
+        sub = mesh_groups((1, 2), ("data", "model"), "cuda")
+        if sub is not None:          # ranks 0 and 1 restore onto (1, 2)
+            meta = tmodel.init(torch.Generator(), device="meta")
+            psh = param_shardings(meta, tmodel.axes(), sub, ctx.rules)
+            _, rp, _, _ = CheckpointManager(ckpt).restore(
+                params_template=meta, device="cuda", params_shardings=psh)
+            for (path, a), b in zip(tree_items(rp), saved):
+                check(bitwise(whole(a), b),
+                      f"lm mesh 2x2 -> 1x2 restore: {'/'.join(path)} "
+                      f"differs")
+            out["restore"] = {"from": [2, 2], "onto": [1, 2],
+                              "leaves": len(tree_items(rp)),
+                              "bitwise": True}
+        dist.barrier()
+    out["launches"] = launches
+    return out
+
+
+def lm_mesh_reference(device, plain, path) -> dict:
+    """What the gloo worlds are held to, saved to ``path``: the unsharded
+    engines' tokens and logits (world 1's engines without a mesh) and
+    the 4-layer model's single-rank training (losses, params on the
+    CPU)."""
+    import torch
+    from repro_torch.core.tree import tree_items
+    model = lm_mesh_train_model()
+    losses, params, _, wall = lm_mesh_train(model, None, device)
+    ref = {"serve": {q: {k: plain[q][k] for k in ("tokens", "prefill",
+                                                   "decode")}
+                     for q in plain},
+           "train": {"losses": losses,
+                     "params": {"/".join(p): t.detach().cpu()
+                                for p, t in tree_items(params)}}}
+    torch.save(ref, path)
+    del params
+    free_card()
+    return {"losses": losses, "wall_s": wall}
+
+
+def phase_lm_mesh(device) -> dict:
+    """qwen1.5-0.5b over a (data, model) mesh on the one card: NCCL world
+    1 (mesh (1, 1), graphs on, bitwise to the engine without a mesh), the
+    single-rank training run, then gloo worlds of 2 and 4 ranks sharing
+    cuda:0 (meshes (1, 2) and (2, 2), ``run_spmd``, every collective
+    host-staged) serving and training against them. Returns the launches
+    of the mesh path: the world-1 mesh engines' and every rank's serving
+    runs (each counted from 0)."""
+    import tempfile
+    from repro_torch.launch.mesh import run_spmd
+    free_card()
+    world1, total, plain = lm_mesh_world1(device)
+    lap("lm_mesh NCCL world 1")
+    worlds = []
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_",
+                                     dir=ROOT / "build") as work:
+        ref_path = str(Path(work) / "ref.pt")
+        single = lm_mesh_reference(device, plain, ref_path)
+        lap("lm_mesh single-rank training")
+        del plain
+        free_card()
+        for shape, world in LM_MESH_WORLDS.items():
+            t0 = time.perf_counter()
+            ranks = run_spmd(lm_mesh_rank, world, "gloo", "cuda", shape,
+                             ref_path, work, timeout=LM_MESH_TIMEOUT_S)
+            for r in ranks:
+                check(r["launches"]["qmatmul"],
+                      f"lm mesh {shape} rank {r['rank']}: qmatmul never "
+                      f"launched")
+                total = {k: total[k] + r["launches"][k] for k in total}
+            worlds.append({
+                "mesh": list(shape), "world": world, "backend": "gloo",
+                "seconds": time.perf_counter() - t0,
+                "serve": [r["serve"] for r in ranks],
+                "shard_shapes": ranks[0]["shard_checks"],
+                "launcher": ranks[0]["launcher"],
+                "train": [r["train"] for r in ranks],
+                "restore": ranks[0].get("restore"),
+                "launches": [r["launches"] for r in ranks],
+                "note": "every rank time-shares one card: these walls say "
+                        "nothing about scaling"})
+            lap(f"lm_mesh gloo world {shape}")
+    emit({"phase": "lm_mesh", "arch": LM_ARCH, "world1": world1,
+          "single_rank_train": single,
+          "train_model": f"{LM_ARCH} at full width, "
+                         f"{LM_MESH_TRAIN_LAYERS} of 24 layers, fp32",
+          "worlds": worlds})
+    return total
+
+
 def device_ms(fn, reps: int = 100) -> tuple[float, bool]:
     """Median device time of ``reps`` calls of ``fn``, each between two
     CUDA events, all queued behind a spin kernel so the host's launch
@@ -4045,6 +4581,57 @@ def lm_time_rows(gen, device) -> list[dict]:
         row["library_note"] = note
         rows.append(row)
         del xc, wc
+    return rows + lm_shard_time_rows(device)
+
+
+def lm_shard_time_rows(device) -> list[dict]:
+    """qmatmul at qwen1.5-0.5b's MLP shard shapes on a (data, model)
+    mesh, model 2 and 4, M = 4 (a decode step) and 64 (a prefill): the
+    column-parallel wi/wg (K = 1,024, N = 2,816 / model) with the
+    epilogue, and the row-parallel wo (K = 2,816 / model, N = 1,024)
+    without it (``qmatmul_acc``: the int32 accumulator the ranks sum).
+    Each first bitwise against its plain version; the library yardstick
+    ``torch._int_mm`` (+ the scales for the epilogue form) where M > 16."""
+    import torch
+    from repro_torch.kernels.qmatmul.ops import qmatmul, qmatmul_acc
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref, qmatmul_ref
+    rows = []
+    for i, (model_n, m, part) in enumerate(
+            (mn, m, part) for mn in (2, 4) for m in (4, 64)
+            for part in ("wi", "wo")):
+        k, n = (1024, 2816 // model_n) if part == "wi" \
+            else (2816 // model_n, 1024)
+        xc, wc, xs, ws = qmatmul_inputs_on(device, 500 + i, m, k, n)
+        if part == "wi":
+            kern = lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul(xc, wc, xs, ws)
+            plain = lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul_ref(
+                xc, wc, xs, ws)
+            lib = lambda xc=xc, wc=wc, xs=xs, ws=ws: torch._int_mm(
+                xc, wc).to(torch.float32) * xs * ws
+            nbytes = m * k + k * n + 4 * (m + n + m * n)
+        else:
+            kern = lambda xc=xc, wc=wc: qmatmul_acc(xc, wc)
+            plain = lambda xc=xc, wc=wc: qmatmul_acc_ref(xc, wc)
+            lib = lambda xc=xc, wc=wc: torch._int_mm(xc, wc)
+            nbytes = m * k + k * n + 4 * m * n
+        got, want = kern(), plain()
+        check(bitwise(got, want), f"times qmatmul shard {part} {m}x{k}x{n}: "
+                                  f"kernel vs plain max_abs "
+                                  f"{max_abs(got, want)}")
+        note = None
+        if m > 16:
+            check(bitwise(lib(), want), f"torch._int_mm at shard {m}x{k}x{n} "
+                                        f"disagrees with the plain version")
+        else:
+            lib, note = None, "torch._int_mm needs M > 16"
+        stage = (f"{'decode' if m == 4 else 'prefill'} {m}x{k}x{n} "
+                 f"{part} model={model_n}"
+                 + (" (int32 accumulator)" if part == "wo" else ""))
+        row = _time_row("qmatmul", stage, m, kern, plain, lib, nbytes,
+                        2.0 * m * k * n / PEAK_INT8, exact=True,
+                        model=f"{LM_ARCH} shard")
+        row["library_note"] = note
+        rows.append(row)
     return rows
 
 
@@ -4181,10 +4768,22 @@ def kernels_line(launches, max_err, rows) -> dict:
     return {"kernels": out}
 
 
+_LAP = [0.0]
+
+
+def lap(part: str) -> None:
+    """Print to stderr the seconds a phase's ``part`` took: since the
+    phase started or its last lap."""
+    now = time.perf_counter()
+    print(f"chip_smoke:   {part} {now - _LAP[0]:.1f} s", file=sys.stderr,
+          flush=True)
+    _LAP[0] = now
+
+
 def _timed(name, fn):
     """``fn`` with its wall time printed to stderr when it returns."""
     def run(device):
-        t0 = time.perf_counter()
+        t0 = _LAP[0] = time.perf_counter()
         out = fn(device)
         print(f"chip_smoke: phase {name} {time.perf_counter() - t0:.1f} s",
               file=sys.stderr, flush=True)
@@ -4198,7 +4797,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
-                         "lm, moe, ssm, train, launch, mesh, times, plans); "
+                         "lm, moe, ssm, train, launch, mesh, lm_mesh, "
+                         "times, plans); "
                          "prints no result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
@@ -4221,8 +4821,8 @@ def main(argv=None) -> int:
               "stream": phase_stream, "boot": phase_boot,
               "lm": phase_lm, "moe": phase_moe, "ssm": phase_ssm,
               "train": phase_train, "launch": phase_launch,
-              "mesh": phase_mesh, "times": phase_times,
-              "plans": phase_plans}
+              "mesh": phase_mesh, "lm_mesh": phase_lm_mesh,
+              "times": phase_times, "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
     try:
@@ -4264,11 +4864,15 @@ def main(argv=None) -> int:
         mesh = phases["mesh"](device)           # counted from 0 per rank
         check(mesh["fused_cwp"] and mesh["conv_window"] and mesh["qmatmul"],
               f"a kernel of the mesh path never launched: {mesh}")
+        lm_mesh = phases["lm_mesh"](device)     # counted from 0 per rank
+        check(lm_mesh["qmatmul"],
+              f"qmatmul never launched on the LM mesh path: {lm_mesh}")
         emit({"phase": "launches", "main": launches, "boot": boot,
               "lm": lm, "moe": moe, "ssm": ssm, "train": train,
-              "launch": launch, "mesh": mesh})
+              "launch": launch, "mesh": mesh, "lm_mesh": lm_mesh})
         launches = {k: v + boot[k] + lm[k] + moe[k] + ssm[k] + train[k]
-                    + launch[k] + mesh[k] for k, v in launches.items()}
+                    + launch[k] + mesh[k] + lm_mesh[k]
+                    for k, v in launches.items()}
         rows = phases["times"](device)
         phases["plans"](device)
     except SmokeFailure as e:

@@ -10,8 +10,13 @@ again from the template's dtype on load; a step directory
 ``meta.json`` ({"step", "extra"}: the data iterator's state). Writes go
 to a temporary file or directory that ``os.replace`` moves into place
 last, so a run killed mid-write never corrupts the latest checkpoint.
-Restoring onto another mesh (the reference's elastic restore) waits for
-the LM half of ROADMAP §A.10; ``device`` names the one device a tree lands on.
+
+On a mesh every rank calls ``save`` (DTensor leaves are joined whole,
+a collective) and rank 0 writes; the others wait for it at a barrier.
+The elastic restore is the reference's: ``load_pytree(..., shardings)``
+and ``restore(params_shardings=, opt_shardings=)`` lay each loaded leaf
+out by a ``NamedSharding`` (``repro_torch.sharding``), whatever mesh the
+tree was saved from; ``device`` names the device a tree lands on.
 """
 from __future__ import annotations
 
@@ -24,7 +29,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_from_items, tree_items
+import torch.distributed as dist
+
+from repro_torch.core.tree import tree_from_items, tree_items, tree_map
+from repro_torch.sharding.logical import whole
 
 __all__ = ["CheckpointManager", "save_pytree", "load_pytree"]
 
@@ -35,10 +43,21 @@ def _key(path: tuple) -> str:
     return _SEP.join(str(p) for p in path)
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a running world, or a
+    process outside any."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _wait_for_writer() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _flatten(tree) -> dict[str, np.ndarray]:
     flat = {}
     for path, leaf in tree_items(tree):
-        t = leaf.detach().cpu()
+        t = whole(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
         flat[_key(path)] = t.numpy()
@@ -46,10 +65,13 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 
 def save_pytree(tree, path: Path) -> None:
-    """Atomic save of a nested dict of tensors to ``path`` (.npz)."""
+    """Atomic save of a nested dict of tensors to ``path`` (.npz). On a
+    mesh every rank calls it; rank 0 writes."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
     flat = _flatten(tree)
+    if not _writer():
+        return
+    path.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".tmp.npz")
     os.close(fd)
     try:
@@ -61,12 +83,14 @@ def save_pytree(tree, path: Path) -> None:
 
 
 def load_pytree(template, path: Path,
-                device: str | torch.device | None = None):
+                device: str | torch.device | None = None, shardings=None):
     """The arrays of ``path`` in the structure of ``template`` (a nested
     dict whose leaves have ``shape`` and ``dtype``: tensors, meta tensors
-    included), each cast to its template leaf's dtype, on ``device``
-    (default: the template leaf's device). A missing key or a shape that
-    differs raises."""
+    and DTensors included), each cast to its template leaf's dtype, on
+    ``device`` (default: the template leaf's device), then laid out by
+    ``shardings`` (a tree of ``NamedSharding``s) when given: the elastic
+    restore onto any mesh. A missing key or a shape that differs
+    raises."""
     out = []
     with np.load(path, allow_pickle=False) as data:
         for p, leaf in tree_items(template):
@@ -81,7 +105,10 @@ def load_pytree(template, path: Path,
             dev = device if device is not None else leaf.device
             out.append((p, torch.from_numpy(arr).to(dtype=leaf.dtype,
                                                     device=dev)))
-    return tree_from_items(out)
+    tree = tree_from_items(out)
+    if shardings is not None:
+        tree = tree_map(lambda t, sh: sh.place(t), tree, shardings)
+    return tree
 
 
 class CheckpointManager:
@@ -98,8 +125,16 @@ class CheckpointManager:
     def save(self, step: int, *, params, opt_state=None,
              extra: dict | None = None) -> Path:
         """Atomic: assembled in a temporary directory, renamed into place
-        last; then all but the newest ``keep`` are deleted."""
+        last; then all but the newest ``keep`` are deleted. On a mesh
+        every rank calls it (a DTensor leaf is joined whole) and rank 0
+        writes."""
         final = self._step_dir(step)
+        if not _writer():
+            _flatten(params)
+            if opt_state is not None:
+                _flatten(opt_state)
+            _wait_for_writer()
+            return final
         tmp = Path(tempfile.mkdtemp(dir=self.dir, prefix=".tmp_"))
         try:
             save_pytree(params, tmp / "params.npz")
@@ -114,6 +149,7 @@ class CheckpointManager:
             if tmp.exists():
                 shutil.rmtree(tmp, ignore_errors=True)
         self._gc()
+        _wait_for_writer()
         return final
 
     def steps(self) -> list[int]:
@@ -126,18 +162,22 @@ class CheckpointManager:
 
     def restore(self, *, params_template, opt_template=None,
                 step: int | None = None,
-                device: str | torch.device | None = None):
+                device: str | torch.device | None = None,
+                params_shardings=None, opt_shardings=None):
         """Returns (step, params, opt_state or None, extra); the latest
-        step unless ``step`` is given."""
+        step unless ``step`` is given. Elastic: the shardings may lay the
+        trees out on another mesh than the one they were saved from."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = self._step_dir(step)
         meta = json.loads((d / "meta.json").read_text())
-        params = load_pytree(params_template, d / "params.npz", device)
+        params = load_pytree(params_template, d / "params.npz", device,
+                             params_shardings)
         opt = None
         if opt_template is not None and (d / "opt_state.npz").exists():
-            opt = load_pytree(opt_template, d / "opt_state.npz", device)
+            opt = load_pytree(opt_template, d / "opt_state.npz", device,
+                              opt_shardings)
         return step, params, opt, meta.get("extra", {})
 
     def _gc(self) -> None:

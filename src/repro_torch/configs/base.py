@@ -21,7 +21,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.sharding.logical import A
+from repro_torch.sharding.logical import A, DEFAULT_RULES, ShardingRules
 
 __all__ = ["SHAPES", "ArchSpec", "lm_inputs"]
 
@@ -112,9 +112,19 @@ class ArchSpec:
     dec_frac: int = 4                 # enc-dec: decoder tokens = seq / this
     subquadratic: bool = False        # O(1)-state decode: runs long_500k
     cache_seq_divisor: int = 1        # enc-dec: self cache = seq // this
+    # logical-axis rule overrides for this arch on a mesh (e.g. archs whose
+    # head count does not divide the model axis shard act_seq over it)
+    rule_overrides: dict | None = None
 
     def model(self):
         return self.build()
+
+    def rules(self, base: ShardingRules = DEFAULT_RULES) -> ShardingRules:
+        """``base`` with this arch's ``rule_overrides`` (the reference's
+        launchers read them so)."""
+        if self.rule_overrides:
+            return base.with_overrides(**self.rule_overrides)
+        return base
 
     def skip_reason(self, shape_id: str) -> str | None:
         if shape_id == "long_500k" and not self.subquadratic:
@@ -137,8 +147,7 @@ class ArchSpec:
 
     def cache_specs(self, shape_id: str):
         """(the serve cache of a prefill or decode cell as meta tensors,
-        its logical axes). The axes are None until the models'
-        ``cache_axes()`` are ported (the LM half of ROADMAP §A.10)."""
+        its logical axes: the model's ``cache_axes()``)."""
         kind, seq, batch = SHAPES[shape_id]
         m = self.model()
         if self.frames:
@@ -146,4 +155,4 @@ class ArchSpec:
             cache = m.init_cache(batch, s_dec, enc_seq=seq, device="meta")
         else:
             cache = m.init_cache(batch, seq, device="meta")
-        return cache, None
+        return cache, m.cache_axes()

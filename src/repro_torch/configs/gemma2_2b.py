@@ -30,4 +30,5 @@ ARCH = ArchSpec(
            "per-layer flag; logit softcaps on attention and final head. "
            "8 heads < model=16 ⇒ activations shard seq over 'model' "
            "(sequence parallelism) instead of heads."),
+    rule_overrides={"act_seq": ["model"]},
 )

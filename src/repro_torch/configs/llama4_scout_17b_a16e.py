@@ -4,8 +4,8 @@ vocab=202048, MoE 16 experts top-1 + 1 shared expert, early fusion.
 
 Port of ``repro.configs.llama4_scout_17b_a16e``. About 109 B parameters:
 one card serves it at full width and reduced depth; full depth needs
-its experts sharded over a mesh (the LM half of ROADMAP §A.10), which is also where the
-reference's sequence-parallel rule override comes back.
+its experts sharded over a mesh (expert parallelism, ROADMAP §A.10).
+``rule_overrides`` shards ``act_seq`` over ``model``, as the reference's.
 """
 import torch
 
@@ -31,4 +31,5 @@ ARCH = ArchSpec(
            "frontend concern; text backbone modeled (task-spec stub rule). "
            "40 heads % model=16 != 0 ⇒ activations shard seq over 'model' "
            "(sequence parallelism)."),
+    rule_overrides={"act_seq": ["model"]},
 )

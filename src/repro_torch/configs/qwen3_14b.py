@@ -24,4 +24,5 @@ ARCH = ArchSpec(
     source="hf:Qwen/Qwen3-8B; hf",
     notes=("qk_norm per head; GQA kv=8; untied embeddings. 40 heads % "
            "model=16 != 0 ⇒ activations shard seq over 'model'."),
+    rule_overrides={"act_seq": ["model"]},
 )

@@ -31,24 +31,22 @@ as the reference's global arrays are; the plan executor
 already sliced.
 
 ``ring_all_reduce`` is the Eq. 7 reduction as a point-to-point ring, the
-reference's double-buffered ``ppermute`` ring: ``size - 1`` hops of
-``batch_isend_irecv``, each sending the buffer last received to
+reference's double-buffered ``ppermute`` ring: ``size - 1`` hops
+(``sharding.groups.exchange``), each sending the buffer last received to
 ``r + 1`` and receiving from ``r - 1``, while the accumulator adds in the
 reference's order (own shard, then ``r - 1``, ``r - 2``, …). On lattice
 and int8 data every order gives the same bits; on fp32 data the ranks of
 one ring hold copies that differ by rounding, as the reference's do.
 
-gloo moves CPU tensors only for point-to-point transfers, so where a
-group's backend is gloo and the tensor lies on the card, each transfer
-is staged through host memory. That is a property of the backend, and
-``COMM_STATS`` records it per collective beside the calls and their
-host time.
+The meshes come from ``sharding.groups.mesh_groups``: over gloo their
+groups stage card tensors through host memory and count every
+collective in ``COMM_STATS``; over NCCL the collectives stay on the
+stream.
 """
 from __future__ import annotations
 
 import enum
 import functools
-import time
 from dataclasses import dataclass, field
 
 import torch
@@ -58,10 +56,11 @@ from repro_torch.core.quantize import conv_epilogue
 from repro_torch.core.window import maxpool2
 
 __all__ = ["ChannelParallelism", "CommStats", "COMM_STATS", "StageGrid",
-           "axis_size", "check_mesh", "stage_mesh", "stage_grid", "ring_all_reduce",
-           "gather_channels", "gather_batch", "all_reduce_max",
-           "batch_shard", "conv2d_shard", "fused_conv_block_shard",
-           "conv2d_channel_parallel", "fused_conv_block_channel_parallel"]
+           "axis_size", "check_mesh", "stage_mesh", "stage_grid",
+           "ring_all_reduce", "gather_channels", "gather_batch",
+           "all_reduce", "all_reduce_max", "batch_shard", "conv2d_shard",
+           "fused_conv_block_shard", "conv2d_channel_parallel",
+           "fused_conv_block_channel_parallel"]
 
 
 class ChannelParallelism(enum.Enum):
@@ -73,11 +72,11 @@ class ChannelParallelism(enum.Enum):
 
 @dataclass
 class CommStats:
-    """Per collective (``ring``, ``gather``, ``amax``): calls, how many
-    were staged through host memory (gloo with card tensors), bytes this
-    rank sent, and host seconds spent (the staged ones synchronise the
-    card before and after, so their seconds cover the transfer; the
-    unstaged ones, NCCL's, only the host's time to enqueue them)."""
+    """Per collective kind of a ``StagedGroup`` (``all_reduce``,
+    ``all_gather``, ``reduce_scatter``, ``exchange``): calls, how many
+    were staged through host memory (card tensors), bytes this rank
+    sent, and host seconds spent (a staged call synchronises the card
+    before and after, so its seconds cover the transfer)."""
 
     calls: dict = field(default_factory=dict)
     staged: dict = field(default_factory=dict)
@@ -118,18 +117,6 @@ def check_mesh(mesh) -> tuple[str, ...]:
     return names
 
 
-def _staged(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
-def _sync(t: torch.Tensor, staged: bool) -> None:
-    """Wait for the card where a transfer is staged through the host, so
-    its host seconds cover the copies and not the work queued before.
-    Unstaged collectives (NCCL) stay on the stream, unsynchronised."""
-    if staged:
-        torch.cuda.synchronize(t.device)
-
-
 def _row(mesh, axis: str) -> list[int]:
     """Global ranks along ``axis`` through this rank's coordinate."""
     names = tuple(mesh.mesh_dim_names)
@@ -147,14 +134,14 @@ def stage_mesh(mesh, icp: int, ocp: int, model_axis: str = "model"):
     the two. Creating it creates its process groups: every rank calls it,
     in the same order (the plan does so at compile time). Cached per
     (mesh, split)."""
-    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.sharding.groups import mesh_groups
     names = list(mesh.mesh_dim_names)
     pos = names.index(model_axis)
     ranks = mesh.mesh.movedim(pos, -1)
     ranks = ranks.reshape(*ranks.shape[:-1], ocp, icp)
     new_names = [n for n in names if n != model_axis] + ["ocp", "icp"]
-    return DeviceMesh(mesh.device_type, ranks,
-                      mesh_dim_names=tuple(new_names))
+    return mesh_groups(ranks.shape, new_names, mesh.device_type,
+                       ranks=ranks)
 
 
 @dataclass(frozen=True)
@@ -240,50 +227,26 @@ def ring_all_reduce(part: torch.Tensor, ring: tuple[int, ...],
     separate, as the reference's double-buffered ``ppermute`` ring keeps
     them, and the sum runs in its order: own shard, then ``r - 1``,
     ``r - 2``, … ``size <= 1`` returns ``part`` untouched."""
+    from repro_torch.sharding.groups import exchange
     size = len(ring)
     if size <= 1:
         return part
     me = ring.index(dist.get_rank())
     nxt, prv = ring[(me + 1) % size], ring[(me - 1) % size]
-    staged = _staged(part, group)
-    _sync(part, staged)
-    t0 = time.perf_counter()
     buf = part.contiguous()
     acc = part
-    if staged:
-        send_h = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-        recv_h = torch.empty_like(send_h)
     for _ in range(size - 1):
-        if staged:
-            send_h.copy_(buf)
-            src, dst = send_h, recv_h
-        else:
-            src, dst = buf, torch.empty_like(buf)
-        ops = [dist.P2POp(dist.isend, src, nxt, group),
-               dist.P2POp(dist.irecv, dst, prv, group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        buf = dst.to(part.device) if staged else dst
+        dst = torch.empty_like(buf)
+        exchange(buf, dst, nxt, prv, group)
+        buf = dst
         acc = acc + buf
-    _sync(acc, staged)
-    COMM_STATS.add("ring", staged, (size - 1) * buf.numel()
-                   * buf.element_size(), time.perf_counter() - t0)
     return acc
 
 
-def _all_gather(t: torch.Tensor, group, kind: str) -> list[torch.Tensor]:
-    n = dist.get_world_size(group)
-    staged = _staged(t, group)
-    _sync(t, staged)
-    t0 = time.perf_counter()
-    src = t.contiguous().cpu() if staged else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
+def _all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
+    src = t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
-    if staged:
-        parts = [p.to(t.device) for p in parts]
-    _sync(t, staged)
-    COMM_STATS.add(kind, staged, src.numel() * src.element_size(),
-                   time.perf_counter() - t0)
     return parts
 
 
@@ -297,7 +260,7 @@ def gather_channels(t: torch.Tensor, mesh, layout: tuple[int, int] | None,
     if layout is None:
         return t
     ko, ki = layout
-    parts = _all_gather(t, mesh.get_group(model_axis), "gather")
+    parts = _all_gather(t, mesh.get_group(model_axis))
     return torch.cat([parts[o * ki] for o in range(ko)], dim=1)
 
 
@@ -306,28 +269,25 @@ def gather_batch(t: torch.Tensor, mesh, data_axis: str = "data"
     """All-gather the data-axis batch slices into the whole batch."""
     if axis_size(mesh, data_axis) == 1:
         return t
-    return torch.cat(_all_gather(t, mesh.get_group(data_axis), "gather"),
-                     dim=0)
+    return torch.cat(_all_gather(t, mesh.get_group(data_axis)), dim=0)
+
+
+def all_reduce(t: torch.Tensor, mesh, op=dist.ReduceOp.SUM,
+               dims=None) -> torch.Tensor:
+    """``t`` reduced by ``op`` in place over the mesh dims ``dims`` (every
+    dim when None), one axis group after another; size-1 dims are
+    skipped. Returns ``t``."""
+    for i in sorted(range(mesh.ndim) if dims is None else dims):
+        if mesh.mesh.shape[i] > 1:
+            dist.all_reduce(t, op=op, group=mesh.get_group(i))
+    return t
 
 
 def all_reduce_max(t: torch.Tensor, mesh) -> torch.Tensor:
     """Max of ``t`` over every rank of ``mesh`` (a per-tensor int8 scale
     over an activation whose shards or batch slices lie on several
     ranks). Max is exact, so the result equals the unsharded one."""
-    out = t.clone()
-    for axis in mesh.mesh_dim_names:
-        if axis_size(mesh, axis) == 1:
-            continue
-        group = mesh.get_group(axis)
-        staged = _staged(out, group)
-        _sync(out, staged)
-        t0 = time.perf_counter()
-        buf = out.cpu() if staged else out
-        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
-        out = buf.to(t.device) if staged else buf
-        COMM_STATS.add("amax", staged, buf.numel() * buf.element_size(),
-                       time.perf_counter() - t0)
-    return out
+    return all_reduce(t.clone(), mesh, dist.ReduceOp.MAX)
 
 
 def batch_shard(mesh, batch: int, data_axis: str = "data"

@@ -1,5 +1,7 @@
 // qmatmul: int8 x int8 -> int32 GEMM with the per-row x per-column scale
-// epilogue, (acc * xs[row]) * ws[col], f32 out.
+// epilogue, (acc * xs[row]) * ws[col], f32 out. With raw != 0 the epilogue
+// is skipped and out takes the int32 accumulator itself (a row-parallel
+// shard's partial sum, reduced exactly across ranks before the scales).
 //
 // Replaces the Pallas TPU kernel repro/kernels/qmatmul/kernel.py
 // (_qmatmul_kernel, launched by qmatmul_pallas).
@@ -66,7 +68,8 @@ __global__ void qmatmul_kernel(const int8_t* __restrict__ x,
                                const float* __restrict__ xs,
                                const float* __restrict__ ws,
                                float* __restrict__ out, int M, int N, int K,
-                               int rows, int cols, int kslice, int ld) {
+                               int rows, int cols, int kslice, int ld,
+                               int raw) {
   extern __shared__ int wsm[];  // [column of the slice][ld] packed words
   const int kw = (K + 3) / 4;
   const int cslices = (N + cols - 1) / cols;
@@ -86,11 +89,11 @@ __global__ void qmatmul_kernel(const int8_t* __restrict__ x,
     const bool live = rl < rows && row < M;  // uniform over the warp
     const int8_t* xr = x + (size_t)(live ? row : 0) * K;
     // the epilogue's scales, loaded ahead of the contraction
-    const float xsr = live ? xs[row] : 0.f;
+    const float xsr = live && !raw ? xs[row] : 0.f;
     for (int c0 = 0; c0 < ncols; c0 += CC) {
       const int col = col0 + c0 + lane;
       const bool mine = live && lane < CC && c0 + lane < ncols;
-      const float wsc = mine ? ws[col] : 0.f;
+      const float wsc = mine && !raw ? ws[col] : 0.f;
       int acc[CC];
 #pragma unroll
       for (int c = 0; c < CC; ++c) acc[c] = 0;
@@ -166,7 +169,9 @@ __global__ void qmatmul_kernel(const int8_t* __restrict__ x,
 #pragma unroll
         for (int c = 1; c < CC; ++c)
           if (lane == c) v = acc[c];
-        if (mine) {
+        if (mine && raw) {
+          reinterpret_cast<int*>(out)[(size_t)row * N + col] = v;
+        } else if (mine) {
           out[(size_t)row * N + col] = __fmul_rn(__fmul_rn((float)v, xsr),
                                                  wsc);
         }
@@ -178,7 +183,8 @@ __global__ void qmatmul_kernel(const int8_t* __restrict__ x,
 template <bool ALIGNED>
 int launch(const void* x, const void* w, const void* xs, const void* ws,
            void* out, int M, int N, int K, int threads, int rows, int cols,
-           int kslice, int ld, int smem, long long grid, cudaStream_t st) {
+           int kslice, int ld, int smem, int raw, long long grid,
+           cudaStream_t st) {
   // opt in to more than 48 KB once per device and size: never again on a
   // later launch (or inside a CUDA graph capture) that needs no more
   static int opted[64];
@@ -194,7 +200,7 @@ int launch(const void* x, const void* w, const void* xs, const void* ws,
   }
   qmatmul_kernel<ALIGNED><<<(unsigned)grid, threads, smem, st>>>(
       (const int8_t*)x, (const int8_t*)w, (const float*)xs, (const float*)ws,
-      (float*)out, M, N, K, rows, cols, kslice, ld);
+      (float*)out, M, N, K, rows, cols, kslice, ld, raw);
   return (int)cudaGetLastError();
 }
 
@@ -203,17 +209,18 @@ int launch(const void* x, const void* w, const void* xs, const void* ws,
 // Host side: launch on `stream`, return a CUDA error code (0 = launched).
 // threads is a multiple of 32, rows, cols and kslice >= 1; smem holds
 // ceil(cols / 16) * 16 columns of the slice at the word stride ld >=
-// kslice (repro_torch/ops/tiling.py resolves and checks them all).
+// kslice (repro_torch/ops/tiling.py resolves and checks them all). raw:
+// out is int32 and takes the accumulator (xs and ws are not read).
 extern "C" int qmatmul_launch(const void* x, const void* w, const void* xs,
                               const void* ws, void* out, int M, int N, int K,
                               int threads, int rows, int cols, int kslice,
-                              int ld, int smem, void* stream) {
+                              int ld, int smem, int raw, void* stream) {
   const long long grid =
       (long long)((M + rows - 1) / rows) * ((N + cols - 1) / cols);
   const bool aligned = ((uintptr_t)x & 3) == 0 && (K & 3) == 0;
   cudaStream_t st = (cudaStream_t)stream;
   return aligned ? launch<true>(x, w, xs, ws, out, M, N, K, threads, rows,
-                                cols, kslice, ld, smem, grid, st)
+                                cols, kslice, ld, smem, raw, grid, st)
                  : launch<false>(x, w, xs, ws, out, M, N, K, threads, rows,
-                                 cols, kslice, ld, smem, grid, st);
+                                 cols, kslice, ld, smem, raw, grid, st);
 }

@@ -114,14 +114,20 @@ class SyntheticMNIST:
                 "labels": torch.from_numpy(labels.astype(np.int32))}
 
 
-def shard_batch(batch: dict, mesh=None, *,
+def shard_batch(batch: dict, mesh=None, batch_axes=("pod", "data"), *,
                 device: str | torch.device = DEFAULT_DEVICE) -> dict:
     """Put a host batch on ``device`` (the card unless the caller names
-    the CPU). Placing it over a mesh, the batch dim split over its data
-    axes, waits for the LM half of ROADMAP §A.10."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch over a mesh is not ported yet (ROADMAP "
-            "§A.10, the LM half)")
+    the CPU); with a ``mesh``, as DTensors whose batch dim is split over
+    the DP axes of ``batch_axes`` present in the mesh (replicated over the
+    others, and whole where the mesh has none of them). Every rank passes
+    the same global batch and keeps its rows: no collective."""
     dev = resolve_device(device)
-    return {k: v.to(dev) for k, v in batch.items()}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    if mesh is None:
+        return batch
+    from repro_torch.sharding.logical import NamedSharding
+    names = tuple(mesh.mesh_dim_names)
+    axes = tuple(a for a in batch_axes if a in names)
+    entry = axes if len(axes) > 1 else (axes[0] if axes else None)
+    return {k: NamedSharding(mesh, (entry,) if entry else ()).place(v)
+            for k, v in batch.items()}

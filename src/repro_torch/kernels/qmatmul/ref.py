@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["qmatmul_ref", "k_chunk", "TEMP_BYTES"]
+__all__ = ["qmatmul_ref", "qmatmul_acc_ref", "k_chunk", "TEMP_BYTES"]
 
 # the largest (M, k, N) int32 product one chunk of K may hold
 TEMP_BYTES = 256 << 20
@@ -32,6 +32,13 @@ def qmatmul_ref(x_codes: torch.Tensor, w_codes: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(M,K) int8 · (K,N) int8 -> (M,N) ``out_dtype``; x_scale
     (M,1)|scalar, w_scale (1,N)|scalar. The epilogue is fp32, then cast."""
+    acc = qmatmul_acc_ref(x_codes, w_codes)
+    return (acc.to(torch.float32) * x_scale * w_scale).to(out_dtype)
+
+
+def qmatmul_acc_ref(x_codes: torch.Tensor, w_codes: torch.Tensor
+                    ) -> torch.Tensor:
+    """(M,K) int8 · (K,N) int8 -> the (M,N) int32 accumulator."""
     m, k = x_codes.shape
     n = w_codes.shape[1]
     acc = torch.zeros((m, n), dtype=torch.int32, device=x_codes.device)
@@ -41,4 +48,4 @@ def qmatmul_ref(x_codes: torch.Tensor, w_codes: torch.Tensor,
         ws = w_codes[k0:k0 + step].to(torch.int32)
         acc += (xs[:, :, None] * ws[None, :, :]).sum(dim=1,
                                                      dtype=torch.int32)
-    return (acc.to(torch.float32) * x_scale * w_scale).to(out_dtype)
+    return acc

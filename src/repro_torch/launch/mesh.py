@@ -55,11 +55,8 @@ def _device_type(device) -> str:
 
 
 def _mesh(shape, axes, device=None):
-    from torch.distributed.device_mesh import DeviceMesh
-    n = int(np.prod(shape))
-    ranks = torch.arange(n, dtype=torch.int).reshape(shape)
-    return DeviceMesh(_device_type(device), ranks,
-                      mesh_dim_names=tuple(axes))
+    from repro_torch.sharding.groups import mesh_groups
+    return mesh_groups(shape, axes, _device_type(device))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
@@ -140,7 +137,9 @@ def build_mesh(spec: str, backend: str | None = None, device="cuda"):
     """``spec``: ``"auto"`` (1 × world), ``"1"`` (one rank, a ``model``
     axis of 1) or ``"DxM"`` (data × model). Joins the process group
     first (``init_process_group``). A three-axis spec is the multi-pod
-    mesh, ROADMAP §A.10's LM half, and raises."""
+    mesh, ROADMAP §A.10's LM half, and raises. Over gloo the mesh's
+    groups stage card tensors through host memory
+    (``sharding.groups.mesh_groups``)."""
     init_process_group(backend, device)
     world = dist.get_world_size()
     if spec == "auto":

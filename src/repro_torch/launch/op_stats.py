@@ -40,8 +40,8 @@ aten op the step dispatches, the backward's included:
   alive while autograd or a view holds it), each rounded up to the CUDA
   caching allocator's 512-byte blocks; the arguments' storages are live
   throughout. ``peak_bytes`` is the most live at once.
-* Collectives: none on one device (``collective_bytes`` 0); the LMs'
-  meshes are the LM half of ROADMAP §A.10.
+* Collectives: none on one device (``collective_bytes`` 0); counting a
+  mesh's (the mesh dry run) is the LM half of ROADMAP §A.10.
 """
 from __future__ import annotations
 

@@ -51,7 +51,12 @@ its shards. ``--dist-backend`` names the process-group backend: NCCL
 when every rank has a card of its own (the default resolves to it and
 raises otherwise), ``gloo`` for several ranks on one card or on the CPU.
 ``auto`` keeps the vision path on one device, as in the reference. An LM
-arch on a mesh is ROADMAP §A.10's LM half and raises.
+arch on ``--mesh DxM`` serves through the ``Engine`` on every rank
+(SPMD, rank 0 prints), its weights and KV cache laid out by the model's
+logical axes under the arch's rules (``repro_torch.sharding``); over
+gloo its steps run eagerly (``graphs: off (gloo)``), over NCCL they are
+captured as on one device.
+Only the dense transformers have a mesh path; the others raise.
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --capacity 4 \
         --requests 8 --prompt-len 64 --decode-steps 16 [--kv-quant int8]
@@ -62,6 +67,8 @@ arch on a mesh is ROADMAP §A.10's LM half and raises.
         --requests 32
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch mnist_cnn --mesh 1x4 --dist-backend gloo
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen1.5-0.5b --mesh 1x2 --dist-backend gloo
     python -m repro_torch.launch.serve --arch highres_cnn --capacity 8 \
         --requests 16 --autotune --tuning-cache tuned.tuning.json \
         --save-plan plans/ --warmup-report
@@ -211,9 +218,10 @@ def serve_vision(model, args, mesh=None):
     return engine, results
 
 
-def serve_lm(model, args):
-    """Continuous-batching LM serving behind the front-end. Returns
-    (engine, {rid: Request})."""
+def serve_lm(model, args, ctx=None):
+    """Continuous-batching LM serving behind the front-end; on a mesh
+    (``ctx``) every rank serves the same workload. Returns (engine,
+    {rid: Request})."""
     from repro_torch.serve import (Engine, EngineConfig, LMAdapter,
                                    MonotonicClock)
     from repro_torch.artifact.warmup import collect_warmup
@@ -230,7 +238,7 @@ def serve_lm(model, args):
                                      max_seq=max_seq,
                                      kv_quant=args.kv_quant,
                                      device=args.device),
-                        clock=clock, donate=True)
+                        ctx=ctx, clock=clock, donate=True)
         # the step graphs of the workload's shapes, captured on the card
         for plen in sorted({int(p) for p in lens if p <= max_seq}):
             engine.warm_prefill(plen)
@@ -251,6 +259,9 @@ def serve_lm(model, args):
     total_tokens = s.prefill_tokens + s.decode_tokens
     print(f"arch={args.arch} capacity={args.capacity} "
           f"kv_quant={args.kv_quant} kv_bytes={engine.kv.nbytes():,}")
+    if ctx is not None:
+        from repro_torch.sharding.logical import mesh_sizes
+        print(f"mesh={mesh_sizes(ctx.mesh)} graphs: {engine.graph_mode}")
     print(f"served {len(finished)} requests in {wall:.2f}s "
           f"({len(finished) / wall:.2f} req/s)")
     print(f"engine steps {s.steps} | mean occupancy "
@@ -293,8 +304,9 @@ def main(argv=None):
                     help="per-slot budget (default prompt+decode)")
     ap.add_argument("--kv-quant", choices=("none", "int8"), default="none")
     ap.add_argument("--mesh", default="auto",
-                    help="'auto' (one device) or DxM (data x model) for a "
-                         "channel-parallel CNN")
+                    help="'auto' (one device) or DxM (data x model): a "
+                         "channel-parallel CNN, or an LM laid out by its "
+                         "logical axes")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     default=None,
                     help="process-group backend of --mesh (default: NCCL "
@@ -334,10 +346,6 @@ def main(argv=None):
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import reduced_config
     spec = get_arch(args.arch)
-    if args.mesh != "auto" and spec.family != "cnn":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: an LM on a mesh is not ported yet "
-            f"(ROADMAP §A.10, the LM half: logical-axis rules)")
     _load_tuning_cache(args.tuning_cache)
     if spec.frames:
         # the reference's launcher fails here too: EncDecLM.prefill reads
@@ -352,10 +360,35 @@ def main(argv=None):
     elif spec.family == "cnn":
         out = serve_vision(model, args)
     else:
-        out = serve_lm(reduced_config(model) if args.reduced else model,
-                       args)
+        model = reduced_config(model) if args.reduced else model
+        out = (_serve_lm_on_mesh(model, args, spec) if args.mesh != "auto"
+               else serve_lm(model, args))
     _save_tuning_cache(args.tuning_cache)
     return out
+
+
+def _serve_lm_on_mesh(model, args, spec):
+    """``serve_lm`` on every rank of a ``--mesh``, over a DTensor mesh
+    (``build_mesh``) under the arch's rules; rank 0 prints
+    the report. A process group this call joined is left before
+    returning."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.sharding import ShardingCtx
+    joined = not dist.is_initialized()
+    try:
+        mesh = build_mesh(args.mesh, args.dist_backend, args.device)
+        quiet = (contextlib.redirect_stdout(io.StringIO())
+                 if dist.get_rank() else contextlib.nullcontext())
+        with quiet:
+            return serve_lm(model, args, ShardingCtx(mesh, spec.rules()))
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _serve_vision_on_mesh(model, args):

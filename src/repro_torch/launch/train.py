@@ -5,7 +5,8 @@ of ``repro.launch.train``).
         --global-batch 8 --seq 128 --ckpt DIR --ckpt-every 10
 
 trains the arch at full size on the card (``--device cpu --reduced`` runs
-a small same-family model on the CPU). It draws the reference's weights'
+a small same-family model on the CPU; ``--layers N`` cuts an LM arch to
+its first N layers at full width). It draws the reference's weights'
 shapes from seed 0, feeds the synthetic Markov token stream and takes
 AdamW steps (``train.steps``); every ``--ckpt-every`` steps and at the
 end it saves params, optimizer state and the data iterator's state
@@ -26,10 +27,17 @@ each step is a replay of its CUDA graph, captured at the first step
 (``--eager`` runs the same steps on the same buffers without one); the
 checkpoints read the static trees, which each step writes in place.
 
-Training over a mesh waits for the LM half of ROADMAP §A.10: ``--mesh``
-takes ``auto`` or ``1`` (one device). Encoder-decoder archs, whose batch
-needs frames, are trained through ``train.steps`` directly, as the
-reference's launcher, whose stream has only tokens, cannot feed them.
+``--mesh DxM`` trains over a (data × model) mesh of the running world
+(``torchrun``; ``--dist-backend`` as the serve launcher's): the params
+and optimizer state are DTensors laid out by the model's logical axes
+under the arch's rules, every rank draws the same global batch and the
+model takes its rows, rank 0 prints and writes the checkpoints, and a
+checkpoint restores onto any mesh (the elastic restore). Where the
+mesh has more than one rank the step runs eagerly (``graphs: off
+(<backend>)``). ``auto`` and ``1`` train on one device. Encoder-decoder
+archs, whose batch needs frames, are trained through ``train.steps``
+directly, as the reference's launcher, whose stream has only tokens,
+cannot feed them.
 """
 from __future__ import annotations
 
@@ -62,6 +70,14 @@ def reduced_config(model):
     raise SystemExit(f"--reduced supports LM archs; got {type(cfg)}")
 
 
+def _say(ctx):
+    """``print``, on rank 0 of a mesh only (every rank runs the loop)."""
+    import torch.distributed as dist
+    if ctx is not None and dist.get_rank():
+        return lambda *a, **k: None
+    return print
+
+
 def _parser() -> argparse.ArgumentParser:
     from repro_torch.device import DEFAULT_DEVICE
     ap = argparse.ArgumentParser()
@@ -71,13 +87,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="auto",
-                    help="'auto' or '1' (one device) until the mesh is "
-                         "ported")
+                    help="'auto' or '1' (one device), or DxM (data x "
+                         "model) over the running world")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="process-group backend of --mesh (default: NCCL "
+                         "when every rank has a card of its own)")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
                                                    "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--reduced", action="store_true",
                     help="small same-family config (CPU debugging)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="an LM arch cut to this many layers, at full "
+                         "width (0: all of them)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="torch device; the default needs a CUDA card")
     ap.add_argument("--eager", action="store_true",
@@ -111,13 +134,11 @@ def _train(args) -> dict:
     from repro_torch.device import resolve_device
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.serve.graphs import train_graph
+    from repro_torch.sharding.logical import (NamedSharding, ShardingCtx,
+                                              distribute_tree, mesh_sizes,
+                                              param_shardings, staged_mesh)
     from repro_torch.train.steps import make_train_step
 
-    if args.mesh not in ("auto", "1"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training over a mesh is not ported yet "
-            f"(ROADMAP §A.10, the LM half); 'auto' and '1' train on one "
-            f"device")
     spec = get_arch(args.arch)
     if spec.frames:
         raise NotImplementedError(
@@ -128,11 +149,27 @@ def _train(args) -> dict:
     model = spec.model()
     if args.reduced:
         model = reduced_config(model)
-    print(f"arch={args.arch} params={model.cfg.param_count() / 1e6:.1f}M "
-          f"device={dev}", flush=True)
+    if args.layers:
+        model = type(model)(dataclasses.replace(model.cfg,
+                                                n_layers=args.layers))
+    ctx = None
+    if args.mesh not in ("auto", "1"):
+        from repro_torch.launch.mesh import build_mesh
+        ctx = ShardingCtx(build_mesh(args.mesh, args.dist_backend, dev),
+                          spec.rules())
+    say = _say(ctx)
+    # a gloo mesh's collectives go through host memory: its steps run
+    # eagerly; an NCCL mesh captures them as one device does
+    staged = staged_mesh(ctx)
+    mesh_doc = ""
+    if ctx is not None:
+        mode = "off (gloo)" if staged else "on"
+        mesh_doc = f" mesh={mesh_sizes(ctx.mesh)} graphs: {mode}"
+    say(f"arch={args.arch} params={model.cfg.param_count() / 1e6:.1f}M "
+          f"device={dev}{mesh_doc}", flush=True)
 
     opt_cfg = AdamWConfig(total_steps=args.steps)
-    step_fn = make_train_step(model, opt_cfg,
+    step_fn = make_train_step(model, opt_cfg, ctx,
                               microbatches=args.microbatches)
     dcfg = SyntheticTextConfig(vocab=model.cfg.vocab, seq_len=args.seq,
                                global_batch=args.global_batch)
@@ -141,13 +178,19 @@ def _train(args) -> dict:
     if mgr.latest_step() is not None:
         # shapes and dtypes only (the reference's eval_shape): nothing drawn
         meta = model.init(torch.Generator(), device="meta")
+        psh = osh = None
+        if ctx is not None:
+            psh = param_shardings(meta, model.axes(), ctx.mesh, ctx.rules)
+            osh = {"m": psh, "v": psh,
+                   "step": NamedSharding(ctx.mesh, ())}
         start, params, opt, extra = mgr.restore(
             params_template=meta, opt_template=adamw_init(meta, opt_cfg),
-            device=dev)
+            device=dev, params_shardings=psh, opt_shardings=osh)
         data = SyntheticTextIterator.from_state(dcfg, extra["data"])
-        print(f"auto-resumed from step {start}", flush=True)
+        say(f"auto-resumed from step {start}", flush=True)
     else:
-        params = model.init(0, device=dev)
+        params = distribute_tree(model.init(0, device=dev), model.axes(),
+                                 ctx)
         opt = adamw_init(params)
         data = SyntheticTextIterator(dcfg)
 
@@ -155,27 +198,27 @@ def _train(args) -> dict:
     # buffers from here on, each step writes them in place
     first = data.next_batch()
     graph = train_graph(step_fn, params, opt, first, device=dev,
-                        compiled=not args.eager)
+                        compiled=not (args.eager or staged))
     losses = {}
     t0 = time.perf_counter()
     for i in range(start, args.steps):
         batch = first if i == start else data.next_batch()
         metrics = graph(batch=batch)
         losses[i + 1] = loss = float(metrics["loss"])
-        print(f"step {i + 1:5d}  loss={loss!r}  "
+        say(f"step {i + 1:5d}  loss={loss!r}  "
               f"{(time.perf_counter() - t0) / (i + 1 - start):.2f}s/step",
               flush=True)
         if (i + 1) % args.ckpt_every == 0 or i + 1 == args.steps:
             mgr.save(i + 1, params=params, opt_state=opt,
                      extra={"data": data.state_dict()})
-            print(f"saved step {i + 1}", flush=True)
+            say(f"saved step {i + 1}", flush=True)
     if dev.type == "cuda" and graph.captured:
-        print(f"captured the train step in {graph.capture_s * 1e3:.1f} ms "
+        say(f"captured the train step in {graph.capture_s * 1e3:.1f} ms "
               f"({graph.pool_bytes:,} pool bytes)", flush=True)
     if dev.type == "cuda":
-        print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+        say(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
               f" GB", flush=True)
-    print("training complete", flush=True)
+    say("training complete", flush=True)
     return {"start": start, "losses": losses}
 
 

@@ -28,6 +28,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.graph.trace import dense, flatten, relu
 from repro_torch.models.common import classifier_loss, dense_init
 from repro_torch.ops.policy import ExecPolicy
+from repro_torch.sharding.logical import A
 
 if TYPE_CHECKING:
     from repro_torch.graph.plan import ExecutionPlan
@@ -106,6 +107,15 @@ class PaperCNN:
             "conv2": conv2d_init(gen, cfg.conv2_cfg, dev),
             "fc_w": dense_init(gen, (fc_in, cfg.n_classes), fc_in, dev),
             "fc_b": torch.zeros((cfg.n_classes,), device=dev),
+        }
+
+    def axes(self) -> dict:
+        return {
+            "conv1": {"w": A("conv_out", "conv_in", None, None),
+                      "b": A("conv_out")},
+            "conv2": {"w": A("conv_out", "conv_in", None, None),
+                      "b": A("conv_out")},
+            "fc_w": A(None, None), "fc_b": A(None),
         }
 
     def forward(self, params: dict, images):

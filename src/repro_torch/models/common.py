@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.sharding.logical import is_dtensor
 
 __all__ = ["dense_init", "stacked_init", "layer_views", "chunk_scan",
            "rms_norm",
@@ -260,7 +261,22 @@ def chunked_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
     its tokens. Functionally the softmax CE on full logits.
 
     x: (B,S,D) final hidden; weight: (V,D) tied embedding or (D,V)
-    lm_head (transpose_weight=True); labels: (B,S) int."""
+    lm_head (transpose_weight=True); labels: (B,S) int. On a mesh (``x``
+    a DTensor, its rows sharded) each rank runs the CE on its own rows
+    with the whole weight (``_sharded_ce``)."""
+    if is_dtensor(x):
+        return _sharded_ce(x, weight, labels, mask,
+                           transpose_weight=transpose_weight,
+                           final_softcap=final_softcap, chunk=chunk)
+    nll = _chunked_nll(x, weight, labels, transpose_weight, final_softcap,
+                       chunk)
+    return _mean(nll, mask)
+
+
+def _chunked_nll(x, weight, labels, transpose_weight, final_softcap,
+                 chunk) -> torch.Tensor:
+    """The per-token negative log likelihood (B·S,) of
+    ``chunked_cross_entropy``."""
     b, s, d = x.shape
     v = weight.shape[1] if transpose_weight else weight.shape[0]
     xt = x.reshape(b * s, d).to(torch.float32)
@@ -275,8 +291,40 @@ def chunked_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
             "full", lambda *a, lo=lo: _ce_chunk(
                 *a, lo, chunk, transpose_weight, final_softcap),
             xt, wc, run_max, run_sum, lab_logit, lab)
-    nll = (run_max + torch.log(run_sum)) - lab_logit
-    return _mean(nll, mask)
+    return (run_max + torch.log(run_sum)) - lab_logit
+
+
+def _sharded_ce(x, weight, labels, mask, *, transpose_weight, final_softcap,
+                chunk) -> torch.Tensor:
+    """The chunked CE over DTensors: each rank's rows (``x``'s batch or
+    sequence shards, ``labels`` and ``mask`` laid out as ``x``) against
+    the whole weight, on local tensors; the sums of the nll and of the
+    tokens counted are partial over the row shards and reduced before
+    the mean. The weight's gradient is partial over the row shards too
+    (each rank saw its rows only), and is declared so."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+    split = [p.is_shard() for p in x.placements]
+    part = [Partial() if sp else Replicate() for sp in split]
+    whole_w = weight.redistribute(mesh, [Replicate()] * mesh.ndim)
+    w = whole_w.to_local(grad_placements=part)
+    lab = labels.to_local()
+    nll = _chunked_nll(x.to_local(), w, lab, transpose_weight,
+                       final_softcap, chunk)
+    if mask is not None:
+        m = mask.to_local().reshape(nll.shape).to(torch.float32)
+        num, den = (nll * m).sum(), m.sum()
+    else:
+        num = nll.sum()
+        den = torch.full((), float(nll.numel()), device=nll.device)
+
+    def total(t):
+        return DTensor.from_local(t, mesh, part, run_check=False
+                                  ).redistribute(mesh, [Replicate()] *
+                                                 mesh.ndim)
+    if mask is not None:
+        return total(num) / torch.clamp(total(den), min=1.0)
+    return total(num) / total(den)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

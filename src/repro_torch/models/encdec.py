@@ -18,6 +18,8 @@ called directly.
 Layers are stacked on a leading L dim; the reference's ``lax.scan`` and
 ``vmap`` over them become Python loops over views of the stacks. Under
 autograd each layer runs under ``remat`` unless it is ``"none"``.
+``axes`` and ``cache_axes`` are the logical axes of the params and the
+cache; the forward on a mesh raises (ROADMAP §A.10).
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ from repro_torch.models.common import (chunked_cross_entropy, decode_q_pos,
                                        dense_init, layer_views, remat,
                                        rms_norm, stacked_init)
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
+                                       attn_axes, mlp_axes,
                                        attn_init, mlp_apply, mlp_init)
-from repro_torch.sharding.logical import ShardingCtx, shard
+from repro_torch.models.transformer import stack_axes
+from repro_torch.sharding.logical import A, ShardingCtx, refuse_mesh, shard
 
 __all__ = ["EncDecConfig", "EncDecLM"]
 
@@ -128,11 +132,31 @@ class EncDecLM:
             "final_norm": torch.ones((d,), device=dev),
         }
 
+    def axes(self) -> dict:
+        cfg = self.cfg
+        enc_ax = {"attn": attn_axes(cfg.attn_cfg),
+                  "mlp": mlp_axes(cfg.mlp_cfg),
+                  "ln1": A(None), "ln2": A(None)}
+        dec_ax = {"self_attn": attn_axes(cfg.attn_cfg),
+                  "cross_attn": attn_axes(cfg.attn_cfg),
+                  "mlp": mlp_axes(cfg.mlp_cfg),
+                  "ln1": A(None), "ln2": A(None), "ln3": A(None)}
+        return {"embedding": A("vocab", "embed"),
+                "enc_layers": stack_axes(enc_ax),
+                "dec_layers": stack_axes(dec_ax),
+                "enc_norm": A(None), "final_norm": A(None)}
+
+    def cache_axes(self) -> dict:
+        kvax = {"k": A("layers", "batch", "kv_seq", "kv_heads", None),
+                "v": A("layers", "batch", "kv_seq", "kv_heads", None)}
+        return {"self": dict(kvax), "cross": dict(kvax)}
+
     # ---------- encoder ----------
     def encode(self, params: dict, frames: torch.Tensor,
                ctx: ShardingCtx | None = None) -> torch.Tensor:
         """frames: (B, T_enc, D) stub embeddings -> encoder output, in the
         model dtype: bidirectional self-attention and the MLP a layer."""
+        refuse_mesh(ctx, "the encoder-decoder")
         cfg = self.cfg
         x = shard(frames.to(cfg.dtype), ctx, "batch", "act_seq",
                   "act_embed")
@@ -286,6 +310,7 @@ class EncDecLM:
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B,) int, pos a scalar or per-row (B,) -> (logits (B, V)
         fp32, cache: its self K/V written in place)."""
+        refuse_mesh(ctx, "the encoder-decoder")
         x = self._embed(params, tokens[:, None])
         if torch.is_tensor(pos):
             pos = pos.to(device=x.device, dtype=torch.int32)

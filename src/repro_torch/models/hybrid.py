@@ -28,7 +28,8 @@ Simplification kept from the reference: ONE shared block (the release
 alternates two; DESIGN.md §5). ``loss`` runs the layers with no cache
 (nothing is written) and, unless ``remat`` is ``"none"``, each Mamba
 layer and each shared-block call under an activation checkpoint.
-``axes`` and ``cache_axes`` wait for the LM half of ROADMAP §A.10.
+``axes`` and ``cache_axes`` are the logical axes of the params and the
+cache; the forward on a mesh raises (ROADMAP §A.10).
 """
 from __future__ import annotations
 
@@ -42,11 +43,14 @@ from repro_torch.models.common import (chunked_cross_entropy, decode_q_pos,
                                        dense_init, layer_views, remat,
                                        rms_norm, stacked_init)
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
+                                       attn_axes, mlp_axes,
                                        attn_init, mlp_apply, mlp_init)
 from repro_torch.models.mamba2 import (Mamba2Config, mamba2_apply,
+                                       mamba2_axes,
                                        mamba2_decode_step, mamba2_init,
                                        mamba2_state_shape)
-from repro_torch.sharding.logical import ShardingCtx, shard
+from repro_torch.models.transformer import stack_axes
+from repro_torch.sharding.logical import A, ShardingCtx, refuse_mesh, shard
 
 __all__ = ["HybridConfig", "HybridLM"]
 
@@ -215,6 +219,29 @@ class HybridLM:
             x = self._mamba_layer(layers[i], i, x, ctx, states, decode)
         return x
 
+    def axes(self) -> dict:
+        cfg = self.cfg
+        return {
+            "embedding": A("vocab", "embed"),
+            "mamba_layers": stack_axes({"mamba": mamba2_axes(cfg.mamba_cfg),
+                                        "ln": A(None)}),
+            "shared": {
+                "concat_proj": A("embed", None),
+                "attn": attn_axes(cfg.attn_cfg),
+                "mlp": mlp_axes(cfg.mlp_cfg),
+                "ln1": A(None), "ln2": A(None),
+            },
+            "final_norm": A(None),
+        }
+
+    def cache_axes(self) -> dict:
+        return {
+            "mamba": {"ssm": A("layers", "batch", "ssm_heads", None, None),
+                      "conv": A("layers", "batch", None, "ssm_inner")},
+            "attn": {"k": A("layers", "batch", "kv_seq", "kv_heads", None),
+                     "v": A("layers", "batch", "kv_seq", "kv_heads", None)},
+        }
+
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return params["embedding"][tokens.long()].to(self.cfg.dtype)
 
@@ -233,7 +260,9 @@ class HybridLM:
         """batch: tokens (B,S) (a whole number of SSD chunks), labels
         (B,S), optional loss_mask -> (ce, {"ce"}); the tied embedding is
         the head."""
-        x = self._embed(params, batch["tokens"])
+        refuse_mesh(ctx, "the hybrid (Mamba2) LM")
+        x = shard(self._embed(params, batch["tokens"]), ctx, "batch",
+                  "act_seq", "act_embed")
         b, s = x.shape[:2]
         q_pos = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -265,6 +294,7 @@ class HybridLM:
         Mamba layer's final state and the shared block's K/V (from
         position 0) into ``cache`` in place; returns (last-token logits
         (B, V) fp32, cache)."""
+        refuse_mesh(ctx, "the hybrid (Mamba2) LM")
         x = self._embed(params, batch["tokens"])
         b, s = x.shape[:2]
         q_pos = torch.arange(s, dtype=torch.int32,
@@ -280,6 +310,7 @@ class HybridLM:
         """tokens (B,) int, pos a scalar or per-slot (B,) (the shared
         attention's positions; the Mamba layers are position-free) ->
         (logits (B, V) fp32, cache written in place)."""
+        refuse_mesh(ctx, "the hybrid (Mamba2) LM")
         x = self._embed(params, tokens[:, None])
         if torch.is_tensor(pos):
             pos = pos.to(device=x.device, dtype=torch.int32)

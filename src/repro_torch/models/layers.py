@@ -9,8 +9,20 @@ and cross-attention (``kv_x`` from an encoder, bidirectional mask).
 The projections are plain matmuls, as the reference's einsums are; only
 the MLP goes through the policy-aware ``repro_torch.ops.dense``, so an
 active ``ExecPolicy(quant="int8")`` runs every MLP matmul through the
-``qmatmul`` kernel. The logical-axis annotations (``axes``) wait for
-the LM half of ROADMAP §A.10.
+``qmatmul`` kernel. ``attn_axes`` and ``mlp_axes`` are the params'
+logical axes (``repro_torch.sharding``).
+
+On a mesh (a ``ShardingCtx`` with one) the tensors are DTensors and the
+``shard`` calls sit where the reference's do. Three steps are explicit
+here, each a mesh-only branch: the KV-cache write lands in the rank
+that holds the written positions (``_write_cache_mesh``); K/V are
+gathered to q's heads layout, whole in the sequence, and the attention
+runs on the local tensors (every rank holds whole rows of its heads, so
+the softmax is the unsharded one); and the attention output's heads are
+gathered before ``wo``, whose contraction then runs whole on every rank.
+The last two keep every float sum in one rank and one order, so an int8
+engine on a mesh is bitwise to the unsharded one; the one row-parallel
+product is the MLP's ``wo`` (``ops.dense``).
 """
 from __future__ import annotations
 
@@ -23,10 +35,13 @@ from repro_torch.models.common import (ACTIVATIONS, _const, apply_rope,
                                        dense_init, rms_norm, rope_freqs,
                                        softcap)
 from repro_torch.ops import dense as dense_op
-from repro_torch.sharding.logical import ShardingCtx, shard
+from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
+                                          is_dtensor, local_part, on_mesh,
+                                          redistribute, shard)
 
-__all__ = ["AttnConfig", "attn_init", "attention", "make_attn_mask",
-           "MLPConfig", "mlp_init", "mlp_apply"]
+__all__ = ["AttnConfig", "attn_init", "attn_axes", "attention",
+           "make_attn_mask", "MLPConfig", "mlp_init", "mlp_axes",
+           "mlp_apply"]
 
 # masked scores, in fp32; the softmax runs in fp32 before the cast back
 _NEG_INF = -1e30
@@ -62,6 +77,23 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig,
         p["q_norm"] = torch.ones((hd,), device=device)
         p["k_norm"] = torch.ones((hd,), device=device)
     return p
+
+
+def attn_axes(cfg: AttnConfig) -> dict:
+    ax = {
+        "wq": A("embed", "heads", "head"),
+        "wk": A("embed", "kv_heads", "head"),
+        "wv": A("embed", "kv_heads", "head"),
+        "wo": A("heads", "head", "embed"),
+    }
+    if cfg.qkv_bias:
+        ax["bq"] = A("heads", "head")
+        ax["bk"] = A("kv_heads", "head")
+        ax["bv"] = A("kv_heads", "head")
+    if cfg.qk_norm:
+        ax["q_norm"] = A(None)
+        ax["k_norm"] = A(None)
+    return ax
 
 
 def make_attn_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
@@ -108,6 +140,56 @@ def _write_cache(c: torch.Tensor, new: torch.Tensor, index) -> None:
     c[rows, cols] = new
 
 
+def _cache_part(c):
+    """(the local tensor of a cache view, its offset in each dim): the
+    rows, positions and heads this rank holds (a seam of its own: the
+    mesh tests plant a rank that takes the wrong positions here)."""
+    return local_part(c)
+
+
+def _write_cache_mesh(c, new, index) -> None:
+    """``_write_cache`` on a mesh: ``c`` (B, T, …) and ``new`` (B, s, …)
+    are DTensors. ``new`` is gathered to ``c``'s batch layout, whole in
+    every other dim and cut to the heads this rank holds, and each rank
+    writes only the positions it holds (``_cache_part``): a Python index
+    by slicing, a (B,) or 0-d tensor index row by row on the device. A
+    one-token write (decode) scatters
+    each row's one position, where a rank that does not hold it writes
+    back the value it read; a longer write takes, for each held position,
+    the new value it falls on or the old one."""
+    from torch.distributed.tensor import Replicate, Shard
+    t, s = c.shape[1], new.shape[1]
+    target = tuple(Shard(0) if (p.is_shard() and p.dim == 0)
+                   else Replicate() for p in c.placements)
+    new = redistribute(new.to(c.dtype), target).to_local()
+    loc, off = _cache_part(c)
+    b0, t0 = off[0], off[1]
+    tl = loc.shape[1]
+    new = new[(slice(None), slice(None)) + tuple(
+        slice(o, o + n) for o, n in zip(off[2:], loc.shape[2:]))]
+    if not torch.is_tensor(index):
+        i = min(max(int(index), 0), t - s)
+        lo, hi = max(i, t0), min(i + s, t0 + tl)
+        if lo < hi:
+            loc[:, lo - t0:hi - t0] = new[:, lo - i:hi - i]
+        return
+    start = index.to(device=loc.device, dtype=torch.long).expand(c.shape[0])
+    start = start.clamp(0, t - s)[b0:b0 + loc.shape[0]]
+    rows = torch.arange(loc.shape[0], device=loc.device)[:, None]
+    if s == 1:
+        j = start[:, None] - t0
+        held = (j >= 0) & (j < tl)
+        j = j.clamp(0, tl - 1)
+        keep = held.reshape(held.shape + (1,) * (new.ndim - 2))
+        loc[rows, j] = torch.where(keep, new, loc[rows, j])
+        return
+    o = t0 + torch.arange(tl, device=loc.device)[None, :] - start[:, None]
+    hit = (o >= 0) & (o < s)
+    picked = new[rows, o.clamp(0, s - 1)]
+    keep = hit.reshape(hit.shape + (1,) * (new.ndim - 2))
+    loc.copy_(torch.where(keep, picked, loc))
+
+
 def _kv_len(cache_index, s: int, b: int, device) -> torch.Tensor:
     """The number of valid cache entries a row after the write; a 0-d
     tensor index is expanded to (B,) on its device, never read."""
@@ -146,6 +228,7 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
+    mesh = on_mesh(ctx)
 
     src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
@@ -175,6 +258,9 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
     if cfg.use_rope and kv_x is None and precomputed_kv is None:
         qc, qs_ = rope_freqs(q_pos, hd, cfg.rope_theta)
         kc, ks_ = rope_freqs(kv_pos, hd, cfg.rope_theta)
+        if mesh:   # the positions are global: their rotations as q's rows
+            qc, qs_, kc, ks_ = (shard(r, ctx, "attn_batch", "act_seq", None)
+                                for r in (qc, qs_, kc, ks_))
         q = apply_rope(q, qc, qs_)
         k = apply_rope(k, kc, ks_)
 
@@ -183,10 +269,13 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
         ck, cv = cache_kv
         kv_len = None
         if cache_index is not None:
-            _write_cache(ck, k, cache_index)
-            _write_cache(cv, v, cache_index)
+            write = _write_cache_mesh if mesh else _write_cache
+            write(ck, k, cache_index)
+            write(cv, v, cache_index)
             kv_len = _kv_len(cache_index, s, b, x.device)
         k, v = ck.to(dt), cv.to(dt)
+        k = shard(k, ctx, "batch", "kv_seq", "act_kv", None)
+        v = shard(v, ctx, "batch", "kv_seq", "act_kv", None)
         new_cache = (ck, cv)
         mask_pos = torch.arange(ck.shape[1], device=x.device)
         mask_len = kv_len
@@ -207,25 +296,73 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
     # treatment of GQA, where a (kv, groups) factorization cannot shard)
     g = h // kvh
     if g > 1:
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
-    if s > _Q_BLOCK:
-        out = _blockwise_attn(q, k, v, mask, cfg.attn_softcap)
+        k = _repeat_heads(k, g)
+        v = _repeat_heads(v, g)
+        seq_name = "kv_seq" if cache_kv is not None else "act_seq"
+        k = shard(k, ctx, "attn_batch", seq_name, "act_heads", None)
+        v = shard(v, ctx, "attn_batch", seq_name, "act_heads", None)
+    if mesh:
+        # K/V to q's heads layout, whole in the sequence: every rank holds
+        # whole rows of its heads' scores, so the attention runs on the
+        # local tensors, the unsharded softmax and sums of those rows
+        k, v = (_like_q(t, q, seq=False) for t in (k, v))
+        mask = shard(mask, ctx, "attn_batch", "act_seq", None)
+        from torch.distributed.tensor import DTensor
+        out = DTensor.from_local(
+            _attend(q.to_local(), k.to_local(), v.to_local(),
+                    mask.to_local(), cfg.attn_softcap),
+            q.device_mesh, q.placements, run_check=False)
     else:
-        # the scale is sqrt(hd) rounded to the model dtype, and the
-        # division runs in that dtype: in bf16 this rounds differently
-        # from _blockwise_attn's fp32 multiply by 1/sqrt(hd). A device
-        # divisor keeps it a true division on the card
-        root = float(torch.sqrt(torch.tensor(float(hd))).to(dt))
-        scores = torch.einsum("bshd,bthd->bhst", q, k) / _const(root, q, dt)
-        scores = softcap(scores, cfg.attn_softcap)
-        scores = torch.where(mask[:, None, :, :],
-                             scores.to(torch.float32), _NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bhst,bthd->bshd", probs, v)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+        out = _attend(q, k, v, mask, cfg.attn_softcap)
+    wo = params["wo"]
+    if mesh:
+        # the heads gathered before wo: its contraction whole on every rank
+        out, wo = _like_q(out, q, heads=False), gathered(wo, None)
+    out = torch.einsum("bshk,hkd->bsd", out, wo.to(dt))
     out = shard(out, ctx, "batch", "act_seq", "act_embed")
     return out, new_cache
+
+
+def _attend(q, k, v, mask, attn_softcap) -> torch.Tensor:
+    """softmax(q·kᵀ / √hd, masked) · v over (B, S|T, H, hd) tensors, KV
+    already repeated to full heads."""
+    s, hd, dt = q.shape[1], q.shape[3], q.dtype
+    if s > _Q_BLOCK:
+        return _blockwise_attn(q, k, v, mask, attn_softcap)
+    # the scale is sqrt(hd) rounded to the model dtype, and the division
+    # runs in that dtype: in bf16 this rounds differently from
+    # _blockwise_attn's fp32 multiply by 1/sqrt(hd). A device divisor
+    # keeps it a true division on the card
+    root = float(torch.sqrt(torch.tensor(float(hd))).to(dt))
+    scores = torch.einsum("bshd,bthd->bhst", q, k) / _const(root, q, dt)
+    scores = softcap(scores, attn_softcap)
+    scores = torch.where(mask[:, None, :, :], scores.to(torch.float32),
+                         _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _repeat_heads(t: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, T, KV, hd) -> (B, T, KV·g, hd), each head ``g`` times in a row
+    (``repeat_interleave``). A DTensor repeats its local heads: a shard
+    of the KV heads repeated is the shard of the repeated heads."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(_repeat_heads(t.to_local(), g),
+                                  t.device_mesh, t.placements,
+                                  run_check=False)
+    return torch.repeat_interleave(t, g, dim=2)
+
+
+def _like_q(t, q, *, seq: bool = True, heads: bool = True):
+    """``t`` (B, ·, H, hd) in ``q``'s layout: its batch shards, and its
+    sequence and heads shards where ``seq`` / ``heads``; Replicate on
+    every other mesh dim."""
+    from torch.distributed.tensor import Replicate
+    keep = {0} | ({1} if seq else set()) | ({2} if heads else set())
+    target = tuple(p if (p.is_shard() and p.dim in keep) else Replicate()
+                   for p in q.placements)
+    return redistribute(t, target)
 
 
 _Q_BLOCK = 512
@@ -283,6 +420,16 @@ def mlp_init(gen: torch.Generator, cfg: MLPConfig,
         p["bi"] = torch.zeros((cfg.d_ff,), device=device)
         p["bo"] = torch.zeros((cfg.d_model,), device=device)
     return p
+
+
+def mlp_axes(cfg: MLPConfig) -> dict:
+    ax = {"wi": A("embed", "mlp"), "wo": A("mlp", "embed")}
+    if cfg.gated:
+        ax["wg"] = A("embed", "mlp")
+    if cfg.use_bias:
+        ax["bi"] = A("mlp")
+        ax["bo"] = A(None)
+    return ax
 
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg: MLPConfig,

@@ -25,8 +25,7 @@ Where the semantics hide in the rounding:
   operand order: the intra-chunk one as (C·B)·L, then ·X, never through
   a (B, nc, q, q, H, P) product (3.8 GB at zamba2's 512-token prefill).
 
-The logical-axis annotations (``mamba2_axes``) wait for the LM half of
-ROADMAP §A.10.
+``mamba2_axes`` is the block's logical axes.
 """
 from __future__ import annotations
 
@@ -39,9 +38,9 @@ from repro_torch.core.conv import causal_conv1d_step
 from repro_torch.models.common import (chunk_scan, dense_init, rms_norm,
                                        silu_per_op)
 from repro_torch.ops import causal_conv1d
-from repro_torch.sharding.logical import ShardingCtx, shard
+from repro_torch.sharding.logical import A, ShardingCtx, shard
 
-__all__ = ["Mamba2Config", "mamba2_init", "mamba2_apply",
+__all__ = ["Mamba2Config", "mamba2_init", "mamba2_axes", "mamba2_apply",
            "mamba2_decode_step", "mamba2_state_shape"]
 
 
@@ -157,6 +156,19 @@ def _ssd_chunked(x, dt, a, b, c, cfg: Mamba2Config):
 
     y = (y_diag + y_off).reshape(bsz, t, h, p)
     return y, final
+
+
+def mamba2_axes(cfg: Mamba2Config) -> dict:
+    return {
+        "in_proj": A("embed", "ssm_inner"),
+        "conv_w": A(None, "ssm_inner"),
+        "conv_b": A("ssm_inner"),
+        "A_log": A("ssm_heads"),
+        "D": A("ssm_heads"),
+        "dt_bias": A("ssm_heads"),
+        "norm": A("ssm_inner"),
+        "out_proj": A("ssm_inner", "embed"),
+    }
 
 
 def mamba2_apply(params: dict, x: torch.Tensor, cfg: Mamba2Config,

@@ -33,9 +33,10 @@ places they hide:
 
 The experts do not go through the op registry, so an
 ``ExecPolicy(quant="int8")`` leaves them in ``x.dtype``, as the
-reference's einsums do. Expert parallelism over a mesh (the reference's
-``_moe_apply_ep``) and the logical axes (``moe_axes``) wait for the LM
-half of ROADMAP §A.10: a ``ShardingCtx`` with a mesh raises.
+reference's einsums do. ``moe_axes`` is the layer's logical axes.
+Expert parallelism over a mesh (the reference's ``_moe_apply_ep``)
+waits for the LM half of ROADMAP §A.10: a ``ShardingCtx`` with a mesh
+raises.
 """
 from __future__ import annotations
 
@@ -46,9 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ACTIVATIONS, dense_init
-from repro_torch.sharding.logical import ShardingCtx, shard
+from repro_torch.sharding.logical import A, ShardingCtx, shard
 
-__all__ = ["MoEConfig", "moe_init", "moe_apply"]
+__all__ = ["MoEConfig", "moe_init", "moe_axes", "moe_apply"]
 
 
 @dataclass(frozen=True)
@@ -140,11 +141,28 @@ def _combine(gathered: torch.Tensor, w: torch.Tensor, b: int, s: int,
     return prod.sum(dim=2, dtype=torch.float32).to(gathered.dtype)
 
 
-def _ffn(x: torch.Tensor, wi, wg, wo, act, eq_in: str, eq_out: str
-         ) -> torch.Tensor:
+def moe_axes(cfg: MoEConfig) -> dict:
+    ax = {
+        "router": A("embed", None),
+        "wi": A("expert", "embed", "mlp"),
+        "wo": A("expert", "mlp", "embed"),
+    }
+    if cfg.gated:
+        ax["wg"] = A("expert", "embed", "mlp")
+    if cfg.n_shared:
+        ax["shared_wi"] = A("embed", "mlp")
+        ax["shared_wo"] = A("mlp", "embed")
+        if cfg.gated:
+            ax["shared_wg"] = A("embed", "mlp")
+    return ax
+
+
+def _ffn(x: torch.Tensor, wi, wg, wo, act, eq_in: str, eq_out: str,
+         ctx: ShardingCtx | None, hid_names: tuple) -> torch.Tensor:
     hid = torch.einsum(eq_in, x, wi.to(x.dtype))
     hid = act(torch.einsum(eq_in, x, wg.to(x.dtype))) * hid \
         if wg is not None else act(hid)
+    hid = shard(hid, ctx, *hid_names)
     return torch.einsum(eq_out, hid, wo.to(x.dtype))
 
 
@@ -175,12 +193,14 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
     src = torch.arange(s, device=dev).repeat_interleave(k)
     brow = torch.arange(b, device=dev)[:, None].expand(b, s * k)
     buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=dev)
+    buf = shard(buf, ctx, "batch", "act_expert", None, None)
     buf[brow, flat_e, pos_c] = x[:, src, :]
     buf = shard(buf[:, :, :cap, :], ctx, "batch", "act_expert", None, None)
 
     # --- expert FFN (B, E, C, D) ---
     y = _ffn(buf, params["wi"], params.get("wg") if cfg.gated else None,
-             params["wo"], act, "becd,edf->becf", "becf,efd->becd")
+             params["wo"], act, "becd,edf->becf", "becf,efd->becd",
+             ctx, ("batch", "act_expert", None, None))
 
     # --- combine: row-local gather + routing weights ---
     y = F.pad(y, (0, 0, 0, 1))                          # the drop slot
@@ -193,5 +213,5 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
         out = out + _ffn(x, params["shared_wi"],
                          params.get("shared_wg") if cfg.gated else None,
                          params["shared_wo"], act, "bsd,df->bsf",
-                         "bsf,fd->bsd")
+                         "bsf,fd->bsd", ctx, ("batch", "act_seq", "act_mlp"))
     return shard(out, ctx, "batch", "act_seq", "act_embed"), aux

@@ -27,8 +27,7 @@ Where the semantics hide:
   XLA's do (``common.sigmoid_per_op``), so a bf16 block is bitwise to
   the reference run op by op.
 
-The logical-axis annotations (``rwkv6_axes``) wait for the LM half of
-ROADMAP §A.10.
+``rwkv6_axes`` is the block's logical axes.
 """
 from __future__ import annotations
 
@@ -39,9 +38,10 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (chunk_scan, dense_init, layer_norm,
                                        sigmoid_per_op, silu_per_op)
-from repro_torch.sharding.logical import ShardingCtx, shard
+from repro_torch.sharding.logical import A, ShardingCtx, shard
 
-__all__ = ["RWKV6Config", "rwkv6_init", "rwkv6_apply", "rwkv6_decode_step",
+__all__ = ["RWKV6Config", "rwkv6_init", "rwkv6_axes", "rwkv6_apply",
+           "rwkv6_decode_step",
            "rwkv6_state_shape"]
 
 
@@ -164,6 +164,21 @@ def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
     y_state = torch.einsum("bzihn,bzhnm->bzihm", rs * dec_in, prev)
     y = (y_intra + y_state).reshape(b, t, h, n)
     return y, final
+
+
+def rwkv6_axes(cfg: RWKV6Config) -> dict:
+    return {
+        "ln1": A(None), "ln1_b": A(None), "ln2": A(None), "ln2_b": A(None),
+        "mix": A(None, None), "w0": A(None),
+        "w_lora_a": A("embed", None), "w_lora_b": A(None, "embed"),
+        "u": A("ssm_heads", None),
+        "wr": A("embed", "ssm_inner"), "wk": A("embed", "ssm_inner"),
+        "wv": A("embed", "ssm_inner"), "wg": A("embed", "ssm_inner"),
+        "wo": A("ssm_inner", "embed"), "ln_x": A(None),
+        "cmix": A(None, None),
+        "ck": A("embed", "mlp"), "cv": A("mlp", "embed"),
+        "cr": A("embed", "ssm_inner"),
+    }
 
 
 def rwkv6_apply(params: dict, x: torch.Tensor, cfg: RWKV6Config,

@@ -8,8 +8,9 @@ unchanged) and written in place. A prefill overwrites a row's whole
 state, so a reused slot keeps nothing of its previous tenant. The
 decode step is position-free. ``loss`` runs the blocks with no state
 (each under an activation checkpoint unless ``remat`` is ``"none"``) and
-the chunked cross entropy over the untied head. The logical-axis
-annotations wait for the LM half of ROADMAP §A.10.
+the chunked cross entropy over the untied head. ``axes`` and
+``cache_axes`` are the logical axes of the params and the state; the
+forward on a mesh raises (ROADMAP §A.10).
 """
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.common import (chunked_cross_entropy, dense_init,
                                        layer_norm, layer_views, remat,
                                        stacked_init)
-from repro_torch.models.rwkv6 import (RWKV6Config, rwkv6_apply, rwkv6_init,
+from repro_torch.models.rwkv6 import (RWKV6Config, rwkv6_apply, rwkv6_axes,
+                                      rwkv6_init,
                                       rwkv6_state_shape)
-from repro_torch.sharding.logical import ShardingCtx, shard
+from repro_torch.models.transformer import stack_axes
+from repro_torch.sharding.logical import A, ShardingCtx, refuse_mesh, shard
 
 __all__ = ["RWKVLMConfig", "RWKVLM"]
 
@@ -86,6 +89,18 @@ class RWKVLM:
             "lm_head": dense_init(gen, (d, cfg.vocab), d, dev),
         }
 
+    def axes(self) -> dict:
+        return {"embedding": A("vocab", "embed"), "ln0": A(None),
+                "ln0_b": A(None),
+                "layers": stack_axes(rwkv6_axes(self.cfg.block_cfg)),
+                "final_norm": A(None), "final_norm_b": A(None),
+                "lm_head": A("embed", "vocab")}
+
+    def cache_axes(self) -> dict:
+        return {"wkv": A("layers", "batch", "ssm_heads", None, None),
+                "shift_t": A("layers", "batch", None),
+                "shift_c": A("layers", "batch", None)}
+
     def _run(self, params: dict, x: torch.Tensor, ctx: ShardingCtx | None,
              cache: dict | None) -> torch.Tensor:
         """Every block in order; block ``i`` reads its state from row
@@ -125,7 +140,9 @@ class RWKVLM:
              ) -> tuple[torch.Tensor, dict]:
         """batch: tokens (B,T) (a whole number of WKV chunks), labels
         (B,T), optional loss_mask -> (ce, {"ce"})."""
-        x = self._embed(params, batch["tokens"])
+        refuse_mesh(ctx, "the RWKV-6 LM")
+        x = shard(self._embed(params, batch["tokens"]), ctx, "batch",
+                  "act_seq", "act_embed")
         x = self._run(params, x, ctx, None)
         x = layer_norm(x, params["final_norm"], params["final_norm_b"])
         ce = chunked_cross_entropy(x, params["lm_head"], batch["labels"],
@@ -151,6 +168,7 @@ class RWKVLM:
         which takes the recurrent path) from the state in ``cache``,
         writing the new state in place; returns (last-token logits (B, V)
         fp32, cache)."""
+        refuse_mesh(ctx, "the RWKV-6 LM")
         x = self._embed(params, batch["tokens"])
         x = self._run(params, x, ctx, cache)
         logits = self._logits(params, x[:, -1:, :], ctx)
@@ -162,6 +180,7 @@ class RWKVLM:
         """tokens (B,) -> (logits (B, V) fp32, cache written in place).
         ``pos`` is unused: the recurrence is position-free."""
         del pos
+        refuse_mesh(ctx, "the RWKV-6 LM")
         x = self._embed(params, tokens[:, None])
         x = self._run(params, x, ctx, cache)
         logits = self._logits(params, x, ctx)

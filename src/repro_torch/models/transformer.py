@@ -14,6 +14,16 @@ Layers are stacked on a leading L dim as in the reference, whose
 tensors here (their gradients accumulate into the stacks); each layer's
 slice of the KV cache is written in place. ``remat`` other than
 ``"none"`` checkpoints each layer under autograd (``common.remat``).
+
+``axes`` and ``cache_axes`` are the logical axes of the params and the
+cache (``repro_torch.sharding``). With a ``ShardingCtx`` on a mesh the
+params and the cache are DTensors laid out by them (``distribute_tree``)
+and the forward runs on DTensors: each layer's params are gathered over
+the FSDP axes before use (ZeRO-3; a reduce-scatter of their gradients
+under autograd), the token ids, labels and positions, global on every
+rank, are sliced to the activations' layout where they meet them, and
+the logits come back vocab-sharded (``whole`` joins them). The MoE
+layer raises on a mesh (expert parallelism, ROADMAP §A.10).
 """
 from __future__ import annotations
 
@@ -28,12 +38,46 @@ from repro_torch.models.common import (chunked_cross_entropy,
                                        dense_init, layer_norm, layer_views,
                                        remat, rms_norm, softcap,
                                        stacked_init)
+from repro_torch.core.tree import tree_map
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
-                                       attn_init, mlp_apply, mlp_init)
-from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
-from repro_torch.sharding.logical import ShardingCtx, shard
+                                       attn_axes, attn_init, mlp_apply,
+                                       mlp_axes, mlp_init)
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_axes, moe_init
+from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
+                                          on_mesh, shard)
 
-__all__ = ["LMConfig", "TransformerLM"]
+__all__ = ["LMConfig", "TransformerLM", "stack_axes", "embed_tokens"]
+
+
+def stack_axes(ax):
+    """A layer's axes tree with the stacked ``layers`` dim prepended to
+    every annotation."""
+    if isinstance(ax, dict):
+        return {k: stack_axes(v) for k, v in ax.items()}
+    return A("layers", *ax.names)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 ctx: ShardingCtx | None) -> torch.Tensor:
+    """Rows ``tokens`` of ``table`` (V, D). On a mesh the ids are laid
+    out as the batch and the table gathered over its FSDP axes; each
+    vocab shard looks up the ids it holds (the others read zeros): one
+    nonzero term a sum, so the reduce over the vocab shards is exact.
+    Under autograd each rank looks its own ids up in the whole table on
+    local tensors instead (DTensor has no backward for the vocab-sharded
+    lookup), the table's gradient partial over the ids' shards."""
+    if not on_mesh(ctx):
+        return table[tokens.long()]
+    ids = shard(tokens.long(), ctx, "batch", "act_seq")
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return torch.nn.functional.embedding(ids, gathered(table))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = ctx.mesh
+    part = [Partial() if p.is_shard() else Replicate()
+            for p in ids.placements]
+    rows = gathered(table, None).to_local(grad_placements=part)
+    return DTensor.from_local(rows[ids.to_local()], mesh, ids.placements,
+                              run_check=False)
 
 
 @dataclass(frozen=True)
@@ -168,6 +212,27 @@ class TransformerLM:
                                            cfg.d_model, dev)
         return params
 
+    def axes(self) -> dict:
+        cfg = self.cfg
+        layer_ax: dict = {"attn": attn_axes(cfg.attn_cfg),
+                          "ln1": A(None), "ln2": A(None)}
+        if cfg.moe is not None:
+            layer_ax["moe"] = moe_axes(cfg.moe)
+        else:
+            layer_ax["mlp"] = mlp_axes(cfg.mlp_cfg)
+        if cfg.sandwich_norm:
+            layer_ax["ln1_post"] = A(None)
+            layer_ax["ln2_post"] = A(None)
+        if cfg.norm == "layernorm":
+            layer_ax["ln1_bias"] = A(None)
+            layer_ax["ln2_bias"] = A(None)
+        ax = {"embedding": A("vocab", "embed"),
+              "layers": stack_axes(layer_ax),
+              "final_norm": A(None)}
+        if not cfg.tie_embeddings:
+            ax["lm_head"] = A("embed", "vocab")
+        return ax
+
     # ---------- building blocks ----------
     def _norm(self, x, w, p, bias_name):
         if self.cfg.norm == "layernorm":
@@ -231,8 +296,9 @@ class TransformerLM:
 
             def block(x, p, flag=flag, cache_kv=cache_kv):
                 x, _, aux = self._block(
-                    p, x, ctx, q_pos=q_pos, window_active=flag,
-                    cache_kv=cache_kv, cache_index=cache_index)
+                    tree_map(gathered, p), x, ctx, q_pos=q_pos,
+                    window_active=flag, cache_kv=cache_kv,
+                    cache_index=cache_index)
                 return x, aux
 
             x, aux = remat(self.cfg.remat if cache is None else "none",
@@ -246,23 +312,32 @@ class TransformerLM:
                ctx: ShardingCtx | None,
                vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embedding"][tokens.long()].to(cfg.dtype)
+        x = embed_tokens(params["embedding"], tokens, ctx).to(cfg.dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model, dtype=cfg.dtype) ** 0.5
         if cfg.vision_prefix and vision_embeds is not None:
-            x = torch.cat([vision_embeds.to(cfg.dtype), x], dim=1)
+            # on a mesh the lookup's partial sum over the vocab shards is
+            # reduced before the join (DTensor's cat cannot carry it)
+            x = shard(x, ctx, "batch", "act_seq", "act_embed")
+            vis = shard(vision_embeds.to(cfg.dtype), ctx, "batch",
+                        "act_seq", "act_embed")
+            x = torch.cat([vis, x], dim=1)
         return shard(x, ctx, "batch", "act_seq", "act_embed")
 
     def _logits(self, params: dict, x: torch.Tensor,
                 ctx: ShardingCtx | None) -> torch.Tensor:
         cfg = self.cfg
         x = self._norm(x, params["final_norm"], params, "final_norm_bias")
+        # on a mesh the rows are joined first: the vocab contraction then
+        # runs at the unsharded row count (the CPU's BLAS rounds a 1- or
+        # 2-row product with a transposed weight another way)
+        x = shard(x, ctx, None, "act_seq", "act_embed")
         if cfg.tie_embeddings:
             logits = torch.einsum("bsd,vd->bsv", x,
-                                  params["embedding"].to(x.dtype))
+                                  gathered(params["embedding"]).to(x.dtype))
         else:
             logits = torch.einsum("bsd,dv->bsv", x,
-                                  params["lm_head"].to(x.dtype))
+                                  gathered(params["lm_head"]).to(x.dtype))
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
         return shard(logits, ctx, "batch", "act_seq", "act_vocab")
 
@@ -275,7 +350,16 @@ class TransformerLM:
         before the loss. Returns (ce + aux, {"ce", "aux"})."""
         cfg = self.cfg
         vis = batch.get("vision_embeds")
+        if on_mesh(ctx) and cfg.tie_embeddings:
+            # one gather of the tied table for the lookup and the CE (and
+            # one reduce of its gradient)
+            params = {**params, "embedding": gathered(params["embedding"],
+                                                      None)}
         x = self._embed(params, batch["tokens"], ctx, vis)
+        labels = shard(batch["labels"], ctx, "batch", "act_seq")
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = shard(mask, ctx, "batch", "act_seq")
         b, s = x.shape[:2]
         q_pos = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -291,16 +375,15 @@ class TransformerLM:
             w = params["embedding"] if cfg.tie_embeddings \
                 else params["lm_head"]
             ce = chunked_cross_entropy(
-                x, w, batch["labels"],
+                x, w, labels,
                 transpose_weight=not cfg.tie_embeddings,
-                final_softcap=cfg.final_softcap,
-                mask=batch.get("loss_mask"))
+                final_softcap=cfg.final_softcap, mask=mask)
         else:
             logits = self._logits(params, x, ctx)
             if vis is not None:
                 logits = logits[:, vis.shape[1]:, :]
-            ce = cross_entropy_loss(logits, batch["labels"],
-                                    batch.get("loss_mask"))
+            ce = cross_entropy_loss(logits, labels, mask)
+        ce = shard(ce, ctx)     # a mesh's partial sums, reduced
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ---------- public: serve ----------
@@ -311,6 +394,10 @@ class TransformerLM:
         dev = resolve_device(device)
         return {"k": torch.zeros(shp, dtype=cfg.dtype, device=dev),
                 "v": torch.zeros(shp, dtype=cfg.dtype, device=dev)}
+
+    def cache_axes(self) -> dict:
+        return {"k": A("layers", "batch", "kv_seq", "kv_heads", None),
+                "v": A("layers", "batch", "kv_seq", "kv_heads", None)}
 
     def prefill(self, params: dict, batch: dict, cache: dict,
                 ctx: ShardingCtx | None = None

@@ -8,6 +8,7 @@ from repro_torch.ops.registry import (REGISTRY, BackendUnavailableError,
                                       register)
 from repro_torch.ops.impls import (causal_conv1d, conv2d, dense,
                                    fused_conv_block, qdense, qmatmul,
+                                   qmatmul_acc,
                                    quantize_conv_int8, split_requant,
                                    tree_reduce_sum)
 from repro_torch.ops.tiling import TUNING_CACHE, TuningCache, tile_params
@@ -16,7 +17,8 @@ from repro_torch.ops.autotune import ensure_tuned, resolved_backend
 __all__ = ["ExecPolicy", "use_policy", "current_policy", "BACKENDS",
            "QUANT_MODES", "REGISTRY", "BackendUnavailableError", "dispatch",
            "register", "list_ops", "list_backends", "conv2d",
-           "fused_conv_block", "tree_reduce_sum", "qmatmul", "qdense",
+           "fused_conv_block", "tree_reduce_sum", "qmatmul", "qmatmul_acc",
+           "qdense",
            "dense", "causal_conv1d", "quantize_conv_int8", "split_requant",
            "TUNING_CACHE", "TuningCache", "tile_params", "ensure_tuned",
            "resolved_backend"]

@@ -28,6 +28,7 @@ take the int8 datapath through ``qdense`` → ``qmatmul``.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.addtree import pairwise_sum
 from repro_torch.core.quantize import QTensor, conv_epilogue, quantize_int8
@@ -35,6 +36,7 @@ from repro_torch.core.window import conv2d_im2col, conv2d_ref, maxpool2
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.registry import dispatch, register
 from repro_torch.ops.tiling import TREE_MAX_ETA
+from repro_torch.sharding.logical import is_dtensor, redistribute
 
 __all__ = ["conv2d", "fused_conv_block", "tree_reduce_sum", "qmatmul",
            "qdense", "dense", "causal_conv1d", "quantize_conv_int8",
@@ -266,6 +268,32 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
                     out_dtype=out_dtype, policy=policy)
 
 
+@register("qmatmul_acc", "ref", priority=_REF_CPU)
+@register("qmatmul_acc", "torch", priority=_PLAIN_CPU)
+def _qmatmul_acc_plain(x_codes, w_codes, *, policy=None):
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref
+    return qmatmul_acc_ref(x_codes, w_codes)
+
+
+def _qmatmul_acc_cuda_ok(xc, wc, **_) -> bool:
+    return _qmatmul_cuda_ok(xc, wc, None, None)
+
+
+@register("qmatmul_acc", "cuda", priority=_KERNEL,
+          supports=_qmatmul_acc_cuda_ok)
+def _qmatmul_acc_cuda(x_codes, w_codes, *, policy=None):
+    from repro_torch.kernels.qmatmul.ops import qmatmul_acc as acc_kernel
+    return acc_kernel(x_codes.contiguous(), w_codes.contiguous(),
+                      policy=policy)
+
+
+def qmatmul_acc(x_codes: torch.Tensor, w_codes: torch.Tensor, *,
+                policy: ExecPolicy | None = None) -> torch.Tensor:
+    """(M,K) int8 · (K,N) int8 -> the (M,N) int32 accumulator of
+    ``qmatmul``, before its epilogue."""
+    return dispatch("qmatmul_acc", x_codes, w_codes, policy=policy)
+
+
 def qdense(x: torch.Tensor, wq: QTensor, out_dtype: torch.dtype | None = None,
            *, policy: ExecPolicy | None = None) -> torch.Tensor:
     """fp (…, K) · int8 (K, N) -> (…, N) in ``out_dtype`` (default
@@ -294,6 +322,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
             raise ValueError(
                 f"dense under quant='int8' needs a 2-D weight, got "
                 f"{tuple(w.shape)}; reshape or drop to quant='none'")
+        if is_dtensor(x):
+            out = _qdense_sharded(x, w, pol)
+            return out if b is None else out + b
         # the weight is quantized on every call, as in the reference
         out = qdense(x, quantize_int8(w, axis=0), out_dtype=x.dtype,
                      policy=pol)
@@ -304,6 +335,53 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
         return out if b is None else q.quantize(out + q.quantize(b))
     out = torch.matmul(x, w)
     return out if b is None else out + b
+
+
+def _qdense_sharded(x, w, pol: ExecPolicy):
+    """``dense`` under int8 on DTensors: each rank quantizes and runs
+    ``qmatmul`` on its own shards, bitwise to the unsharded int8 path.
+
+    ``w`` is laid out to ``x``: its K sharded where ``x``'s last dim is
+    (the mesh dims ``kx``), its N kept where it is sharded, else whole.
+    Every absmax over K is a max all-reduce over ``kx`` first (the
+    per-row scale of ``x``, the per-column scale of ``w``), so the codes
+    are the unsharded ones. Without ``kx`` (column-parallel) the local
+    ``qmatmul`` is the output shard; with it (row-parallel) each rank's
+    int32 accumulator (``qmatmul_acc``) is summed over ``kx``, exactly,
+    and the epilogue ``(acc · xs) · ws`` runs once after the sum, as the
+    kernel's does. The output keeps ``x``'s row shards and ``w``'s
+    column shards."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.core.parallelism import all_reduce
+    mesh = x.device_mesh
+    kd = x.ndim - 1
+    kx = {i for i, p in enumerate(x.placements) if p.is_shard(kd)}
+    rows = {i: p for i, p in enumerate(x.placements)
+            if p.is_shard() and p.dim < kd}
+    w = redistribute(w, tuple(
+        Shard(0) if i in kx else
+        (p if (p.is_shard(1) and i not in rows) else Replicate())
+        for i, p in enumerate(w.placements)))
+    xl, wl = x.to_local(), w.to_local()
+    x2 = xl.reshape(-1, xl.shape[-1])
+    amax_x = all_reduce(x2.to(torch.float32).abs().amax(-1, keepdim=True),
+                        mesh, dist.ReduceOp.MAX, kx)
+    amax_w = all_reduce(wl.to(torch.float32).abs().amax(0, keepdim=True),
+                        mesh, dist.ReduceOp.MAX, kx)
+    xq = quantize_int8(x2, axis=-1, amax=amax_x)
+    wq = quantize_int8(wl, axis=0, amax=amax_w)
+    if kx:
+        acc = all_reduce(qmatmul_acc(xq.codes, wq.codes, policy=pol),
+                         mesh, dist.ReduceOp.SUM, kx)
+        out = (acc.to(torch.float32) * xq.scale * wq.scale).to(x.dtype)
+    else:
+        out = qmatmul(xq.codes, wq.codes, xq.scale, wq.scale,
+                      out_dtype=x.dtype, policy=pol)
+    out = out.reshape(*xl.shape[:-1], -1)
+    place = [rows.get(i, Shard(kd) if w.placements[i].is_shard(1)
+                      else Replicate()) for i in range(mesh.ndim)]
+    return DTensor.from_local(out, mesh, place, run_check=False)
 
 
 # --------------------------------------------------------- causal_conv1d

@@ -49,9 +49,9 @@ def adamw_init(params, cfg: AdamWConfig | None = None) -> dict:
     m_dt = cfg.m_dtype if cfg is not None else torch.float32
     v_dt = cfg.v_dtype if cfg is not None else torch.float32
 
-    def zeros(dt):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                              device=p.device), params)
+    def zeros(dt):      # laid out as each param (a DTensor on a mesh)
+        return tree_map(lambda p: torch.zeros_like(
+            p, dtype=dt, memory_format=torch.contiguous_format), params)
     first = tree_leaves(params)[0]
     return {"m": zeros(m_dt), "v": zeros(v_dt),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}

@@ -18,6 +18,11 @@ Two storage modes:
   bf16 that round trip is lossy, so the order of the casts is the
   reference's exactly: codes → fp32 · scale → model dtype, and model
   dtype → fp32 → codes.
+
+With a ``ShardingCtx`` on a mesh the leaves are DTensors laid out by the
+model's ``cache_axes()`` (under the default rules the KV sequence dim
+over ``model``, the slots over ``data``), and a prefill's batch-1 cache
+is joined whole and written into the part of the slot each rank holds.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ import torch
 from repro_torch.core.quantize import quantize_int8
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.serve.graphs import copy_tree
+from repro_torch.sharding.logical import (distribute_tree, is_dtensor,
+                                          local_part, on_mesh, whole)
 
 __all__ = ["SlotKVCache", "dequantize_leaves"]
 
@@ -58,11 +65,30 @@ def _scatter_slot(big: Any, small: Any, slot: int) -> None:
     def write(b, s):
         if b.ndim < 2:          # marker/scalar leaf: nothing slot-indexed
             return
+        if is_dtensor(b):
+            _write_box(b, whole(s), slot)
+            return
         index = (slice(None), slice(slot, slot + 1)) + tuple(
             slice(0, n) for n in s.shape[2:])
         b[index] = s.to(b.dtype)
 
     _tree_map(write, big, small)
+
+
+def _write_box(big, small: torch.Tensor, slot: int) -> None:
+    """``_scatter_slot``'s write into a DTensor leaf: the box (all, slot,
+    [0, n) for each later dim) cut to the part this rank holds."""
+    loc, off = local_part(big)
+    box = [(0, small.shape[0]), (slot, slot + 1)] + [
+        (0, n) for n in small.shape[2:]]
+    dst, src = [], []
+    for (lo, hi), o, n in zip(box, off, loc.shape):
+        a, b = max(lo, o), min(hi, o + n)
+        if a >= b:
+            return
+        dst.append(slice(a - o, b - o))
+        src.append(slice(a - lo, b - lo))
+    loc[tuple(dst)] = small[tuple(src)].to(loc.dtype)
 
 
 def _quantize_leaves(cache: Any) -> tuple[Any, Any]:
@@ -105,7 +131,7 @@ class SlotKVCache:
 
     def __init__(self, model, capacity: int, max_seq: int, *,
                  quant: str = "none",
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE, ctx=None):
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
         self.capacity = capacity
@@ -115,6 +141,8 @@ class SlotKVCache:
         self.device = resolve_device(device)
         self.pos = np.zeros((capacity,), np.int32)
         init = model.init_cache(capacity, max_seq, device=self.device)
+        if on_mesh(ctx):
+            init = distribute_tree(init, model.cache_axes(), ctx)
         if quant == "int8":
             self.codes, self.scales = _quantize_leaves(init)
             self.data = None

@@ -33,6 +33,16 @@ a static buffer allocated outside the pool, written by its own graph
 alone, and scattered into its slot right after that graph's replay. On
 the CPU the same objects call the steps on the same buffers. The serving weights are cast
 to the compute dtype once, at build (``serve/weights.py``).
+
+With a ``ShardingCtx`` on a mesh (``ctx``) every rank runs the engine
+on the same requests (SPMD): the weights are laid out by the model's
+``axes()`` and the slot cache by its ``cache_axes()`` under the ctx's
+rules, the steps run on DTensors, and each rank samples the same tokens
+from the joined logits. Where the mesh has more than one rank its
+collectives run in the steps. Over NCCL they run on the stream and the
+steps are captured as without a mesh; over gloo they are staged through
+host memory (``sharding/groups.py``), so the steps run eagerly and
+``graphs`` says ``off (gloo)``.
 """
 from __future__ import annotations
 
@@ -55,6 +65,8 @@ from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import ServeStats
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.serve.weights import cast_serving_params
+from repro_torch.sharding.logical import (distribute_tree, on_mesh,
+                                          staged_mesh)
 
 __all__ = ["EngineConfig", "EngineStats", "Engine", "MAX_PREFILL_GRAPHS",
            "engine_decode_step"]
@@ -183,14 +195,24 @@ class Engine:
                  clock: Clock | None = None, *, donate: bool = False):
         self.model = model
         self.config = config
+        self.ctx = ctx
         self.device = resolve_device(config.device)
         self.params = cast_serving_params(model, params, self.device,
                                           donate=donate)
+        compiled = config.graphs
+        self.graph_mode = ("on" if config.graphs else "off") \
+            if self.device.type == "cuda" else "off (cpu)"
+        if on_mesh(ctx):
+            self.params = distribute_tree(self.params, model.axes(), ctx)
+            if staged_mesh(ctx) and self.device.type == "cuda":
+                compiled = False
+                self.graph_mode = "off (gloo)"
         self.clock = clock if clock is not None else MonotonicClock()
         self.queue = RequestQueue(maxlen=config.max_queue)
         self.scheduler = Scheduler(config.capacity)
         self.kv = SlotKVCache(model, config.capacity, config.max_seq,
-                              quant=config.cache_quant, device=self.device)
+                              quant=config.cache_quant, device=self.device,
+                              ctx=ctx)
         self.stats = EngineStats()
         self.finished: list[Request] = []
         self._uid = 0
@@ -216,7 +238,8 @@ class Engine:
             {"params": self.params, "tokens": self._tokens,
              "pos": self._pos, "state": state},
             state=state, device=self.device, pool=self._pool,
-            policy=config.policy, compiled=config.graphs, name="decode")
+            policy=config.policy, compiled=compiled, name="decode")
+        self._compiled = compiled
         self._prefill_graphs: OrderedDict[int, StepGraph] = OrderedDict()
         self.evicted: list[StepGraph] = []      # their calls still count
         self.captures: dict[int, int] = {}      # prompt length -> builds
@@ -244,9 +267,17 @@ class Engine:
             {"params": self.params,
              "tokens": torch.zeros((1, length), dtype=torch.int32,
                                    device=self.device),
-             "cache": self.model.init_cache(1, length, device=self.device)},
+             "cache": self._prefill_cache(length)},
             device=self.device, pool=self._pool, policy=self.config.policy,
-            compiled=self.config.graphs, name=f"prefill[{length}]")
+            compiled=self._compiled, name=f"prefill[{length}]")
+
+    def _prefill_cache(self, length: int):
+        """A zero batch-1 cache of ``length``, laid out on the mesh."""
+        cache = self.model.init_cache(1, length, device=self.device)
+        if on_mesh(self.ctx):
+            cache = distribute_tree(cache, self.model.cache_axes(),
+                                    self.ctx)
+        return cache
 
     def graphs(self) -> list[StepGraph]:
         """Every step graph the engine has built, evicted ones included."""

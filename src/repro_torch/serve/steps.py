@@ -5,7 +5,9 @@ Each factory takes an ``ExecPolicy`` (repro_torch.ops, DESIGN.md §7) that
 is active around the model call, so every registry-routed op inside the
 model (the MLP's ``dense`` → ``qmatmul`` under int8) follows it — no
 flag threading through model code. The steps never read the clock; the
-engine's step loop times them through the Clock seam.
+engine's step loop times them through the Clock seam. On a mesh the
+model's logits are DTensors (vocab-sharded): the steps join them
+(``whole``), so every rank samples the same tokens from the whole row.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Callable
 import torch
 
 from repro_torch.ops import ExecPolicy, use_policy
+from repro_torch.sharding.logical import whole
 
 __all__ = ["make_prefill_step", "make_decode_step", "greedy_sample"]
 
@@ -38,7 +41,7 @@ def make_prefill_step(model, ctx=None,
     def prefill_step(params, batch, cache):
         with _policy_scope(policy), torch.no_grad():
             logits, cache = model.prefill(params, batch, cache, ctx)
-        return greedy_sample(logits), cache
+        return greedy_sample(whole(logits)), cache
 
     return prefill_step
 
@@ -52,6 +55,7 @@ def make_decode_step(model, ctx=None, sample: bool = True,
         with _policy_scope(policy), torch.no_grad():
             logits, cache = model.decode_step(params, tokens, pos, cache,
                                               ctx)
+        logits = whole(logits)
         out = greedy_sample(logits) if sample else logits
         return out, cache
 

@@ -1,0 +1,103 @@
+"""Gradient compression for the cross-pod reduce (port of
+``repro.train.compression``).
+
+Within a pod the gradient reduce stays fp32. Across pods the link is the
+scarce resource; two standard compressors are provided:
+
+  * ``bf16``  — cast-before-reduce (2× traffic cut, no state);
+  * ``int8``  — per-tensor symmetric int8 with ERROR FEEDBACK: the
+    quantization residual is carried into the next step, making the
+    compression unbiased over time (Seide et al. / 1-bit SGD lineage).
+
+``cross_pod_grad_reduce`` takes each rank's pod-local gradients (plain
+tensors: already reduced over ``data``), compresses them, sums them over
+the mesh's ``pod`` axis and averages; the error-feedback state is carried
+per parameter. As in the reference it stays outside ``make_train_step``.
+The int8 scale is a true division by 127, as the reference's op-by-op
+``/ 127.0``.
+"""
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.tree import tree_leaves, tree_map
+
+__all__ = ["compress_decompress", "error_feedback_compress",
+           "cross_pod_grad_reduce", "init_ef_state"]
+
+
+def _int8_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    amax = torch.max(torch.abs(x))
+    scale = torch.clamp(amax, min=1e-12) / torch.full(
+        (), 127.0, device=x.device)
+    codes = torch.clamp(torch.round(x / scale), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def compress_decompress(x: torch.Tensor, mode: Literal["bf16", "int8"]
+                        ) -> torch.Tensor:
+    """Round-trip through the compressed representation (what the wire
+    carries)."""
+    if mode == "bf16":
+        return x.to(torch.bfloat16).to(x.dtype)
+    codes, scale = _int8_quant(x.to(torch.float32))
+    return (codes.to(torch.float32) * scale).to(x.dtype)
+
+
+def init_ef_state(params) -> dict:
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def error_feedback_compress(grad: torch.Tensor, ef: torch.Tensor,
+                            mode: Literal["bf16", "int8"]
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(compressed(grad + ef), new_ef). The residual re-enters next
+    step."""
+    g = grad.to(torch.float32) + ef
+    sent = compress_decompress(g, mode)
+    return sent, g - sent
+
+
+def _pod_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    out = t.clone()
+    dist.all_reduce(out, group=mesh.get_group("pod"))
+    return out
+
+
+def cross_pod_grad_reduce(grads, ef_state, *, mesh,
+                          mode: Literal["none", "bf16", "int8"] = "bf16"):
+    """Compress -> sum over 'pod' -> average. ``grads`` are this rank's
+    pod-local means.
+
+    Returns (reduced_grads, new_ef_state). Without a ``pod`` axis of more
+    than one rank, or with mode="none", the trees come back as they are
+    (the reference's baseline)."""
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" not in names:
+        return grads, ef_state
+    n_pods = int(mesh.mesh.shape[names.index("pod")])
+    if n_pods == 1 or mode == "none":
+        return grads, ef_state
+    n = torch.full((), n_pods, dtype=torch.float32,
+                   device=tree_leaves(grads)[0].device)
+
+    def one(g, ef):
+        if mode == "bf16":
+            red = _pod_sum(g.to(torch.bfloat16), mesh)
+            return red.to(torch.float32) / n, ef
+        sent, new_ef = error_feedback_compress(g, ef, mode)
+        return (_pod_sum(sent, mesh) / n).to(g.dtype), new_ef
+
+    pairs = tree_map(one, grads, ef_state)
+    return _part(pairs, 0), _part(pairs, 1)
+
+
+def _part(tree, i: int):
+    """Item ``i`` of each (reduced, ef) pair of a tree of pairs."""
+    if isinstance(tree, dict):
+        return {k: _part(v, i) for k, v in tree.items()}
+    return tree[i]

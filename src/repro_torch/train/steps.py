@@ -9,9 +9,15 @@ opt_state, metrics)``. A parameter the loss does not reach (command-r's
 ``ln2`` under its parallel block) gets a zero gradient, as ``jax.grad``
 gives it. Microbatches split the batch's leading dim into contiguous
 slices, run one after another (the reference's ``lax.scan``) and
-accumulate fp32 gradients. Collectives and the cross-pod compression
-(``repro.train.compression``) wait for the mesh's LM half, ROADMAP
-§A.10.
+accumulate fp32 gradients.
+
+On a mesh (a ``ShardingCtx`` with one) the params and the optimizer
+state are DTensors laid out by the model's ``axes()``; the batch is the
+global one on every rank (the model slices its rows), the gradients are
+laid out as their params (a partial gradient reduced where DTensor left
+one), and AdamW's moments follow. The loss and metrics come back whole.
+The cross-pod compression (``train/compression.py``) stays outside the
+step, as in the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.core.tree import tree_from_items, tree_items, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.sharding.logical import is_dtensor, redistribute, whole
 
 __all__ = ["loss_and_grads", "make_train_step", "TrainStep"]
 
@@ -34,7 +41,11 @@ def loss_and_grads(model, params, batch: dict, ctx=None):
             tree_from_items([(path, leaf) for (path, _), leaf
                              in zip(items, leaves)]), batch, ctx)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+    grads = [g if g is None or not is_dtensor(g)
+             else redistribute(g, p.placements)
+             for g, (_, p) in zip(grads, items)]
+    return (whole(loss.detach()),
+            {k: whole(v.detach()) for k, v in metrics.items()},
             tree_from_items([(path, g) for (path, _), g
                              in zip(items, grads)]))
 
@@ -74,16 +85,16 @@ class TrainStep:
 
     def split(self, batch: dict) -> list[dict]:
         n = self.microbatches
-        return [{k: _slice(x, i, n) for k, x in batch.items()}
+        return [{k: _slice(whole(x), i, n) for k, x in batch.items()}
                 for i in range(n)]
 
     def accumulator(self, params) -> dict:
         """fp32 zeros shaped as ``params`` and a 0-d loss sum (0 + the
         first loss is that loss, bit for bit)."""
         dev = tree_items(params)[0][1].device
-        return {"grads": tree_map(lambda p: torch.zeros(p.shape,
-                                                        device=p.device),
-                                  params),
+        return {"grads": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32,
+                    memory_format=torch.contiguous_format), params),
                 "loss": torch.zeros((), device=dev)}
 
     def accumulate(self, params, acc: dict, mb: dict) -> dict:

@@ -149,6 +149,18 @@ def test_qmatmul_shapes_match_plain_bitwise(card, m, k, n):
     _agree("int8", got, qmatmul_ref(*args))
 
 
+@pytest.mark.parametrize("m,k,n", [(4, 1408, 1024), (64, 704, 1024),
+                                   (37, 4099, 33), (1, 37, 1)])
+def test_qmatmul_accumulator_matches_plain_bitwise(card, m, k, n):
+    """The raw mode (no epilogue): the int32 accumulator a row-parallel
+    shard hands to the exact sum across ranks."""
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref
+    xc, wc, _, _ = _qmatmul_operands(m, k, n, card)
+    got = qm_ops.qmatmul_acc(xc, wc)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, qmatmul_acc_ref(xc, wc))
+
+
 def test_qmatmul_unaligned_view_matches_plain_bitwise(card):
     """A view one byte into its storage: rows are not 4-byte aligned, so
     the kernel reads them with byte loads."""

@@ -133,7 +133,7 @@ def test_cache_specs_match_eval_shape(arch, shape):
     against ``jax.eval_shape`` of the reference's ``init_cache``."""
     cache, axes = get_arch(arch).cache_specs(shape)
     jcache, _ = j_get_arch(arch).cache_specs(shape)
-    assert axes is None                      # cache_axes(): ROADMAP §A.10
+    assert axes == get_arch(arch).model().cache_axes()
     assert _flat(cache) == _flat(jcache)
     assert all(t.device == META for t in jax.tree_util.tree_leaves(cache))
 

@@ -385,11 +385,17 @@ def test_decode_positions_and_masks():
 
 
 def test_shard_is_the_identity_on_one_device_and_raises_for_a_mesh():
+    """The identity without a mesh; on a mesh ``shard`` lays a tensor out
+    over its process groups, so a mesh that has none (a ``MeshShape``,
+    which resolves specs only) raises. The mesh path itself is held in
+    tests/test_torch_lm_mesh.py."""
+    from repro_torch.sharding.logical import MeshShape
     x = torch.ones(2, 3)
     assert shard(x, None, "batch", None) is x
     assert shard(x, ShardingCtx(), "batch", None) is x
-    with pytest.raises(NotImplementedError, match="A.10"):
-        shard(x, ShardingCtx(mesh=object()), "batch", None)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        shard(x, ShardingCtx(mesh=MeshShape(("data", "model"), (2, 2))),
+              "batch", None)
     assert A("embed", "mlp") == A("embed", "mlp") != A("mlp")
 
 

@@ -817,9 +817,14 @@ def test_launcher_refuses_a_mesh_larger_than_the_world():
 
 
 def test_launcher_lm_on_a_mesh_cites_the_lm_half():
+    """A dense LM serves on a mesh (tests/test_torch_lm_mesh.py); an MoE
+    arch, whose expert parallelism is not ported, still cites the LM
+    half of ROADMAP §A.10, here on a world of one over gloo."""
     with pytest.raises(NotImplementedError, match="LM half"):
-        launcher.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device",
-                       "cpu", "--mesh", "1x2"])
+        launcher.main(["--arch", "dbrx-132b", "--reduced", "--device",
+                       "cpu", "--mesh", "1x1", "--dist-backend", "gloo",
+                       "--capacity", "2", "--requests", "2",
+                       "--prompt-len", "8", "--decode-steps", "2"])
 
 
 def test_compile_on_a_mesh_places_and_refuses_autotune():
