@@ -76,7 +76,11 @@ Phases, each printing one JSON line:
            (timed a call at a time for the dense configs: it sums K in
            chunks of a 256 MiB product); rows tagged zamba2-7b: qmatmul
            at M in {4, 256, 512} x (K, N) in {(3,584, 14,336), (14,336,
-           3,584)}, each first bitwise against the plain version;
+           3,584)}, each first bitwise against the plain version; rows
+           tagged shard: the MLP shard shapes of SHARD_TIME_SHAPES
+           (qwen1.5 on model 2 and 4, zamba2-7b on model 2 at M = 4 and
+           512), column-parallel wi and the row-parallel wo's int32
+           accumulator;
   plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
            under three stream budgets (untiled, the default 1 MiB,
            256 KiB): device time between CUDA events, and wall time;
@@ -132,12 +136,12 @@ Phases, each printing one JSON line:
   ssm      the sub-quadratic LMs, prompts a whole number of their scan
            chunks. zamba2-7b (the Mamba2 hybrid: d_model 3,584, one
            shared attention + MLP block after every 6 layers, bf16) at
-           full width cut to 27 of its 81 layers (SSM_STEP_LAYERS):
+           full width cut to 7 of its 81 layers (SSM_STEP_LAYERS):
            ``Engine`` under int8 over the launcher's mix at
            ``--prompt-len 512`` through its step graphs and eagerly, the
-           same tokens (12 qmatmul launches in each graph, replayed a
-           prefill and a decode step: the shared MLP's 3 at each of its
-           4 calls), the device and wall time of a 512-token prefill and
+           same tokens (3 qmatmul launches in each graph, replayed a
+           prefill and a decode step: the shared MLP's 3 at its one
+           call), the device and wall time of a 512-token prefill and
            of a decode step at capacity 4 in bf16, eager and as a graph
            replay with the logits bitwise between them, beside their
            bytes bound (every weight once, as the engine stores it) with
@@ -148,7 +152,7 @@ Phases, each printing one JSON line:
            prefill's and a 4-slot decode step's logits bitwise kernel vs
            plain, and a 256-token prefill's and the first decode step's
            logits card vs CPU in fp32 and int8. rwkv6-1.6b (d_model
-           2,048): at full width cut to 12 of its 24 layers, ``Engine``
+           2,048): at full width cut to 4 of its 24 layers, ``Engine``
            in bf16 graphs against eager, the same times, a ragged prompt;
            the launcher at full size at ``--prompt-len 128`` (bf16 and
            int8 KV), then 2 layers fp32 card vs CPU; no kernel launches
@@ -189,7 +193,8 @@ Phases, each printing one JSON line:
            (mesh (1, 1)) whose VisionEngine serves mnist_cnn in all 3
            modes through its graphs, bitwise to the engine without a
            mesh; then gloo worlds of 2 and 4 ranks sharing cuda:0
-           (meshes (1, 2), (1, 4), (2, 2), ``run_spmd``), each rank
+           (meshes (1, 2), (1, 4), (2, 2), ``run_spmd``, the three at
+           once), each rank
            running mnist_cnn and highres_cnn (224²) placed plans (auto,
            forced ``input`` and ``output``, 3 modes, lattice and random
            data, B = 8) against the unsharded plan (int8 and the lattice
@@ -203,17 +208,19 @@ Phases, each printing one JSON line:
            OCP shards against the whole stage pinned to the shard's
            ``split`` (why fp32 OCP is not bitwise on the card); then the
            per-shard shapes timed alone.
-  lm_mesh  qwen1.5-0.5b at full size over a (data, model) mesh of
+  lm_mesh  qwen1.5-0.5b at full width cut to LM_MESH_SERVE_LAYERS = 4
+           layers over a (data, model) mesh of
            DTensors (``repro_torch.sharding``): an NCCL world of 1, mesh
-           (1, 1), whose Engine serves 4 of the launcher's requests (8
+           (1, 1), whose Engine serves 4 of the launcher's requests (4
            new tokens, capacity 4) in bf16 and under int8 through its
            step graphs, tokens and a prefill's and a 4-slot decode
            step's logits bitwise to the engine without a mesh; then
            gloo worlds of 2 and 4 ranks sharing cuda:0 (meshes (1, 2)
-           and (2, 2), ``run_spmd``, host-staged ``StagedGroup``s), each
+           and (2, 2), ``run_spmd``, the two at once, host-staged
+           ``StagedGroup``s), each
            rank's Engine serving eagerly (``graphs: off (gloo)``) the
            same requests: int8 tokens and logits bitwise to the
-           unsharded int8 engine, qmatmul launched 72 a step on every
+           unsharded int8 engine, qmatmul launched 12 a step on every
            rank, bf16 logits within 2^-4 of 1 + max|logit|; every shard
            launch shape of qmatmul (and its int32-accumulator mode)
            bitwise to its plain version; the step wall and each
@@ -228,6 +235,42 @@ Phases, each printing one JSON line:
            single-rank run (losses rtol 1e-5, params rtol 2e-4 / atol
            2e-5), and on 2 x 2 a checkpoint restored onto (1, 2)
            bitwise.
+  family_mesh  the other LM families over a (data, model) mesh: an NCCL
+           world of 1, mesh (1, 1), whose Engine serves dbrx-132b and
+           llama4-scout (full width, MOE_LAYERS layers, bf16; their layer
+           is the expert-parallel one on any mesh with a ``model``
+           axis), zamba2-7b (6 layers, int8) and rwkv6-1.6b (2 layers)
+           through its step graphs, against the engine without a mesh
+           (tokens equal, logits bitwise); then gloo worlds of 2 ranks
+           (mesh (1, 2): dbrx, llama4-scout, zamba2 under int8, rwkv6,
+           seamless-m4t-medium at full size) and 4 ranks (dbrx on
+           (1, 4), and at 1 layer on (2, 2), where the batch splits into
+           dispatch groups and the aux loss is averaged over ``data``)
+           sharing cuda:0 (each world's weights drawn once in this
+           process and shared with its ranks through CUDA IPC), each rank
+           a prefill of FAMILY_BATCH prompts and FAMILY_STEPS greedy
+           decode steps (FAMILY_STEPS_DATA on (2, 2)) on DTensors. zamba2, rwkv6 and seamless are fed the
+           one-device loop's tokens and held against its logits: zamba2's
+           prefill bitwise, its decode steps within FAMILY_DECODE_ULPS
+           bf16 ulps of max|logit|, its tokens equal, qmatmul launched 3
+           a shared-block call a step on every rank at its shard shapes,
+           each shape bitwise to the plain qmatmul; the others within
+           2^-4 of 1 + max|logit|. The MoE archs run on their own tokens
+           with their routing recorded (``moe.routing_trace``); after
+           the world, ``moe_apply_ep_ref`` at the mesh's shape replays
+           that routing, fed those tokens: every row's logits within
+           2^-4 of 1 + max|logit| at every step, every dispatch's keep
+           mask equal, a token apart only at a near-tie of the
+           reference's logits, an expert apart from the reference's own
+           routing only within FAMILY_ROUTER_GAP of its k-th router
+           logit. Beside each: the MoE layers' owned and dropped
+           assignments a rank, the collectives' calls, bytes and host
+           seconds.
+
+The card-vs-CPU checks' CPU sides and the dry-run sweep run in worker
+processes started with the script (``start_host_jobs``), and the train
+launchers start before the mesh phase, beside the card's phases; each
+is taken where its phase needs it.
 
 Then one compact line a model of step times (eager and graph wall, busy
 and event ms; capture ms and pool MiB), the launch phase's compact lines
@@ -240,8 +283,10 @@ phases, of the boot phase, of the lm phase's int8 engine runs
 the ssm phase's int8 zamba2 engine runs through the kernel, of the
 train phase's MNIST run, of the launch phase's int8 engine and of the
 mesh phase's NCCL world-1 engines on a mesh and placed plans on every
-rank, and of the lm_mesh phase's world-1 mesh engines and every gloo
-rank's serving runs, each counted from 0 just before it; a CUDA
+rank, of the lm_mesh phase's world-1 mesh engines and every gloo
+rank's serving runs, and of the family_mesh phase's world-1 mesh
+engines and every gloo rank's loops, each counted from 0 just before
+it; a CUDA
 graph's kernels are counted at its warm-up and at its capture, and its
 replays by the graph; the lm phase's card-vs-CPU models and its
 kernel-vs-plain comparisons are left out), the card's ``nvidia-smi``
@@ -360,22 +405,23 @@ MOE_LAYERS = 2
 # checks, where the plain qmatmul at M = 512 costs ~0.1 s a call, and for
 # card against CPU (cut from 13 and 7); rwkv6 to 2 for the latter. The
 # engines, step times and ragged prompts at full width cut to
-# SSM_STEP_LAYERS (zamba2 27 layers: 4 shared-block calls; cut from 81 and
-# 24); the launchers serve full size. Each cut keeps the
-# script in its time
+# SSM_STEP_LAYERS (zamba2 7 layers: a shared-block call and a tail layer;
+# cut from 81, then 27, and rwkv6 from 24, then 12); the launchers serve
+# full size.
+# Each cut keeps the script in its time
 SSM_PROMPT = {"zamba2-7b": 512, "rwkv6-1.6b": 128}
 SSM_PLAIN_LAYERS = 6
-SSM_STEP_LAYERS = {"zamba2-7b": 27, "rwkv6-1.6b": 12}
+SSM_STEP_LAYERS = {"zamba2-7b": 7, "rwkv6-1.6b": 4}
 SSM_CPU_LAYERS = {"zamba2-7b": 6, "rwkv6-1.6b": 2}
 # the train phase: the launcher trains qwen1.5-0.5b at full width cut to
-# TRAIN_LAYERS of its 24 layers (a checkpoint 2.8 GB, not 5.6: cut to
-# keep the script in its time), is killed after its step-10
+# TRAIN_LAYERS of its 24 layers (cut from 24 to 6, then to 2, to keep the
+# script in its time), is killed after its step-10
 # checkpoint and resumes; the loss and backward alone (no optimizer:
 # weights + gradients) of four more archs at full width and the least
 # depth that reaches every block kind, on a (2, 256) token batch (whole
 # SSD and WKV chunks)
 TRAIN_ARCH = "qwen1.5-0.5b"
-TRAIN_LAYERS = 6
+TRAIN_LAYERS = 2
 TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS),
               "--steps", "20", "--global-batch", "8", "--seq", "128",
               "--ckpt-every", "10"]
@@ -407,12 +453,12 @@ MODES = ("none", "qformat", "int8")
 # default 1 MiB)
 PLAN_BUDGETS = {"untiled": 1 << 40, "1MiB": None, "256KiB": 256 * 1024}
 # the launch phase: the dry run's cells LAUNCH_JOBS at a time in worker
-# processes (the sweep is CPU work: ~140 s serially); each compiled step
+# processes, one a host core (the sweep is CPU work: ~140 s serially); each compiled step
 # timed over LAUNCH_REPLAYS replays; a step's roofline time may not pass
 # its measured wall by more than LAUNCH_BOUND_SHARE_MAX (5% for the
 # event timing's noise), and the train step's predicted peak must lie
 # within LAUNCH_PEAK_RATIO of the measured one
-LAUNCH_JOBS = 4
+LAUNCH_JOBS = 8
 LAUNCH_REPLAYS = 20
 LAUNCH_BOUND_SHARE_MAX = 1.05
 LAUNCH_PEAK_RATIO = (0.5, 2.0)
@@ -437,17 +483,59 @@ MESH_TIMED_SHAPES = [
 
 
 # the lm_mesh phase: qwen1.5-0.5b over gloo worlds of ranks sharing
-# cuda:0, mesh shape -> world; the launcher's first LM_MESH_REQUESTS
-# prompts, LM_MESH_NEW tokens each at capacity 4; training: the model at
-# full width cut to LM_MESH_TRAIN_LAYERS layers in fp32, LM_MESH_TRAIN_STEPS
-# steps at (B, S) = LM_MESH_TRAIN_BATCH
+# cuda:0, mesh shape -> world; its engines at full width cut to
+# LM_MESH_SERVE_LAYERS layers (from 24, to keep the script in its time;
+# the serve launcher in the 1 x 2 world serves all 24), the launcher's
+# first LM_MESH_REQUESTS prompts, LM_MESH_NEW tokens each at capacity 4;
+# training: the model at full width cut to LM_MESH_TRAIN_LAYERS layers in
+# fp32, LM_MESH_TRAIN_STEPS steps at (B, S) = LM_MESH_TRAIN_BATCH
 LM_MESH_WORLDS = {(1, 2): 2, (2, 2): 4}
+LM_MESH_SERVE_LAYERS = 4
 LM_MESH_REQUESTS = 4
-LM_MESH_NEW = 8
-LM_MESH_TRAIN_LAYERS = 4
-LM_MESH_TRAIN_STEPS = 3
+LM_MESH_NEW = 4
+LM_MESH_TRAIN_LAYERS = 2
+LM_MESH_TRAIN_STEPS = 2
 LM_MESH_TRAIN_BATCH = (8, 128)
 LM_MESH_TIMEOUT_S = 900
+
+# the family_mesh phase: the other LM families over a (data, model) mesh.
+# NCCL world 1 (mesh (1, 1)): arch -> (layers, quant, prompt length) at
+# full width, each Engine through its step graphs against the engine
+# without a mesh; gloo worlds of ranks sharing cuda:0: world -> [(arch,
+# layers (None: full depth), mesh shape)], each a prefill of FAMILY_BATCH
+# prompts and FAMILY_STEPS greedy decode steps on DTensors, against the
+# same loop on one device (the MoE archs first on their own tokens, then
+# the one-device expert-parallel arithmetic at the mesh's shape fed those
+# tokens, replaying the mesh's routing); seamless-m4t-medium's
+# FAMILY_FRAMES encoder frames
+FAMILY_WORLD1 = {"dbrx-132b": (MOE_LAYERS, "none", 64),
+                 "llama4-scout-17b-a16e": (MOE_LAYERS, "none", 64),
+                 "zamba2-7b": (SSM_PLAIN_LAYERS, "int8", 512),
+                 "rwkv6-1.6b": (2, "none", 128)}
+FAMILY_GLOO = {2: [("dbrx-132b", MOE_LAYERS, (1, 2)),
+                   ("llama4-scout-17b-a16e", MOE_LAYERS, (1, 2)),
+                   ("zamba2-7b", SSM_PLAIN_LAYERS, (1, 2)),
+                   ("rwkv6-1.6b", 2, (1, 2)),
+                   ("seamless-m4t-medium", None, (1, 2))],
+               4: [("dbrx-132b", MOE_LAYERS, (1, 4)),
+                   ("dbrx-132b", 1, (2, 2))]}
+FAMILY_PROMPT = {"zamba2-7b": 512, "rwkv6-1.6b": 128}
+FAMILY_BATCH = 4
+FAMILY_STEPS = 3
+# on a mesh with a data axis (dbrx on 2 x 2) one decode step: each step
+# gathers the experts over data, 2.3 GB a step through host memory
+FAMILY_STEPS_DATA = 1
+FAMILY_FRAMES = 128
+# zamba2-7b under int8 on a gloo mesh: each decode step's logits within
+# this many bf16 ulps of max|logit| of one device's (its bf16 attention
+# projections at M = 4 on half the heads round once otherwise: cuBLAS
+# splits K, scripts/colpar_bitwise.py); the prefill bitwise
+FAMILY_DECODE_ULPS = 4
+# an MoE job on a gloo mesh: an expert the mesh took where the one-device
+# reference's own routing took another lies this close (router logits)
+# below the reference's k-th choice: bf16 noise at a near-tie
+FAMILY_ROUTER_GAP = 2.0 ** -4
+FAMILY_TIMEOUT_S = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -1387,6 +1475,60 @@ def lm_step_logits(model, params, prompts, policy, device, first=None,
     return pre, logits.cpu(), first
 
 
+def card_vs_cpu_model(arch: str, layers: int, device):
+    """``arch`` cut to ``layers`` layers at full width in fp32, its params
+    drawn on the card by a generator of its own (seed 0)."""
+    import torch
+    from repro_torch.configs import get_arch
+    full = get_arch(arch).model()
+    model = type(full)(dataclasses.replace(full.cfg, n_layers=layers,
+                                           dtype=torch.float32))
+    return model, model.init(torch.Generator(device).manual_seed(0),
+                             device=device)
+
+
+def card_vs_cpu_prompts(vocab: int, prompt_lens) -> list:
+    import numpy as np
+    rng = np.random.RandomState(2)
+    return [rng.randint(0, vocab, size=p) for p in prompt_lens]
+
+
+def card_vs_cpu_host(arch: str, layers: int, modes: tuple,
+                     prompt_lens: tuple, nudge: bool,
+                     threads: int | None = None) -> dict:
+    """The CPU side of ``lm_card_vs_cpu``: the card's seed-0 draw copied
+    to the CPU, each mode's prefill and first decode logits there (and,
+    with ``nudge``, those of a 1e-5 relative embedding nudge); run in a
+    process of its own beside the card's phases (``start_host_jobs``)
+    or in place. Returns {mode: {"pre", "dec", "first", "moved"}}."""
+    import torch
+    from repro_torch.ops import ExecPolicy
+    if threads:
+        torch.set_num_threads(threads)
+    device = torch.device("cuda", 0)
+    model, params = card_vs_cpu_model(arch, layers, device)
+    cpu_params = to_device(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    prompts = card_vs_cpu_prompts(model.cfg.vocab, prompt_lens)
+    max_seq = max(prompt_lens) + 16
+    if nudge:
+        emb = cpu_params["embedding"]
+        sign = torch.randint(0, 2, emb.shape, generator=torch.Generator()
+                             .manual_seed(1)) * 2 - 1
+        nudged = dict(cpu_params, embedding=emb * (1 + 1e-5 * sign))
+    out = {}
+    for mode in modes:
+        pol = ExecPolicy(quant=mode)
+        pre, dec, first = lm_step_logits(model, cpu_params, prompts, pol,
+                                         "cpu", max_seq=max_seq)
+        moved = (lm_step_logits(model, nudged, prompts, pol, "cpu", first,
+                                max_seq=max_seq)[:2]
+                 if nudge else (None, None))
+        out[mode] = {"pre": pre, "dec": dec, "first": first, "moved": moved}
+    return out
+
+
 def lm_card_vs_cpu(device, arch: str = LM_ARCH, layers: int = 2,
                    modes=("none", "int8"),
                    prompt_lens=(32, 16, 32, 16),
@@ -1398,41 +1540,30 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH, layers: int = 2,
     default policy and under int8 (``modes``), card against CPU within
     TOL_LM. With ``nudge``, beside each, how far the CPU's own logits
     move when the embedding moves by a relative 1e-5 (seeded signs): the
-    size of a flipped int8 code."""
-    import dataclasses
-    import numpy as np
+    size of a flipped int8 code. The CPU side comes from a host job
+    started with the script (``card_vs_cpu_host``) where there is one."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.ops import ExecPolicy
 
-    full = get_arch(arch).model()
-    cfg = dataclasses.replace(full.cfg, n_layers=layers,
-                              dtype=torch.float32)
-    model = type(full)(cfg)
+    key = (arch, layers, tuple(modes), tuple(prompt_lens), nudge)
+    job = HOST_JOBS.pop(("card_vs_cpu",) + key, None)
+    host = job.result() if job is not None else card_vs_cpu_host(*key)
+    model, params = card_vs_cpu_model(arch, layers, device)
+    cfg = model.cfg
     max_seq = max(prompt_lens) + 16
-    params = model.init(torch.Generator(device).manual_seed(0),
-                        device=device)
-    cpu_params = to_device(params, "cpu")
-    rng = np.random.RandomState(2)
-    prompts = [rng.randint(0, cfg.vocab, size=p) for p in prompt_lens]
-    if nudge:
-        emb = cpu_params["embedding"]
-        sign = torch.randint(0, 2, emb.shape, generator=torch.Generator()
-                             .manual_seed(1)) * 2 - 1
-        nudged = dict(cpu_params, embedding=emb * (1 + 1e-5 * sign))
+    prompts = card_vs_cpu_prompts(cfg.vocab, prompt_lens)
     rows = []
     for mode in modes:
         pol = ExecPolicy(quant=mode)
-        cpu_pre, cpu_dec, first = lm_step_logits(
-            model, cpu_params, prompts, pol, "cpu", max_seq=max_seq)
+        h = host[mode]
+        cpu_pre, cpu_dec, first, moved = (h["pre"], h["dec"], h["first"],
+                                          h["moved"])
         card_pre, card_dec, _ = lm_step_logits(
             model, params, prompts, pol, device, first, max_seq=max_seq)
-        moved = (lm_step_logits(model, nudged, prompts, pol, "cpu", first,
-                                max_seq=max_seq)
-                 if nudge else (None, None))
         row = {"arch": arch, "mode": mode, "layers": layers,
                "d_model": cfg.d_model, "vocab": cfg.vocab,
-               "requests": len(prompts)}
+               "requests": len(prompts), "cpu_side": "host job"
+               if job is not None else "in place"}
         for name, got, want, off in (
                 ("prefill", card_pre, cpu_pre, moved[0]),
                 ("decode", card_dec, cpu_dec, moved[1])):
@@ -1939,6 +2070,39 @@ def _leaves_of(tree):
             yield v
 
 
+def moe_card_vs_cpu_inputs(device):
+    """dbrx's MoE config, its full-width fp32 expert params and a (1, 64,
+    6,144) input, drawn on the card from seed 3."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = get_arch("dbrx-132b").model().cfg.moe
+    g = torch.Generator(device).manual_seed(3)
+    params = moe.moe_init(g, cfg, device)
+    x = torch.randn((1, 64, cfg.d_model), generator=g, device=device)
+    return cfg, params, x
+
+
+def moe_card_vs_cpu_host(threads: int | None = None) -> dict:
+    """The CPU side of ``moe_card_vs_cpu``: the card's draw copied to the
+    CPU, ``moe_apply`` there, its routing. Run in a process of its own
+    beside the card's phases (``start_host_jobs``) or in place."""
+    import torch
+    from repro_torch.models import moe
+    if threads:
+        torch.set_num_threads(threads)
+    cfg, params, x = moe_card_vs_cpu_inputs(torch.device("cuda", 0))
+    cpu_params, cpu_x = to_device(params, "cpu"), x.cpu()
+    del params, x
+    torch.cuda.empty_cache()
+    with moe_routing_log() as log:
+        out, aux = moe.moe_apply(cpu_params, cpu_x, cfg, None)
+    probs, _, _, _ = moe._route(cpu_params, cpu_x, cfg)
+    (experts, keep), = log
+    return {"out": out, "aux": aux, "probs": probs, "experts": experts[0],
+            "keep": keep[0]}
+
+
 def moe_card_vs_cpu(device) -> dict:
     """One ``moe_apply`` at full dbrx width (d_model 6,144, 16 experts of
     d_ff 10,752, top-4) in fp32 on a (1, 64, 6,144) input, the weights
@@ -1948,24 +2112,20 @@ def moe_card_vs_cpu(device) -> dict:
     near-tie agree within 1e-4 of 1 + max|want|; the aux loss within
     1e-6."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models import moe
-    cfg = get_arch("dbrx-132b").model().cfg.moe
-    g = torch.Generator(device).manual_seed(3)
-    params = moe.moe_init(g, cfg, device)
-    x = torch.randn((1, 64, cfg.d_model), generator=g, device=device)
-    cpu_params, cpu_x = to_device(params, "cpu"), x.cpu()
+    job = HOST_JOBS.pop("moe_card_vs_cpu", None)
+    host = job.result() if job is not None else moe_card_vs_cpu_host()
+    want, want_aux, probs, e_cpu, keep_cpu = (
+        host[k] for k in ("out", "aux", "probs", "experts", "keep"))
+    cfg, params, x = moe_card_vs_cpu_inputs(device)
     with moe_routing_log() as log:
         got, aux = moe.moe_apply(params, x, cfg, None)
-        want, want_aux = moe.moe_apply(cpu_params, cpu_x, cfg, None)
-    probs, _, _, _ = moe._route(cpu_params, cpu_x, cfg)
-    del params, cpu_params
+    del params
     srt = torch.sort(probs, dim=-1, descending=True).values
     margin = (srt[..., cfg.top_k - 1] - srt[..., cfg.top_k])[0]   # (S,)
     clear = (margin > 1e-5).repeat_interleave(cfg.top_k)          # (S·k,)
-    (e_card, keep_card), (e_cpu, keep_cpu) = log
+    (e_card, keep_card), = log
     e_card, keep_card = e_card.cpu()[0], keep_card.cpu()[0]
-    e_cpu, keep_cpu = e_cpu[0], keep_cpu[0]
     check(torch.equal(e_card[clear], e_cpu[clear]) and
           torch.equal(keep_card[clear], keep_cpu[clear]),
           "moe card vs cpu: an assignment clear of any near-tie took "
@@ -2754,8 +2914,11 @@ def phase_train(device) -> dict:
     mnist, launches = train_mnist(device)
     lap("mnist")
     free_card()
-    report = {"mnist": mnist, "qwen_launcher": train_lm_launcher()}
-    lap("qwen launcher runs")
+    job = HOST_JOBS.pop("train_launcher", None)
+    report = {"mnist": mnist, "qwen_launcher": job.result()
+              if job is not None else train_lm_launcher()}
+    lap("qwen launcher runs" + (" (started before the mesh phase)"
+                                if job is not None else ""))
     report["qwen_step"] = train_lm_times(device)
     lap("qwen step times")
     free_card()
@@ -2806,8 +2969,10 @@ def phase_train(device) -> dict:
 
 def launch_sweep() -> dict:
     """(a) The dry run of every (arch × shape) at full size on the meta
-    device (``launch/dryrun.py``), LAUNCH_JOBS cells at a time in worker
-    processes: no cell may end in ``error``, and exactly the 8
+    device (``launch/dryrun.py``) in worker processes: HOST_WORKERS
+    started with the script beside the card's phases
+    (``start_host_jobs``), else LAUNCH_JOBS here. No cell may end in
+    ``error``, and exactly the 8
     ``long_500k`` cells of the full-attention archs are ``skipped``, with
     the reference's reason. Each cell's JSON goes under
     reports/dryrun_torch/; one compact line an arch goes to LAUNCH_LINES
@@ -2819,12 +2984,17 @@ def launch_sweep() -> dict:
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch.dryrun import REPORTS, run_cell
 
-    t0 = time.perf_counter()
-    cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(LAUNCH_JOBS, mp_context=ctx) as pool:
-        recs = list(pool.map(run_cell, *zip(*cells)))
-    seconds = time.perf_counter() - t0
+    job = HOST_JOBS.pop("sweep", None)
+    if job is not None:                 # started with the script
+        recs = [f.result() for f in job["cells"]]
+        seconds, jobs = max(job["done"]) - job["t0"], HOST_WORKERS
+    else:
+        t0 = time.perf_counter()
+        cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(LAUNCH_JOBS, mp_context=ctx) as pool:
+            recs = list(pool.map(run_cell, *zip(*cells)))
+        seconds, jobs = time.perf_counter() - t0, LAUNCH_JOBS
     errors = [(r["arch"], r["shape"], r["error"]) for r in recs
               if r["status"] == "error"]
     check(not errors, f"dry run cells in error: {errors}")
@@ -2850,7 +3020,8 @@ def launch_sweep() -> dict:
         LAUNCH_LINES.append(line)
     LAUNCH_LINES.append({"dryrun_sweep_s": round(seconds, 1),
                          "cells": len(recs), "ok": len(recs) - len(skipped),
-                         "skipped": len(skipped), "jobs": LAUNCH_JOBS,
+                         "skipped": len(skipped), "jobs": jobs,
+                         "beside_the_card": job is not None,
                          "reports": str(REPORTS.relative_to(ROOT))})
     return {"seconds": seconds, "cells": len(recs),
             "skipped": sorted(skipped)}
@@ -3842,20 +4013,36 @@ def mesh_shard_times(device) -> list[dict]:
     return rows
 
 
+def spmd_worlds(fn, worlds: dict, *args, timeout: float) -> list[tuple]:
+    """``run_spmd(fn, world, "gloo", "cuda", shape, *args)`` for every
+    (shape, world) of ``worlds`` at once, each from a thread of its own
+    (their ranks time-share the card and the host). Returns (shape,
+    world, the ranks' results, seconds) in ``worlds``' order."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch.mesh import run_spmd
+
+    def one(item):
+        shape, world = item
+        t0 = time.perf_counter()
+        ranks = run_spmd(fn, world, "gloo", "cuda", shape, *args,
+                         timeout=timeout)
+        return shape, world, ranks, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        return list(pool.map(one, worlds.items()))
+
+
 def phase_mesh(device) -> dict:
     """Channel parallelism on one card: NCCL world 1, then gloo worlds 2
-    and 4 whose ranks share cuda:0 (meshes (1, 2), (1, 4), (2, 2)), then
-    the per-shard shapes timed alone. Returns the launches of the mesh
+    and 4 whose ranks share cuda:0 (meshes (1, 2), (1, 4), (2, 2), run
+    at once: ``spmd_worlds``), then the per-shard shapes timed alone. Returns the launches of the mesh
     path summed over every rank (counted from 0 in each)."""
-    from repro_torch.launch.mesh import run_spmd
     free_card()                         # the ranks share this card
     world1, world1_launches = mesh_nccl_world1(device)
     total = dict(world1_launches)
     worlds = []
-    for shape, world in MESH_WORLDS.items():
-        t0 = time.perf_counter()
-        ranks = run_spmd(mesh_rank, world, "gloo", "cuda", shape,
-                         timeout=MESH_TIMEOUT_S)
+    for shape, world, ranks, seconds in spmd_worlds(
+            mesh_rank, MESH_WORLDS, timeout=MESH_TIMEOUT_S):
         for r in ranks:
             check(r["launches"]["fused_cwp"] and r["launches"]["conv_window"]
                   and r["launches"]["qmatmul"],
@@ -3864,7 +4051,7 @@ def phase_mesh(device) -> dict:
             total = {k: total[k] + r["launches"][k] for k in total}
         worlds.append({
             "mesh": list(shape), "world": world, "backend": "gloo",
-            "seconds": time.perf_counter() - t0,
+            "seconds": seconds,
             "cases": len(ranks[0]["rows"]), "refused": ranks[0]["refused"],
             "placements": sorted({(r["arch"], str(r["override"]),
                                    " ".join(r["placement"]))
@@ -3876,8 +4063,9 @@ def phase_mesh(device) -> dict:
             "shard_checks": [r["shard_checks"] for r in ranks],
             "walls": [r["walls"] for r in ranks],
             "weights": [r["weights"] for r in ranks],
-            "note": "every rank time-shares one card: these walls say "
-                    "nothing about scaling"})
+            "note": "every rank time-shares one card with the other "
+                    "worlds' ranks: these walls say nothing about "
+                    "scaling"})
     splits = mesh_split_checks(device)
     times = mesh_shard_times(device)
     emit({"phase": "mesh", "nccl_world1": world1,
@@ -3888,7 +4076,8 @@ def phase_mesh(device) -> dict:
 
 # ---------------------------------------------------------------- lm_mesh
 
-def lm_mesh_serve(model, params, ctx, quant, device) -> dict:
+def lm_mesh_serve(model, params, ctx, quant, device,
+                  prompt_len: int = 64) -> dict:
     """``Engine`` (graphs on where the mesh allows) on ``ctx``'s mesh, or
     without one (``ctx`` None), under ``quant`` ("none": the model's bf16;
     "int8": every MLP matmul a qmatmul and an int8 KV cache) over the
@@ -3896,8 +4085,10 @@ def lm_mesh_serve(model, params, ctx, quant, device) -> dict:
     capacity 4. After its first step (every request admitted, one decode
     step) one more decode step's logits over the 4 live slots, outside
     the run: it writes the K/V the engine's next step writes again (an
-    int8 cache is not stored back), so the run goes on as it would. After
-    the run, a prefill's logits (the first prompt of the full length).
+    int8 cache is not stored back; a recurrent state is put back), so the
+    run goes on as it would. After the run, a prefill's logits (the first
+    prompt of the full length). Prompts of ``prompt_len`` tokens or half
+    as many (whole scan chunks for the sub-quadratic LMs).
     Returns the tokens, both logits whole (CPU), the run's wall, steps,
     prefills, decode steps, and its wrapper launches and collectives'
     calls, bytes and host seconds (the two logits steps left out)."""
@@ -3906,10 +4097,10 @@ def lm_mesh_serve(model, params, ctx, quant, device) -> dict:
     from repro_torch.ops import ExecPolicy, use_policy
     from repro_torch.serve import Engine, EngineConfig
     from repro_torch.serve.engine import engine_decode_step
-    from repro_torch.sharding.logical import whole
-    cfg = EngineConfig(capacity=4, max_seq=80, device=str(device),
-                       policy=ExecPolicy(quant=quant))
-    prompts = lm_prompts(model.cfg.vocab)[:LM_MESH_REQUESTS]
+    from repro_torch.sharding.logical import local_part, whole
+    cfg = EngineConfig(capacity=4, max_seq=prompt_len + 16,
+                       device=str(device), policy=ExecPolicy(quant=quant))
+    prompts = lm_prompts(model.cfg.vocab, prompt_len)[:LM_MESH_REQUESTS]
     eng = Engine(model, params, cfg, ctx)
     for p in prompts:
         eng.add_request(p, LM_MESH_NEW)
@@ -3936,14 +4127,21 @@ def lm_mesh_serve(model, params, ctx, quant, device) -> dict:
         return out
 
     run(eng.step)
+    from repro_torch.core.tree import tree_leaves
+    state = eng.kv.device_state()
+    leaves = [t for tree in state for t in tree_leaves(tree)]
+    saved = [local_part(t)[0].clone() for t in leaves]
     dec = engine_decode_step(model, cfg, ctx, sample=False)(
         eng.params, torch.as_tensor(eng._last_token, device=device),
         torch.as_tensor(eng.kv.positions(), device=device),
-        *eng.kv.device_state())[0]
+        *state)[0]
     dec = whole(dec).float().cpu()
+    for t, v in zip(leaves, saved):     # a recurrent state moved: back
+        local_part(t)[0].copy_(v)
     fin = run(eng.run)
     s = eng.stats
-    full = next(p for p in lm_prompts(model.cfg.vocab) if len(p) == 64)
+    full = next(p for p in lm_prompts(model.cfg.vocab, prompt_len)
+                if len(p) == prompt_len)
     toks = torch.as_tensor(full[None], device=device)
     with use_policy(cfg.policy), torch.no_grad():
         pre, _ = model.prefill(eng.params, {"tokens": toks},
@@ -3960,9 +4158,12 @@ def lm_mesh_serve(model, params, ctx, quant, device) -> dict:
 
 
 def lm_mesh_model():
-    """qwen1.5-0.5b at full size from seed 0, drawn on the card."""
+    """qwen1.5-0.5b at full width cut to LM_MESH_SERVE_LAYERS layers from
+    seed 0, drawn on the card."""
     from repro_torch.configs import get_arch
-    model = get_arch(LM_ARCH).model()
+    from repro_torch.models.transformer import TransformerLM
+    model = TransformerLM(dataclasses.replace(
+        get_arch(LM_ARCH).model().cfg, n_layers=LM_MESH_SERVE_LAYERS))
     return model, model.init(0, device="cuda")
 
 
@@ -4172,12 +4373,14 @@ def lm_mesh_launchers(shape, work) -> dict:
 
 def lm_mesh_rank(rank, world, shape, ref_path, work) -> dict:
     """One rank of a gloo world whose ranks share cuda:0, on a
-    host-staged DTensor mesh of ``shape``: qwen1.5-0.5b at full size
-    served in bf16 (logits within TOL_BF16 of 1 + max|want| of the
-    unsharded engine's) and under int8 (tokens and logits bitwise to the
-    unsharded int8 engine's, qmatmul launched 72 a step on this rank);
+    host-staged DTensor mesh of ``shape``: qwen1.5-0.5b at full width
+    cut to LM_MESH_SERVE_LAYERS layers served in bf16 (logits within
+    TOL_BF16 of 1 + max|want| of the unsharded engine's) and under int8
+    (tokens and logits bitwise to the unsharded int8 engine's, qmatmul
+    launched 3 a layer a step on this rank);
     each shard launch shape kernel vs plain; the launchers; then the
-    4-layer fp32 model trained LM_MESH_TRAIN_STEPS steps against the
+    LM_MESH_TRAIN_LAYERS-layer fp32 model trained LM_MESH_TRAIN_STEPS
+    steps against the
     single-rank run, and on 2x2 a checkpoint restored onto (1, 2)."""
     import torch
     import torch.distributed as dist
@@ -4270,7 +4473,8 @@ def lm_mesh_rank(rank, world, shape, ref_path, work) -> dict:
 def lm_mesh_reference(device, plain, path) -> dict:
     """What the gloo worlds are held to, saved to ``path``: the unsharded
     engines' tokens and logits (world 1's engines without a mesh) and
-    the 4-layer model's single-rank training (losses, params on the
+    the LM_MESH_TRAIN_LAYERS-layer model's single-rank training (losses,
+    params on the
     CPU)."""
     import torch
     from repro_torch.core.tree import tree_items
@@ -4292,12 +4496,11 @@ def phase_lm_mesh(device) -> dict:
     """qwen1.5-0.5b over a (data, model) mesh on the one card: NCCL world
     1 (mesh (1, 1), graphs on, bitwise to the engine without a mesh), the
     single-rank training run, then gloo worlds of 2 and 4 ranks sharing
-    cuda:0 (meshes (1, 2) and (2, 2), ``run_spmd``, every collective
-    host-staged) serving and training against them. Returns the launches
+    cuda:0 (meshes (1, 2) and (2, 2), run at once: ``spmd_worlds``,
+    every collective host-staged) serving and training against them. Returns the launches
     of the mesh path: the world-1 mesh engines' and every rank's serving
     runs (each counted from 0)."""
     import tempfile
-    from repro_torch.launch.mesh import run_spmd
     free_card()
     world1, total, plain = lm_mesh_world1(device)
     lap("lm_mesh NCCL world 1")
@@ -4309,10 +4512,9 @@ def phase_lm_mesh(device) -> dict:
         lap("lm_mesh single-rank training")
         del plain
         free_card()
-        for shape, world in LM_MESH_WORLDS.items():
-            t0 = time.perf_counter()
-            ranks = run_spmd(lm_mesh_rank, world, "gloo", "cuda", shape,
-                             ref_path, work, timeout=LM_MESH_TIMEOUT_S)
+        for shape, world, ranks, seconds in spmd_worlds(
+                lm_mesh_rank, LM_MESH_WORLDS, ref_path, work,
+                timeout=LM_MESH_TIMEOUT_S):
             for r in ranks:
                 check(r["launches"]["qmatmul"],
                       f"lm mesh {shape} rank {r['rank']}: qmatmul never "
@@ -4320,21 +4522,477 @@ def phase_lm_mesh(device) -> dict:
                 total = {k: total[k] + r["launches"][k] for k in total}
             worlds.append({
                 "mesh": list(shape), "world": world, "backend": "gloo",
-                "seconds": time.perf_counter() - t0,
+                "seconds": seconds,
                 "serve": [r["serve"] for r in ranks],
                 "shard_shapes": ranks[0]["shard_checks"],
                 "launcher": ranks[0]["launcher"],
                 "train": [r["train"] for r in ranks],
                 "restore": ranks[0].get("restore"),
                 "launches": [r["launches"] for r in ranks],
-                "note": "every rank time-shares one card: these walls say "
-                        "nothing about scaling"})
-            lap(f"lm_mesh gloo world {shape}")
+                "note": "every rank time-shares one card with the other "
+                        "world's ranks: these walls say nothing about "
+                        "scaling"})
+        lap(f"lm_mesh gloo worlds {list(LM_MESH_WORLDS)}, at once")
     emit({"phase": "lm_mesh", "arch": LM_ARCH, "world1": world1,
           "single_rank_train": single,
           "train_model": f"{LM_ARCH} at full width, "
                          f"{LM_MESH_TRAIN_LAYERS} of 24 layers, fp32",
           "worlds": worlds})
+    return total
+
+
+# ------------------------------------------------------------ family_mesh
+
+def family_model(arch: str, layers: int | None):
+    """``arch`` at full width, cut to ``layers`` layers (None: full)."""
+    from repro_torch.configs import get_arch
+    model = get_arch(arch).model()
+    if layers is None:
+        return model
+    return type(model)(dataclasses.replace(model.cfg, n_layers=layers))
+
+
+def family_inputs(model, arch: str, device) -> dict:
+    """FAMILY_BATCH prompts (numpy seed 2) of the arch's prompt length
+    (whole scan chunks), and seamless's stub encoder frames."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(2)
+    s = FAMILY_PROMPT.get(arch, 64)
+    batch = {"tokens": torch.as_tensor(rng.randint(
+        0, model.cfg.vocab, size=(FAMILY_BATCH, s)), device=device)}
+    if arch == "seamless-m4t-medium":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (FAMILY_BATCH, FAMILY_FRAMES, model.cfg.d_model)).astype(
+                np.float32), device=device)
+    return batch
+
+
+def family_loop(model, params, ctx, arch: str, quant: str, device,
+                feed=None, trace: bool = False, routes=None,
+                steps: int = FAMILY_STEPS) -> dict:
+    """A prefill of ``family_inputs`` and ``steps`` greedy decode steps
+    (eager, on DTensors where ``ctx`` has a mesh): each step's logits
+    whole on the CPU, the tokens (each step's argmax), the wall. With
+    ``feed`` (another run's tokens) each decode step takes that run's
+    token, so that every step's logits answer the same input even where
+    an argmax flips. With ``trace`` each step's expert-parallel dispatches
+    are recorded (``moe.routing_trace``: ``routes``, one list a step);
+    with ``routes`` (one list a step of (T, k) expert choices in dispatch
+    order) each step replays them, and records its own beside."""
+    import torch
+    from repro_torch.models.moe import routing_trace
+    from repro_torch.ops import ExecPolicy, use_policy
+    from repro_torch.sharding.logical import distribute_tree, whole
+    batch = family_inputs(model, arch, device)
+    s = batch["tokens"].shape[1]
+    cache = model.init_cache(FAMILY_BATCH, s + steps,
+                             FAMILY_FRAMES, device=device) \
+        if "frames" in batch else \
+        model.init_cache(FAMILY_BATCH, s + steps, device=device)
+    if ctx is not None:
+        cache = distribute_tree(cache, model.cache_axes(), ctx)
+    logits, tokens, logs = [], [], []
+
+    def traced(i, fn):
+        if not trace and routes is None:
+            return fn()
+        with routing_trace(None if routes is None else routes[i]) as log:
+            out = fn()
+        logs.append(log)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_policy(ExecPolicy(quant=quant)), torch.no_grad():
+        out, cache = traced(0, lambda: model.prefill(params, batch, cache,
+                                                     ctx))
+        for i in range(steps + 1):
+            out = whole(out).float()
+            logits.append(out.cpu())
+            nxt = out.argmax(-1).to(torch.int32)
+            tokens.append(nxt.cpu().tolist())
+            if feed is not None:
+                nxt = torch.as_tensor(feed[i], dtype=torch.int32,
+                                      device=device)
+            if i < steps:
+                out, cache = traced(i + 1, lambda: model.decode_step(
+                    params, nxt, s + i, cache, ctx))
+    torch.cuda.synchronize()
+    return {"logits": logits, "tokens": tokens,
+            "wall_s": time.perf_counter() - t0,
+            "routes": logs if logs else None}
+
+
+def family_ep_reference(model, shape):
+    """``model`` whose MoE layers run, on one device, the expert-parallel
+    arithmetic of a mesh of ``shape`` (``moe_apply_ep_ref``: the data
+    shards and model ranks walked in order, the partials summed in rank
+    order in the model dtype)."""
+    from repro_torch.models.moe import moe_apply_ep_ref
+    nd, nm = shape
+
+    class EPReference(type(model)):
+        def moe_layer(self, p, x, ctx):
+            return moe_apply_ep_ref(p, x, self.cfg.moe, nd, nm)
+
+    return EPReference(model.cfg)
+
+
+def family_key(arch: str, layers, shape) -> str:
+    return f"{arch}|{layers}|{shape[0]}x{shape[1]}"
+
+
+def family_draw(jobs, device) -> tuple[dict, dict, dict]:
+    """Each of a world's jobs' seed-0 weights, drawn on the card once in
+    this process and cast as the engine casts them (the world's ranks
+    lay them out from this memory, shared with them through CUDA IPC:
+    no rank draws a whole model of its own), and the one-device loops
+    the sub-quadratic and encoder-decoder jobs are held to (the MoE jobs
+    are held after their world ran: ``family_moe_hold``). Returns
+    (params, references, their walls), each by job key."""
+    from repro_torch.serve.weights import cast_serving_params
+    params, refs, walls = {}, {}, {}
+    for arch, layers, shape in jobs:
+        key = family_key(arch, layers, shape)
+        model = family_model(arch, layers)
+        params[key] = cast_serving_params(
+            model, model.init(0, device=device), device, donate=True)
+        free_card()
+        if arch not in MOE_ARCHS:
+            quant = "int8" if arch == "zamba2-7b" else "none"
+            r = family_loop(model, params[key], None, arch, quant, device)
+            refs[key] = {"logits": r["logits"], "tokens": r["tokens"]}
+            walls[key] = r["wall_s"]
+    return params, refs, walls
+
+
+def family_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 2.0 ** -133
+
+
+def family_moe_hold(job, ranks, params, device) -> dict:
+    """An MoE job of a gloo world (``ranks``: its ranks' free greedy runs,
+    each with its own dispatches' routing) held against the one-device
+    expert-parallel arithmetic at the job's mesh shape, run after it with
+    the mesh's tokens fed and the mesh's routing replayed
+    (``family_ep_reference``, ``moe.routing_trace``) on ``params``, the
+    weights the world's ranks laid out: every rank's logits
+    equal, and within TOL_BF16 of 1 + max|logit| of the reference's at
+    every step, every row; every dispatch's keep mask equal to the
+    reference's; a token apart only where the reference's logits of the
+    two tokens lie within that bar; where the reference's own routing
+    picks other experts than the mesh's (bf16 noise at a near-tie), each
+    expert the mesh took instead within FAMILY_ROUTER_GAP of the
+    reference's k-th router logit. Returns the readings."""
+    import torch
+    arch, layers, shape = job
+    key = family_key(arch, layers, shape)
+    label = f"family mesh {key}"
+    got = [r["moe"][key] for r in ranks]
+    nm = shape[1]
+    nd = shape[0] if FAMILY_BATCH % shape[0] == 0 else 1
+    steps = len(got[0]["logits"])
+    model = family_model(arch, layers)
+    k = model.cfg.moe.top_k
+    calls = model.cfg.n_layers
+    for rank, g in enumerate(got):
+        check(len(g["routes"]) == steps and
+              all(len(log) == calls for log in g["routes"]),
+              f"{label} rank {rank}: dispatches a step "
+              f"{[len(log) for log in g['routes']]}, expected {calls}")
+        check(all(torch.equal(a, b) for a, b in zip(g["logits"],
+                                                     got[0]["logits"])),
+              f"{label}: rank {rank}'s logits differ from rank 0's")
+    # the reference's dispatch order: layer call, data shard, model rank
+    replay = [[got[(i if nd > 1 else 0) * nm]["routes"][st][c]["top_e"]
+               for c in range(calls) for i in range(nd) for _ in range(nm)]
+              for st in range(steps)]
+    want = family_loop(family_ep_reference(model, shape), params, None,
+                       arch, "none", device, feed=got[0]["tokens"],
+                       routes=replay, steps=steps - 1)
+    errs, bars, apart, flips, max_gap = [], [], [], [], 0.0
+    for st in range(steps):
+        a, b = got[0]["logits"][st], want["logits"][st]
+        check(a.shape == b.shape == (FAMILY_BATCH, model.cfg.vocab)
+              and bool(torch.isfinite(a).all()),
+              f"{label} step {st}: logits {tuple(a.shape)} or not finite")
+        bar = TOL_BF16 * (1 + float(b.abs().max()))
+        errs.append(max_abs(a, b))
+        bars.append(bar)
+        check(errs[-1] <= bar, f"{label} step {st}: logits max_abs "
+                               f"{errs[-1]} > {bar}, the routing replayed")
+        mine = torch.as_tensor(got[0]["tokens"][st])
+        ref = b.argmax(-1)
+        off = (mine != ref).nonzero().flatten().tolist()
+        apart.append(off)
+        for row in off:
+            gap = float(b[row, ref[row]] - b[row, mine[row]])
+            check(gap <= bar, f"{label} step {st} row {row}: token "
+                              f"{int(mine[row])} vs the reference's "
+                              f"{int(ref[row])}, {gap} apart (bar {bar})")
+        n = 0
+        for c in range(calls):
+            for i in range(nd):
+                for j in range(nm):
+                    w = want["routes"][st][(c * nd + i) * nm + j]
+                    g = got[(i if nd > 1 else 0) * nm + j]["routes"][st][c]
+                    check(torch.equal(g["top_e"],
+                                      replay[st][(c * nd + i) * nm]),
+                          f"{label} step {st} call {c}: model rank {j} "
+                          f"routed otherwise than rank 0 of its shard")
+                    check(torch.equal(g["keep"], w["keep"]),
+                          f"{label} step {st} call {c} shard {i} rank {j}: "
+                          f"keep mask differs from the reference's")
+                    if j:
+                        continue
+                    lp = torch.log(w["probs"])
+                    vals, own = torch.sort(lp, dim=-1, descending=True,
+                                           stable=True)
+                    kth = vals[:, k - 1]
+                    for t in range(own.shape[0]):
+                        extra = set(g["top_e"][t].tolist()) - \
+                            set(own[t, :k].tolist())
+                        for e in extra:
+                            gap = float(kth[t] - lp[t, e])
+                            max_gap = max(max_gap, gap)
+                            n += 1
+                            check(gap <= FAMILY_ROUTER_GAP,
+                                  f"{label} step {st} call {c} token {t}: "
+                                  f"the mesh took expert {e}, "
+                                  f"{gap} below the reference's k-th "
+                                  f"router logit (bar {FAMILY_ROUTER_GAP})")
+        flips.append(n)
+    drops = []
+    for rank, g in enumerate(got):
+        j = rank % nm
+        owned = sum(int((r["top_e"] // r["e_l"] == j).sum())
+                    for log in g["routes"] for r in log)
+        kept = sum(int(r["keep"].sum()) for log in g["routes"] for r in log)
+        drops.append([owned, owned - kept])
+    row = {"arch": arch, "layers": layers, "mesh": list(shape),
+           "max_abs": errs, "bar": bars, "tokens_apart": apart,
+           "assignments_flipped": flips,
+           "max_flip_gap": max_gap, "router_gap_bar": FAMILY_ROUTER_GAP,
+           "owned_dropped_a_rank": drops,
+           "reference_wall_s": want["wall_s"]}
+    print(f"chip_smoke:   {label}: max_abs {errs} (bars {bars}) tokens "
+          f"apart {apart} flipped {flips} (max gap {max_gap}) owned/dropped "
+          f"{drops}", file=sys.stderr, flush=True)
+    return row
+
+
+def family_rank(rank, world, jobs, ref_path, shared) -> dict:
+    """One rank of a gloo world whose ranks share cuda:0: each job's
+    model on a host-staged DTensor mesh, its weights laid out from
+    ``shared`` (the parent's, by job key, through CUDA IPC; each dropped
+    once laid out, so that the parent's memory is released). The MoE archs run greedily on
+    their own tokens, each dispatch's routing recorded: their logits,
+    tokens and routing go back to be held after the world
+    (``family_moe_hold``). The others are fed the one-device reference's
+    tokens and held here: zamba2-7b under int8 with the prefill's logits
+    bitwise, each decode step's within FAMILY_DECODE_ULPS bf16 ulps of
+    max|logit|, the tokens equal and qmatmul launched 3 a shared-block
+    call a step on this rank; the rest within TOL_BF16 of 1 + max|logit|.
+    Beside each: the collectives' calls, bytes and host seconds; then
+    every qmatmul shard launch shape kernel vs plain."""
+    import os
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.parallelism import COMM_STATS
+    from repro_torch.sharding.groups import mesh_groups
+    from repro_torch.sharding.logical import ShardingCtx, distribute_tree
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    device = torch.device("cuda", 0)
+    refs = torch.load(ref_path, weights_only=False)
+    meshes = {}
+    for _, _, shape in jobs:
+        if shape not in meshes:
+            meshes[shape] = mesh_groups(shape, ("data", "model"), "cuda")
+    seen, undo = lm_mesh_record_shapes()
+    rows, moe_runs = [], {}
+    launches = dict.fromkeys(counts(), 0)
+    try:
+        for arch, layers, shape in jobs:
+            model = family_model(arch, layers)
+            ctx = ShardingCtx(meshes[shape], get_arch(arch).rules())
+            key = family_key(arch, layers, shape)
+            params = distribute_tree(shared.pop(key), model.axes(), ctx)
+            quant = "int8" if arch == "zamba2-7b" else "none"
+            COMM_STATS.reset()
+            label = f"family mesh {key} rank {rank}"
+            moe = arch in MOE_ARCHS
+            want = None if moe else refs[key]
+            steps = FAMILY_STEPS if shape[0] == 1 else FAMILY_STEPS_DATA
+            reset_counts()
+            r = family_loop(model, params, ctx, arch, quant, device,
+                            feed=None if moe else want["tokens"], trace=moe,
+                            steps=steps)
+            grew = counts()
+            launches = {k: launches[k] + grew[k] for k in launches}
+            row = {"arch": arch, "layers": layers, "mesh": list(shape),
+                   "quant": quant, "wall_s": r["wall_s"],
+                   "steps": 1 + steps, "launches": grew,
+                   "collectives": {"calls": dict(COMM_STATS.calls),
+                                   "bytes": dict(COMM_STATS.bytes),
+                                   "host_s": dict(COMM_STATS.seconds)}}
+            if moe:
+                moe_runs[key] = {n: r[n] for n in ("logits", "tokens",
+                                                   "routes")}
+            else:
+                errs = [max_abs(a, b) for a, b in zip(r["logits"],
+                                                      want["logits"])]
+                peaks = [float(b.abs().max()) for b in want["logits"]]
+                if quant == "int8":
+                    # the prefill bitwise; a decode step's bf16 attention
+                    # projections at M = 4 on half the heads take another
+                    # cuBLAS kernel than the whole product (split K), a
+                    # rounding apart (scripts/colpar_bitwise.py)
+                    bars = [0.0] + [FAMILY_DECODE_ULPS * family_ulp(m)
+                                    for m in peaks[1:]]
+                    per = 3 * model.cfg.n_groups * (1 + steps)
+                    check(grew["qmatmul"] == per,
+                          f"{label}: qmatmul launched {grew['qmatmul']} "
+                          f"times, expected {per}")
+                else:
+                    bars = [TOL_BF16 * (1 + m) for m in peaks]
+                row.update(max_abs=errs, bar=bars,
+                           bitwise=all(e == 0.0 for e in errs),
+                           tokens_equal=r["tokens"] == want["tokens"])
+                check(all(e <= b for e, b in zip(errs, bars)),
+                      f"{label}: logits max_abs {errs} past {bars}")
+                check(quant != "int8" or row["tokens_equal"],
+                      f"{label}: tokens {r['tokens']} vs {want['tokens']}")
+                print(f"chip_smoke:   {label}: max_abs {errs} (bars {bars}) "
+                      f"tokens_equal {row['tokens_equal']} wall "
+                      f"{r['wall_s']:.2f} s", file=sys.stderr, flush=True)
+            rows.append(row)
+            del params
+            free_card()
+    finally:
+        undo()
+        shared.clear()
+    return {"rank": rank, "jobs": rows, "launches": launches,
+            "moe": moe_runs,
+            "shard_checks": lm_mesh_shard_checks(seen, device)}
+
+
+def family_world1(device) -> tuple[list[dict], dict]:
+    """NCCL world 1 on cuda:0, mesh (1, 1): each FAMILY_WORLD1 model's
+    Engine through its step graphs against the engine without a mesh:
+    tokens equal, a prefill's and a 4-slot decode step's logits bitwise
+    (the MoE archs' too, whose layer on a mesh with a ``model`` axis is
+    the expert-parallel one: with a dispatch group a row it drops what
+    the local path drops). Returns (the rows, the mesh engines'
+    launches)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.serve.weights import cast_serving_params
+    from repro_torch.sharding.logical import ShardingCtx
+    mesh = build_mesh("1x1", None, "cuda")
+    rows, launches = [], dict.fromkeys(counts(), 0)
+    try:
+        check(dist.get_backend() == "nccl",
+              f"family world 1 resolved to {dist.get_backend()}, not nccl")
+        for arch, (layers, quant, plen) in FAMILY_WORLD1.items():
+            free_card()
+            model = family_model(arch, layers)
+            ctx = ShardingCtx(mesh, get_arch(arch).rules())
+            params = cast_serving_params(model, model.init(0, device=device),
+                                         device, donate=True)
+            plain = lm_mesh_serve(model, params, None, quant, device, plen)
+            placed = lm_mesh_serve(model, params, ctx, quant, device, plen)
+            launches = {k: launches[k] + placed["launches"][k]
+                        for k in launches}
+            label = f"family world 1 {arch}"
+            check(placed["graphs"] == "on", f"{label}: graphs "
+                                            f"{placed['graphs']}")
+            errs = {st: max_abs(placed[st], plain[st])
+                    for st in ("prefill", "decode")}
+            check(placed["tokens"] == plain["tokens"],
+                  f"{label}: tokens {placed['tokens']} vs {plain['tokens']}")
+            for st, err in errs.items():
+                check(err == 0.0, f"{label} {st} logits: max_abs {err} "
+                                  f"from the engine without a mesh")
+            if quant == "int8":
+                steps = placed["prefills"] + placed["decode_steps"]
+                check(placed["launches"]["qmatmul"] > 0,
+                      f"{label}: qmatmul never launched ({steps} steps)")
+            print(f"chip_smoke:   {label}: max_abs {errs} tokens_equal "
+                  f"{placed['tokens'] == plain['tokens']}", file=sys.stderr,
+                  flush=True)
+            rows.append({"arch": arch, "layers": layers, "quant": quant,
+                         "graphs": placed["graphs"], "max_abs": errs,
+                         "tokens_equal": placed["tokens"] == plain["tokens"],
+                         "step_wall_ms": placed["step_wall_ms"],
+                         "plain_step_wall_ms": plain["step_wall_ms"],
+                         "launches": placed["launches"]})
+            del params
+    finally:
+        dist.destroy_process_group()
+    free_card()
+    return rows, launches
+
+
+def phase_family_mesh(device) -> dict:
+    """The MoE, hybrid, RWKV and encoder-decoder LMs over a (data, model)
+    mesh on the one card: NCCL world 1 (``family_world1``), then for each
+    gloo world of 2 and 4 ranks sharing cuda:0 its jobs' weights and
+    one-device references (``family_draw``), the world (``family_rank``:
+    meshes (1, 2), (1, 4) and (2, 2), every collective host-staged), its
+    MoE jobs held (``family_moe_hold``). Returns the launches of the path: the world-1 mesh
+    engines' and every rank's loops (each counted from 0)."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    free_card()
+    world1, total = family_world1(device)
+    lap("family_mesh NCCL world 1")
+    worlds, ref_walls = [], {}
+    with tempfile.TemporaryDirectory(prefix="family_mesh_",
+                                     dir=ROOT / "build") as work:
+        ref_path = str(Path(work) / "ref.pt")
+        for world, jobs in FAMILY_GLOO.items():
+            free_card()
+            shared, refs, walls = family_draw(jobs, device)
+            torch.save(refs, ref_path)
+            ref_walls.update(walls)
+            lap(f"family_mesh world {world}'s weights and references")
+            free, total_b = torch.cuda.mem_get_info()
+            print(f"chip_smoke:   family_mesh before world {world}: this "
+                  f"process holds {torch.cuda.memory_reserved()} B, the "
+                  f"card has {free} of {total_b} B free", file=sys.stderr,
+                  flush=True)
+            t0 = time.perf_counter()
+            ranks = run_spmd(family_rank, world, "gloo", "cuda", jobs,
+                             ref_path, shared, timeout=FAMILY_TIMEOUT_S)
+            for r in ranks:
+                total = {k: total[k] + r["launches"][k] for k in total}
+            check(all(r["launches"]["qmatmul"] for r in ranks)
+                  or world != 2, "family mesh: qmatmul never launched on "
+                                 "a rank of the 2-rank world")
+            seconds = time.perf_counter() - t0
+            lap(f"family_mesh gloo world {world}")
+            moe = [family_moe_hold(job, ranks, shared[family_key(*job)],
+                                   device)
+                   for job in jobs if job[0] in MOE_ARCHS]
+            del shared
+            torch.cuda.ipc_collect()
+            worlds.append({"world": world, "backend": "gloo",
+                           "seconds": seconds, "moe": moe,
+                           "jobs": [r["jobs"] for r in ranks],
+                           "shard_shapes": ranks[0]["shard_checks"],
+                           "launches": [r["launches"] for r in ranks],
+                           "note": "every rank time-shares one card: these "
+                                   "walls say nothing about scaling"})
+            lap(f"family_mesh world {world}'s MoE jobs held")
+    emit({"phase": "family_mesh", "world1": world1,
+          "reference_walls_s": ref_walls, "worlds": worlds,
+          "steps": 1 + FAMILY_STEPS, "steps_data_axis": 1 + FAMILY_STEPS_DATA,
+          "batch": FAMILY_BATCH})
     return total
 
 
@@ -4584,23 +5242,32 @@ def lm_time_rows(gen, device) -> list[dict]:
     return rows + lm_shard_time_rows(device)
 
 
+# the MLP shard shapes timed in the times phase: (model, d_model, d_ff,
+# model axis sizes, row counts M): qwen1.5-0.5b's decode and 64-token
+# prefill on model 2 and 4, zamba2-7b's shared MLP's decode and 512-token
+# prefill on model 2 (the family_mesh phase's 1 x 2)
+SHARD_TIME_SHAPES = [(LM_ARCH, 1024, 2816, (2, 4), (4, 64)),
+                     ("zamba2-7b", 3584, 14336, (2,), (4, 512))]
+
+
 def lm_shard_time_rows(device) -> list[dict]:
-    """qmatmul at qwen1.5-0.5b's MLP shard shapes on a (data, model)
-    mesh, model 2 and 4, M = 4 (a decode step) and 64 (a prefill): the
-    column-parallel wi/wg (K = 1,024, N = 2,816 / model) with the
-    epilogue, and the row-parallel wo (K = 2,816 / model, N = 1,024)
-    without it (``qmatmul_acc``: the int32 accumulator the ranks sum).
-    Each first bitwise against its plain version; the library yardstick
-    ``torch._int_mm`` (+ the scales for the epilogue form) where M > 16."""
+    """qmatmul at the LMs' MLP shard shapes on a (data, model) mesh
+    (``SHARD_TIME_SHAPES``): the column-parallel wi/wg (K = d_model, N =
+    d_ff / model) with the epilogue, and the row-parallel wo (K = d_ff /
+    model, N = d_model) without it (``qmatmul_acc``: the int32
+    accumulator the ranks sum). Each first bitwise against its plain
+    version, timed a call at a time where the plain product is large;
+    the library yardstick ``torch._int_mm`` (+ the scales for the
+    epilogue form) where M > 16."""
     import torch
     from repro_torch.kernels.qmatmul.ops import qmatmul, qmatmul_acc
     from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref, qmatmul_ref
     rows = []
-    for i, (model_n, m, part) in enumerate(
-            (mn, m, part) for mn in (2, 4) for m in (4, 64)
-            for part in ("wi", "wo")):
-        k, n = (1024, 2816 // model_n) if part == "wi" \
-            else (2816 // model_n, 1024)
+    cases = [(arch, d, f, mn, m, part)
+             for arch, d, f, mns, ms in SHARD_TIME_SHAPES
+             for mn in mns for m in ms for part in ("wi", "wo")]
+    for i, (arch, d, f, model_n, m, part) in enumerate(cases):
+        k, n = (d, f // model_n) if part == "wi" else (f // model_n, d)
         xc, wc, xs, ws = qmatmul_inputs_on(device, 500 + i, m, k, n)
         if part == "wi":
             kern = lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul(xc, wc, xs, ws)
@@ -4624,12 +5291,14 @@ def lm_shard_time_rows(device) -> list[dict]:
                                         f"disagrees with the plain version")
         else:
             lib, note = None, "torch._int_mm needs M > 16"
+        del got, want
         stage = (f"{'decode' if m == 4 else 'prefill'} {m}x{k}x{n} "
                  f"{part} model={model_n}"
                  + (" (int32 accumulator)" if part == "wo" else ""))
         row = _time_row("qmatmul", stage, m, kern, plain, lib, nbytes,
                         2.0 * m * k * n / PEAK_INT8, exact=True,
-                        model=f"{LM_ARCH} shard")
+                        model=f"{arch} shard",
+                        plain_one_call=m * k * n > 1e9)
         row["library_note"] = note
         rows.append(row)
     return rows
@@ -4768,6 +5437,85 @@ def kernels_line(launches, max_err, rows) -> dict:
     return {"kernels": out}
 
 
+# host work that the card's phases would otherwise wait for, started
+# with the script (``start_host_jobs``) and taken where a phase needs it:
+# the CPU sides of the card-vs-CPU checks (the moe phase's too) in one
+# process of
+# HOST_THREADS torch threads, the dry-run sweep in HOST_WORKERS
+# processes; the train launchers (card processes) start before the mesh
+# phase, whose gloo worlds time-share the card anyway
+HOST_JOBS: dict = {}
+HOST_POOLS: list = []
+HOST_WORKERS = 2
+HOST_THREADS = 3
+
+
+def card_vs_cpu_jobs() -> list[tuple]:
+    """The ``lm_card_vs_cpu`` calls of the main path, in the order the
+    phases make them: (arch, layers, modes, prompt lengths, nudge)."""
+    return ([(LM_ARCH, 2, ("none", "int8"), (32, 16, 32, 16), True)]
+            + [(a, 1, ("none",), (16, 8), False) for a in LM_DENSE_ARCHS]
+            + [("zamba2-7b", SSM_CPU_LAYERS["zamba2-7b"], ("none", "int8"),
+                (256,), False),
+               ("rwkv6-1.6b", SSM_CPU_LAYERS["rwkv6-1.6b"], ("none",),
+                (128, 64), False)])
+
+
+def start_host_jobs() -> None:
+    """Start the card-vs-CPU checks' CPU sides and the dry-run sweep in
+    spawned worker processes beside the card's phases."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import run_cell
+    ctx = multiprocessing.get_context("spawn")
+    cpu = ProcessPoolExecutor(1, mp_context=ctx)
+    sweep = ProcessPoolExecutor(HOST_WORKERS, mp_context=ctx)
+    HOST_POOLS.extend([cpu, sweep])
+    jobs = card_vs_cpu_jobs()
+    for key in jobs[:1 + len(LM_DENSE_ARCHS)]:      # the lm phase's
+        HOST_JOBS[("card_vs_cpu",) + key] = cpu.submit(
+            card_vs_cpu_host, *key, threads=HOST_THREADS)
+    HOST_JOBS["moe_card_vs_cpu"] = cpu.submit(moe_card_vs_cpu_host,
+                                              threads=HOST_THREADS)
+    for key in jobs[1 + len(LM_DENSE_ARCHS):]:      # the ssm phase's
+        HOST_JOBS[("card_vs_cpu",) + key] = cpu.submit(
+            card_vs_cpu_host, *key, threads=HOST_THREADS)
+    job = {"t0": time.perf_counter(), "done": [], "cells": []}
+    for a in ARCH_IDS:
+        for shape in SHAPES:
+            f = sweep.submit(run_cell, a, shape)
+            f.add_done_callback(
+                lambda _: job["done"].append(time.perf_counter()))
+            job["cells"].append(f)
+    HOST_JOBS["sweep"] = job
+
+
+def start_train_launchers() -> None:
+    """``train_lm_launcher`` (four card processes at a time) in a thread,
+    its checks made where the train phase takes its result."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(1)
+    HOST_POOLS.append(pool)
+    HOST_JOBS["train_launcher"] = pool.submit(train_lm_launcher)
+
+
+def stop_host_jobs(failed: bool) -> None:
+    """End every host job's workers: after a failure at once, else once
+    their work is taken (none may be left untaken)."""
+    left = sorted(str(k) for k in HOST_JOBS)
+    HOST_JOBS.clear()
+    for pool in HOST_POOLS:
+        if failed:
+            for proc in list((getattr(pool, "_processes", None) or {})
+                             .values()):
+                proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+    HOST_POOLS.clear()
+    check(failed or not left, f"host jobs never taken: {left}")
+
+
 _LAP = [0.0]
 
 
@@ -4798,7 +5546,7 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
                          "lm, moe, ssm, train, launch, mesh, lm_mesh, "
-                         "times, plans); "
+                         "family_mesh, times, plans); "
                          "prints no result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
@@ -4822,12 +5570,16 @@ def main(argv=None) -> int:
               "lm": phase_lm, "moe": phase_moe, "ssm": phase_ssm,
               "train": phase_train, "launch": phase_launch,
               "mesh": phase_mesh, "lm_mesh": phase_lm_mesh,
+              "family_mesh": phase_family_mesh,
               "times": phase_times, "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
+    failed = True
     try:
         info = phase_device()
         phase_build()
+        if args.phases is None:
+            start_host_jobs()
         if args.phases is not None:
             for name in args.phases.split(","):
                 phases[name](device)
@@ -4855,29 +5607,39 @@ def main(argv=None) -> int:
         ssm = phases["ssm"](device)             # counted from 0 in there
         check(ssm["qmatmul"],
               f"qmatmul never launched on the zamba2 path: {ssm}")
-        train = phases["train"](device)         # counted from 0 in there
-        check(train["conv_window"] and train["qmatmul"],
-              f"a kernel of the training path never launched: {train}")
         launch = phases["launch"](device)       # counted from 0 in there
         check(launch["qmatmul"],
               f"qmatmul never launched on the launch path: {launch}")
+        start_train_launchers()                 # beside the gloo worlds
         mesh = phases["mesh"](device)           # counted from 0 per rank
         check(mesh["fused_cwp"] and mesh["conv_window"] and mesh["qmatmul"],
               f"a kernel of the mesh path never launched: {mesh}")
         lm_mesh = phases["lm_mesh"](device)     # counted from 0 per rank
         check(lm_mesh["qmatmul"],
               f"qmatmul never launched on the LM mesh path: {lm_mesh}")
+        train = phases["train"](device)         # counted from 0 in there
+        check(train["conv_window"] and train["qmatmul"],
+              f"a kernel of the training path never launched: {train}")
+        family = phases["family_mesh"](device)  # counted from 0 per rank
+        check(family["qmatmul"],
+              f"qmatmul never launched on the family mesh path: {family}")
         emit({"phase": "launches", "main": launches, "boot": boot,
               "lm": lm, "moe": moe, "ssm": ssm, "train": train,
-              "launch": launch, "mesh": mesh, "lm_mesh": lm_mesh})
+              "launch": launch, "mesh": mesh, "lm_mesh": lm_mesh,
+              "family_mesh": family})
         launches = {k: v + boot[k] + lm[k] + moe[k] + ssm[k] + train[k]
-                    + launch[k] + mesh[k] + lm_mesh[k]
+                    + launch[k] + mesh[k] + lm_mesh[k] + family[k]
                     for k, v in launches.items()}
+        stop_host_jobs(failed=False)
         rows = phases["times"](device)
         phases["plans"](device)
+        failed = False
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if failed:
+            stop_host_jobs(failed=True)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr)
     for line in STEP_LINES:             # eager and graph step ms, compact

@@ -3,7 +3,7 @@
 card: its serving and training steps captured as CUDA graphs, held
 against the same steps run eagerly.
 
-    python3 scripts/nccl_mesh_graphs.py [--meshes 1x2,2x2]
+    python3 scripts/nccl_mesh_graphs.py [--meshes 1x2,2x2] [--moe-meshes 1x4]
 
 Needs as many cards as the largest mesh has ranks (4 for 2x2); it
 exits 1 with fewer. The ``qmatmul`` library is built first, in this
@@ -19,6 +19,11 @@ each on ``cuda:<rank>`` and a ``DeviceMesh`` of ``("data", "model")``:
 - ``launch/train.py --mesh DxM --dist-backend nccl`` at full width cut to
   4 layers, 3 steps at 8 x 128, with its train graph and with
   ``--eager``: the same losses, bitwise.
+
+Then dbrx-132b at full width cut to 2 layers over each mesh of
+``--moe-meshes`` (default 1x4: its 16 experts 4 a card, the
+expert-parallel layer of ``models/moe.py``): ``Engine`` in bf16 with its
+step graphs and eagerly, the same tokens, the step wall of each.
 
 Prints the cards' names and power limits, one JSON line a rank and
 mesh, and a last line ``{"ok": true|false, ...}``; the whole report goes
@@ -38,6 +43,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "qwen1.5-0.5b"
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 2
 PROMPT_LENS = (16, 24, 32, 40)
 NEW_TOKENS = 8
 TRAIN_LAYERS = 4
@@ -130,9 +136,56 @@ def _rank(rank, world, shape, work) -> dict:
     return out
 
 
+def _moe_rank(rank, world, shape, work) -> dict:
+    """dbrx-132b at full width and MOE_LAYERS layers on this rank's card:
+    the seed-0 weights drawn whole, cast as the engine casts them, and
+    this rank's shards kept; the bf16 Engine with graphs and eagerly."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve.weights import cast_serving_params
+    from repro_torch.sharding.groups import mesh_groups
+    from repro_torch.sharding.logical import ShardingCtx, distribute_tree
+    device = torch.device("cuda", rank)
+    spec = get_arch(MOE_ARCH)
+    ctx = ShardingCtx(mesh_groups(shape, ("data", "model"), "cuda"),
+                      spec.rules())
+    model = TransformerLM(dataclasses.replace(spec.model().cfg,
+                                              n_layers=MOE_LAYERS))
+    full = cast_serving_params(model, model.init(0, device=device), device,
+                               donate=True)
+    params = tree_map(lambda d: DTensor.from_local(
+        d.to_local().clone(), d.device_mesh, d.placements, run_check=False,
+        shape=d.shape, stride=d.stride()),
+        distribute_tree(full, model.axes(), ctx))
+    del full
+    torch.cuda.empty_cache()
+    graph = _serve(model, params, ctx, "none", True, device)
+    eager = _serve(model, params, ctx, "none", False, device)
+    fails = []
+    if graph["graphs"] != "on":
+        fails.append(f"moe: graphs {graph['graphs']}")
+    if graph["tokens"] != eager["tokens"]:
+        fails.append(f"moe: graph tokens {graph['tokens']} vs eager "
+                     f"{eager['tokens']}")
+    return {"rank": rank, "mesh": list(shape), "arch": MOE_ARCH,
+            "layers": MOE_LAYERS, "fails": fails, "serve": [{
+                "quant": "none", "graphs": graph["graphs"],
+                "tokens_equal": graph["tokens"] == eager["tokens"],
+                "steps": graph["steps"],
+                "graph_step_wall_ms": graph["step_wall_ms"],
+                "eager_step_wall_ms": eager["step_wall_ms"]}]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--meshes", default="1x2,2x2")
+    ap.add_argument("--moe-meshes", default="1x4")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -140,8 +193,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.build import build
     from repro_torch.launch.mesh import run_spmd
     shapes = [tuple(int(n) for n in m.split("x"))
-              for m in args.meshes.split(",")]
-    need = max(int(np.prod(s)) for s in shapes)
+              for m in args.meshes.split(",") if m]
+    moe_shapes = [tuple(int(n) for n in m.split("x"))
+                  for m in args.moe_meshes.split(",") if m]
+    need = max(int(np.prod(s)) for s in shapes + moe_shapes)
     if not torch.cuda.is_available() or torch.cuda.device_count() < need:
         print(f"needs {need} CUDA cards", file=sys.stderr)
         return 1
@@ -159,6 +214,15 @@ def main(argv=None) -> int:
             for r in ranks:
                 print(json.dumps(r), flush=True)
             worlds.append({"mesh": list(shape),
+                           "seconds": time.perf_counter() - t0,
+                           "ranks": ranks})
+        for shape in moe_shapes:
+            t0 = time.perf_counter()
+            ranks = run_spmd(_moe_rank, int(np.prod(shape)), "nccl",
+                             "cuda", shape, work, timeout=WORLD_TIMEOUT_S)
+            for r in ranks:
+                print(json.dumps(r), flush=True)
+            worlds.append({"mesh": list(shape), "arch": MOE_ARCH,
                            "seconds": time.perf_counter() - t0,
                            "ranks": ranks})
     fails = [f"{w['mesh']} rank {r['rank']}: {f}" for w in worlds

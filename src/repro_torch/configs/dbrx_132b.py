@@ -5,7 +5,9 @@ vocab=100352, MoE 16 experts top-4, fine-grained.
 Port of ``repro.configs.dbrx_132b``. About 132 B parameters (264 GB in
 bf16): one card serves it at full width and reduced depth
 (``dataclasses.replace(CONFIG, n_layers=L)``); full depth needs its
-experts sharded over a mesh (the LM half of ROADMAP §A.10).
+experts sharded over a mesh: ``Engine(..., ctx)`` and ``make_train_step``
+on a mesh whose ``model`` axis divides its 16 experts run them
+expert-parallel (``models/moe.py``, the reference's ``_moe_apply_ep``).
 """
 import torch
 

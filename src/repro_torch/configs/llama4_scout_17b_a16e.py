@@ -4,7 +4,9 @@ vocab=202048, MoE 16 experts top-1 + 1 shared expert, early fusion.
 
 Port of ``repro.configs.llama4_scout_17b_a16e``. About 109 B parameters:
 one card serves it at full width and reduced depth; full depth needs
-its experts sharded over a mesh (expert parallelism, ROADMAP §A.10).
+its experts sharded over a mesh: on a mesh whose ``model`` axis divides
+its 16 experts they run expert-parallel (``models/moe.py``), the
+sequence gathered over ``model`` at the layer and split again after it.
 ``rule_overrides`` shards ``act_seq`` over ``model``, as the reference's.
 """
 import torch

@@ -55,8 +55,10 @@ arch on ``--mesh DxM`` serves through the ``Engine`` on every rank
 (SPMD, rank 0 prints), its weights and KV cache laid out by the model's
 logical axes under the arch's rules (``repro_torch.sharding``); over
 gloo its steps run eagerly (``graphs: off (gloo)``), over NCCL they are
-captured as on one device.
-Only the dense transformers have a mesh path; the others raise.
+captured as on one device. Every LM family has a mesh path: the MoE
+archs run expert-parallel where ``model`` divides their experts, the
+hybrid and RWKV-6 split their heads over ``model`` (the encoder-decoder
+has no ``Engine``, as in the reference).
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --capacity 4 \
         --requests 8 --prompt-len 64 --decode-steps 16 [--kv-quant int8]

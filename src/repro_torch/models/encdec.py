@@ -19,7 +19,11 @@ Layers are stacked on a leading L dim; the reference's ``lax.scan`` and
 ``vmap`` over them become Python loops over views of the stacks. Under
 autograd each layer runs under ``remat`` unless it is ``"none"``.
 ``axes`` and ``cache_axes`` are the logical axes of the params and the
-cache; the forward on a mesh raises (ROADMAP §A.10).
+cache. On a mesh both are DTensors laid out by them: each layer's params
+are gathered over the FSDP axes before use, the encoder's and decoder's
+attention and MLP are the transformer's on DTensors (the cross K/V of
+``enc_out`` computed on each rank's heads and laid out as the cache's),
+and the logits are formed as the transformer's are.
 """
 from __future__ import annotations
 
@@ -29,14 +33,17 @@ from typing import Any
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.tree import tree_map
 from repro_torch.models.common import (chunked_cross_entropy, decode_q_pos,
                                        dense_init, layer_views, remat,
                                        rms_norm, stacked_init)
 from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
                                        attn_axes, mlp_axes,
                                        attn_init, mlp_apply, mlp_init)
-from repro_torch.models.transformer import stack_axes
-from repro_torch.sharding.logical import A, ShardingCtx, refuse_mesh, shard
+from repro_torch.models.transformer import embed_tokens, stack_axes
+from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
+                                          local_part, on_mesh, redistribute,
+                                          shard)
 
 __all__ = ["EncDecConfig", "EncDecLM"]
 
@@ -156,7 +163,6 @@ class EncDecLM:
                ctx: ShardingCtx | None = None) -> torch.Tensor:
         """frames: (B, T_enc, D) stub embeddings -> encoder output, in the
         model dtype: bidirectional self-attention and the MLP a layer."""
-        refuse_mesh(ctx, "the encoder-decoder")
         cfg = self.cfg
         x = shard(frames.to(cfg.dtype), ctx, "batch", "act_seq",
                   "act_embed")
@@ -165,6 +171,7 @@ class EncDecLM:
                            device=x.device).expand(b, t)
 
         def layer(x, p):
+            p = tree_map(gathered, p)
             h = rms_norm(x, p["ln1"])
             a, _ = attention(p["attn"], h, cfg.attn_cfg, ctx, q_pos=pos,
                              causal=False)
@@ -190,6 +197,7 @@ class EncDecLM:
         cfg = self.cfg
 
         def layer(x, p, sc, ckv):
+            p = tree_map(gathered, p)
             h = rms_norm(x, p["ln1"])
             a, _ = attention(p["self_attn"], h, cfg.attn_cfg, ctx,
                              q_pos=q_pos, causal=True, cache_kv=sc,
@@ -218,23 +226,32 @@ class EncDecLM:
         return x
 
     def _cross_kv(self, params: dict, enc_out: torch.Tensor) -> dict:
-        """Each decoder layer's cross K/V of the encoder output, stacked:
-        {"k", "v"}: (L, B, T_enc, KV, hd) in ``enc_out``'s dtype."""
+        """Each decoder layer's cross K/V of the encoder output:
+        {"k", "v"}: [(B, T_enc, KV, hd)] a layer in ``enc_out``'s dtype
+        (on a mesh DTensors, each rank's heads computed from the layer's
+        weights gathered over the FSDP axes)."""
         layers = params["dec_layers"]["cross_attn"]
         dt = enc_out.dtype
-        return {name: torch.stack([
-            torch.einsum("btd,dhk->bthk", enc_out, w[i].to(dt))
-            for i in range(self.cfg.n_dec_layers)])
+        return {name: [
+            torch.einsum("btd,dhk->bthk", enc_out, gathered(w[i]).to(dt))
+            for i in range(self.cfg.n_dec_layers)]
             for name, w in (("k", layers["wk"]), ("v", layers["wv"]))}
 
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embedding"][tokens.long()].to(self.cfg.dtype)
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               ctx: ShardingCtx | None) -> torch.Tensor:
+        if not on_mesh(ctx):
+            return params["embedding"][tokens.long()].to(self.cfg.dtype)
+        return shard(embed_tokens(params["embedding"], tokens, ctx
+                                  ).to(self.cfg.dtype), ctx, "batch",
+                     "act_seq", "act_embed")
 
     def _logits(self, params: dict, x: torch.Tensor,
                 ctx: ShardingCtx | None) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"])
+        # on a mesh the rows are joined first, as the transformer's are
+        x = gathered(x, None)
         logits = torch.einsum("bsd,vd->bsv", x,
-                              params["embedding"].to(x.dtype))
+                              gathered(params["embedding"]).to(x.dtype))
         return shard(logits.to(torch.float32), ctx,
                      "batch", "act_seq", "act_vocab")
 
@@ -245,8 +262,12 @@ class EncDecLM:
         """batch: frames (B,T_enc,D), tokens (B,T_dec), labels (B,T_dec),
         optional loss_mask -> (ce, {"ce"}); the tied embedding is the
         head."""
+        if on_mesh(ctx):
+            # one gather of the tied table for the lookup and the CE
+            params = {**params, "embedding": gathered(params["embedding"],
+                                                      None)}
         enc_out = self.encode(params, batch["frames"], ctx)
-        x = shard(self._embed(params, batch["tokens"]), ctx, "batch",
+        x = shard(self._embed(params, batch["tokens"], ctx), ctx, "batch",
                   "act_seq", "act_embed")
         b, s = x.shape[:2]
         pos = torch.arange(s, dtype=torch.int32,
@@ -255,8 +276,12 @@ class EncDecLM:
                                 self_cache=None, cross_kv=None,
                                 cache_index=None)
         x = rms_norm(x, params["final_norm"])
-        ce = chunked_cross_entropy(x, params["embedding"], batch["labels"],
-                                   mask=batch.get("loss_mask"))
+        mask = batch.get("loss_mask")
+        ce = chunked_cross_entropy(
+            x, params["embedding"],
+            shard(batch["labels"], ctx, "batch", "act_seq"),
+            mask=None if mask is None else shard(mask, ctx, "batch",
+                                                 "act_seq"))
         return ce, {"ce": ce}
 
     def init_cache(self, batch: int, max_seq: int,
@@ -288,14 +313,20 @@ class EncDecLM:
                            "input frames (B, T_enc, D) beside the tokens")
         enc_out = self.encode(params, batch["frames"], ctx)
         cross = self._cross_kv(params, enc_out)
-        for name, kv in cross.items():
-            if kv.shape != cache["cross"][name].shape:
+        for name, kvs in cross.items():
+            dst = cache["cross"][name]
+            if (len(kvs), *kvs[0].shape) != tuple(dst.shape):
                 raise ValueError(
-                    f"cross K/V of shape {tuple(kv.shape)} for a cache of "
-                    f"{tuple(cache['cross'][name].shape)}: build the cache "
-                    f"with init_cache(..., enc_seq={enc_out.shape[1]})")
-            cache["cross"][name].copy_(kv)
-        x = self._embed(params, batch["tokens"])
+                    f"cross K/V of shape {(len(kvs), *kvs[0].shape)} for a "
+                    f"cache of {tuple(dst.shape)}: build the cache with "
+                    f"init_cache(..., enc_seq={enc_out.shape[1]})")
+            for i, kv in enumerate(kvs):
+                if on_mesh(ctx):   # to the layout of the cache's part
+                    local_part(dst[i])[0].copy_(
+                        redistribute(kv, dst[i].placements).to_local())
+                else:
+                    dst[i].copy_(kv)
+        x = self._embed(params, batch["tokens"], ctx)
         b, s = x.shape[:2]
         pos = torch.arange(s, dtype=torch.int32,
                            device=x.device).expand(b, s)
@@ -310,8 +341,7 @@ class EncDecLM:
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B,) int, pos a scalar or per-row (B,) -> (logits (B, V)
         fp32, cache: its self K/V written in place)."""
-        refuse_mesh(ctx, "the encoder-decoder")
-        x = self._embed(params, tokens[:, None])
+        x = self._embed(params, tokens[:, None], ctx)
         if torch.is_tensor(pos):
             pos = pos.to(device=x.device, dtype=torch.int32)
         q_pos = decode_q_pos(pos, x.shape[0]).to(x.device)

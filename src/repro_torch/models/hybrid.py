@@ -29,7 +29,13 @@ alternates two; DESIGN.md §5). ``loss`` runs the layers with no cache
 (nothing is written) and, unless ``remat`` is ``"none"``, each Mamba
 layer and each shared-block call under an activation checkpoint.
 ``axes`` and ``cache_axes`` are the logical axes of the params and the
-cache; the forward on a mesh raises (ROADMAP §A.10).
+cache. On a mesh the params and the cache are DTensors laid out by them:
+each layer's params are gathered over the FSDP axes before use, the
+Mamba layers run on each rank's heads (``mamba2_mesh``) and write their
+state into the part of the cache the rank holds, the shared block is
+the transformer's attention and MLP on DTensors (under int8 its MLP's
+matmuls are ``qmatmul`` launches on the rank's shards), and the logits
+are formed as the transformer's are.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.tree import tree_map
 from repro_torch.models.common import (chunked_cross_entropy, decode_q_pos,
                                        dense_init, layer_views, remat,
                                        rms_norm, stacked_init)
@@ -48,9 +55,11 @@ from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
 from repro_torch.models.mamba2 import (Mamba2Config, mamba2_apply,
                                        mamba2_axes,
                                        mamba2_decode_step, mamba2_init,
-                                       mamba2_state_shape)
-from repro_torch.models.transformer import stack_axes
-from repro_torch.sharding.logical import A, ShardingCtx, refuse_mesh, shard
+                                       mamba2_mesh, mamba2_state_shape)
+from repro_torch.models.transformer import embed_tokens, stack_axes
+from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
+                                          matmul_rows, on_mesh, shard,
+                                          write_part)
 
 __all__ = ["HybridConfig", "HybridLM"]
 
@@ -153,8 +162,10 @@ class HybridLM:
                       cache_index) -> torch.Tensor:
         """Shared attention + MLP on concat(hidden, embedding output)."""
         cfg = self.cfg
+        p = tree_map(gathered, p)
         h = torch.cat([x, x0], dim=-1)
-        h = torch.matmul(h, p["concat_proj"].to(x.dtype))
+        h = matmul_rows(h, p["concat_proj"]) if on_mesh(ctx) \
+            else torch.matmul(h, p["concat_proj"].to(x.dtype))
         hn = rms_norm(h, p["ln1"])
         attn_out, _ = attention(p["attn"], hn, cfg.attn_cfg, ctx,
                                 q_pos=q_pos, causal=True, cache_kv=cache_kv,
@@ -174,10 +185,20 @@ class HybridLM:
         cfg = self.cfg
         if states is None:
             def layer(x, p):
+                p = tree_map(gathered, p)
                 h = rms_norm(x, p["ln"])
                 return x + mamba2_apply(p["mamba"], h, cfg.mamba_cfg, ctx)
             return remat(cfg.remat, layer, x, p)
+        p = tree_map(gathered, p)
         h = rms_norm(x, p["ln"])
+        if on_mesh(ctx):
+            out, new = mamba2_mesh(
+                p["mamba"], h, cfg.mamba_cfg, ctx,
+                {k: v[i] for k, v in states.items()} if decode else None,
+                True)
+            for k, (block, offset) in new.items():
+                write_part(states[k][i], block, offset)
+            return x + out
         if decode:
             out, new = mamba2_decode_step(
                 p["mamba"], h[:, 0, :], {k: v[i] for k, v in states.items()},
@@ -242,14 +263,24 @@ class HybridLM:
                      "v": A("layers", "batch", "kv_seq", "kv_heads", None)},
         }
 
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embedding"][tokens.long()].to(self.cfg.dtype)
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               ctx: ShardingCtx | None) -> torch.Tensor:
+        """The embedding rows of ``tokens``; on a mesh laid out as the
+        activations (its lookup's sum over the vocab shards reduced, so
+        that the shared blocks' ``x0`` is whole)."""
+        if not on_mesh(ctx):
+            return params["embedding"][tokens.long()].to(self.cfg.dtype)
+        x = embed_tokens(params["embedding"], tokens, ctx)
+        return shard(x.to(self.cfg.dtype), ctx, "batch", "act_seq",
+                     "act_embed")
 
     def _logits(self, params: dict, x: torch.Tensor,
                 ctx: ShardingCtx | None) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"])
+        # on a mesh the rows are joined first, as the transformer's are
+        x = gathered(x, None)
         logits = torch.einsum("bsd,vd->bsv", x,
-                              params["embedding"].to(x.dtype))
+                              gathered(params["embedding"]).to(x.dtype))
         return shard(logits.to(torch.float32), ctx,
                      "batch", "act_seq", "act_vocab")
 
@@ -260,8 +291,11 @@ class HybridLM:
         """batch: tokens (B,S) (a whole number of SSD chunks), labels
         (B,S), optional loss_mask -> (ce, {"ce"}); the tied embedding is
         the head."""
-        refuse_mesh(ctx, "the hybrid (Mamba2) LM")
-        x = shard(self._embed(params, batch["tokens"]), ctx, "batch",
+        if on_mesh(ctx):
+            # one gather of the tied table for the lookup and the CE
+            params = {**params, "embedding": gathered(params["embedding"],
+                                                      None)}
+        x = shard(self._embed(params, batch["tokens"], ctx), ctx, "batch",
                   "act_seq", "act_embed")
         b, s = x.shape[:2]
         q_pos = torch.arange(s, dtype=torch.int32,
@@ -269,8 +303,12 @@ class HybridLM:
         x = self._run(params, x, ctx, q_pos=q_pos, cache=None,
                       cache_index=None, decode=False)
         x = rms_norm(x, params["final_norm"])
-        ce = chunked_cross_entropy(x, params["embedding"], batch["labels"],
-                                   mask=batch.get("loss_mask"))
+        mask = batch.get("loss_mask")
+        ce = chunked_cross_entropy(
+            x, params["embedding"],
+            shard(batch["labels"], ctx, "batch", "act_seq"),
+            mask=None if mask is None else shard(mask, ctx, "batch",
+                                                 "act_seq"))
         return ce, {"ce": ce}
 
     # ---------- public: serve ----------
@@ -294,8 +332,7 @@ class HybridLM:
         Mamba layer's final state and the shared block's K/V (from
         position 0) into ``cache`` in place; returns (last-token logits
         (B, V) fp32, cache)."""
-        refuse_mesh(ctx, "the hybrid (Mamba2) LM")
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"], ctx)
         b, s = x.shape[:2]
         q_pos = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -310,8 +347,7 @@ class HybridLM:
         """tokens (B,) int, pos a scalar or per-slot (B,) (the shared
         attention's positions; the Mamba layers are position-free) ->
         (logits (B, V) fp32, cache written in place)."""
-        refuse_mesh(ctx, "the hybrid (Mamba2) LM")
-        x = self._embed(params, tokens[:, None])
+        x = self._embed(params, tokens[:, None], ctx)
         if torch.is_tensor(pos):
             pos = pos.to(device=x.device, dtype=torch.int32)
         q_pos = decode_q_pos(pos, x.shape[0]).to(x.device)

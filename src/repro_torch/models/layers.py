@@ -37,7 +37,8 @@ from repro_torch.models.common import (ACTIVATIONS, _const, apply_rope,
 from repro_torch.ops import dense as dense_op
 from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
                                           is_dtensor, local_part, on_mesh,
-                                          redistribute, shard)
+                                          redistribute, row_placements,
+                                          shard)
 
 __all__ = ["AttnConfig", "attn_init", "attn_axes", "attention",
            "make_attn_mask", "MLPConfig", "mlp_init", "mlp_axes",
@@ -229,6 +230,13 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
     mesh = on_mesh(ctx)
+    if mesh:
+        # the projections over rows whole in the sequence: DTensor's
+        # einsum flattens (B, S), which a sequence split over ``model``
+        # (``act_seq``) refuses on the card's torch
+        x = redistribute(x, row_placements(x))
+        if kv_x is not None:
+            kv_x = redistribute(kv_x, row_placements(kv_x))
 
     src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
@@ -316,8 +324,10 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
         out = _attend(q, k, v, mask, cfg.attn_softcap)
     wo = params["wo"]
     if mesh:
-        # the heads gathered before wo: its contraction whole on every rank
-        out, wo = _like_q(out, q, heads=False), gathered(wo, None)
+        # the heads gathered before wo: its contraction whole on every
+        # rank (and the sequence whole, as for the projections)
+        out, wo = (_like_q(out, q, seq=False, heads=False),
+                   gathered(wo, None))
     out = torch.einsum("bshk,hkd->bsd", out, wo.to(dt))
     out = shard(out, ctx, "batch", "act_seq", "act_embed")
     return out, new_cache
@@ -439,6 +449,8 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: MLPConfig,
     (on the card, one kernel launch: ``wi``, ``wg``, ``wo``)."""
     act = ACTIVATIONS[cfg.act]
     dt = x.dtype
+    if is_dtensor(x):       # rows whole in the sequence, as attention's
+        x = redistribute(x, row_placements(x))
     hid = dense_op(x, params["wi"].to(dt),
                    params["bi"].to(dt) if cfg.use_bias else None)
     if cfg.gated:

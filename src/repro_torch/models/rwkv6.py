@@ -27,7 +27,8 @@ Where the semantics hide:
   XLA's do (``common.sigmoid_per_op``), so a bf16 block is bitwise to
   the reference run op by op.
 
-``rwkv6_axes`` is the block's logical axes.
+``rwkv6_axes`` is the block's logical axes; ``rwkv6_mesh`` runs the
+block on a mesh.
 """
 from __future__ import annotations
 
@@ -38,11 +39,14 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (chunk_scan, dense_init, layer_norm,
                                        sigmoid_per_op, silu_per_op)
-from repro_torch.sharding.logical import A, ShardingCtx, shard
+from repro_torch.sharding.logical import (A, ShardingCtx, is_dtensor,
+                                          local_offset, matmul_rows,
+                                          redistribute, row_placements,
+                                          shard, split_over, spmd_global,
+                                          spmd_local)
 
 __all__ = ["RWKV6Config", "rwkv6_init", "rwkv6_axes", "rwkv6_apply",
-           "rwkv6_decode_step",
-           "rwkv6_state_shape"]
+           "rwkv6_decode_step", "rwkv6_mesh", "rwkv6_state_shape"]
 
 
 @dataclass(frozen=True)
@@ -181,6 +185,67 @@ def rwkv6_axes(cfg: RWKV6Config) -> dict:
     }
 
 
+def _time_mix(xin: torch.Tensor, xprev: torch.Tensor, p: dict,
+              heads: int, hd: int, wkv: torch.Tensor | None,
+              decode: bool, chunk: int):
+    """The time mix of ``heads`` heads from the LN'd stream ``xin`` and
+    its shift ``xprev`` (B,T,D), up to the ``wo`` projection: ``p`` holds
+    ``mix``, ``w_lora_a`` whole, and ``wr``/``wk``/``wv``/``wg``
+    (D, heads·hd), ``w_lora_b`` (r, heads·hd), ``w0`` and ``ln_x``
+    (heads·hd,), ``u`` (heads, hd) of these heads. ``wkv`` (B, heads,
+    hd, hd) is the state the scan starts from (None: zeros). Returns
+    (y = ln_x(wkv out) · g (B,T,heads·hd) in the model dtype, the new
+    ``wkv``: a decode step's in ``wkv``'s dtype, a scan's in the model
+    dtype)."""
+    b, t, _ = xin.shape
+    dt_ = xin.dtype
+    f32 = torch.float32
+    mix = p["mix"].to(dt_)
+    xr, xk, xv, xw, xg = (xin + (xprev - xin) * mix[i] for i in range(5))
+
+    r = torch.matmul(xr, p["wr"].to(dt_))
+    k = torch.matmul(xk, p["wk"].to(dt_))
+    v = torch.matmul(xv, p["wv"].to(dt_))
+    g = silu_per_op(torch.matmul(xg, p["wg"].to(dt_)))
+    # data-dependent decay (the Finch contribution), in fp32
+    wlo = torch.tanh(torch.matmul(xw.to(f32), p["w_lora_a"].to(f32)))
+    wlo = torch.matmul(wlo, p["w_lora_b"].to(f32))
+    logw = -torch.exp(p["w0"].to(f32) + wlo)                 # < 0
+
+    rh, kh, vh, lwh = (z.reshape(b, t, heads, hd) for z in (r, k, v, logw))
+
+    if decode:
+        s = wkv.to(f32)
+        w_t = torch.exp(lwh[:, 0])                             # (B,H,hd)
+        kv = kh[:, 0].to(f32)[..., :, None] * vh[:, 0].to(f32)[..., None, :]
+        y = torch.einsum("bhn,bhnm->bhm", rh[:, 0].to(f32),
+                         s + p["u"].to(f32)[None, :, :, None] * kv)
+        s = s * w_t[..., None] + kv
+        y = y[:, None]                                         # (B,1,H,hd)
+        new = s.to(wkv.dtype)
+    else:
+        s0 = wkv if wkv is not None else torch.zeros(
+            (b, heads, hd, hd), device=xin.device)
+        y, sf = _wkv_chunked(rh, kh, vh, lwh, p["u"], s0, chunk)
+        new = sf.to(dt_)
+
+    y = y.reshape(b, t, heads * hd).to(dt_)
+    return _group_norm(y, p["ln_x"], heads) * g, new
+
+
+def _channel_mix(xcin: torch.Tensor, xprev: torch.Tensor, p: dict):
+    """(kk = relu(xk·ck)², sigmoid(xr·cr)) of the channel mix from the
+    LN'd stream and its shift, over the columns of ``p``'s ``ck`` and
+    ``cr``."""
+    dt_ = xcin.dtype
+    cmix = p["cmix"].to(dt_)
+    xk2 = xcin + (xprev - xcin) * cmix[0]
+    xr2 = xcin + (xprev - xcin) * cmix[1]
+    kk = torch.square(torch.relu(torch.matmul(xk2, p["ck"].to(dt_))))
+    rr = sigmoid_per_op(torch.matmul(xr2, p["cr"].to(dt_)))
+    return kk, rr
+
+
 def rwkv6_apply(params: dict, x: torch.Tensor, cfg: RWKV6Config,
                 ctx: ShardingCtx | None, state: dict | None = None
                 ) -> tuple[torch.Tensor, dict | None]:
@@ -189,48 +254,22 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg: RWKV6Config,
     state: {"shift_t", "shift_c": (B,D), "wkv": (B,H,hd,hd)} or None. A
     1-token call with a state is a decode step (the recurrent path);
     otherwise T must be a whole number of ``cfg.chunk``. Returns (out,
-    the new state, or None without one); ``state`` is not written."""
+    the new state, or None without one); ``state`` is not written. On a
+    mesh (``x`` a DTensor) the new state is this rank's blocks with
+    their offsets (``rwkv6_mesh``)."""
+    if is_dtensor(x):
+        return rwkv6_mesh(params, x, cfg, ctx, state)
     b, t, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     decode = state is not None and t == 1
     dt_ = x.dtype
-    f32 = torch.float32
 
     # ---- time mixing (on the LN'd stream, residual to raw x) ----
     xin = layer_norm(x, params["ln1"], params["ln1_b"])
     xprev = _token_shift(xin, state["shift_t"] if decode else None)
-    mix = params["mix"].to(dt_)
-    xr, xk, xv, xw, xg = (xin + (xprev - xin) * mix[i] for i in range(5))
-
-    r = torch.matmul(xr, params["wr"].to(dt_))
-    k = torch.matmul(xk, params["wk"].to(dt_))
-    v = torch.matmul(xv, params["wv"].to(dt_))
-    g = silu_per_op(torch.matmul(xg, params["wg"].to(dt_)))
-    # data-dependent decay (the Finch contribution), in fp32
-    wlo = torch.tanh(torch.matmul(xw.to(f32), params["w_lora_a"].to(f32)))
-    wlo = torch.matmul(wlo, params["w_lora_b"].to(f32))
-    logw = -torch.exp(params["w0"].to(f32) + wlo)             # < 0
-
-    rh, kh, vh, lwh = (z.reshape(b, t, h, hd) for z in (r, k, v, logw))
-
-    if decode:
-        s = state["wkv"].to(f32)
-        w_t = torch.exp(lwh[:, 0])                             # (B,H,hd)
-        kv = kh[:, 0].to(f32)[..., :, None] * vh[:, 0].to(f32)[..., None, :]
-        y = torch.einsum("bhn,bhnm->bhm", rh[:, 0].to(f32),
-                         s + params["u"].to(f32)[None, :, :, None] * kv)
-        s = s * w_t[..., None] + kv
-        y = y[:, None]                                         # (B,1,H,hd)
-        new_state = {"wkv": s.to(state["wkv"].dtype),
-                     "shift_t": xin[:, -1, :]}
-    else:
-        s0 = state["wkv"] if state is not None else torch.zeros(
-            (b, h, hd, hd), device=x.device)
-        y, sf = _wkv_chunked(rh, kh, vh, lwh, params["u"], s0, cfg.chunk)
-        new_state = {"wkv": sf.to(dt_), "shift_t": xin[:, -1, :]}
-
-    y = y.reshape(b, t, d).to(dt_)
-    y = _group_norm(y, params["ln_x"], h) * g
+    y, wkv = _time_mix(xin, xprev, params, h, hd,
+                       None if state is None else state["wkv"], decode,
+                       cfg.chunk)
     out = torch.matmul(y, params["wo"].to(dt_))
     out = shard(out, ctx, "batch", "act_seq", "act_embed")
     x_mid = x + out
@@ -238,19 +277,96 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg: RWKV6Config,
     # ---- channel mixing (on the LN'd stream) ----
     xcin = layer_norm(x_mid, params["ln2"], params["ln2_b"])
     xprev = _token_shift(xcin, state["shift_c"] if decode else None)
-    cmix = params["cmix"].to(dt_)
-    xk2 = xcin + (xprev - xcin) * cmix[0]
-    xr2 = xcin + (xprev - xcin) * cmix[1]
-    kk = torch.square(torch.relu(torch.matmul(xk2, params["ck"].to(dt_))))
+    kk, rr = _channel_mix(xcin, xprev, params)
     kk = shard(kk, ctx, "batch", "act_seq", "act_mlp")
     vv = torch.matmul(kk, params["cv"].to(dt_))
-    rr = sigmoid_per_op(torch.matmul(xr2, params["cr"].to(dt_)))
     x_out = x_mid + rr * vv
 
     if state is not None:
-        new_state["shift_c"] = xcin[:, -1, :]
-        return x_out, new_state
+        return x_out, {"wkv": wkv, "shift_t": xin[:, -1, :],
+                       "shift_c": xcin[:, -1, :]}
     return x_out, None
+
+
+def rwkv6_mesh(params: dict, x, cfg: RWKV6Config, ctx: ShardingCtx,
+               state: dict | None):
+    """The block on a mesh: ``x`` (B,T,D) a DTensor, its rows split over
+    the data axes, whole over ``model``. Each rank runs the time mix on
+    its heads (``wr``/``wk``/``wv``/``wg`` column-parallel, the decay's
+    LoRA output, ``u`` and the ``ln_x`` group norm sliced to them, the
+    WKV scan or step local to them); the heads are gathered before
+    ``wo``, which runs whole on every rank. In the channel mix ``ck`` is
+    column- and ``cv`` row-parallel (their product summed over
+    ``model``), ``cr`` column-parallel: ``sigmoid(rr)`` is gathered
+    whole to meet ``vv``. Heads or hidden dims that do not split over
+    ``model`` run whole on every rank.
+
+    Returns (out DTensor, the new state as {name: (block, offset)}: this
+    rank's rows and heads of ``wkv``, its rows of the shifts; or None)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = ctx.mesh
+    names = tuple(mesh.mesh_dim_names)
+    t = x.shape[1]
+    h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    ns, j = split_over(ctx, "model", h, cfg.d_ff)
+    hl = h // ns
+    dl = hl * hd
+    decode = state is not None and t == 1
+    dt_ = x.dtype
+    rows = row_placements(x)
+    div = {a for a, p in zip(names, rows) if p.is_shard()}
+    if ns > 1:
+        div.add("model")
+
+    def on(dim, base=(Replicate(),) * len(names), how=None):
+        """``base`` with tensor dim ``dim`` split over ``model`` (or
+        ``how`` there) where the heads split."""
+        return tuple((how or Shard(dim)) if (a == "model" and ns > 1)
+                     else r for a, r in zip(names, base))
+
+    rep = (Replicate(),) * len(names)
+    p = {k: spmd_local(params[k], mesh, rep, div)
+         for k in ("ln1", "ln1_b", "ln2", "ln2_b", "mix", "cmix",
+                   "w_lora_a")}
+    for k in ("w0", "ln_x"):
+        p[k] = spmd_local(params[k], mesh, rep, div)[j * dl:(j + 1) * dl]
+    p["w_lora_b"] = spmd_local(params["w_lora_b"], mesh, rep,
+                               div)[:, j * dl:(j + 1) * dl]
+    p["u"] = spmd_local(params["u"], mesh, on(0), div)
+    for k in ("wr", "wk", "wv", "wg", "ck", "cr"):
+        p[k] = spmd_local(params[k], mesh, on(1), div)
+    p["cv"] = spmd_local(params["cv"], mesh, on(0), div)
+    st = None
+    if state is not None:
+        st = {k: redistribute(state[k], on(1, rows) if k == "wkv"
+                              else rows).to_local() for k in state}
+
+    # ---- time mixing on this rank's heads ----
+    xl = spmd_local(x, mesh, rows, div)
+    xin = layer_norm(xl, p["ln1"], p["ln1_b"])
+    xprev = _token_shift(xin, st["shift_t"] if decode else None)
+    y, wkv = _time_mix(xin, xprev, p, hl, hd,
+                       None if st is None else st["wkv"], decode, cfg.chunk)
+    y = redistribute(spmd_global(y, mesh, on(2, rows)), rows)
+    x_mid = x + shard(matmul_rows(y, params["wo"]), ctx, "batch",
+                      "act_seq", "act_embed")
+
+    # ---- channel mixing: ck | cv over model, sigmoid(rr) gathered ----
+    xcin = layer_norm(spmd_local(x_mid, mesh, rows, div), p["ln2"],
+                      p["ln2_b"])
+    xprev = _token_shift(xcin, st["shift_c"] if decode else None)
+    kk, rr = _channel_mix(xcin, xprev, p)
+    vv = spmd_global(torch.matmul(kk, p["cv"].to(dt_)), mesh,
+                     on(2, rows, Partial()))
+    vv = vv.redistribute(mesh, rows)
+    rr = redistribute(spmd_global(rr, mesh, on(2, rows)), rows)
+    x_out = x_mid + rr * vv
+    if state is None:
+        return x_out, None
+    row0 = local_offset(x, rows)[0]
+    return x_out, {"wkv": (wkv, (row0, j * hl, 0, 0)),
+                   "shift_t": (xin[:, -1, :], (row0, 0)),
+                   "shift_c": (xcin[:, -1, :], (row0, 0))}
 
 
 def rwkv6_state_shape(cfg: RWKV6Config, batch: int) -> dict:

@@ -9,8 +9,11 @@ state, so a reused slot keeps nothing of its previous tenant. The
 decode step is position-free. ``loss`` runs the blocks with no state
 (each under an activation checkpoint unless ``remat`` is ``"none"``) and
 the chunked cross entropy over the untied head. ``axes`` and
-``cache_axes`` are the logical axes of the params and the state; the
-forward on a mesh raises (ROADMAP §A.10).
+``cache_axes`` are the logical axes of the params and the state. On a
+mesh both are DTensors laid out by them: each layer's params are
+gathered over the FSDP axes before use, the blocks run on each rank's
+heads (``rwkv6_mesh``) and write their state into the part of the cache
+the rank holds, and the logits are formed as the transformer's are.
 """
 from __future__ import annotations
 
@@ -20,14 +23,16 @@ from typing import Any
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.tree import tree_map
 from repro_torch.models.common import (chunked_cross_entropy, dense_init,
                                        layer_norm, layer_views, remat,
                                        stacked_init)
 from repro_torch.models.rwkv6 import (RWKV6Config, rwkv6_apply, rwkv6_axes,
                                       rwkv6_init,
                                       rwkv6_state_shape)
-from repro_torch.models.transformer import stack_axes
-from repro_torch.sharding.logical import A, ShardingCtx, refuse_mesh, shard
+from repro_torch.models.transformer import embed_tokens, stack_axes
+from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
+                                          on_mesh, shard, write_part)
 
 __all__ = ["RWKVLMConfig", "RWKVLM"]
 
@@ -112,25 +117,37 @@ class RWKVLM:
         if cache is None:
             for p in layers:
                 x = remat(cfg.remat, lambda x, p: rwkv6_apply(
-                    p, x, cfg.block_cfg, ctx, None)[0], x, p)
+                    tree_map(gathered, p), x, cfg.block_cfg, ctx, None)[0],
+                    x, p)
             return x
         for i, p in enumerate(layers):
-            x, new = rwkv6_apply(p, x,
+            x, new = rwkv6_apply(tree_map(gathered, p), x,
                                  self.cfg.block_cfg, ctx,
                                  {k: v[i] for k, v in cache.items()})
             for k, v in new.items():
-                cache[k][i].copy_(v)
+                if on_mesh(ctx):
+                    write_part(cache[k][i], *v)
+                else:
+                    cache[k][i].copy_(v)
         return x
 
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embedding"][tokens.long()].to(self.cfg.dtype)
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               ctx: ShardingCtx | None) -> torch.Tensor:
+        if on_mesh(ctx):
+            x = shard(embed_tokens(params["embedding"], tokens, ctx
+                                   ).to(self.cfg.dtype), ctx, "batch",
+                      "act_seq", "act_embed")
+        else:
+            x = params["embedding"][tokens.long()].to(self.cfg.dtype)
         return layer_norm(x, params["ln0"], params["ln0_b"])
 
     def _logits(self, params: dict, x: torch.Tensor,
                 ctx: ShardingCtx | None) -> torch.Tensor:
         x = layer_norm(x, params["final_norm"], params["final_norm_b"])
+        # on a mesh the rows are joined first, as the transformer's are
+        x = gathered(x, None)
         logits = torch.einsum("btd,dv->btv", x,
-                              params["lm_head"].to(x.dtype))
+                              gathered(params["lm_head"]).to(x.dtype))
         return shard(logits.to(torch.float32), ctx,
                      "batch", "act_seq", "act_vocab")
 
@@ -140,14 +157,17 @@ class RWKVLM:
              ) -> tuple[torch.Tensor, dict]:
         """batch: tokens (B,T) (a whole number of WKV chunks), labels
         (B,T), optional loss_mask -> (ce, {"ce"})."""
-        refuse_mesh(ctx, "the RWKV-6 LM")
-        x = shard(self._embed(params, batch["tokens"]), ctx, "batch",
+        x = shard(self._embed(params, batch["tokens"], ctx), ctx, "batch",
                   "act_seq", "act_embed")
         x = self._run(params, x, ctx, None)
         x = layer_norm(x, params["final_norm"], params["final_norm_b"])
-        ce = chunked_cross_entropy(x, params["lm_head"], batch["labels"],
-                                   transpose_weight=True,
-                                   mask=batch.get("loss_mask"))
+        mask = batch.get("loss_mask")
+        ce = chunked_cross_entropy(
+            x, params["lm_head"],
+            shard(batch["labels"], ctx, "batch", "act_seq"),
+            transpose_weight=True,
+            mask=None if mask is None else shard(mask, ctx, "batch",
+                                                 "act_seq"))
         return ce, {"ce": ce}
 
     # ---------- public: serve ----------
@@ -168,8 +188,7 @@ class RWKVLM:
         which takes the recurrent path) from the state in ``cache``,
         writing the new state in place; returns (last-token logits (B, V)
         fp32, cache)."""
-        refuse_mesh(ctx, "the RWKV-6 LM")
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"], ctx)
         x = self._run(params, x, ctx, cache)
         logits = self._logits(params, x[:, -1:, :], ctx)
         return logits[:, 0, :], cache
@@ -180,8 +199,7 @@ class RWKVLM:
         """tokens (B,) -> (logits (B, V) fp32, cache written in place).
         ``pos`` is unused: the recurrence is position-free."""
         del pos
-        refuse_mesh(ctx, "the RWKV-6 LM")
-        x = self._embed(params, tokens[:, None])
+        x = self._embed(params, tokens[:, None], ctx)
         x = self._run(params, x, ctx, cache)
         logits = self._logits(params, x, ctx)
         return logits[:, 0, :], cache

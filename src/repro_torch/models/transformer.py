@@ -23,7 +23,9 @@ the FSDP axes before use (ZeRO-3; a reduce-scatter of their gradients
 under autograd), the token ids, labels and positions, global on every
 rank, are sliced to the activations' layout where they meet them, and
 the logits come back vocab-sharded (``whole`` joins them). The MoE
-layer raises on a mesh (expert parallelism, ROADMAP §A.10).
+layer runs expert-parallel where the mesh's ``model`` axis divides the
+experts (``models/moe.py``); its aux loss reaches ``loss`` as a DTensor
+replicated on every rank.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ from repro_torch.models.layers import (AttnConfig, MLPConfig, attention,
                                        mlp_axes, mlp_init)
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_axes, moe_init
 from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
-                                          on_mesh, shard)
+                                          local_part, on_mesh, redistribute,
+                                          shard, spmd_global)
 
 __all__ = ["LMConfig", "TransformerLM", "stack_axes", "embed_tokens"]
 
@@ -70,7 +73,7 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
         return table[tokens.long()]
     ids = shard(tokens.long(), ctx, "batch", "act_seq")
     if not (torch.is_grad_enabled() and table.requires_grad):
-        return torch.nn.functional.embedding(ids, gathered(table))
+        return _vocab_lookup(gathered(table), ids)
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = ctx.mesh
     part = [Partial() if p.is_shard() else Replicate()
@@ -78,6 +81,36 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
     rows = gathered(table, None).to_local(grad_placements=part)
     return DTensor.from_local(rows[ids.to_local()], mesh, ids.placements,
                               run_check=False)
+
+
+def _vocab_lookup(table, ids):
+    """Rows ``ids`` (a DTensor) of ``table`` (V, D), a DTensor whose rows
+    may be split over mesh dims, on local tensors: each rank reads the
+    ids that fall in its rows and zeros for the others, so the result is
+    partial over the row splits (DTensor's own lookup may move the table
+    to another split through an all-to-all, which staged groups do not
+    run)."""
+    from torch.distributed.tensor import Partial, Replicate
+    # the ids whole over the table's row splits (a sequence split there)
+    ids = redistribute(ids, tuple(
+        Replicate() if pt.is_shard(0) else pi
+        for pt, pi in zip(table.placements, ids.placements)))
+    loc, off = local_part(table)
+    idl = ids.to_local() - off[0]
+    hit = (idl >= 0) & (idl < loc.shape[0])
+    rows = torch.where(hit[..., None], loc[idl.clamp(0, loc.shape[0] - 1)],
+                       torch.zeros((), dtype=loc.dtype, device=loc.device))
+    return spmd_global(rows, ids.device_mesh, tuple(
+        Partial() if pt.is_shard(0) else pi
+        for pt, pi in zip(table.placements, ids.placements)))
+
+
+def _gathered_layer(p: dict) -> dict:
+    """A layer's params gathered over the FSDP axes, but the experts':
+    the MoE layer casts them to the compute dtype before it gathers them
+    (the reference's ``_moe_apply_ep`` does, so the gather moves bf16)."""
+    return {k: (v if k == "moe" else tree_map(gathered, v))
+            for k, v in p.items()}
 
 
 @dataclass(frozen=True)
@@ -234,6 +267,12 @@ class TransformerLM:
         return ax
 
     # ---------- building blocks ----------
+    def moe_layer(self, p, x, ctx):
+        """A block's MoE layer: ``moe_apply`` (a subclass may run another
+        arithmetic of the same layer in its place, as the one-device
+        expert-parallel reference ``moe_apply_ep_ref`` does)."""
+        return moe_apply(p, x, self.cfg.moe, ctx)
+
     def _norm(self, x, w, p, bias_name):
         if self.cfg.norm == "layernorm":
             return layer_norm(x, w, p.get(bias_name))
@@ -260,7 +299,7 @@ class TransformerLM:
         x = x + attn_out
         h2 = self._norm(x, p["ln2"], p, "ln2_bias")
         if cfg.moe is not None:
-            ffn_out, aux = moe_apply(p["moe"], h2, cfg.moe, ctx)
+            ffn_out, aux = self.moe_layer(p["moe"], h2, ctx)
         else:
             ffn_out = mlp_apply(p["mlp"], h2, cfg.mlp_cfg, ctx)
         if cfg.sandwich_norm:
@@ -296,7 +335,7 @@ class TransformerLM:
 
             def block(x, p, flag=flag, cache_kv=cache_kv):
                 x, _, aux = self._block(
-                    tree_map(gathered, p), x, ctx, q_pos=q_pos,
+                    _gathered_layer(p), x, ctx, q_pos=q_pos,
                     window_active=flag, cache_kv=cache_kv,
                     cache_index=cache_index)
                 return x, aux
@@ -328,10 +367,11 @@ class TransformerLM:
                 ctx: ShardingCtx | None) -> torch.Tensor:
         cfg = self.cfg
         x = self._norm(x, params["final_norm"], params, "final_norm_bias")
-        # on a mesh the rows are joined first: the vocab contraction then
-        # runs at the unsharded row count (the CPU's BLAS rounds a 1- or
-        # 2-row product with a transposed weight another way)
-        x = shard(x, ctx, None, "act_seq", "act_embed")
+        # on a mesh the rows (and a sequence split) are joined first: the
+        # vocab contraction then runs at the unsharded row count (the
+        # CPU's BLAS rounds a 1- or 2-row product with a transposed weight
+        # another way)
+        x = gathered(x, None)
         if cfg.tie_embeddings:
             logits = torch.einsum("bsd,vd->bsv", x,
                                   gathered(params["embedding"]).to(x.dtype))

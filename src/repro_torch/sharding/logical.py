@@ -39,9 +39,11 @@ import torch
 __all__ = ["A", "ShardingRules", "ShardingCtx", "MeshShape",
            "NamedSharding", "DEFAULT_RULES", "SP_DECODE_RULES",
            "INPUT_PARALLEL_RULES", "FSDP_AXES", "spec_for", "placements",
-           "shard", "on_mesh", "staged_mesh", "refuse_mesh", "is_dtensor",
-           "redistribute", "gathered", "whole", "local_part", "param_specs", "param_shardings",
-           "distribute_tree", "mesh_sizes"]
+           "shard", "on_mesh", "staged_mesh", "is_dtensor", "redistribute",
+           "gathered", "whole", "local_part", "param_specs",
+           "param_shardings", "distribute_tree", "mesh_sizes",
+           "row_placements", "split_over", "spmd_local", "spmd_global",
+           "matmul_rows", "local_offset", "write_part"]
 
 # the mesh axes a parameter's FSDP (ZeRO-3) shards lie on: gathered
 # before the parameter is used (``gathered``)
@@ -234,16 +236,6 @@ def staged_mesh(ctx: ShardingCtx | None) -> bool:
     return dist.get_backend() == "gloo"
 
 
-def refuse_mesh(ctx: ShardingCtx | None, what: str) -> None:
-    """Raise NotImplementedError where ``what`` has no mesh path yet: a
-    family whose forward on a mesh is not held against the reference
-    runs on one device only (ROADMAP §A.10)."""
-    if on_mesh(ctx):
-        raise NotImplementedError(
-            f"{what} on a mesh is not ported yet (ROADMAP §A.10, the LM "
-            f"half); run it without a mesh")
-
-
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
@@ -324,6 +316,111 @@ def local_part(x) -> tuple[torch.Tensor, tuple[int, ...]]:
     _, offset = compute_local_shape_and_global_offset(
         x.shape, x.device_mesh, x.placements)
     return x._local_tensor, tuple(int(o) for o in offset)
+
+
+# ------------------------------------------------- explicit SPMD regions
+#
+# Where the reference runs a block as explicit per-device code (the MoE's
+# shard_map) or where the port runs one on each rank's shards (the
+# Mamba2 and RWKV-6 heads), a region takes its inputs as local tensors
+# (``spmd_local``, the shard_map's in_specs) and hands its outputs back
+# as DTensors (``spmd_global``, its out_specs). Under autograd an input
+# that the region's ranks use differently (each its own heads, experts
+# or rows) gets a partial gradient over the mesh dims where they differ:
+# ``divergent`` names them, and the gradient is reduced where the input
+# came from.
+
+def row_placements(x) -> tuple:
+    """A DTensor's placements with only its batch (dim 0) shards kept,
+    every other mesh dim Replicate: the rows a rank holds, whole in the
+    other dims."""
+    from torch.distributed.tensor import Replicate
+    return tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+
+
+def split_over(ctx: ShardingCtx, axis: str, *dims: int) -> tuple[int, int]:
+    """(n, i): the size of mesh axis ``axis`` where it divides every one
+    of ``dims`` (heads, channels) and exceeds 1, else 1; and this rank's
+    coordinate on it (0 when n is 1, every rank then computing whole)."""
+    n = mesh_sizes(ctx.mesh).get(axis, 1)
+    if n <= 1 or any(d % n for d in dims):
+        return 1, 0
+    return n, ctx.mesh.get_local_rank(axis)
+
+
+def spmd_local(x, mesh, target, divergent=()) -> torch.Tensor:
+    """This rank's local tensor of ``x`` laid out by the placements
+    ``target`` (a plain tensor is taken as the same global value on
+    every rank). Its gradient is declared partial over the mesh dims
+    named in ``divergent`` that ``target`` replicates."""
+    from torch.distributed.tensor import Partial
+    if not is_dtensor(x):
+        x = _replicated(x, mesh)
+    x = redistribute(x, tuple(target))
+    names = tuple(mesh.mesh_dim_names)
+    grad = tuple(Partial() if (names[i] in divergent and p.is_replicate())
+                 else p for i, p in enumerate(target))
+    return x.to_local(grad_placements=grad)
+
+
+def spmd_global(t: torch.Tensor, mesh, placements):
+    """The DTensor whose local tensor on this rank is ``t`` (a region's
+    output): Shard where the ranks hold parts, Partial where their values
+    are summed, Replicate where every rank holds the same."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, tuple(placements), run_check=False)
+
+
+def matmul_rows(x, w):
+    """``x @ w`` on local tensors: ``x`` (…, K) a DTensor, each rank
+    multiplying the rows it holds (whole in K) by its part of ``w`` (K,
+    N): the whole weight, or its columns where ``w`` is split over
+    ``model`` in N (the product's columns are then split there too; a
+    split elsewhere is gathered).
+    DTensor's own matmul of a 3-D shard runs as a batch of one-row
+    products, which a CPU's BLAS rounds otherwise than the unsharded
+    product. Under autograd ``w``'s gradient is partial over the row
+    shards, and ``x``'s over the column splits."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    rows = row_placements(x)
+    wpl = tuple(p if (a == "model" and p.is_shard(1)) else Replicate()
+                for a, p in zip(names, w.placements if is_dtensor(w)
+                                else (Replicate(),) * mesh.ndim))
+    cols = {a for a, p in zip(names, wpl) if p.is_shard()}
+    xl = spmd_local(x, mesh, rows, cols)
+    wl = spmd_local(w, mesh, wpl,
+                    {a for a, p in zip(names, rows) if p.is_shard()})
+    out = torch.matmul(xl, wl.to(xl.dtype))
+    return spmd_global(out, mesh, tuple(
+        p if p.is_shard() else (Shard(out.ndim - 1) if q.is_shard() else q)
+        for p, q in zip(rows, wpl)))
+
+
+def local_offset(x, placements) -> tuple[int, ...]:
+    """The global offset of this rank's part of ``x`` (a DTensor or its
+    global shape's holder) laid out by ``placements``."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    _, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, tuple(placements))
+    return tuple(int(o) for o in off)
+
+
+def write_part(dst, src: torch.Tensor, offset: Sequence[int]) -> None:
+    """Write ``src``, the block of global offset ``offset``, into the
+    part of ``dst`` (a DTensor or a plain tensor, in place) that this
+    rank holds: only where the two overlap."""
+    loc, off = local_part(dst)
+    d_sl, s_sl = [], []
+    for o, n, so, sn in zip(off, loc.shape, offset, src.shape):
+        lo, hi = max(o, so), min(o + n, so + sn)
+        if lo >= hi:
+            return
+        d_sl.append(slice(lo - o, hi - o))
+        s_sl.append(slice(lo - so, hi - so))
+    loc[tuple(d_sl)] = src[tuple(s_sl)].to(loc.dtype)
 
 
 def _tree_map(fn, *trees):

@@ -817,14 +817,18 @@ def test_launcher_refuses_a_mesh_larger_than_the_world():
 
 
 def test_launcher_lm_on_a_mesh_cites_the_lm_half():
-    """A dense LM serves on a mesh (tests/test_torch_lm_mesh.py); an MoE
-    arch, whose expert parallelism is not ported, still cites the LM
-    half of ROADMAP §A.10, here on a world of one over gloo."""
+    """Every LM family serves on a mesh: an MoE arch (expert-parallel,
+    tests/test_torch_moe_mesh.py) serves here on a world of one over
+    gloo; the multi-pod mesh, which is not ported, still cites the LM
+    half of ROADMAP §A.10."""
+    argv = ["--arch", "dbrx-132b", "--reduced", "--device", "cpu",
+            "--dist-backend", "gloo", "--capacity", "2", "--requests", "2",
+            "--prompt-len", "8", "--decode-steps", "2"]
+    _, results = launcher.main(argv + ["--mesh", "1x1"])
+    assert len(results) == 2 and all(len(r.generated) == 2
+                                     for r in results.values())
     with pytest.raises(NotImplementedError, match="LM half"):
-        launcher.main(["--arch", "dbrx-132b", "--reduced", "--device",
-                       "cpu", "--mesh", "1x1", "--dist-backend", "gloo",
-                       "--capacity", "2", "--requests", "2",
-                       "--prompt-len", "8", "--decode-steps", "2"])
+        launcher.main(argv + ["--mesh", "1x1x1"])
 
 
 def test_compile_on_a_mesh_places_and_refuses_autotune():

@@ -40,7 +40,6 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_arch
 from repro_torch.launch.train import reduced_config
 from repro_torch.models import moe as tmoe
-from repro_torch.sharding.logical import ShardingCtx
 
 TOL_AUX = 1e-6
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -196,15 +195,19 @@ def test_group_independence():
 
 
 def test_a_mesh_raises_and_tf32_routing_is_refused():
+    """TF32 routing is refused by the local path and by the expert-
+    parallel one (on a mesh it raises as well: ``moe_apply_ep_ref`` runs
+    a mesh's arithmetic on one device; tests/test_torch_moe_mesh.py holds
+    it and the mesh against JAX)."""
     jcfg, tcfg = _cfgs()
     _, tp, _, x = _case("f32", jcfg)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tmoe.moe_apply(tp, x, tcfg, ShardingCtx(mesh=object()))
     saved = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
         with pytest.raises(RuntimeError, match="highest"):
             tmoe.moe_apply(tp, x, tcfg, None)
+        with pytest.raises(RuntimeError, match="highest"):
+            tmoe.moe_apply_ep_ref(tp, x, tcfg, 1, 2)
     finally:
         torch.set_float32_matmul_precision(saved)
 

@@ -191,10 +191,3 @@ def test_placements_of_a_spec():
     assert tl.placements(_Mesh, ()) == (Replicate(),) * 3
     with pytest.raises(ValueError, match="mesh's axis order"):
         tl.placements(_Mesh, (("data", "pod"),))
-
-
-def test_other_families_refuse_a_mesh():
-    ctx = tl.ShardingCtx(mesh=object())
-    with pytest.raises(NotImplementedError, match="§A.10"):
-        tl.refuse_mesh(ctx, "x")
-    tl.refuse_mesh(None, "x")
