@@ -234,7 +234,19 @@ Phases, each printing one JSON line:
            fp32 trained LM_MESH_TRAIN_STEPS steps at 8 x 128 against the
            single-rank run (losses rtol 1e-5, params rtol 2e-4 / atol
            2e-5), and on 2 x 2 a checkpoint restored onto (1, 2)
-           bitwise.
+           bitwise. The multi-pod mesh beside them: NCCL world 1 also
+           on (pod, data, model) = (1, 1, 1), bitwise to no mesh; gloo
+           worlds of 4 ranks on (2, 1, 2) and (2, 2, 1) (LM_POD_WORLDS,
+           run with the two above) serving LM_POD_CAPACITY requests at
+           capacity LM_POD_CAPACITY, so that every (pod, data) rank
+           holds live slots (checked on each rank)
+           (int8 tokens and logits bitwise to the unsharded engine at
+           that capacity, qmatmul 12 a step at every rank's shard
+           shapes, each bitwise to its plain version; bf16 within 2^-4),
+           the same training, and one step through
+           ``cross_pod_grad_reduce`` (bf16; each pod's gradients on its
+           half of the batch over its own (data, model) mesh) against
+           the single-rank run of the same arithmetic.
   family_mesh  the other LM families over a (data, model) mesh: an NCCL
            world of 1, mesh (1, 1), whose Engine serves dbrx-132b and
            llama4-scout (full width, MOE_LAYERS layers, bf16; their layer
@@ -265,10 +277,20 @@ Phases, each printing one JSON line:
            routing only within FAMILY_ROUTER_GAP of its k-th router
            logit. Beside each: the MoE layers' owned and dropped
            assignments a rank, the collectives' calls, bytes and host
-           seconds.
+           seconds; zamba2's (FAMILY_COUNTED) also counted on the meta
+           device as rank 0 over a fake process group (the mesh dry
+           run's counter), equal call for call and byte for byte.
+  mesh_dryrun  the mesh dry run (``launch/dryrun.py``) of every (arch x
+           shape) at full size on the meta device as rank 0 of
+           pod16x16 and pod2x16x16 over a fake process group, in
+           MESH_SWEEP_WORKERS host workers from the script's start: no
+           cell in error, exactly the 8 long_500k cells of the
+           full-attention archs skipped on each mesh, collectives
+           counted in every ok cell; one compact line a (mesh, arch).
 
-The card-vs-CPU checks' CPU sides and the dry-run sweep run in worker
-processes started with the script (``start_host_jobs``), and the train
+The card-vs-CPU checks' CPU sides, the dry-run sweep, the mesh dry
+run's sweep and zamba2's count run in worker processes started with the
+script (``start_host_jobs``), and the train
 launchers start before the mesh phase, beside the card's phases; each
 is taken where its phase needs it.
 
@@ -497,6 +519,21 @@ LM_MESH_TRAIN_LAYERS = 2
 LM_MESH_TRAIN_STEPS = 2
 LM_MESH_TRAIN_BATCH = (8, 128)
 LM_MESH_TIMEOUT_S = 900
+# the multi-pod worlds of the lm_mesh phase: gloo worlds of 4 ranks on
+# cuda:0 over (pod, data, model), run beside LM_MESH_WORLDS; their
+# engines at capacity LM_POD_CAPACITY (two slots a rank where pod x data
+# is 4) over the launcher's first LM_POD_CAPACITY prompts, every slot live
+# (the scheduler fills slots from 0: fewer requests would leave pod 1's
+# ranks only empty slots), the same training, then one step
+# through cross_pod_grad_reduce (bf16), each pod's gradients taken on its
+# half of the batch over its own (data, model) mesh
+LM_POD_WORLDS = {(2, 1, 2): 4, (2, 2, 1): 4}
+LM_POD_CAPACITY = 8
+POD_AXES = ("pod", "data", "model")
+# the mesh dry run (launch/dryrun.py) over the grid at both production
+# meshes, MESH_SWEEP_WORKERS cells at a time in host workers started with
+# the script, the train cells first (the longest)
+MESH_SWEEP_WORKERS = 3
 
 # the family_mesh phase: the other LM families over a (data, model) mesh.
 # NCCL world 1 (mesh (1, 1)): arch -> (layers, quant, prompt length) at
@@ -536,6 +573,9 @@ FAMILY_DECODE_ULPS = 4
 # below the reference's k-th choice: bf16 noise at a near-tie
 FAMILY_ROUTER_GAP = 2.0 ** -4
 FAMILY_TIMEOUT_S = 600
+# the family_mesh jobs whose collectives are also counted on the meta
+# device (the mesh dry run's counter) and held equal to the measured
+FAMILY_COUNTED = [("zamba2-7b", SSM_PLAIN_LAYERS, (1, 2))]
 
 
 class SmokeFailure(RuntimeError):
@@ -3027,6 +3067,79 @@ def launch_sweep() -> dict:
             "skipped": sorted(skipped)}
 
 
+def phase_mesh_dryrun(device) -> dict:
+    """The mesh dry run (``launch/dryrun.py``) of every (arch x shape) at
+    full size on the meta device, counted as rank 0 of ``pod16x16`` and of
+    ``pod2x16x16`` over a fake process group: started with the script in
+    MESH_SWEEP_WORKERS host workers (``start_host_jobs``), else
+    LAUNCH_JOBS at a time here. On each mesh no cell may end in
+    ``error`` and exactly the 8 ``long_500k`` cells of the full-attention
+    archs are ``skipped``; every ok cell counts collectives. One compact
+    line a (mesh, arch) to LAUNCH_LINES (bottleneck, roofline step ms,
+    collective ms, peak GB, count seconds a shape), one with the sweep's
+    seconds. Nothing runs on the card: no launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.launch.dryrun import REPORTS, run_cell
+    job = HOST_JOBS.pop("mesh_sweep", None)
+    if job is not None:                 # started with the script
+        recs = [f.result() for f in job["cells"]]
+        seconds, jobs = max(job["done"]) - job["t0"], MESH_SWEEP_WORKERS
+    else:
+        t0 = time.perf_counter()
+        cells = mesh_sweep_cells()
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(LAUNCH_JOBS, mp_context=ctx) as pool:
+            futs = [pool.submit(run_cell, a, s, multi_pod=mp)
+                    for mp, a, s in cells]
+            recs = [f.result() for f in futs]
+        seconds, jobs = time.perf_counter() - t0, LAUNCH_JOBS
+    errors = [(r["mesh"], r["arch"], r["shape"], r["error"]) for r in recs
+              if r["status"] == "error"]
+    check(not errors, f"mesh dry run cells in error: {errors}")
+    want = {(a, "long_500k"): get_arch(a).skip_reason("long_500k")
+            for a in ARCH_IDS if not get_arch(a).subquadratic}
+    for mesh in ("pod16x16", "pod2x16x16"):
+        mine = [r for r in recs if r["mesh"] == mesh]
+        skipped = {(r["arch"], r["shape"]): r["reason"] for r in mine
+                   if r["status"] == "skipped"}
+        check(skipped == want and len(want) == 8,
+              f"mesh dry run {mesh} skipped {sorted(skipped)}, expected "
+              f"{sorted(want)}")
+        silent = [(r["arch"], r["shape"]) for r in mine
+                  if r["status"] == "ok"
+                  and not r["collectives"]["count_by_op"]]
+        check(not silent, f"mesh dry run {mesh}: no collective counted in "
+                          f"{silent}")
+        for a in ARCH_IDS:
+            line = {"mesh_dryrun": mesh, "arch": a}
+            for r in mine:
+                if r["arch"] != a:
+                    continue
+                if r["status"] == "skipped":
+                    line[r["shape"]] = "skipped"
+                    continue
+                rf = r["roofline"]
+                line[r["shape"]] = [rf["bottleneck"],
+                                    round(rf["step_time_s"] * 1e3, 3),
+                                    round(rf["collective_s"] * 1e3, 3),
+                                    round(r["memory"]["peak_bytes"] / 1e9, 1),
+                                    round(r["count_s"], 1)]
+            LAUNCH_LINES.append(line)
+    uneven = sorted((r["mesh"], r["arch"], r["shape"]) for r in recs
+                    if r.get("rank0_is_every_rank") is False)
+    LAUNCH_LINES.append({"mesh_dryrun_sweep_s": round(seconds, 1),
+                         "cells": len(recs),
+                         "ok": sum(r["status"] == "ok" for r in recs),
+                         "skipped": sum(r["status"] == "skipped"
+                                        for r in recs),
+                         "uneven": uneven, "jobs": jobs,
+                         "beside_the_card": job is not None,
+                         "reports": str(REPORTS.relative_to(ROOT))})
+    return {}
+
+
 def replay_ms(fn, reps: int = LAUNCH_REPLAYS) -> dict:
     """A compiled step's wall: the median of ``reps`` calls, each between
     two CUDA events and synchronized before the next (so a call's host
@@ -4077,30 +4190,33 @@ def phase_mesh(device) -> dict:
 # ---------------------------------------------------------------- lm_mesh
 
 def lm_mesh_serve(model, params, ctx, quant, device,
-                  prompt_len: int = 64) -> dict:
+                  prompt_len: int = 64, capacity: int = 4,
+                  requests: int = LM_MESH_REQUESTS) -> dict:
     """``Engine`` (graphs on where the mesh allows) on ``ctx``'s mesh, or
     without one (``ctx`` None), under ``quant`` ("none": the model's bf16;
     "int8": every MLP matmul a qmatmul and an int8 KV cache) over the
-    launcher's first LM_MESH_REQUESTS prompts, LM_MESH_NEW tokens each at
-    capacity 4. After its first step (every request admitted, one decode
-    step) one more decode step's logits over the 4 live slots, outside
+    launcher's first ``requests`` prompts, LM_MESH_NEW tokens each at
+    ``capacity``. After its first step (every request admitted, one
+    decode step) one more decode step's logits over the live slots, outside
     the run: it writes the K/V the engine's next step writes again (an
     int8 cache is not stored back; a recurrent state is put back), so the
     run goes on as it would. After the run, a prefill's logits (the first
     prompt of the full length). Prompts of ``prompt_len`` tokens or half
     as many (whole scan chunks for the sub-quadratic LMs).
-    Returns the tokens, both logits whole (CPU), the run's wall, steps,
-    prefills, decode steps, and its wrapper launches and collectives'
-    calls, bytes and host seconds (the two logits steps left out)."""
+    Returns the tokens, both logits whole (CPU), the live slots after the
+    first step (on a mesh, those in this rank's part of the cache), the
+    run's wall, steps, prefills, decode steps, and its wrapper launches
+    and collectives' calls, bytes and host seconds (the two logits steps
+    left out)."""
     import torch
     from repro_torch.core.parallelism import COMM_STATS
     from repro_torch.ops import ExecPolicy, use_policy
     from repro_torch.serve import Engine, EngineConfig
     from repro_torch.serve.engine import engine_decode_step
     from repro_torch.sharding.logical import local_part, whole
-    cfg = EngineConfig(capacity=4, max_seq=prompt_len + 16,
+    cfg = EngineConfig(capacity=capacity, max_seq=prompt_len + 16,
                        device=str(device), policy=ExecPolicy(quant=quant))
-    prompts = lm_prompts(model.cfg.vocab, prompt_len)[:LM_MESH_REQUESTS]
+    prompts = lm_prompts(model.cfg.vocab, prompt_len)[:requests]
     eng = Engine(model, params, cfg, ctx)
     for p in prompts:
         eng.add_request(p, LM_MESH_NEW)
@@ -4130,6 +4246,13 @@ def lm_mesh_serve(model, params, ctx, quant, device,
     from repro_torch.core.tree import tree_leaves
     state = eng.kv.device_state()
     leaves = [t for tree in state for t in tree_leaves(tree)]
+    live = sorted(eng.scheduler.running())
+    check(len(live) == min(requests, capacity),
+          f"engine: {len(live)} live slots after its first step, expected "
+          f"{min(requests, capacity)}")
+    if ctx is not None:                 # the cache's dim 1: its slots
+        loc, off = local_part(leaves[0])
+        live = [i for i in live if off[1] <= i < off[1] + loc.shape[1]]
     saved = [local_part(t)[0].clone() for t in leaves]
     dec = engine_decode_step(model, cfg, ctx, sample=False)(
         eng.params, torch.as_tensor(eng._last_token, device=device),
@@ -4148,7 +4271,8 @@ def lm_mesh_serve(model, params, ctx, quant, device,
                                eng._prefill_cache(toks.shape[1]), ctx)
     out = {"tokens": {r.uid: list(r.generated) for r in fin},
            "prefill": whole(pre).float().cpu(), "decode": dec,
-           "graphs": eng.graph_mode, "wall_s": wall, "steps": s.steps,
+           "live_slots": live, "graphs": eng.graph_mode, "wall_s": wall,
+           "steps": s.steps,
            "prefills": s.prefills,
            "decode_steps": s.decode_lane_steps // cfg.capacity,
            "step_wall_ms": 1e3 * wall / max(s.steps, 1),
@@ -4168,12 +4292,14 @@ def lm_mesh_model():
 
 
 def lm_mesh_world1(device) -> tuple[dict, dict, dict]:
-    """NCCL world 1 on cuda:0, mesh (1, 1): the Engine in bf16 and under
-    int8 through its step graphs, tokens and a prefill's and a decode
-    step's logits bitwise to the engine without a mesh. Returns (the
-    report, the mesh engines' launches (counted from 0 just before
-    them), the engines without a mesh: what the gloo worlds are held
-    to)."""
+    """NCCL world 1 on cuda:0, meshes (1, 1) and (pod, data, model) =
+    (1, 1, 1): the Engine in bf16 and under int8 through its step graphs,
+    tokens and a prefill's and a decode step's logits bitwise to the
+    engine without a mesh. Returns (the report, the mesh engines'
+    launches (counted from 0 just before them), the engines without a
+    mesh: what the gloo worlds are held to, by ``(quant, capacity)``:
+    capacity 4 for the (data, model) worlds, LM_POD_CAPACITY for the
+    multi-pod ones)."""
     import torch.distributed as dist
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import build_mesh
@@ -4182,38 +4308,44 @@ def lm_mesh_world1(device) -> tuple[dict, dict, dict]:
     try:
         check(dist.get_backend() == "nccl",
               f"lm world 1 resolved to {dist.get_backend()}, not nccl")
-        ctx = ShardingCtx(mesh, get_arch(LM_ARCH).rules())
+        rules = get_arch(LM_ARCH).rules()
+        ctxs = {"1x1": ShardingCtx(mesh, rules),
+                "1x1x1": ShardingCtx(build_mesh("1x1x1", None, "cuda"),
+                                     rules)}
         model, params = lm_mesh_model()
-        plain = {q: lm_mesh_serve(model, params, None, q, device)
-                 for q in ("none", "int8")}
+        plain = {(q, c): lm_mesh_serve(model, params, None, q, device,
+                                       capacity=c, requests=n)
+                 for q in ("none", "int8")
+                 for c, n in ((4, LM_MESH_REQUESTS),
+                              (LM_POD_CAPACITY, LM_POD_CAPACITY))}
         mesh_sync(device)
         reset_counts()                  # the mesh engines alone from here
-        placed = {q: lm_mesh_serve(model, params, ctx, q, device)
-                  for q in ("none", "int8")}
+        placed = {(m, q): lm_mesh_serve(model, params, ctx, q, device)
+                  for m, ctx in ctxs.items() for q in ("none", "int8")}
         mesh_sync(device)
         launches = counts()
         rows = []
-        for q in ("none", "int8"):
-            a, b = placed[q], plain[q]
-            check(a["graphs"] == "on", f"lm world 1 {q}: graphs "
-                                       f"{a['graphs']}")
+        for (m, q), a in placed.items():
+            b = plain[q, 4]
+            label = f"lm world 1 {m} {q}"
+            check(a["graphs"] == "on", f"{label}: graphs {a['graphs']}")
             check(a["tokens"] == b["tokens"],
-                  f"lm world 1 {q}: tokens {a['tokens']} vs the engine "
-                  f"without a mesh {b['tokens']}")
+                  f"{label}: tokens {a['tokens']} vs the engine without a "
+                  f"mesh {b['tokens']}")
             for step in ("prefill", "decode"):
                 check(bitwise(a[step], b[step]),
-                      f"lm world 1 {q} {step} logits: max_abs "
+                      f"{label} {step} logits: max_abs "
                       f"{max_abs(a[step], b[step])} from the engine "
                       f"without a mesh")
-            rows.append({"quant": q, "graphs": "on", "bitwise": True,
-                         "requests": len(a["tokens"]),
+            rows.append({"mesh": m, "quant": q, "graphs": "on",
+                         "bitwise": True, "requests": len(a["tokens"]),
                          "step_wall_ms": a["step_wall_ms"],
                          "plain_step_wall_ms": b["step_wall_ms"],
                          "launches": a["launches"]})
         del params
     finally:
         dist.destroy_process_group()
-    return {"mesh": [1, 1], "backend": "nccl", "engines": rows}, \
+    return {"meshes": list(ctxs), "backend": "nccl", "engines": rows}, \
         launches, plain
 
 
@@ -4371,14 +4503,233 @@ def lm_mesh_launchers(shape, work) -> dict:
             "losses": [r["losses"] for r in runs]}
 
 
+def lm_mesh_serve_held(ctx, shape, rank, want, device,
+                       capacity: int = 4, requests: int = LM_MESH_REQUESTS
+                       ) -> tuple[dict, dict, list]:
+    """The LM_MESH_SERVE_LAYERS-layer model's Engine on ``ctx``'s gloo
+    mesh in bf16 and under int8 (``lm_mesh_serve`` at ``capacity`` over
+    ``requests`` prompts) against ``want`` (the unsharded engines', by
+    quant): this rank's part of the cache holds live slots; int8 tokens
+    and logits bitwise, qmatmul launched 3 a layer a step; bf16 logits
+    within TOL_BF16 of 1 + max|want|. Returns (the runs'
+    reports, their launches, every qmatmul shard launch shape checked
+    kernel vs plain)."""
+    import torch
+    model, params = lm_mesh_model()
+    runs = {}
+    seen, undo = lm_mesh_record_shapes()
+    try:
+        for q in ("none", "int8"):
+            r = lm_mesh_serve(model, params, ctx, q, device,
+                              capacity=capacity, requests=requests)
+            w = want[q]
+            label = f"lm mesh {shape} rank {rank} {q}"
+            check(r["live_slots"], f"{label}: no live slot in this rank's "
+                                   f"part of the cache")
+            check(r["graphs"] == "off (gloo)", f"{label}: graphs "
+                                               f"{r['graphs']}")
+            errs = {st: max_abs(r[st], w[st])
+                    for st in ("prefill", "decode")}
+            if q == "int8":
+                check(r["tokens"] == w["tokens"],
+                      f"{label}: tokens {r['tokens']} vs unsharded "
+                      f"{w['tokens']}")
+                for st, err in errs.items():
+                    check(err == 0.0, f"{label} {st} logits: max_abs {err} "
+                                      f"from the unsharded int8 engine")
+                per_step = 3 * model.cfg.n_layers
+                steps = r["prefills"] + r["decode_steps"]
+                check(r["launches"]["qmatmul"] == per_step * steps,
+                      f"{label}: qmatmul launched "
+                      f"{r['launches']['qmatmul']} times, expected "
+                      f"{per_step} x {steps} steps")
+            else:
+                for st, err in errs.items():
+                    bar = TOL_BF16 * (1 + float(w[st].abs().max()))
+                    check(err <= bar, f"{label} {st} logits: max_abs {err} "
+                                      f"> {bar}")
+            del r["prefill"], r["decode"]
+            r["max_abs"] = errs
+            r["tokens_equal"] = r.pop("tokens") == w["tokens"]
+            runs[q] = r
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in counts()}
+    del params
+    return runs, launches, lm_mesh_shard_checks(seen, device)
+
+
+def pod_meshes(shape, device_type: str):
+    """This rank's pod's (data, model) mesh of a (pod, data, model) world
+    of ``shape``: every pod's is built on every rank, in pod order (each
+    rank keeps its own)."""
+    import torch
+    from repro_torch.sharding.groups import mesh_groups
+    ranks = torch.arange(shape[0] * shape[1] * shape[2]).reshape(shape)
+    meshes = [mesh_groups(shape[1:], POD_AXES[1:], device_type,
+                          ranks=ranks[p]) for p in range(shape[0])]
+    return next(m for m in meshes if m is not None)
+
+
+def lm_pod_cross_step(model, mesh, sub, device):
+    """One fp32 train step of ``model`` (seed 0) with the cross-pod
+    compression on the (pod, data, model) ``mesh``: this pod's loss and
+    gradients on its rows of the stream's first batch over its (data,
+    model) mesh ``sub``, ``cross_pod_grad_reduce`` (bf16) over ``pod``,
+    AdamW as ``lm_mesh_train``'s. Returns ([the pods' mean loss], the new
+    params)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.tree import tree_map
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.sharding.logical import ShardingCtx, distribute_tree
+    from repro_torch.train.compression import (cross_pod_grad_reduce,
+                                               init_ef_state)
+    from repro_torch.train.steps import loss_and_grads
+    n_pods = int(mesh.mesh.shape[0])
+    pod = mesh.get_local_rank("pod")
+    params = distribute_tree(model.init(0, device=device), model.axes(),
+                             ShardingCtx(mesh))
+
+    def on_sub(t):
+        check(t.placements[0].is_replicate(), "a parameter split over pod")
+        return DTensor.from_local(t.to_local(), sub, t.placements[1:],
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    batch = lm_pod_batch(model, device)
+    half = batch["tokens"].shape[0] // n_pods
+    rows = {k: v[pod * half:(pod + 1) * half] for k, v in batch.items()}
+    loss, _, grads = loss_and_grads(model, tree_map(on_sub, params), rows,
+                                    ShardingCtx(sub))
+    g = tree_map(lambda t, like: DTensor.from_local(
+        t.to_local(), mesh, like.placements, run_check=False,
+        shape=like.shape, stride=like.stride()), grads, params)
+    g, _ = cross_pod_grad_reduce(g, init_ef_state(g), mesh=mesh,
+                                 mode="bf16")
+    total = loss.clone()
+    dist.all_reduce(total, group=mesh.get_group("pod"))
+    cfg = lm_pod_adam()
+    new, _, _ = adamw_update(g, adamw_init(params, cfg), params, cfg)
+    torch.cuda.synchronize()
+    return [float(total / n_pods)], new
+
+
+def lm_pod_batch(model, device) -> dict:
+    """The synthetic stream's first batch at LM_MESH_TRAIN_BATCH."""
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           SyntheticTextIterator)
+    b, s = LM_MESH_TRAIN_BATCH
+    data = SyntheticTextIterator(SyntheticTextConfig(
+        vocab=model.cfg.vocab, seq_len=s, global_batch=b))
+    return {k: v.to(device) for k, v in data.next_batch().items()}
+
+
+def lm_pod_adam():
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=1e-3, warmup_steps=1,
+                       total_steps=LM_MESH_TRAIN_STEPS, eps=1e-3)
+
+
+def lm_pod_cross_reference(device) -> dict:
+    """``lm_pod_cross_step`` on one rank: each pod's half of the batch
+    and its gradients, their bf16 sum (in bf16, as the pod all-reduce
+    sums) halved, AdamW: {"losses": [mean loss], "params": by path, on
+    the CPU}."""
+    import torch
+    from repro_torch.core.tree import tree_items, tree_map
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.train.steps import loss_and_grads
+    model = lm_mesh_train_model()
+    params = model.init(0, device=device)
+    batch = lm_pod_batch(model, device)
+    half = batch["tokens"].shape[0] // 2
+    parts = [loss_and_grads(model, params,
+                            {k: v[p * half:(p + 1) * half]
+                             for k, v in batch.items()}, None)
+             for p in range(2)]
+    two = torch.full((), 2.0, device=device)
+    g = tree_map(lambda a, b: (a.to(torch.bfloat16) + b.to(torch.bfloat16)
+                               ).to(torch.float32) / two,
+                 parts[0][2], parts[1][2])
+    cfg = lm_pod_adam()
+    new, _, _ = adamw_update(g, adamw_init(params, cfg), params, cfg)
+    loss = float((parts[0][0] + parts[1][0]) / two)
+    out = {"losses": [loss], "params": {"/".join(p): t.detach().cpu()
+                                        for p, t in tree_items(new)}}
+    del params, new, parts, g
+    free_card()
+    return out
+
+
+def lm_pod_rank(rank, shape, ref_path) -> dict:
+    """One rank of a multi-pod gloo world on cuda:0: the
+    LM_MESH_SERVE_LAYERS-layer model served LM_POD_CAPACITY requests at
+    capacity LM_POD_CAPACITY on the (pod, data, model) mesh, held as
+    ``lm_mesh_serve_held`` holds it to the unsharded engines at that
+    capacity, every rank's part of the cache holding live slots; the
+    fp32 model trained
+    LM_MESH_TRAIN_STEPS steps against the single-rank run; one step
+    through ``cross_pod_grad_reduce`` against ``lm_pod_cross_reference``
+    (losses rtol 1e-5, params rtol 2e-4 / atol 2e-5)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.sharding.groups import mesh_groups
+    from repro_torch.sharding.logical import ShardingCtx
+    device = torch.device("cuda", 0)
+    ref = torch.load(ref_path, weights_only=False)
+    mesh = mesh_groups(shape, POD_AXES, "cuda")
+    sub = pod_meshes(shape, "cuda")
+    ctx = ShardingCtx(mesh, get_arch(LM_ARCH).rules())
+    out, parts = {"rank": rank}, RankParts()
+    out["serve"], launches, out["shard_checks"] = lm_mesh_serve_held(
+        ctx, shape, rank, {q: ref["serve"][q, LM_POD_CAPACITY]
+                           for q in ("none", "int8")}, device,
+        capacity=LM_POD_CAPACITY, requests=LM_POD_CAPACITY)
+    parts("serve")
+    free_card()
+    tmodel = lm_mesh_train_model()
+    losses, tparams, _, wall = lm_mesh_train(tmodel, ctx, device)
+    out["train"] = lm_mesh_train_hold(f"lm mesh {shape} rank {rank} train",
+                                      losses, tparams, ref["train"])
+    out["train"]["wall_s"] = wall
+    del tparams
+    free_card()
+    parts("train")
+    t0 = time.perf_counter()
+    losses, cparams = lm_pod_cross_step(tmodel, mesh, sub, device)
+    out["cross_pod"] = lm_mesh_train_hold(
+        f"lm mesh {shape} rank {rank} cross-pod step", losses, cparams,
+        ref["cross_pod"])
+    out["cross_pod"]["wall_s"] = time.perf_counter() - t0
+    parts("cross_pod")
+    out["launches"], out["parts_s"] = launches, parts.seconds
+    return out
+
+
+class RankParts:
+    """A rank's seconds by part: each call files the time since the rank
+    started or the last call under its name."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, part: str) -> None:
+        now = time.perf_counter()
+        self.seconds[part] = now - self._t
+        self._t = now
+
+
 def lm_mesh_rank(rank, world, shape, ref_path, work) -> dict:
     """One rank of a gloo world whose ranks share cuda:0, on a
-    host-staged DTensor mesh of ``shape``: qwen1.5-0.5b at full width
-    cut to LM_MESH_SERVE_LAYERS layers served in bf16 (logits within
-    TOL_BF16 of 1 + max|want| of the unsharded engine's) and under int8
-    (tokens and logits bitwise to the unsharded int8 engine's, qmatmul
-    launched 3 a layer a step on this rank);
-    each shard launch shape kernel vs plain; the launchers; then the
+    host-staged DTensor mesh of ``shape`` (a three-axis shape is a
+    multi-pod world: ``lm_pod_rank``): qwen1.5-0.5b at full width
+    cut to LM_MESH_SERVE_LAYERS layers served in bf16 and under int8
+    (``lm_mesh_serve_held``); the launchers; then the
     LM_MESH_TRAIN_LAYERS-layer fp32 model trained LM_MESH_TRAIN_STEPS
     steps against the
     single-rank run, and on 2x2 a checkpoint restored onto (1, 2)."""
@@ -4394,58 +4745,26 @@ def lm_mesh_rank(rank, world, shape, ref_path, work) -> dict:
     # the world's ranks share the host's cores: one pool of CPU threads a
     # rank, not the whole host's each
     torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    if len(shape) == 3:
+        return lm_pod_rank(rank, shape, ref_path)
     device = torch.device("cuda", 0)
     ref = torch.load(ref_path, weights_only=False)
     mesh = mesh_groups(shape, ("data", "model"), "cuda")
     ctx = ShardingCtx(mesh, get_arch(LM_ARCH).rules())
-    model, params = lm_mesh_model()
-    out = {"rank": rank, "serve": {}}
-    seen, undo = lm_mesh_record_shapes()
-    try:
-        for q in ("none", "int8"):
-            r = lm_mesh_serve(model, params, ctx, q, device)
-            want = ref["serve"][q]
-            label = f"lm mesh {shape} rank {rank} {q}"
-            check(r["graphs"] == "off (gloo)", f"{label}: graphs "
-                                               f"{r['graphs']}")
-            errs = {st: max_abs(r[st], want[st])
-                    for st in ("prefill", "decode")}
-            if q == "int8":
-                check(r["tokens"] == want["tokens"],
-                      f"{label}: tokens {r['tokens']} vs unsharded "
-                      f"{want['tokens']}")
-                for st, err in errs.items():
-                    check(err == 0.0, f"{label} {st} logits: max_abs {err} "
-                                      f"from the unsharded int8 engine")
-                per_step = 3 * model.cfg.n_layers
-                steps = r["prefills"] + r["decode_steps"]
-                check(r["launches"]["qmatmul"] == per_step * steps,
-                      f"{label}: qmatmul launched "
-                      f"{r['launches']['qmatmul']} times, expected "
-                      f"{per_step} x {steps} steps")
-            else:
-                for st, err in errs.items():
-                    bar = TOL_BF16 * (1 + float(want[st].abs().max()))
-                    check(err <= bar, f"{label} {st} logits: max_abs {err} "
-                                      f"> {bar}")
-            del r["prefill"], r["decode"]
-            r["max_abs"] = errs
-            r["tokens_equal"] = r.pop("tokens") == want["tokens"]
-            out["serve"][q] = r
-    finally:
-        undo()
-    torch.cuda.synchronize()
-    launches = {k: sum(r["launches"][k] for r in out["serve"].values())
-                for k in counts()}
-    out["shard_checks"] = lm_mesh_shard_checks(seen, device)
+    out, parts = {"rank": rank}, RankParts()
+    out["serve"], launches, out["shard_checks"] = lm_mesh_serve_held(
+        ctx, shape, rank, {q: ref["serve"][q, 4] for q in ("none", "int8")},
+        device)
+    parts("serve")
     out["launcher"] = lm_mesh_launchers(shape, Path(work) / "launch")
-    del params
+    parts("launcher")
     free_card()
     tmodel = lm_mesh_train_model()
     losses, tparams, _, wall = lm_mesh_train(tmodel, ctx, device)
     out["train"] = lm_mesh_train_hold(f"lm mesh {shape} rank {rank} train",
                                       losses, tparams, ref["train"])
     out["train"]["wall_s"] = wall
+    parts("train")
     if shape == (2, 2):
         # the params alone: the optimizer state's elastic restore is held
         # on the CPU (tests/test_torch_lm_mesh.py)
@@ -4466,7 +4785,8 @@ def lm_mesh_rank(rank, world, shape, ref_path, work) -> dict:
                               "leaves": len(tree_items(rp)),
                               "bitwise": True}
         dist.barrier()
-    out["launches"] = launches
+        parts("restore")
+    out["launches"], out["parts_s"] = launches, parts.seconds
     return out
 
 
@@ -4480,26 +4800,29 @@ def lm_mesh_reference(device, plain, path) -> dict:
     from repro_torch.core.tree import tree_items
     model = lm_mesh_train_model()
     losses, params, _, wall = lm_mesh_train(model, None, device)
-    ref = {"serve": {q: {k: plain[q][k] for k in ("tokens", "prefill",
-                                                   "decode")}
-                     for q in plain},
+    ref = {"serve": {key: {k: plain[key][k] for k in ("tokens", "prefill",
+                                                       "decode")}
+                     for key in plain},
            "train": {"losses": losses,
                      "params": {"/".join(p): t.detach().cpu()
                                 for p, t in tree_items(params)}}}
-    torch.save(ref, path)
     del params
     free_card()
-    return {"losses": losses, "wall_s": wall}
+    ref["cross_pod"] = lm_pod_cross_reference(device)
+    torch.save(ref, path)
+    return {"losses": losses, "wall_s": wall,
+            "cross_pod_loss": ref["cross_pod"]["losses"]}
 
 
 def phase_lm_mesh(device) -> dict:
-    """qwen1.5-0.5b over a (data, model) mesh on the one card: NCCL world
-    1 (mesh (1, 1), graphs on, bitwise to the engine without a mesh), the
-    single-rank training run, then gloo worlds of 2 and 4 ranks sharing
-    cuda:0 (meshes (1, 2) and (2, 2), run at once: ``spmd_worlds``,
-    every collective host-staged) serving and training against them. Returns the launches
-    of the mesh path: the world-1 mesh engines' and every rank's serving
-    runs (each counted from 0)."""
+    """qwen1.5-0.5b over a (data, model) and a (pod, data, model) mesh on
+    the one card: NCCL world 1 (meshes (1, 1) and (1, 1, 1), graphs on,
+    bitwise to the engine without a mesh), the single-rank training and
+    cross-pod runs, then gloo worlds of 2 and 4 ranks sharing cuda:0
+    (meshes (1, 2), (2, 2), (2, 1, 2) and (2, 2, 1), run at once:
+    ``spmd_worlds``, every collective host-staged) serving and training
+    against them. Returns the launches of the mesh path: the world-1
+    mesh engines' and every rank's serving runs (each counted from 0)."""
     import tempfile
     free_card()
     world1, total, plain = lm_mesh_world1(device)
@@ -4513,8 +4836,8 @@ def phase_lm_mesh(device) -> dict:
         del plain
         free_card()
         for shape, world, ranks, seconds in spmd_worlds(
-                lm_mesh_rank, LM_MESH_WORLDS, ref_path, work,
-                timeout=LM_MESH_TIMEOUT_S):
+                lm_mesh_rank, {**LM_MESH_WORLDS, **LM_POD_WORLDS},
+                ref_path, work, timeout=LM_MESH_TIMEOUT_S):
             for r in ranks:
                 check(r["launches"]["qmatmul"],
                       f"lm mesh {shape} rank {r['rank']}: qmatmul never "
@@ -4522,17 +4845,21 @@ def phase_lm_mesh(device) -> dict:
                 total = {k: total[k] + r["launches"][k] for k in total}
             worlds.append({
                 "mesh": list(shape), "world": world, "backend": "gloo",
-                "seconds": seconds,
+                "axes": list(POD_AXES[-len(shape):]), "seconds": seconds,
                 "serve": [r["serve"] for r in ranks],
                 "shard_shapes": ranks[0]["shard_checks"],
-                "launcher": ranks[0]["launcher"],
+                "launcher": ranks[0].get("launcher"),
                 "train": [r["train"] for r in ranks],
+                "cross_pod": [r["cross_pod"] for r in ranks]
+                if len(shape) == 3 else None,
                 "restore": ranks[0].get("restore"),
                 "launches": [r["launches"] for r in ranks],
+                "parts_s": [r["parts_s"] for r in ranks],
                 "note": "every rank time-shares one card with the other "
-                        "world's ranks: these walls say nothing about "
+                        "worlds' ranks: these walls say nothing about "
                         "scaling"})
-        lap(f"lm_mesh gloo worlds {list(LM_MESH_WORLDS)}, at once")
+        lap(f"lm_mesh gloo worlds {list(LM_MESH_WORLDS)} and "
+            f"{list(LM_POD_WORLDS)}, at once")
     emit({"phase": "lm_mesh", "arch": LM_ARCH, "world1": world1,
           "single_rank_train": single,
           "train_model": f"{LM_ARCH} at full width, "
@@ -4665,6 +4992,80 @@ def family_draw(jobs, device) -> tuple[dict, dict, dict]:
             refs[key] = {"logits": r["logits"], "tokens": r["tokens"]}
             walls[key] = r["wall_s"]
     return params, refs, walls
+
+
+def family_count(arch: str, layers, shape) -> dict:
+    """The collectives ``family_loop`` issues on rank 0 of a gloo world
+    on a (data, model) mesh of ``shape`` (a prefill of ``family_inputs``'
+    shapes, each step's logits gathered whole, FAMILY_STEPS decode steps
+    fed tokens; the weights cast as ``family_draw`` casts them), counted
+    on the meta device over a fake process group by the mesh dry run's
+    counter (``launch/dryrun.py``, ``launch/op_stats.py``): calls and
+    bytes by kind, as ``COMM_STATS`` files them."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import fake_world, lay_out
+    from repro_torch.launch.op_stats import count
+    from repro_torch.ops import ExecPolicy, use_policy
+    from repro_torch.serve.weights import cast_serving_params
+    from repro_torch.sharding.groups import mesh_groups
+    from repro_torch.sharding.logical import ShardingCtx, whole
+    model = family_model(arch, layers)
+    quant = "int8" if arch == "zamba2-7b" else "none"
+    s = FAMILY_PROMPT.get(arch, 64)
+    t0 = time.perf_counter()
+    with fake_world(shape[0] * shape[1]):
+        ctx = ShardingCtx(mesh_groups(shape, ("data", "model"), "cpu"),
+                          get_arch(arch).rules())
+        params = lay_out(cast_serving_params(
+            model, model.init(torch.Generator(), device="meta"), "meta"),
+            model.axes(), ctx)
+        cache = lay_out(model.init_cache(FAMILY_BATCH, s + FAMILY_STEPS,
+                                         device="meta"),
+                        model.cache_axes(), ctx)
+        batch = {"tokens": torch.empty((FAMILY_BATCH, s), dtype=torch.int64,
+                                       device="meta")}
+        nxt = torch.empty((FAMILY_BATCH,), dtype=torch.int32, device="meta")
+
+        def loop():
+            with use_policy(ExecPolicy(quant=quant)), torch.no_grad():
+                out, c = model.prefill(params, batch, cache, ctx)
+                for i in range(FAMILY_STEPS + 1):
+                    whole(out)
+                    if i < FAMILY_STEPS:
+                        out, c = model.decode_step(params, nxt, s + i, c,
+                                                   ctx)
+        _, stats = count(loop)
+    return {"calls": {k: int(v)
+                      for k, v in stats.collective_count_by_op.items()},
+            "bytes": {k: int(v)
+                      for k, v in stats.collective_bytes_by_op.items()},
+            "count_s": time.perf_counter() - t0}
+
+
+def family_count_hold(job, ranks) -> dict:
+    """``family_count`` of ``job`` (from a host worker, else counted here)
+    against every rank's measured ``COMM_STATS`` in its world: the calls
+    and bytes of each kind equal."""
+    counted = HOST_JOBS.pop(("family_count",) + job, None)
+    counted = counted.result() if counted is not None \
+        else family_count(*job)
+    key = family_key(*job)
+    rows = [next(r for r in rank["jobs"] if family_key(
+        r["arch"], r["layers"], tuple(r["mesh"])) == key) for rank in ranks]
+    for rank, row in zip(ranks, rows):
+        got = row["collectives"]
+        check(got["calls"] == counted["calls"]
+              and got["bytes"] == counted["bytes"],
+              f"family mesh {key}: counted collectives {counted} vs rank "
+              f"{rank['rank']}'s measured {got['calls']} {got['bytes']}")
+    print(f"chip_smoke:   family mesh {key}: collectives counted on meta "
+          f"{counted['calls']} {counted['bytes']} = each of the "
+          f"{len(ranks)} ranks' measured", file=sys.stderr, flush=True)
+    return {"job": key, "counted": counted,
+            "measured": [{"calls": r["collectives"]["calls"],
+                          "bytes": r["collectives"]["bytes"]}
+                         for r in rows], "equal": True}
 
 
 def family_ulp(x: float) -> float:
@@ -4951,7 +5352,7 @@ def phase_family_mesh(device) -> dict:
     free_card()
     world1, total = family_world1(device)
     lap("family_mesh NCCL world 1")
-    worlds, ref_walls = [], {}
+    worlds, ref_walls, held = [], {}, []
     with tempfile.TemporaryDirectory(prefix="family_mesh_",
                                      dir=ROOT / "build") as work:
         ref_path = str(Path(work) / "ref.pt")
@@ -4969,6 +5370,9 @@ def phase_family_mesh(device) -> dict:
             t0 = time.perf_counter()
             ranks = run_spmd(family_rank, world, "gloo", "cuda", jobs,
                              ref_path, shared, timeout=FAMILY_TIMEOUT_S)
+            counted = [family_count_hold(job, ranks) for job in jobs
+                       if job in FAMILY_COUNTED]
+            held += [c["job"] for c in counted]
             for r in ranks:
                 total = {k: total[k] + r["launches"][k] for k in total}
             check(all(r["launches"]["qmatmul"] for r in ranks)
@@ -4983,12 +5387,18 @@ def phase_family_mesh(device) -> dict:
             torch.cuda.ipc_collect()
             worlds.append({"world": world, "backend": "gloo",
                            "seconds": seconds, "moe": moe,
+                           "counted_collectives": counted,
                            "jobs": [r["jobs"] for r in ranks],
                            "shard_shapes": ranks[0]["shard_checks"],
                            "launches": [r["launches"] for r in ranks],
                            "note": "every rank time-shares one card: these "
                                    "walls say nothing about scaling"})
             lap(f"family_mesh world {world}'s MoE jobs held")
+    check(sorted(held) == sorted(family_key(*j) for j in FAMILY_COUNTED)
+          and not [k for k in HOST_JOBS
+                   if isinstance(k, tuple) and k[0] == "family_count"],
+          f"family mesh: collectives counted for {held}, expected every "
+          f"job of {FAMILY_COUNTED}, each in one gloo world")
     emit({"phase": "family_mesh", "world1": world1,
           "reference_walls_s": ref_walls, "worlds": worlds,
           "steps": 1 + FAMILY_STEPS, "steps_data_axis": 1 + FAMILY_STEPS_DATA,
@@ -5184,7 +5594,9 @@ def odd_time_row(gen, device) -> dict:
 def lm_time_rows(gen, device) -> list[dict]:
     """qmatmul at the LMs' MLP shapes: a decode step at capacity 4 (M =
     4) and a 64-token prefill (M = 64), each (K, N) of wi/wg and wo, for
-    qwen1.5-0.5b and each LM_DENSE_ARCHS config; and zamba2-7b's shared
+    qwen1.5-0.5b and each LM_DENSE_ARCHS config; qwen1.5-0.5b's whole
+    weights at a rank's rows on the multi-pod (2, 2, 1) mesh (M = 2 a
+    decode step, 32 a 32-token prefill; drawn last); and zamba2-7b's shared
     MLP at M = 4, 256 and 512 (its two prompt lengths), each of those
     first held bitwise against the plain version (127² · 14,336 < 2³¹:
     no int32 overflow). The library yardstick is ``torch._int_mm``
@@ -5205,6 +5617,8 @@ def lm_time_rows(gen, device) -> list[dict]:
     cases += [("zamba2-7b", m, k, n, 300 + i)
               for i, (k, n) in enumerate(((3584, 14336), (14336, 3584)))
               for m in (4, 256, 512)]
+    cases += [(LM_ARCH + " (2, 2, 1)", m, k, n, None) for m in (2, 32)
+              for k, n in ((1024, 2816), (2816, 1024))]
     rows = []
     for arch, m, k, n, seed in cases:
         xc, wc, xs, ws = (qmatmul_inputs(gen, m, k, n, device) if seed is None
@@ -5227,7 +5641,7 @@ def lm_time_rows(gen, device) -> list[dict]:
                 check(same, f"torch._int_mm at {m}x{k}x{n} disagrees "
                             f"with the plain qmatmul")
                 note = None
-        stage = ("decode" if m == 4 else "prefill") + f" {m}x{k}x{n}"
+        stage = ("decode" if m <= 4 else "prefill") + f" {m}x{k}x{n}"
         row = _time_row(
             "qmatmul", stage, m,
             lambda xc=xc, wc=wc, xs=xs, ws=ws: qmatmul(xc, wc, xs, ws),
@@ -5461,8 +5875,21 @@ def card_vs_cpu_jobs() -> list[tuple]:
                 (128, 64), False)])
 
 
+def mesh_sweep_cells() -> list[tuple]:
+    """(multi_pod, arch, shape) of the mesh dry run's grid at both
+    production meshes, the train cells first (they take the longest),
+    the multi-pod mesh's first among each kind."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs.base import SHAPES
+    order = {"train": 0, "prefill": 1, "decode": 2}
+    cells = [(mp, a, s) for mp in (True, False) for a in ARCH_IDS
+             for s in SHAPES]
+    return sorted(cells, key=lambda c: order[SHAPES[c[2]][0]])
+
+
 def start_host_jobs() -> None:
-    """Start the card-vs-CPU checks' CPU sides and the dry-run sweep in
+    """Start the card-vs-CPU checks' CPU sides, the dry-run sweep, the
+    mesh dry run's sweep and the family_mesh jobs' collective counts in
     spawned worker processes beside the card's phases."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -5487,9 +5914,20 @@ def start_host_jobs() -> None:
         for shape in SHAPES:
             f = sweep.submit(run_cell, a, shape)
             f.add_done_callback(
-                lambda _: job["done"].append(time.perf_counter()))
+                lambda _, done=job["done"]: done.append(time.perf_counter()))
             job["cells"].append(f)
     HOST_JOBS["sweep"] = job
+    pods = ProcessPoolExecutor(MESH_SWEEP_WORKERS, mp_context=ctx)
+    HOST_POOLS.append(pods)
+    for key in FAMILY_COUNTED:
+        HOST_JOBS[("family_count",) + key] = pods.submit(family_count, *key)
+    mesh_job = {"t0": time.perf_counter(), "done": [], "cells": []}
+    for mp, a, shape in mesh_sweep_cells():
+        f = pods.submit(run_cell, a, shape, multi_pod=mp)
+        f.add_done_callback(
+            lambda _, done=mesh_job["done"]: done.append(time.perf_counter()))
+        mesh_job["cells"].append(f)
+    HOST_JOBS["mesh_sweep"] = mesh_job
 
 
 def start_train_launchers() -> None:
@@ -5546,7 +5984,7 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
                          "lm, moe, ssm, train, launch, mesh, lm_mesh, "
-                         "family_mesh, times, plans); "
+                         "family_mesh, mesh_dryrun, times, plans); "
                          "prints no result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
@@ -5571,6 +6009,7 @@ def main(argv=None) -> int:
               "train": phase_train, "launch": phase_launch,
               "mesh": phase_mesh, "lm_mesh": phase_lm_mesh,
               "family_mesh": phase_family_mesh,
+              "mesh_dryrun": phase_mesh_dryrun,
               "times": phase_times, "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
@@ -5623,6 +6062,7 @@ def main(argv=None) -> int:
         family = phases["family_mesh"](device)  # counted from 0 per rank
         check(family["qmatmul"],
               f"qmatmul never launched on the family mesh path: {family}")
+        phases["mesh_dryrun"](device)           # meta only: no launches
         emit({"phase": "launches", "main": launches, "boot": boot,
               "lm": lm, "moe": moe, "ssm": ssm, "train": train,
               "launch": launch, "mesh": mesh, "lm_mesh": lm_mesh,

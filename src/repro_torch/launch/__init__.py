@@ -1,6 +1,7 @@
 """Launchers, ported from ``repro.launch``: the serving and training
-launchers, and the one-device launch tooling (``dryrun``: every
-(arch × shape) run on the meta device and counted by ``op_stats``, with
+launchers, the launch tooling (``dryrun``: every (arch × shape) run on
+the meta device and counted by ``op_stats``, as one device or as rank 0
+of the reference's production meshes over a fake process group, with
 an H100 ``roofline``) and the meshes (``mesh.py``: ``DeviceMesh``
-constructors and the ``run_spmd`` helper; the multi-pod mesh is the LM
-half of ROADMAP §A.10)."""
+constructors, the multi-pod (pod, data, model) mesh among them, and the
+``run_spmd`` helper)."""

@@ -3,7 +3,8 @@
 Port of ``repro.launch.mesh`` and of ``build_mesh``
 (``repro.launch.train``). A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` whose axes are named as the
-reference's: ``("data", "model")``, or ``("model",)`` alone. Every rank
+reference's: ``("pod", "data", "model")`` (the multi-pod mesh),
+``("data", "model")``, or ``("model",)`` alone. Every rank
 runs the same program (SPMD) and builds the same mesh; creating one
 creates its process groups, which every rank must do together, in the
 same order.
@@ -37,16 +38,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["MESH_AXES", "make_mesh_shape", "make_production_mesh",
+__all__ = ["MESH_AXES", "POD_AXES", "make_mesh_shape",
+           "make_production_mesh",
            "make_test_mesh", "build_mesh", "resolve_backend",
            "init_process_group", "run_spmd"]
 
 MESH_AXES = ("data", "model")
+POD_AXES = ("pod",) + MESH_AXES
 
 
 def make_mesh_shape(*, multi_pod: bool = False):
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else MESH_AXES
+    axes = POD_AXES if multi_pod else MESH_AXES
     return shape, axes
 
 
@@ -61,12 +64,9 @@ def _mesh(shape, axes, device=None):
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The reference's production mesh: (data=16, model=16) over the
-    first 256 ranks. Multi-pod is the LM half of ROADMAP §A.10."""
-    if multi_pod:
-        raise NotImplementedError(
-            "the multi-pod mesh is not ported yet (ROADMAP §A.10, the "
-            "LM half)")
-    shape, axes = make_mesh_shape()
+    first 256 ranks, or (pod=2, data=16, model=16) over the first 512
+    (``multi_pod``)."""
+    shape, axes = make_mesh_shape(multi_pod=multi_pod)
     n = int(np.prod(shape))
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have < n:
@@ -134,22 +134,24 @@ def _local_card(backend: str) -> int:
 
 
 def build_mesh(spec: str, backend: str | None = None, device="cuda"):
-    """``spec``: ``"auto"`` (1 × world), ``"1"`` (one rank, a ``model``
-    axis of 1) or ``"DxM"`` (data × model). Joins the process group
-    first (``init_process_group``). A three-axis spec is the multi-pod
-    mesh, ROADMAP §A.10's LM half, and raises. Over gloo the mesh's
-    groups stage card tensors through host memory
-    (``sharding.groups.mesh_groups``)."""
+    """``spec``: ``"auto"`` (the reference's: the multi-pod production
+    mesh from 512 ranks, the pod mesh from 256, else 1 × world), ``"1"``
+    (one rank, a ``model`` axis of 1), ``"DxM"`` (data × model) or
+    ``"PxDxM"`` (pod × data × model). Joins the process group first
+    (``init_process_group``). Over gloo the mesh's groups stage card
+    tensors through host memory (``sharding.groups.mesh_groups``)."""
     init_process_group(backend, device)
     world = dist.get_world_size()
     if spec == "auto":
+        if world >= 256:
+            return make_production_mesh(multi_pod=world >= 512,
+                                        device=device)
         return _mesh((1, world), MESH_AXES, device)
     shape = tuple(int(x) for x in spec.split("x"))
-    if len(shape) > 2:
-        raise NotImplementedError(
-            f"mesh {spec!r}: the multi-pod mesh is not ported yet "
-            f"(ROADMAP §A.10, the LM half)")
-    axes = MESH_AXES[-len(shape):]
+    if len(shape) > len(POD_AXES):
+        raise ValueError(f"mesh {spec!r}: at most {len(POD_AXES)} axes "
+                         f"{POD_AXES}")
+    axes = POD_AXES[-len(shape):]
     if int(np.prod(shape)) > world:
         raise ValueError(f"mesh {spec!r} needs {int(np.prod(shape))} "
                          f"ranks; the world has {world}")

@@ -40,8 +40,28 @@ aten op the step dispatches, the backward's included:
   alive while autograd or a view holds it), each rounded up to the CUDA
   caching allocator's 512-byte blocks; the arguments' storages are live
   throughout. ``peak_bytes`` is the most live at once.
-* Collectives: none on one device (``collective_bytes`` 0); counting a
-  mesh's (the mesh dry run) is the LM half of ROADMAP §A.10.
+* DTensors (the mesh dry run, ``launch/dryrun.py``): an op on DTensors
+  is left to DTensor (the mode returns ``NotImplemented``), which runs
+  it on each rank's local tensors, redistributing first where it must;
+  the mode sees those local ops, so FLOPs, bytes and the peak are one
+  rank's. DTensor's sharding propagation runs the op once more on
+  ``FakeTensor``s of the global shapes, on the CPU: those charge nothing,
+  as any op whose tensors all lie on the CPU.
+* Collectives: every ``c10d`` and ``_c10d_functional`` collective is
+  counted under the kind ``core.parallelism.COMM_STATS`` files it under
+  when a ``StagedGroup`` runs it (``all_gather``, ``all_reduce``,
+  ``reduce_scatter``, ``exchange``: a ring hop's send, or an
+  all-to-all), with the bytes ``StagedGroup._run`` counts: the tensors
+  this rank puts in (the shard it contributes to an all-gather, the
+  whole input of a reduce-scatter, the tensor an all-reduce sums, the
+  block a send sends). ``collective_count_by_op`` and
+  ``collective_bytes_by_op`` keep them apart by kind;
+  ``collective_bytes`` is their sum with each all-reduce counted twice
+  (a ring all-reduce is a reduce-scatter and an all-gather: the
+  reference's weighting), which the roofline prices over NVLink.
+  Collectives charge no HBM bytes. ``wait_tensor`` and
+  ``_wrap_tensor_autograd`` are not collectives and charge nothing; a
+  collective that is in neither table raises, so none goes uncounted.
 """
 from __future__ import annotations
 
@@ -54,7 +74,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["OpCost", "OpStats", "OpCounter", "count", "ALLOC_BLOCK"]
+from repro_torch.launch.roofline import ALL_REDUCE_WEIGHT
+
+__all__ = ["OpCost", "OpStats", "OpCounter", "count", "ALLOC_BLOCK",
+           "COLLECTIVES"]
 
 ALLOC_BLOCK = 512     # the CUDA caching allocator's rounding, in bytes
 
@@ -69,6 +92,47 @@ _OVERWRITE = {_aten.copy_, _aten.fill_, _aten.zero_}
 # whole source
 _GATHER = {_aten.index, _aten.index_select, _aten.gather, _aten.embedding}
 
+# collective op -> (COMM_STATS kind, the argument holding what this rank
+# puts in: a tensor or a list of them)
+COLLECTIVES = {
+    "_c10d_functional.all_gather_into_tensor": ("all_gather", 0),
+    "_c10d_functional.all_gather_into_tensor_coalesced": ("all_gather", 0),
+    "_c10d_functional.all_gather_into_tensor_out": ("all_gather", 0),
+    "_c10d_functional_autograd.all_gather_into_tensor": ("all_gather", 0),
+    "c10d._allgather_base_": ("all_gather", 1),
+    "c10d.allgather_": ("all_gather", 1),
+    "c10d.allgather_coalesced_": ("all_gather", 1),
+    "c10d.allgather_into_tensor_coalesced_": ("all_gather", 1),
+    "_c10d_functional.all_reduce": ("all_reduce", 0),
+    "_c10d_functional.all_reduce_": ("all_reduce", 0),
+    "_c10d_functional.all_reduce_coalesced": ("all_reduce", 0),
+    "_c10d_functional.all_reduce_coalesced_": ("all_reduce", 0),
+    "c10d.allreduce_": ("all_reduce", 0),
+    "c10d.allreduce_coalesced_": ("all_reduce", 0),
+    "_c10d_functional.reduce_scatter_tensor": ("reduce_scatter", 0),
+    "_c10d_functional.reduce_scatter_tensor_coalesced":
+        ("reduce_scatter", 0),
+    "_c10d_functional.reduce_scatter_tensor_out": ("reduce_scatter", 0),
+    "_c10d_functional_autograd.reduce_scatter_tensor": ("reduce_scatter", 0),
+    "c10d._reduce_scatter_base_": ("reduce_scatter", 1),
+    "c10d.reduce_scatter_": ("reduce_scatter", 1),
+    "c10d.reduce_scatter_tensor_coalesced_": ("reduce_scatter", 1),
+    "c10d.send": ("exchange", 0),
+    "_c10d_functional.isend": ("exchange", 0),
+    "_c10d_functional.all_to_all_single": ("exchange", 0),
+    "_c10d_functional_autograd.all_to_all_single": ("exchange", 0),
+    "c10d.alltoall_": ("exchange", 1),
+    "c10d.alltoall_base_": ("exchange", 1),
+}
+# distributed ops that move nothing of their own: a wait, an autograd
+# wrapper, the receiving half of a hop (its send is counted), a barrier
+_NOT_COLLECTIVES = {"_c10d_functional.wait_tensor",
+                    "_c10d_functional._wrap_tensor_autograd",
+                    "_c10d_functional.irecv", "c10d.recv_",
+                    "c10d.barrier", "c10d.monitored_barrier_"}
+_DIST_NAMESPACES = ("c10d.", "_c10d_functional.",
+                    "_c10d_functional_autograd.")
+
 
 @dataclass
 class OpCost:
@@ -82,7 +146,9 @@ class OpStats:
     flops: float = 0.0
     dot_flops: float = 0.0
     bytes_accessed: float = 0.0
-    collective_bytes: float = 0.0                 # one device: none
+    collective_bytes: float = 0.0        # all-reduce weighted ×2
+    collective_bytes_by_op: dict = field(default_factory=dict)  # kind -> B
+    collective_count_by_op: dict = field(default_factory=dict)  # kind -> n
     flops_by_dtype: dict = field(default_factory=dict)   # "bfloat16" -> F
     ops: dict = field(default_factory=dict)       # name -> OpCost
     peak_bytes: int = 0
@@ -94,8 +160,13 @@ class OpStats:
         self.dot_flops += other.dot_flops * mult
         self.bytes_accessed += other.bytes_accessed * mult
         self.collective_bytes += other.collective_bytes * mult
-        for k, v in other.flops_by_dtype.items():
-            self.flops_by_dtype[k] = self.flops_by_dtype.get(k, 0.0) + v * mult
+        for mine, theirs in ((self.flops_by_dtype, other.flops_by_dtype),
+                             (self.collective_bytes_by_op,
+                              other.collective_bytes_by_op),
+                             (self.collective_count_by_op,
+                              other.collective_count_by_op)):
+            for k, v in theirs.items():
+                mine[k] = mine.get(k, 0.0) + v * mult
         for k, c in other.ops.items():
             mine = self.ops.setdefault(k, OpCost())
             mine.count += c.count * mult
@@ -112,6 +183,8 @@ class OpStats:
         return {"flops": self.flops, "dot_flops": self.dot_flops,
                 "bytes_accessed": self.bytes_accessed,
                 "collective_bytes": self.collective_bytes,
+                "collective_bytes_by_op": dict(self.collective_bytes_by_op),
+                "collective_count_by_op": dict(self.collective_count_by_op),
                 "flops_by_dtype": dict(self.flops_by_dtype),
                 "peak_bytes": self.peak_bytes,
                 "top_ops_by_bytes": [
@@ -119,8 +192,17 @@ class OpStats:
                      "bytes": c.bytes} for k, c in self.top(10)]}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (what this rank holds); a tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree``, in lists too (a collective's arguments),
+    each DTensor as its local tensor."""
+    return [_local(t) for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -128,8 +210,9 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class OpCounter(TorchDispatchMode):
-    """Counts the aten ops dispatched inside it into ``stats`` (see the
-    module docstring). ``track`` marks trees as live for the peak."""
+    """Counts the aten ops and collectives dispatched inside it into
+    ``stats`` (see the module docstring). ``track`` marks trees as live
+    for the peak."""
 
     def __init__(self):
         super().__init__()
@@ -199,9 +282,35 @@ class OpCounter(TorchDispatchMode):
                 + 2 * sum(_nbytes(t) for t in outs)
         return sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
 
+    def _collective(self, name: str, args) -> None:
+        """A collective: its calls and this rank's bytes, by kind."""
+        if name in _NOT_COLLECTIVES:
+            return
+        if name not in COLLECTIVES:
+            raise KeyError(f"collective {name} is not counted (OpCounter's "
+                           f"table has no kind for it)")
+        kind, arg = COLLECTIVES[name]
+        nbytes = float(sum(_nbytes(t) for t in _tensors(args[arg])))
+        s = self.stats
+        s.collective_count_by_op[kind] = \
+            s.collective_count_by_op.get(kind, 0.0) + 1
+        s.collective_bytes_by_op[kind] = \
+            s.collective_bytes_by_op.get(kind, 0.0) + nbytes
+        s.collective_bytes += nbytes * (ALL_REDUCE_WEIGHT
+                                        if kind == "all_reduce" else 1.0)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs it on the local tensors, which this mode sees
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        name = str(func._overloadpacket)
+        if name.startswith(_DIST_NAMESPACES):
+            if any(t.device.type != "cpu" for t in _tensors((args, out))):
+                self._collective(name, args)
+            return out
         if all(t.device.type == "cpu" for t in _tensors((args, kwargs, out))):
             return out      # the host's arithmetic (a constant), not the step's
         packet = func._overloadpacket
@@ -210,7 +319,7 @@ class OpCounter(TorchDispatchMode):
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
             first = _tensors((args, kwargs))[0]
             dtype = str(first.dtype).replace("torch.", "")
-        self._charge(str(packet), float(flops), dtype,
+        self._charge(name, float(flops), dtype,
                      float(self._op_bytes(func, args, kwargs, out)),
                      dot=True)
         for t in _tensors(out):

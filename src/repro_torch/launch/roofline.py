@@ -15,14 +15,18 @@ definition (useful FLOPs at the bf16 peak); ``measured`` divides by a
 step's wall on the card instead of the model's step time.
 
 The reference's ``parse_collective_bytes`` reads collectives out of HLO
-text; the port has no HLO, and one device has no collectives, so it is
-not ported (ROADMAP §A).
+text; the port has no HLO and is not ported: ``launch/op_stats.py``
+counts a mesh's collectives as it runs the step (the mesh dry run), by
+kind (``collective_bytes_by_op``, ``collective_count_by_op``), and the
+collective term prices their bytes with each all-reduce counted twice,
+as the reference's parser weights them.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
-__all__ = ["HW", "PEAK_FLOPS", "roofline_terms", "RooflineReport"]
+__all__ = ["HW", "PEAK_FLOPS", "ALL_REDUCE_WEIGHT", "roofline_terms",
+           "RooflineReport"]
 
 
 class HW:
@@ -35,6 +39,11 @@ class HW:
     NVLINK_BW = 450e9               # B/s per direction, to each other card
     HBM_BYTES = 80e9
 
+
+# the collective term counts an all-reduce's bytes twice: a ring
+# all-reduce is a reduce-scatter and an all-gather (the reference's
+# weighting of its HLO's all-reduces)
+ALL_REDUCE_WEIGHT = 2.0
 
 # the peak a FLOP in each dtype runs at (op_stats' dtype names)
 PEAK_FLOPS = {"bfloat16": HW.PEAK_FLOPS_BF16,
@@ -69,6 +78,9 @@ class RooflineReport:
     model_flops: float                  # useful FLOPs (6·N·D or 2·N·tokens)
     flops_by_dtype: dict                # flops_per_device by dtype name
     peak_memory_per_device: float | None = None
+    # a mesh's collectives by kind: bytes and calls a device
+    collective_bytes_by_op: dict = field(default_factory=dict)
+    collective_count_by_op: dict = field(default_factory=dict)
 
     def _terms(self) -> dict:
         return roofline_terms(self.flops_by_dtype, self.bytes_per_device,
@@ -128,6 +140,8 @@ class RooflineReport:
             "flops_by_dtype": self.flops_by_dtype,
             "bytes_per_device": self.bytes_per_device,
             "collective_bytes_per_device": self.collective_bytes_per_device,
+            "collective_bytes_by_op": dict(self.collective_bytes_by_op),
+            "collective_count_by_op": dict(self.collective_count_by_op),
             "model_flops": self.model_flops,
             "peak_memory_per_device": self.peak_memory_per_device,
             "compute_s": self.compute_s, "memory_s": self.memory_s,

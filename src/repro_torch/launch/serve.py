@@ -51,7 +51,9 @@ its shards. ``--dist-backend`` names the process-group backend: NCCL
 when every rank has a card of its own (the default resolves to it and
 raises otherwise), ``gloo`` for several ranks on one card or on the CPU.
 ``auto`` keeps the vision path on one device, as in the reference. An LM
-arch on ``--mesh DxM`` serves through the ``Engine`` on every rank
+arch on ``--mesh DxM`` or ``PxDxM`` (pod × data × model, the
+multi-pod mesh: the slots split over pod and data) serves through the
+``Engine`` on every rank
 (SPMD, rank 0 prints), its weights and KV cache laid out by the model's
 logical axes under the arch's rules (``repro_torch.sharding``); over
 gloo its steps run eagerly (``graphs: off (gloo)``), over NCCL they are
@@ -308,7 +310,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default="auto",
                     help="'auto' (one device) or DxM (data x model): a "
                          "channel-parallel CNN, or an LM laid out by its "
-                         "logical axes")
+                         "logical axes; PxDxM (pod x data x model) for an "
+                         "LM")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     default=None,
                     help="process-group backend of --mesh (default: NCCL "

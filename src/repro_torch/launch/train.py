@@ -27,7 +27,9 @@ each step is a replay of its CUDA graph, captured at the first step
 (``--eager`` runs the same steps on the same buffers without one); the
 checkpoints read the static trees, which each step writes in place.
 
-``--mesh DxM`` trains over a (data × model) mesh of the running world
+``--mesh DxM`` trains over a (data × model) mesh of the running world,
+``--mesh PxDxM`` over a (pod × data × model) one, the batch split over
+pod and data
 (``torchrun``; ``--dist-backend`` as the serve launcher's): the params
 and optimizer state are DTensors laid out by the model's logical axes
 under the arch's rules, every rank draws the same global batch and the
@@ -87,8 +89,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="auto",
-                    help="'auto' or '1' (one device), or DxM (data x "
-                         "model) over the running world")
+                    help="'auto' or '1' (one device), DxM (data x model) "
+                         "or PxDxM (pod x data x model) over the running "
+                         "world")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     default=None,
                     help="process-group backend of --mesh (default: NCCL "

@@ -36,7 +36,8 @@ from repro_torch.core.window import conv2d_im2col, conv2d_ref, maxpool2
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.registry import dispatch, register
 from repro_torch.ops.tiling import TREE_MAX_ETA
-from repro_torch.sharding.logical import is_dtensor, redistribute
+from repro_torch.sharding.logical import (is_dtensor, matmul_rows,
+                                          redistribute)
 
 __all__ = ["conv2d", "fused_conv_block", "tree_reduce_sum", "qmatmul",
            "qdense", "dense", "causal_conv1d", "quantize_conv_int8",
@@ -333,7 +334,12 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
         q = pol.qformat
         out = q.quantize(torch.matmul(q.quantize(x), q.quantize(w)))
         return out if b is None else q.quantize(out + q.quantize(b))
-    out = torch.matmul(x, w)
+    if is_dtensor(x) and any(p.is_shard() and 0 < p.dim < x.ndim - 1
+                             for p in x.placements):
+        # rows split along the sequence: a product on local tensors
+        out = matmul_rows(x, w)
+    else:
+        out = torch.matmul(x, w)
     return out if b is None else out + b
 
 

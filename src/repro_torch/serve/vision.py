@@ -54,7 +54,7 @@ collectives run on the host and cannot be captured in a CUDA graph;
 NCCL's could be, but a captured ring across cards has never run (the
 card runs have one H100), so a multi-card NCCL mesh stays eager, its
 collectives queued on the stream without a host sync, until that is
-measured (ROADMAP §A.10). A mesh of one rank captures its graphs as
+measured on several cards (ROADMAP §A). A mesh of one rank captures its graphs as
 without a mesh.
 """
 from __future__ import annotations

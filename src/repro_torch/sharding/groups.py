@@ -22,7 +22,11 @@ and the transfer).
 ``DeviceMesh`` over ``ranks`` (the first prod(shape) ranks of the
 running world by default): over gloo its groups are ``StagedGroup``s,
 over NCCL the plain ``DeviceMesh`` groups (NCCL takes card tensors and
-keeps its collectives on the stream).
+keeps its collectives on the stream), and over torch's ``fake`` backend
+(a world of hundreds of ranks in one process, whose collectives move
+nothing) the plain groups too: the mesh dry run's meshes
+(``launch/dryrun.py``), whose collectives are counted by
+``launch/op_stats.py`` as ``StagedGroup`` counts them here.
 """
 from __future__ import annotations
 
@@ -124,11 +128,11 @@ class StagedGroup(dist.ProcessGroup):
     def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
         def body():
             for out, inp in zip(outputs, inputs):
-                n = self.size()
-                h_outs = [torch.empty(inp.shape, dtype=inp.dtype)
-                          for _ in range(n)]
-                self.inner.allgather([h_outs], [_host(inp)]).wait()
-                out.copy_(torch.cat(h_outs, dim=0).reshape(out.shape))
+                h = torch.empty((self.size(),) + tuple(inp.shape),
+                                dtype=inp.dtype)
+                self.inner.allgather([list(h.unbind(0))],
+                                     [_host(inp)]).wait()
+                out.copy_(h.reshape(out.shape))
 
         self._run("all_gather", inputs, body)
         return self._done(outputs)
@@ -146,7 +150,7 @@ class StagedGroup(dist.ProcessGroup):
 
         def body():
             for out, inp in zip(outputs, inputs):
-                h = _host(inp).clone()
+                h = inp.cpu() if inp.is_cuda else inp.clone()
                 self.inner.allreduce([h], o).wait()
                 k = h.shape[0] // self.size()
                 r = self.rank()
@@ -206,7 +210,9 @@ def mesh_groups(shape, axes, device, backend: str | None = None,
     by default). Over gloo (the world's backend, or ``backend``) every
     axis group is a ``StagedGroup``; over NCCL the plain ``DeviceMesh``.
     Every rank of the world calls it, in the same order: it creates every
-    axis group of the mesh. A rank outside the mesh gets None."""
+    axis group of the mesh. A rank outside the mesh gets None. Over the
+    ``fake`` backend the one process is rank 0 of a world it only
+    pretends to: the plain ``DeviceMesh``, nothing staged."""
     from torch.distributed.device_mesh import DeviceMesh
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     dev_type = torch.device(device).type
@@ -214,7 +220,7 @@ def mesh_groups(shape, axes, device, backend: str | None = None,
         ranks = torch.arange(int(np.prod(shape)), dtype=torch.int)
     ranks = torch.as_tensor(ranks, dtype=torch.int).reshape(shape)
     backend = backend or dist.get_backend()
-    if backend != "gloo":
+    if backend != "gloo":       # NCCL, or the dry run's fake: no staging
         return DeviceMesh(dev_type, ranks, mesh_dim_names=axes)
     _register()
     me = dist.get_rank()

@@ -373,19 +373,24 @@ def spmd_global(t: torch.Tensor, mesh, placements):
 
 def matmul_rows(x, w):
     """``x @ w`` on local tensors: ``x`` (…, K) a DTensor, each rank
-    multiplying the rows it holds (whole in K) by its part of ``w`` (K,
+    multiplying the rows it holds (whole in K; its batch shard, and its
+    sequence shard where the sequence is split) by its part of ``w`` (K,
     N): the whole weight, or its columns where ``w`` is split over
-    ``model`` in N (the product's columns are then split there too; a
-    split elsewhere is gathered).
+    ``model`` in N and the rows are not (the product's columns are then
+    split there too; a split elsewhere is gathered).
     DTensor's own matmul of a 3-D shard runs as a batch of one-row
     products, which a CPU's BLAS rounds otherwise than the unsharded
-    product. Under autograd ``w``'s gradient is partial over the row
+    product, and of a sequence shard (torch 2.11) refuses to flatten
+    the rows. Under autograd ``w``'s gradient is partial over the row
     shards, and ``x``'s over the column splits."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
     names = tuple(mesh.mesh_dim_names)
-    rows = row_placements(x)
-    wpl = tuple(p if (a == "model" and p.is_shard(1)) else Replicate()
+    rows = tuple(p if (p.is_shard() and p.dim < x.ndim - 1)
+                 else Replicate() for p in x.placements)
+    used = {a for a, p in zip(names, rows) if p.is_shard()}
+    wpl = tuple(p if (a == "model" and p.is_shard(1) and a not in used)
+                else Replicate()
                 for a, p in zip(names, w.placements if is_dtensor(w)
                                 else (Replicate(),) * mesh.ndim))
     cols = {a for a, p in zip(names, wpl) if p.is_shard()}

@@ -9,10 +9,17 @@ scarce resource; two standard compressors are provided:
     quantization residual is carried into the next step, making the
     compression unbiased over time (Seide et al. / 1-bit SGD lineage).
 
-``cross_pod_grad_reduce`` takes each rank's pod-local gradients (plain
-tensors: already reduced over ``data``), compresses them, sums them over
-the mesh's ``pod`` axis and averages; the error-feedback state is carried
-per parameter. As in the reference it stays outside ``make_train_step``.
+``cross_pod_grad_reduce`` takes each rank's pod-local gradients (already
+reduced over ``data``), compresses them, sums them over the mesh's
+``pod`` axis and averages; the error-feedback state is carried per
+parameter. The gradients are plain tensors (each rank the whole of its
+pod's), or DTensors on the (pod, data, model) mesh laid out as their
+parameters (replicated over ``pod``, each pod holding its own values):
+then each rank reduces its local shard over ``pod``, and the int8 scale
+is the whole tensor's, its absmax a max all-reduce over the mesh dims
+that split the tensor, as the reference's replicated ``shard_map`` sees
+the whole gradient. As in the reference it stays outside
+``make_train_step``.
 The int8 scale is a true division by 127, as the reference's op-by-op
 ``/ 127.0``.
 """
@@ -24,13 +31,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.sharding.logical import is_dtensor, spmd_global
 
 __all__ = ["compress_decompress", "error_feedback_compress",
            "cross_pod_grad_reduce", "init_ef_state"]
 
 
-def _int8_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    amax = torch.max(torch.abs(x))
+def _int8_quant(x: torch.Tensor, amax: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codes, scale) of ``x``; ``amax`` is the absmax the scale comes
+    from (``x``'s own by default)."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
     scale = torch.clamp(amax, min=1e-12) / torch.full(
         (), 127.0, device=x.device)
     codes = torch.clamp(torch.round(x / scale), -127, 127)
@@ -48,8 +60,10 @@ def compress_decompress(x: torch.Tensor, mode: Literal["bf16", "int8"]
 
 
 def init_ef_state(params) -> dict:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """fp32 zeros shaped (and, on a mesh, laid out) as ``params``."""
+    return tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
 
 
 def error_feedback_compress(grad: torch.Tensor, ef: torch.Tensor,
@@ -68,10 +82,28 @@ def _pod_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     return out
 
 
+def _sharded_int8(g: torch.Tensor, ef: torch.Tensor, placements, mesh
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``error_feedback_compress(·, ·, "int8")`` on one rank's shards of
+    a gradient and its residual laid out by ``placements``: the scale
+    from the whole tensor's absmax, a max all-reduce over the mesh dims
+    that split it (exact, so the codes are the whole tensor's)."""
+    from repro_torch.core.parallelism import all_reduce
+    x = g.to(torch.float32) + ef
+    dims = [i for i, p in enumerate(placements) if p.is_shard()]
+    amax = all_reduce(torch.max(torch.abs(x)).clone(), mesh,
+                      dist.ReduceOp.MAX, dims)
+    codes, scale = _int8_quant(x, amax)
+    sent = codes.to(torch.float32) * scale
+    return sent, x - sent
+
+
 def cross_pod_grad_reduce(grads, ef_state, *, mesh,
                           mode: Literal["none", "bf16", "int8"] = "bf16"):
     """Compress -> sum over 'pod' -> average. ``grads`` are this rank's
-    pod-local means.
+    pod-local means: plain tensors, or DTensors on ``mesh`` (see the
+    module docstring; ``ef_state`` then laid out as them, as
+    ``init_ef_state`` makes it).
 
     Returns (reduced_grads, new_ef_state). Without a ``pod`` axis of more
     than one rank, or with mode="none", the trees come back as they are
@@ -86,10 +118,21 @@ def cross_pod_grad_reduce(grads, ef_state, *, mesh,
                    device=tree_leaves(grads)[0].device)
 
     def one(g, ef):
+        if is_dtensor(g):
+            pl = g.placements
+            red, new_ef = local(g.to_local(), ef.to_local(), pl)
+            return (spmd_global(red, mesh, pl),
+                    spmd_global(new_ef, mesh, ef.placements))
+        return local(g, ef, None)
+
+    def local(g, ef, placements):
         if mode == "bf16":
             red = _pod_sum(g.to(torch.bfloat16), mesh)
             return red.to(torch.float32) / n, ef
-        sent, new_ef = error_feedback_compress(g, ef, mode)
+        if placements is None:
+            sent, new_ef = error_feedback_compress(g, ef, mode)
+        else:
+            sent, new_ef = _sharded_int8(g, ef, placements, mesh)
         return (_pod_sum(sent, mesh) / n).to(g.dtype), new_ef
 
     pairs = tree_map(one, grads, ef_state)

@@ -572,9 +572,23 @@ def test_run_cell_full_size_writes_the_reference_keys(tmp_path):
 
 
 def test_multi_pod_raises(tmp_path):
-    for mode in ("on", "both"):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            dryrun.main(["--multi-pod", mode, "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A.10"):
-        dryrun.run_cell("qwen1.5-0.5b", "decode_32k", multi_pod=True,
-                        out_dir=tmp_path)
+    """The multi-pod dry run is ported: ``--multi-pod both`` writes one
+    cell's record on each production mesh, its collectives counted (the
+    mesh dry run, ``tests/test_torch_dryrun_mesh.py``). What still
+    raises is a fake world inside a process group already joined, so
+    the dry run never counts on a real group or leaves one behind."""
+    dryrun.main(["--multi-pod", "both", "--arch", "qwen1.5-0.5b",
+                 "--shape", "decode_32k", "--out", str(tmp_path)])
+    for mesh, chips in (("pod16x16", 256), ("pod2x16x16", 512)):
+        rec = json.loads((tmp_path / f"{mesh}__qwen1.5-0.5b__decode_32k"
+                                     f".json").read_text())
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["chips"] == chips and rec["mesh"] == mesh
+        assert rec["collectives"]["count_by_op"]["all_gather"] > 0
+        assert rec["roofline"]["collective_s"] > 0
+    assert not torch.distributed.is_initialized()
+    with dryrun.fake_world(4):
+        with pytest.raises(RuntimeError, match="joined one already"):
+            with dryrun.fake_world(4):
+                pass
+    assert not torch.distributed.is_initialized()

@@ -792,12 +792,67 @@ def test_backend_is_explicit():
     assert t_mesh.resolve_backend("gloo", 4, "cpu") == "gloo"
 
 
+_FAKE_WORLDS = """
+import json, sys
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.launch.mesh import build_mesh, make_production_mesh
+out = {}
+for world in (8, 256, 512):
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    m = build_mesh("auto", device="cpu")
+    out[str(world)] = [list(m.mesh.shape), list(m.mesh_dim_names)]
+    if world == 512:
+        p = make_production_mesh(multi_pod=True, device="cpu")
+        out["multi_pod"] = [list(p.mesh.shape), list(p.mesh_dim_names)]
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+@functools.cache
+def _fake_worlds() -> dict:
+    """``build_mesh("auto")`` on fake process groups of 8, 256 and 512
+    ranks, and ``make_production_mesh(multi_pod=True)`` on the 512, in a
+    child interpreter (a process group never outlives it)."""
+    import json
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-c", _FAKE_WORLDS],
+                         capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def test_mesh_shapes_and_the_production_mesh():
-    assert t_mesh.make_mesh_shape() == _jax().make_mesh_shape()
+    """Both production meshes have the reference's shapes and axes; the
+    multi-pod one builds on a (fake) world of 512 ranks, and either
+    refuses a world too small for it."""
+    j = _jax()
+    assert t_mesh.make_mesh_shape() == j.make_mesh_shape()
+    assert t_mesh.make_mesh_shape(multi_pod=True) == \
+        j.make_mesh_shape(multi_pod=True)
     with pytest.raises(RuntimeError, match=r"needs 256 devices"):
         t_mesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(RuntimeError, match=r"needs 512 devices"):
         t_mesh.make_production_mesh(multi_pod=True)
+    shape, axes = j.make_mesh_shape(multi_pod=True)
+    assert _fake_worlds()["multi_pod"] == [list(shape), list(axes)]
+
+
+@pytest.mark.parametrize("world,want", [
+    (8, [[1, 8], ["data", "model"]]),
+    (256, [[16, 16], ["data", "model"]]),
+    (512, [[2, 16, 16], ["pod", "data", "model"]])])
+def test_auto_mesh_is_the_references(world, want):
+    """``build_mesh("auto")`` as the reference's ``build_mesh``: the
+    multi-pod mesh from 512 ranks, the pod mesh from 256, else 1 × N."""
+    assert _fake_worlds()[str(world)] == want
 
 
 def test_launcher_serves_a_cnn_on_a_mesh_of_one(capsys):
@@ -819,16 +874,21 @@ def test_launcher_refuses_a_mesh_larger_than_the_world():
 def test_launcher_lm_on_a_mesh_cites_the_lm_half():
     """Every LM family serves on a mesh: an MoE arch (expert-parallel,
     tests/test_torch_moe_mesh.py) serves here on a world of one over
-    gloo; the multi-pod mesh, which is not ported, still cites the LM
-    half of ROADMAP §A.10."""
+    gloo, on the (data, model) mesh and on the multi-pod (pod, data,
+    model) one, the LM half of ROADMAP §A.10 (tests/test_torch_pod_mesh.py
+    runs it on worlds of four); a spec of more axes than the reference's
+    three is refused."""
     argv = ["--arch", "dbrx-132b", "--reduced", "--device", "cpu",
             "--dist-backend", "gloo", "--capacity", "2", "--requests", "2",
             "--prompt-len", "8", "--decode-steps", "2"]
-    _, results = launcher.main(argv + ["--mesh", "1x1"])
-    assert len(results) == 2 and all(len(r.generated) == 2
-                                     for r in results.values())
-    with pytest.raises(NotImplementedError, match="LM half"):
-        launcher.main(argv + ["--mesh", "1x1x1"])
+    for spec in ("1x1", "1x1x1"):
+        _, results = launcher.main(argv + ["--mesh", spec])
+        assert len(results) == 2 and all(len(r.generated) == 2
+                                         for r in results.values())
+        assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="at most 3 axes"):
+        launcher.main(argv + ["--mesh", "1x1x1x1"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_compile_on_a_mesh_places_and_refuses_autotune():
