@@ -287,10 +287,16 @@ Phases, each printing one JSON line:
            cell in error, exactly the 8 long_500k cells of the
            full-attention archs skipped on each mesh, collectives
            counted in every ok cell; one compact line a (mesh, arch).
+  analysis the port's static gate, ``python -m repro_torch.analysis
+           --root <repo>`` in a subprocess on this machine's Python: exit
+           0, the summary ``0 finding(s)`` (every lint rule over
+           ``src/repro_torch`` and this script) and ``verify <plan>: ok``
+           for ANALYSIS_PLANS; its seconds. It launches nothing.
 
 The card-vs-CPU checks' CPU sides, the dry-run sweep, the mesh dry
 run's sweep and zamba2's count run in worker processes started with the
-script (``start_host_jobs``), and the train
+script (``start_host_jobs``), the static gate in a subprocess beside
+them, and the train
 launchers start before the mesh phase, beside the card's phases; each
 is taken where its phase needs it.
 
@@ -575,6 +581,10 @@ FAMILY_ROUTER_GAP = 2.0 ** -4
 FAMILY_TIMEOUT_S = 600
 # the family_mesh jobs whose collectives are also counted on the meta
 # device (the mesh dry run's counter) and held equal to the measured
+# the plans ``python -m repro_torch.analysis`` compiles and verifies
+ANALYSIS_PLANS = ("mnist_cnn[none]", "mnist_cnn[qformat]", "mnist_cnn[int8]",
+                  "highres_cnn[streamed]")
+ANALYSIS_TIMEOUT_S = 300
 FAMILY_COUNTED = [("zamba2-7b", SSM_PLAIN_LAYERS, (1, 2))]
 
 
@@ -599,6 +609,15 @@ def kernel_modules():
     import repro_torch.kernels.fused_cwp.ops as fc
     import repro_torch.kernels.qmatmul.ops as qm
     return {"fused_cwp": fc, "conv_window": cw, "qmatmul": qm, "addtree": at}
+
+
+def plain_policy(**kw):
+    """The plain ``torch`` backend, pinned: the plain side of a
+    kernel-vs-plain check on the same device."""
+    from repro_torch.ops import ExecPolicy
+    return ExecPolicy(
+        backend="torch",  # lint: disable=backend-literal (a check's plain side)
+        **kw)
 
 
 def reset_counts() -> None:
@@ -1967,25 +1986,6 @@ def phase_lm(device) -> dict:
 
 # -------------------------------------------------------------------- moe
 
-@contextlib.contextmanager
-def moe_routing_log():
-    """Record every ``moe_apply``'s routing (flat experts (B, S·k), keep)
-    on the device, one entry a layer call, without a host sync."""
-    import repro_torch.models.moe as moe
-    log, slots = [], moe._slots
-
-    def logged(flat_e, e, cap):
-        pos, keep = slots(flat_e, e, cap)
-        log.append((flat_e, keep))
-        return pos, keep
-
-    moe._slots = logged
-    try:
-        yield log
-    finally:
-        moe._slots = slots
-
-
 def moe_engine(model, params, device) -> dict:
     """``Engine`` over the launcher's synthetic mix (8 requests, prompts
     of 64 or 32 tokens, 16 new tokens each, capacity 4), through its
@@ -2003,17 +2003,18 @@ def moe_group_independence(model, params, device) -> dict:
     (another batch size may take another GEMM, so bf16 sums may round
     apart)."""
     import torch
+    from repro_torch.models.moe import local_routing_trace
     from repro_torch.serve.steps import make_decode_step
     eng, tokens, pos = filled_engine(model, params, device)
     decode = make_decode_step(model, sample=False)
     cache = eng.kv.data
-    with moe_routing_log() as log:
+    with local_routing_trace() as log:
         together, _ = decode(eng.params, tokens, pos,
                              {k: v.clone() for k, v in cache.items()})
     routes = [fe for fe, _ in log]
     rows, routed_apart = [], 0
     for i in range(4):
-        with moe_routing_log() as log:
+        with local_routing_trace() as log:
             alone, _ = decode(eng.params, tokens[i:i + 1], pos[i:i + 1],
                               {k: v[:, i:i + 1].clone()
                                for k, v in cache.items()})
@@ -2037,12 +2038,15 @@ def moe_drops(model, params, device) -> dict:
     assignments dropped past capacity in each layer, and the experts
     each layer's routing reached."""
     import torch
-    from repro_torch.models.moe import _capacity
+    from repro_torch.models.moe import _capacity, local_routing_trace
     prompt = next(p for p in lm_prompts(model.cfg.vocab) if len(p) == 64)
-    with moe_routing_log() as log, torch.no_grad():
+    with local_routing_trace() as log, torch.no_grad():
         model.prefill(params, {"tokens": torch.as_tensor(
             prompt[None], device=device)},
             model.init_cache(1, 64, device=device))
+    check(len(log) == model.cfg.n_layers,
+          f"moe {model.cfg.name} drops: {len(log)} routings recorded for "
+          f"{model.cfg.n_layers} layers")
     m = model.cfg.moe
     return {"tokens": 64, "top_k": m.top_k,
             "capacity": _capacity(64, m),
@@ -2062,6 +2066,7 @@ def moe_times(model, params, device) -> list[dict]:
     head), at PEAK_BYTES; and the same with only the experts this call's
     routing reached."""
     import torch
+    from repro_torch.models.moe import local_routing_trace
     eng, tokens, pos = filled_engine(model, params, device)
     prompt = next(p for p in lm_prompts(model.cfg.vocab) if len(p) == 64)
     toks = torch.as_tensor(prompt[None], device=device)
@@ -2083,8 +2088,11 @@ def moe_times(model, params, device) -> list[dict]:
                         prompt, device)
     rows = []
     for step, fn in fns.items():
-        with moe_routing_log() as log:
+        with local_routing_trace() as log:
             fn()
+        check(len(log) == cfg.n_layers,
+              f"moe {cfg.name} {step}: {len(log)} routings recorded for "
+              f"{cfg.n_layers} layers")
         reached = [int(fe.unique().numel()) for fe, _ in log]
         rows_read = 64 if step == "prefill" else 4
         base = other + rows_read * nbytes(params["embedding"][0])
@@ -2135,7 +2143,7 @@ def moe_card_vs_cpu_host(threads: int | None = None) -> dict:
     cpu_params, cpu_x = to_device(params, "cpu"), x.cpu()
     del params, x
     torch.cuda.empty_cache()
-    with moe_routing_log() as log:
+    with moe.local_routing_trace() as log:
         out, aux = moe.moe_apply(cpu_params, cpu_x, cfg, None)
     probs, _, _, _ = moe._route(cpu_params, cpu_x, cfg)
     (experts, keep), = log
@@ -2158,7 +2166,7 @@ def moe_card_vs_cpu(device) -> dict:
     want, want_aux, probs, e_cpu, keep_cpu = (
         host[k] for k in ("out", "aux", "probs", "experts", "keep"))
     cfg, params, x = moe_card_vs_cpu_inputs(device)
-    with moe_routing_log() as log:
+    with moe.local_routing_trace() as log:
         got, aux = moe.moe_apply(params, x, cfg, None)
     del params
     srt = torch.sort(probs, dim=-1, descending=True).values
@@ -2426,7 +2434,7 @@ def train_forward_kernel_vs_plain(model, params, batch) -> dict:
     import torch
     from repro_torch.core.conv import conv2d_apply
     from repro_torch.core.window import maxpool2
-    from repro_torch.ops import ExecPolicy, use_policy
+    from repro_torch.ops import use_policy
     cfg = model.cfg
     x, out = batch["images"], {}
     for stage, conv_cfg in (("conv1", cfg.conv1_cfg),
@@ -2439,8 +2447,9 @@ def train_forward_kernel_vs_plain(model, params, batch) -> dict:
               and got.grad_fn is not None,
               f"train mnist forward {stage}: not one kernel launch that "
               f"autograd sees")
-        with use_policy(ExecPolicy(backend="torch")):
-            want = conv2d_apply(leaves, x, conv_cfg).detach()
+        with use_policy(plain_policy()):
+            want = conv2d_apply(  # lint: disable=conv-chain (plain route)
+                leaves, x, conv_cfg).detach()
         out[stage] = hold(f"train mnist forward {stage}", "none",
                           got.detach(), want)
         x = maxpool2(torch.relu(want))
@@ -2467,7 +2476,7 @@ def eval_logits_kernel_vs_plain(params, device) -> dict:
             kern = PaperCNN(PaperCNNConfig(
                 policy=None if fmt == "float32" else ExecPolicy(quant=fmt)))
             plain = PaperCNN(PaperCNNConfig(
-                policy=ExecPolicy(backend="torch", quant=quant)))
+                policy=plain_policy(quant=quant)))
             before = counts()
             got = kern.forward(params, images)
             grew = {k: counts()[k] - before[k] for k in before}
@@ -2486,10 +2495,10 @@ def train_grads_kernel_vs_plain(model, params, batch) -> dict:
     among them, finite, and the two routes agree within TOL_GRAD."""
     import torch
     from repro_torch.core.tree import tree_items
-    from repro_torch.ops import ExecPolicy, use_policy
+    from repro_torch.ops import use_policy
     from repro_torch.train.steps import loss_and_grads
     _, _, kern = loss_and_grads(model, params, batch)
-    with use_policy(ExecPolicy(backend="torch")):
+    with use_policy(plain_policy()):
         _, _, plain = loss_and_grads(model, params, batch)
     out = {}
     for path, g in tree_items(kern):
@@ -3067,6 +3076,44 @@ def launch_sweep() -> dict:
             "skipped": sorted(skipped)}
 
 
+def analysis_gate() -> dict:
+    """``python -m repro_torch.analysis --root <repo>`` in a subprocess:
+    its exit code, its output lines and its wall seconds."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                        "--root", str(ROOT)], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=ANALYSIS_TIMEOUT_S)
+    return {"rc": r.returncode, "lines": r.stdout.splitlines(),
+            "stderr": r.stderr[-2000:], "seconds": time.perf_counter() - t0}
+
+
+def phase_analysis(device) -> dict:
+    """The port's static gate (``analysis_gate``), started with the script
+    beside the card's phases or run here: exit 0, no lint finding, and
+    every plan of ANALYSIS_PLANS verified. Nothing runs on the card."""
+    job = HOST_JOBS.pop("analysis", None)
+    r = job.result() if job is not None else analysis_gate()
+    summary = next((ln for ln in r["lines"]
+                    if ln.startswith("repro_torch.analysis:")), "")
+    verified = [ln for ln in r["lines"] if ln.startswith("verify ")]
+    check(r["rc"] == 0 and summary.startswith(
+              "repro_torch.analysis: 0 finding(s) (0 error(s), "
+              "0 warning(s))"),
+          f"analysis gate: rc {r['rc']}, {summary!r}: "
+          + "\n".join(r["lines"][-20:]) + r["stderr"])
+    check(verified == [f"verify {n}: ok" for n in ANALYSIS_PLANS],
+          f"analysis gate: {verified}")
+    out = {"phase": "analysis", "rc": r["rc"], "summary": summary,
+           "verified": verified, "seconds": r["seconds"]}
+    emit(out)
+    print(f"chip_smoke:   analysis gate {r['seconds']:.1f} s",
+          file=sys.stderr, flush=True)
+    return out
+
+
 def phase_mesh_dryrun(device) -> dict:
     """The mesh dry run (``launch/dryrun.py``) of every (arch x shape) at
     full size on the meta device, counted as rank 0 of ``pod16x16`` and of
@@ -3499,6 +3546,7 @@ def boot_one(name, mode, work, device) -> dict:
     import warnings
     import numpy as np
     import torch
+    import repro_torch.ops.autotune as autotune
     from repro_torch.artifact import clear_graph_cache, collect_warmup
     from repro_torch.serve import VisionEngine, VisionEngineConfig
 
@@ -3508,9 +3556,11 @@ def boot_one(name, mode, work, device) -> dict:
     top = cfg["batch"]
     clear_graph_cache()
     t0 = time.perf_counter()
+    measured = autotune.measurements
     with collect_warmup() as fresh_rep:
         fresh = VisionEngine(model, params, VisionEngineConfig(**cfg))
     fresh_s = time.perf_counter() - t0
+    measured = autotune.measurements - measured
     rng = np.random.RandomState(9)
     tuned = []
     for b in fresh.buckets:
@@ -3586,6 +3636,7 @@ def boot_one(name, mode, work, device) -> dict:
                                  f"replay vs direct max_abs "
                                  f"{max_abs(got, ref)}")
     return {"model": name, "mode": mode, "fresh_boot_s": fresh_s,
+            "fresh_measured": measured,
             "fresh_warmup": fresh_rep.seconds,
             "fresh_warmup_calls": fresh_rep.counts,
             "tuned_vs_heuristic": tuned,
@@ -3612,25 +3663,20 @@ def boot_cache_roundtrip(name, work, tuned_int8) -> dict:
     loaded = TUNING_CACHE.load(path)
     check(loaded == n > 0, f"boot {name}: saved {n} tuning entries, "
                            f"loaded {loaded}")
-    measured = []
-    real = autotune._measure
-    autotune._measure = lambda *a, **k: measured.append(1) or real(*a, **k)
-    try:
-        clear_graph_cache()
-        model = boot_model(name, "int8")
-        again = VisionEngine(model, model.init(0, device="cpu"),
-                             VisionEngineConfig(device="cuda",
-                                                autotune=True,
-                                                **BOOT_CONFIGS[name]))
-    finally:
-        autotune._measure = real
+    before = autotune.measurements
+    clear_graph_cache()
+    model = boot_model(name, "int8")
+    again = VisionEngine(model, model.init(0, device="cpu"),
+                         VisionEngineConfig(device="cuda", autotune=True,
+                                            **BOOT_CONFIGS[name]))
+    measured = autotune.measurements - before
     check(not measured, f"boot {name}: the second boot measured "
-                        f"{len(measured)} candidates")
+                        f"{measured} candidates")
     got = {b: again._bounds[b].tuned for b in again.buckets}
     check(got == tuned_int8, f"boot {name}: second boot baked {got}, the "
                              f"first {tuned_int8}")
     return {"model": name, "entries": n, "loaded": loaded,
-            "second_boot_measured": len(measured)}
+            "second_boot_measured": measured}
 
 
 def boot_graph_times(name, mode, bsz, device) -> dict:
@@ -3678,8 +3724,11 @@ def phase_boot(device):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_boot_") as tmp:
             work = Path(tmp)
             for name in BOOT_CONFIGS:
-                for mode in MODES:
-                    out["runs"].append(boot_one(name, mode, work, device))
+                runs = [boot_one(name, mode, work, device) for mode in MODES]
+                check(sum(r["fresh_measured"] for r in runs) > 0,
+                      f"boot {name}: the fresh autotuned boots measured "
+                      f"no candidate (autotune.measurements)")
+                out["runs"].extend(runs)
                 out["cache"].append(boot_cache_roundtrip(
                     name, work, out["runs"][-1]["tuned"]))
         for run in out["runs"]:
@@ -4350,24 +4399,12 @@ def lm_mesh_world1(device) -> tuple[dict, dict, dict]:
 
 
 def lm_mesh_record_shapes():
-    """Wrap the qmatmul wrappers to record each launch's (mode, M, K,
-    N); returns (the set, a function that unwraps)."""
-    from repro_torch.kernels.qmatmul import ops as qm
-    seen, real = set(), (qm.qmatmul, qm.qmatmul_acc)
-
-    def fused(x, w, *a, **k):
-        seen.add(("epilogue", *x.shape, w.shape[1]))
-        return real[0](x, w, *a, **k)
-
-    def acc(x, w, *a, **k):
-        seen.add(("acc", *x.shape, w.shape[1]))
-        return real[1](x, w, *a, **k)
-
-    qm.qmatmul, qm.qmatmul_acc = fused, acc
-
-    def undo():
-        qm.qmatmul, qm.qmatmul_acc = real
-    return seen, undo
+    """Record each qmatmul launch's (mode, M, K, N) (``qmatmul.ops.
+    record_shapes``); returns (the set, a function that ends the
+    recording)."""
+    from repro_torch.kernels.qmatmul.ops import record_shapes
+    stack = contextlib.ExitStack()
+    return stack.enter_context(record_shapes()), stack.close
 
 
 def lm_mesh_shard_checks(shapes, device) -> list[list]:
@@ -4558,6 +4595,8 @@ def lm_mesh_serve_held(ctx, shape, rank, want, device,
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in counts()}
     del params
+    check(bool(seen), f"lm mesh {shape} rank {rank}: no qmatmul launch "
+                      f"shape recorded")
     return runs, launches, lm_mesh_shard_checks(seen, device)
 
 
@@ -5493,7 +5532,7 @@ def phase_times(device):
             for name, kern, plain, lib, pooled in (
                     ("fused_cwp", lambda: fused_cwp(x, w, b),
                      lambda: fused_cwp_ref(x, w, b),
-                     lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2),
+                     lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2),  # lint: disable=stream-scale (1024 is a batch)
                      True),
                     ("conv_window", lambda: conv_window(x, w, b),
                      lambda: conv2d_window_ref(x, w, b),
@@ -5659,9 +5698,11 @@ def lm_time_rows(gen, device) -> list[dict]:
 # the MLP shard shapes timed in the times phase: (model, d_model, d_ff,
 # model axis sizes, row counts M): qwen1.5-0.5b's decode and 64-token
 # prefill on model 2 and 4, zamba2-7b's shared MLP's decode and 512-token
-# prefill on model 2 (the family_mesh phase's 1 x 2)
+# prefill on model 2 (the family_mesh phase's 1 x 2), and qwen1.5-0.5b's
+# 32-token prefill on the multi-pod (2, 1, 2) mesh's model 2 (lm_mesh)
 SHARD_TIME_SHAPES = [(LM_ARCH, 1024, 2816, (2, 4), (4, 64)),
-                     ("zamba2-7b", 3584, 14336, (2,), (4, 512))]
+                     ("zamba2-7b", 3584, 14336, (2,), (4, 512)),
+                     (LM_ARCH + " (2, 1, 2)", 1024, 2816, (2,), (32,))]
 
 
 def lm_shard_time_rows(device) -> list[dict]:
@@ -5888,14 +5929,18 @@ def mesh_sweep_cells() -> list[tuple]:
 
 
 def start_host_jobs() -> None:
-    """Start the card-vs-CPU checks' CPU sides, the dry-run sweep, the
-    mesh dry run's sweep and the family_mesh jobs' collective counts in
-    spawned worker processes beside the card's phases."""
+    """Start the static gate's subprocess, and the card-vs-CPU checks' CPU
+    sides, the dry-run sweep, the mesh dry run's sweep and the
+    family_mesh jobs' collective counts in spawned worker processes,
+    beside the card's phases."""
     import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
     from repro_torch.configs import ARCH_IDS
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch.dryrun import run_cell
+    gate = ThreadPoolExecutor(1)            # a subprocess: a thread waits
+    HOST_POOLS.append(gate)
+    HOST_JOBS["analysis"] = gate.submit(analysis_gate)
     ctx = multiprocessing.get_context("spawn")
     cpu = ProcessPoolExecutor(1, mp_context=ctx)
     sweep = ProcessPoolExecutor(HOST_WORKERS, mp_context=ctx)
@@ -5984,7 +6029,8 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run after device and "
                          "build (kernels, serve, eager, tree, stream, boot, "
                          "lm, moe, ssm, train, launch, mesh, lm_mesh, "
-                         "family_mesh, mesh_dryrun, times, plans); "
+                         "family_mesh, mesh_dryrun, analysis, times, "
+                         "plans); "
                          "prints no result line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
@@ -6010,6 +6056,7 @@ def main(argv=None) -> int:
               "mesh": phase_mesh, "lm_mesh": phase_lm_mesh,
               "family_mesh": phase_family_mesh,
               "mesh_dryrun": phase_mesh_dryrun,
+              "analysis": phase_analysis,
               "times": phase_times, "plans": phase_plans}
     t_start = time.perf_counter()
     phases = {name: _timed(name, fn) for name, fn in phases.items()}
@@ -6063,6 +6110,7 @@ def main(argv=None) -> int:
         check(family["qmatmul"],
               f"qmatmul never launched on the family mesh path: {family}")
         phases["mesh_dryrun"](device)           # meta only: no launches
+        phases["analysis"](device)              # the host's: no launches
         emit({"phase": "launches", "main": launches, "boot": boot,
               "lm": lm, "moe": moe, "ssm": ssm, "train": train,
               "launch": launch, "mesh": mesh, "lm_mesh": lm_mesh,

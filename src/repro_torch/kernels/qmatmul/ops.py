@@ -10,10 +10,14 @@ returns an empty output and charges the kernel's work (``charge_meta``:
 accumulator itself, which a row-parallel shard's partial product is
 until the ranks' partials are summed (exactly, in int32) and the scales
 applied once. ``launches`` counts kernel launches of either, and nothing
-else.
+else; inside ``record_shapes()`` each launch also adds its (mode, M, K, N)
+to the yielded set ("epilogue" for ``qmatmul``, "acc" for
+``qmatmul_acc``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 
@@ -26,9 +30,31 @@ from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref, qmatmul_ref
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.tiling import platform_key, qmatmul_tiles
 
-__all__ = ["qmatmul", "qmatmul_acc", "launches"]
+__all__ = ["qmatmul", "qmatmul_acc", "launches", "record_shapes"]
 
 launches = 0
+_SHAPES: contextvars.ContextVar = contextvars.ContextVar(
+    "qmatmul_launch_shapes", default=None)
+
+
+@contextlib.contextmanager
+def record_shapes():
+    """Yield a set that collects each kernel launch's (mode, M, K, N)
+    while the context is open."""
+    seen: set = set()
+    token = _SHAPES.set(seen)
+    try:
+        yield seen
+    finally:
+        _SHAPES.reset(token)
+
+
+def _launched(mode: str, m: int, k: int, n: int) -> None:
+    global launches
+    launches += 1
+    seen = _SHAPES.get()
+    if seen is not None:
+        seen.add((mode, m, k, n))
 
 
 @functools.cache
@@ -60,7 +86,6 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
     w_scale with an int32 accumulator; x_scale (M,1)|scalar, w_scale
     (1,N)|scalar. The kernel writes f32; another dtype is a cast after
     it, as the reference's ``.astype`` after its epilogue."""
-    global launches
     dev = x_codes.device
     check_tensor(x_codes, "x_codes", dtype=torch.int8, ndim=2, device=dev)
     check_tensor(w_codes, "w_codes", dtype=torch.int8, ndim=2, device=dev)
@@ -91,7 +116,7 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
     launch(_launcher(), "qmatmul", dev, ptr(x_codes), ptr(w_codes), ptr(xs),
            ptr(ws), ptr(out), m, n, k, t["threads"], t["rows"], t["cols"],
            t["kslice"], t["ld"], t["smem"], 0)
-    launches += 1
+    _launched("epilogue", m, k, n)
     return out.to(out_dtype)
 
 
@@ -99,7 +124,6 @@ def qmatmul_acc(x_codes: torch.Tensor, w_codes: torch.Tensor, *,
                 policy: ExecPolicy | None = None) -> torch.Tensor:
     """(M,K) int8 · (K,N) int8 -> the (M,N) int32 accumulator, no
     scales: one launch of the qmatmul kernel in its raw mode."""
-    global launches
     dev = x_codes.device
     check_tensor(x_codes, "x_codes", dtype=torch.int8, ndim=2, device=dev)
     check_tensor(w_codes, "w_codes", dtype=torch.int8, ndim=2, device=dev)
@@ -123,5 +147,5 @@ def qmatmul_acc(x_codes: torch.Tensor, w_codes: torch.Tensor, *,
     launch(_launcher(), "qmatmul", dev, ptr(x_codes), ptr(w_codes), None,
            None, ptr(out), m, n, k, t["threads"], t["rows"], t["cols"],
            t["kslice"], t["ld"], t["smem"], 1)
-    launches += 1
+    _launched("acc", m, k, n)
     return out

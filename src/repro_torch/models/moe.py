@@ -47,7 +47,8 @@ that combines the ranks' outputs, in ``x.dtype`` as the reference's
 ``psum`` sums them. ``moe_apply_ep_ref`` is the same arithmetic on one
 device, looping over the shards. On any other mesh the local path runs
 whole on every rank. ``routing_trace`` exposes the expert-parallel
-layer's routing, and can make it replay another run's.
+layer's routing, and can make it replay another run's;
+``local_routing_trace`` exposes the local path's.
 """
 from __future__ import annotations
 
@@ -59,13 +60,13 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ACTIVATIONS, dense_init
+from repro_torch.models.common import ACTIVATIONS, _const, dense_init
 from repro_torch.sharding.logical import (A, ShardingCtx, gathered,
                                           mesh_sizes, on_mesh, shard,
                                           spmd_global, spmd_local)
 
 __all__ = ["MoEConfig", "moe_init", "moe_axes", "moe_apply",
-           "moe_apply_ep_ref", "routing_trace"]
+           "moe_apply_ep_ref", "routing_trace", "local_routing_trace"]
 
 
 @dataclass(frozen=True)
@@ -213,6 +214,9 @@ def _moe_apply_local(params: dict, x: torch.Tensor, cfg: MoEConfig
     # --- group-local dispatch: position within (row, expert) ---
     flat_e = top_e.reshape(b, s * k)
     pos_c, keep = _slots(flat_e, e, cap)
+    local_log = _LOCAL_TRACE.get()
+    if local_log is not None:
+        local_log.append((flat_e, keep))
     src = torch.arange(s, device=dev).repeat_interleave(k)
     brow = torch.arange(b, device=dev)[:, None].expand(b, s * k)
     buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=dev)
@@ -290,6 +294,25 @@ def routing_trace(replay=None):
         yield state["log"]
     finally:
         _TRACE.reset(token)
+
+
+_LOCAL_TRACE: contextvars.ContextVar = contextvars.ContextVar(
+    "moe_local_routing_trace", default=None)
+
+
+@contextlib.contextmanager
+def local_routing_trace():
+    """Expose the local path's routing (``_moe_apply_local``, on one
+    device or run whole on every rank): yields a list to which each layer
+    call appends (flat experts (B, S·k), keep (B, S·k) bool: within
+    capacity), as the device tensors the layer computed, with no host
+    sync."""
+    log: list = []
+    token = _LOCAL_TRACE.set(log)
+    try:
+        yield log
+    finally:
+        _LOCAL_TRACE.reset(token)
 
 
 def _ep_local(xl: torch.Tensor, p: dict, cfg: MoEConfig, j: int,
@@ -395,7 +418,7 @@ def moe_apply_ep_ref(params: dict, x: torch.Tensor, cfg: MoEConfig,
         outs.append(acc)
         auxes.append(aux)
     out = torch.cat(outs, dim=0)
-    aux = torch.stack(auxes).sum() / nd if nd > 1 else auxes[0]
+    aux = torch.stack(auxes).sum() / _const(nd, x) if nd > 1 else auxes[0]
     return out, aux
 
 
@@ -406,7 +429,7 @@ def _dp_mean(aux: torch.Tensor, mesh, dp: tuple[str, ...]):
     from torch.distributed.tensor import Partial, Replicate
     n = math.prod(mesh_sizes(mesh)[a] for a in dp)
     names = mesh.mesh_dim_names
-    part = spmd_global(aux / n if n > 1 else aux, mesh,
+    part = spmd_global(aux / _const(n, aux) if n > 1 else aux, mesh,
                        [Partial() if a in dp else Replicate()
                         for a in names])
     return part.redistribute(mesh, [Replicate()] * mesh.ndim)

@@ -25,6 +25,7 @@ not chase noise. The axes are the port's own launch keys
 A candidate is timed with CUDA events on the current stream, its launches
 queued behind a short spin kernel so the host's dispatch does not show as
 device time: the least of ``TUNE_ITERS`` calls after ``TUNE_WARMUP``.
+``measurements`` counts the candidates timed, and nothing else.
 
 Entry points:
 
@@ -57,7 +58,10 @@ from repro_torch.ops.tiling import (CONV_CHANNELS, QMATMUL_COLS, TUNING_CACHE,
 __all__ = ["ensure_tuned", "tune_conv2d", "tune_fused_conv_block",
            "tune_qmatmul", "tune_stream_conv2d",
            "tune_stream_fused_conv_block", "resolved_backend",
-           "heuristic_tiles", "TUNE_WARMUP", "TUNE_ITERS", "MIN_GAIN"]
+           "heuristic_tiles", "TUNE_WARMUP", "TUNE_ITERS", "MIN_GAIN",
+           "measurements"]
+
+measurements = 0
 
 # least device time over ITERS calls after WARMUP. Module-level so tests
 # and smoke runs can shrink them.
@@ -92,6 +96,8 @@ def _measure(fn: Callable[[], object], *, warmup: int | None = None,
     """Least device time of one ``fn()`` in microseconds: ``iters`` calls,
     each between two CUDA events on the current stream, queued behind a
     spin kernel (the floor is the right estimate for µs launches)."""
+    global measurements
+    measurements += 1
     warmup = TUNE_WARMUP if warmup is None else warmup
     iters = max(TUNE_ITERS if iters is None else iters, 1)
     for _ in range(warmup):

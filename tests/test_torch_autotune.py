@@ -449,8 +449,10 @@ class TestPlanAutotune:
 
     def test_bind_on_the_cpu_measures_nothing(self, weights):
         _, tparams = weights
+        before = autotune.measurements
         bound = _port_plan("int8", autotune=True).bind(tparams)
         assert bound.tuned == {} and len(TUNING_CACHE) == 0
+        assert autotune.measurements == before
 
     def test_compile_policy_autotune_switches_it_on(self):
         plan = PaperCNN(PaperCNNConfig()).compile(

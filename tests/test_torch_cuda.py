@@ -144,8 +144,10 @@ def test_qmatmul_shapes_match_plain_bitwise(card, m, k, n):
     16-column pass and past one column slice; M off a block's 8 rows."""
     args = _qmatmul_operands(m, k, n, card)
     before = qm_ops.launches
-    got = qm_ops.qmatmul(*args)
+    with qm_ops.record_shapes() as seen:
+        got = qm_ops.qmatmul(*args)
     assert qm_ops.launches == before + 1
+    assert seen == {("epilogue", m, k, n)}
     _agree("int8", got, qmatmul_ref(*args))
 
 
@@ -156,7 +158,9 @@ def test_qmatmul_accumulator_matches_plain_bitwise(card, m, k, n):
     shard hands to the exact sum across ranks."""
     from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref
     xc, wc, _, _ = _qmatmul_operands(m, k, n, card)
-    got = qm_ops.qmatmul_acc(xc, wc)
+    with qm_ops.record_shapes() as seen:
+        got = qm_ops.qmatmul_acc(xc, wc)
+    assert seen == {("acc", m, k, n)}
     assert got.dtype == torch.int32
     assert torch.equal(got, qmatmul_acc_ref(xc, wc))
 
@@ -616,9 +620,10 @@ def test_short_batch_after_a_full_one_sees_zero_pad_lanes(card, mode):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_tuned_plan_matches_heuristic(card, mode, monkeypatch):
-    """Bind-time autotuning on the card: every stage measured, and the
-    tuned plan equals the heuristic one bitwise in int8 and qformat,
-    within 1e-5 in fp32 (``split`` lanes change the fp32 sum order)."""
+    """Bind-time autotuning on the card: every stage measured (and
+    counted), a second bind measures nothing, and the tuned plan equals
+    the heuristic one bitwise in int8 and qformat, within 1e-5 in fp32
+    (``split`` lanes change the fp32 sum order)."""
     import repro_torch.ops.autotune as autotune
     from repro_torch.ops.tiling import TUNING_CACHE
     monkeypatch.setattr(autotune, "TUNE_ITERS", 2)
@@ -629,8 +634,13 @@ def test_tuned_plan_matches_heuristic(card, mode, monkeypatch):
         params = model.init(0, device=card)
         x = torch.from_numpy(np.stack(_images(8))).to(card)
         heur = model.compile(batch=8).bind(params)(x)
+        before = autotune.measurements
         tuned = model.compile(batch=8, autotune=True).bind(params)
         assert len(TUNING_CACHE) == (3 if mode == "int8" else 2)
+        measured = autotune.measurements - before
+        assert measured >= len(TUNING_CACHE)
+        model.compile(batch=8, autotune=True).bind(params)
+        assert autotune.measurements == before + measured
         _agree(mode, tuned(x), heur)
     finally:
         TUNING_CACHE.restore(saved)

@@ -194,6 +194,28 @@ def test_group_independence():
     _close(one, out[2:3], TOL_FP32, "one row alone")
 
 
+def test_local_routing_trace_is_the_reference_routing():
+    """``local_routing_trace`` yields one entry a local-path call: the
+    flat experts (B, S·k) and the keep mask the layer dispatched with,
+    equal to the reference's routing and dispatch at a capacity that
+    drops, and nothing outside the context."""
+    jcfg, tcfg = _cfgs(top_k=2, cf=1.0)
+    jp, tp, jx, x = _case("f32", jcfg)
+    with tmoe.local_routing_trace() as log:
+        tmoe.moe_apply(tp, x, tcfg, None)
+        tmoe.moe_apply(tp, x[1:], tcfg, None)
+    tmoe.moe_apply(tp, x, tcfg, None)
+    assert len(log) == 2
+    _, want_e, want_keep = _reference_routing(jp, jx, jcfg)
+    want_e = np.asarray(want_e).reshape(B, S * tcfg.top_k)
+    want_keep = np.asarray(want_keep)
+    assert not want_keep.all()
+    for (flat_e, keep), rows in zip(log, (slice(None), slice(1, None))):
+        assert flat_e.shape == keep.shape and keep.dtype == torch.bool
+        np.testing.assert_array_equal(flat_e.numpy(), want_e[rows])
+        np.testing.assert_array_equal(keep.numpy(), want_keep[rows])
+
+
 def test_a_mesh_raises_and_tf32_routing_is_refused():
     """TF32 routing is refused by the local path and by the expert-
     parallel one (on a mesh it raises as well: ``moe_apply_ep_ref`` runs
