@@ -21,7 +21,11 @@ Phases, each printing one JSON line:
            (K, N) in {(1,024, 2,816), (2,816, 1,024)}, f32 and bf16 out),
            and at the MLP shapes of qwen3-14b, gemma2-2b, command-r-35b
            and internvl2-26b (M in {4, 64}, K and N up to 22,528, f32
-           and bf16 out),
+           and bf16 out), on both sides of its body boundary
+           (QMATMUL_BOUNDARY: M in {1, 7, 8, 15, 16, 17, 64, 512}), in
+           its raw int32 mode at the LM mesh shard shapes, and captured
+           in a CUDA graph (each body, a split K with its zeroed buffer)
+           and replayed on new inputs,
            fused_cwp at odd conv maps (a 9x9 map, a 224-wide band with an
            odd row count; odd='drop' and 'pad'; B in {1, 8}), and the
            addition tree bitwise at (R, η) shapes up to its η cap that
@@ -77,10 +81,14 @@ Phases, each printing one JSON line:
            chunks of a 256 MiB product); rows tagged zamba2-7b: qmatmul
            at M in {4, 256, 512} x (K, N) in {(3,584, 14,336), (14,336,
            3,584)}, each first bitwise against the plain version; rows
+           tagged boundary: qmatmul at qwen1.5-0.5b's wi for M in
+           QMATMUL_TIME_M, both sides of its body boundary; rows
            tagged shard: the MLP shard shapes of SHARD_TIME_SHAPES
            (qwen1.5 on model 2 and 4, zamba2-7b on model 2 at M = 4 and
            512), column-parallel wi and the row-parallel wo's int32
-           accumulator;
+           accumulator; a decode row (M <= 4) whose weight fits in the
+           50 MB L2 also takes ``cold_ms``, over copies of its weight in
+           turn that exceed twice the L2;
   plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
            under three stream budgets (untiled, the default 1 MiB,
            256 KiB): device time between CUDA events, and wall time;
@@ -395,13 +403,32 @@ CONV_SHAPES = {
 # (91x220)
 ODD_POOL_SHAPES = {"9x9": (15, 13, 13, 20, 5), "band": (3, 95, 224, 8, 5)}
 # qmatmul (M, K, N), tiling overrides: K in {37, 320, 4099} (4099 and 37
-# are not word multiples), N from 1 to 300, M from 1 to 4097, and K cut
-# into slices of 100 words with 24 rows a block
+# are not word multiples), N from 1 to 300, M from 1 to 4097; the
+# tensor-core body on a ragged shape with K split in 128-byte slices, and
+# the streaming body with K split in 100-row slices
 QMATMUL_SHAPES = [((1, 37, 1), {}), ((8, 320, 10), {}),
                   ((1000, 4099, 33), {}), ((4097, 320, 300), {}),
                   ((8, 4099, 300), {}), ((4097, 37, 10), {}),
-                  ((64, 4099, 33), {"qmatmul.kslice": 100,
-                                    "qmatmul.rows": 24})]
+                  ((64, 4099, 33), {"qmatmul.body": 1,
+                                    "qmatmul.tile_m": 128,
+                                    "qmatmul.ksplit": 128}),
+                  ((67, 4099, 300), {"qmatmul.body": 0,
+                                     "qmatmul.ksplit": 100})]
+# both sides of qmatmul's body boundary (tensor-core tiles from M = 8 at
+# N >= 64; M = 16 the boundary's first estimate): each M against (K, N)
+# pairs that cover K in {37, 320, 4,099, 14,336} and N in {10, 16, 1,408,
+# 3,584}
+QMATMUL_BOUNDARY = [(m, k, n) for m in (1, 7, 8, 15, 16, 17, 64, 512)
+                    for k, n in ((37, 3584), (320, 1408), (4099, 16),
+                                 (14336, 10), (14336, 3584))]
+# the times phase's rows on both sides of the body boundary, at
+# qwen1.5-0.5b's wi (1,024 x 2,816)
+QMATMUL_TIME_M = (1, 7, 8, 12, 15, 16, 17)
+# qmatmul_acc (the raw int32 accumulator) at the LM mesh shard shapes:
+# qwen1.5-0.5b's row-parallel wo on model 2 and 4 at a decode step, a
+# 32-token and a 64-token prefill, and zamba2-7b's on model 2 at 4 and 512
+QMATMUL_ACC_SHAPES = [(4, 1408, 1024), (2, 2816, 1024), (32, 1408, 1024),
+                      (64, 704, 1024), (4, 7168, 3584), (512, 7168, 3584)]
 # qmatmul at qwen1.5-0.5b's MLP shapes: M = a prefill's prompt length or
 # the decode batch (every slot), (K, N) = wi/wg (1,024, 2,816) and wo
 # (2,816, 1,024)
@@ -824,8 +851,8 @@ def phase_kernels(device):
     from repro_torch.kernels.conv_window.ref import conv2d_window_ref
     from repro_torch.kernels.fused_cwp.ops import fused_cwp
     from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
-    from repro_torch.kernels.qmatmul.ops import qmatmul
-    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    from repro_torch.kernels.qmatmul.ops import qmatmul, qmatmul_acc
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref, qmatmul_ref
     from repro_torch.ops import BackendUnavailableError, ExecPolicy
     from repro_torch.ops import tree_reduce_sum as tree_op
     from repro_torch.ops.tiling import TREE_MAX_ETA
@@ -923,6 +950,15 @@ def phase_kernels(device):
     record("qmatmul", "8x320x10 scalar scales", 8, "int8",
            qmatmul(xc[:8], wc, 0.03125, 0.0078125),
            qmatmul_ref(xc[:8], wc, sx, sw))
+    for m, k, n in QMATMUL_BOUNDARY:
+        xc, wc, xs, ws = qmatmul_inputs_on(device, 600 + m, m, k, n)
+        record("qmatmul", f"boundary {m}x{k}x{n}", m, "int8",
+               qmatmul(xc, wc, xs, ws), qmatmul_ref(xc, wc, xs, ws))
+    for m, k, n in QMATMUL_ACC_SHAPES:
+        xc, wc, _, _ = qmatmul_inputs_on(device, 700 + m, m, k, n)
+        record("qmatmul", f"acc {m}x{k}x{n}", m, "int8",
+               qmatmul_acc(xc, wc), qmatmul_acc_ref(xc, wc))
+    cases["qmatmul"] += qmatmul_graph_cases(device)
     # every launch shape of highres_cnn's 224x224 plans, new to both conv
     # kernels (3 input channels at W = 224 and K = 5; the band heights),
     # and its fc at K = 4,608
@@ -989,6 +1025,54 @@ def phase_kernels(device):
                "cases": v} for k, v in cases.items()]
     emit({"phase": "kernels", "parity": parity})
     return {p["name"]: p["max_abs"] for p in parity}
+
+
+def qmatmul_graph_cases(device) -> list[dict]:
+    """One qmatmul launch of each body captured in a CUDA graph (a split
+    K's zeroed buffer with it) and replayed three times on new codes
+    copied into the same inputs: each replay bitwise to the plain
+    version, and the capture the wrapper's only launch."""
+    import torch
+    from repro_torch.kernels.qmatmul.ops import qmatmul, qmatmul_acc
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref, qmatmul_ref
+    from repro_torch.ops.tiling import qmatmul_tiles
+    out = []
+    for m, k, n, raw in ((4, 1024, 2816, False), (64, 2816, 1024, False),
+                         (4, 1408, 1024, True), (512, 7168, 3584, True)):
+        t = qmatmul_tiles(m, k, n)
+        args = list(qmatmul_inputs_on(device, 800 + m, m, k, n))
+        call = ((lambda: qmatmul_acc(args[0], args[1])) if raw
+                else (lambda: qmatmul(*args)))
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            call()                               # the warm-up opts in
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = counts()["qmatmul"]
+        with torch.cuda.graph(graph):
+            got = call()
+        check(counts()["qmatmul"] == before + 1,
+              f"qmatmul graph {m}x{k}x{n}: the capture launched "
+              f"{counts()['qmatmul'] - before} times")
+        for rep in range(3):
+            new = qmatmul_inputs_on(device, 900 + 10 * m + rep, m, k, n)
+            for dst, src in zip(args, new):
+                dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = (qmatmul_acc_ref(args[0], args[1]) if raw
+                    else qmatmul_ref(*args))
+            exact = bitwise(got, want)
+            out.append({"stage": f"graph {'acc ' if raw else ''}"
+                                 f"{m}x{k}x{n} replay {rep}",
+                        "B": m, "mode": "int8", "body": t["body"],
+                        "splits": t["splits"], "max_abs": max_abs(got, want),
+                        "bitwise": exact, "tolerance": 0.0, "ok": exact})
+            check(exact, f"qmatmul graph {m}x{k}x{n} replay {rep}: not "
+                         f"bitwise to the plain version")
+        del graph
+    return out
 
 
 def highres_fc() -> tuple[int, int]:
@@ -5635,8 +5719,10 @@ def lm_time_rows(gen, device) -> list[dict]:
     4) and a 64-token prefill (M = 64), each (K, N) of wi/wg and wo, for
     qwen1.5-0.5b and each LM_DENSE_ARCHS config; qwen1.5-0.5b's whole
     weights at a rank's rows on the multi-pod (2, 2, 1) mesh (M = 2 a
-    decode step, 32 a 32-token prefill; drawn last); and zamba2-7b's shared
-    MLP at M = 4, 256 and 512 (its two prompt lengths), each of those
+    decode step, 32 a 32-token prefill; drawn last); qwen1.5-0.5b's wi
+    at the rows QMATMUL_TIME_M on both sides of the body boundary (tagged
+    ``boundary``); and zamba2-7b's shared MLP at M = 4, 256 and 512 (its
+    two prompt lengths), each of those
     first held bitwise against the plain version (127² · 14,336 < 2³¹:
     no int32 overflow). The library yardstick is ``torch._int_mm``
     (cuBLAS's int8 GEMM) followed by the two scale multiplies, where it
@@ -5658,6 +5744,7 @@ def lm_time_rows(gen, device) -> list[dict]:
               for m in (4, 256, 512)]
     cases += [(LM_ARCH + " (2, 2, 1)", m, k, n, None) for m in (2, 32)
               for k, n in ((1024, 2816), (2816, 1024))]
+    cases += [("boundary", m, 1024, 2816, None) for m in QMATMUL_TIME_M]
     rows = []
     for arch, m, k, n, seed in cases:
         xc, wc, xs, ws = (qmatmul_inputs(gen, m, k, n, device) if seed is None
@@ -5690,9 +5777,29 @@ def lm_time_rows(gen, device) -> list[dict]:
             2.0 * m * k * n / PEAK_INT8, exact=True, model=arch,
             plain_one_call=seed is not None)
         row["library_note"] = note
+        if m <= 4 and k * n < L2_BYTES:
+            row["cold_ms"], row["cold_copies"] = cold_device_ms(
+                lambda w, xc=xc, xs=xs, ws=ws: qmatmul(xc, w, xs, ws), wc)
         rows.append(row)
         del xc, wc
     return rows + lm_shard_time_rows(device)
+
+
+L2_BYTES = 50 * 1024 * 1024     # the H100's L2
+
+
+def cold_device_ms(call, w) -> tuple[float, int]:
+    """``device_ms`` of ``call(w_i)`` over copies of the weight ``w``
+    taken in turn, as many as exceed twice the L2, so each call finds its
+    weight in device memory, as a real decode step does (the warm
+    reading calls on one weight that stays in the L2). Returns (ms, the
+    copies)."""
+    import itertools
+    copies = [w.clone() for _ in range(max(2, -(-2 * L2_BYTES
+                                               // w.numel())))]
+    turn = itertools.cycle(copies)
+    ms, _ = device_ms(lambda: call(next(turn)))
+    return ms, len(copies)
 
 
 # the MLP shard shapes timed in the times phase: (model, d_model, d_ff,
@@ -5755,6 +5862,10 @@ def lm_shard_time_rows(device) -> list[dict]:
                         model=f"{arch} shard",
                         plain_one_call=m * k * n > 1e9)
         row["library_note"] = note
+        if m <= 4 and k * n < L2_BYTES:
+            row["cold_ms"], row["cold_copies"] = cold_device_ms(
+                (lambda w, xc=xc: qmatmul_acc(xc, w)) if part == "wo" else
+                (lambda w, xc=xc, xs=xs, ws=ws: qmatmul(xc, w, xs, ws)), wc)
         rows.append(row)
     return rows
 

@@ -3,7 +3,8 @@
 of them, launch each at the paper CNN's widths (and conv_window at odd
 outputs, qmatmul at other GEMM shapes) and hold it against its plain
 PyTorch version; with ``--sweep``, also time launch-shape overrides of
-each against the heuristic's.
+each against the heuristic's (qmatmul's also at LM shapes on both sides
+of its body boundary, each variant bitwise to the plain version).
 
     python3 scripts/torch_kernel_probe.py [--sweep]
     python3 scripts/torch_kernel_probe.py --ablate
@@ -59,11 +60,43 @@ ABLATIONS = {
     # fused_cwp's bytes: one value a channel and tile
     "conv_window one store a tile": ("conv_tile.cuh", _STORES,
                                      "o0[0] = a[0] + a[1] + a[2] + a[3];"),
-    # w's staging without its loads from memory
-    "qmatmul without w's loads": ("qmatmul.cu",
-                                  "(unsigned)(uint8_t)wc[(size_t)k * N]",
-                                  "(unsigned)(k + c)"),
+    # the tensor-core body without its transposition pass of w's stage
+    "qmatmul without the transposition": (
+        "qmatmul.cu", "    tc_transpose(sw + slot * TC_RAW, st);\n", ""),
+    # the streaming body without its byte transposes (dp4a on the rows)
+    "qmatmul stream without transpose4": (
+        "qmatmul.cu",
+        """      transpose4(rw[0][q], rw[1][q], rw[2][q], rw[3][q], t[4 * q],
+                 t[4 * q + 1], t[4 * q + 2], t[4 * q + 3]);""",
+        """      t[4 * q] = rw[0][q], t[4 * q + 1] = rw[1][q],
+      t[4 * q + 2] = rw[2][q], t[4 * q + 3] = rw[3][q];"""),
+    # what a launch of each body costs before any work: return at once
+    "qmatmul stream returns at once": (
+        "qmatmul.cu",
+        "  constexpr int CW = 64 / MR;  // columns a thread: MR x CW = 64 sums\n",
+        "  constexpr int CW = 64 / MR;\n  if (M > 0) return;\n"),
+    "qmatmul tc returns at once": (
+        "qmatmul.cu",
+        "  constexpr int MT = BM / 32;  // m16 tiles a warp: its BM / 2 rows\n",
+        "  constexpr int MT = BM / 32;\n  if (M > 0) return;\n"),
+    # the streaming body's fold of its threads' sums
+    "qmatmul stream without the fold": (
+        "qmatmul.cu", """        a[m][j] += __shfl_xor_sync(FULL, a[m][j], o);""",
+        """        a[m][j] += o;"""),
 }
+# qmatmul at LM shapes on both sides of the body boundary (M = 8): each
+# timed under the heuristic, under either body, and under other keys
+QMM_SWEEP_SHAPES = ([(m, k, n) for m in (4, 8, 12, 16, 24, 32, 64)
+                     for k, n in ((1024, 2816), (14336, 3584))]
+                    + [(256, 14336, 3584), (512, 3584, 14336),
+                       (512, 14336, 3584), (8, 4608, 10)])
+# qmatmul_acc (the raw int32 sum) at the LM mesh's row-parallel shard
+# shapes, under the same variants
+QMM_ACC_SWEEP_SHAPES = [(4, 704, 1024), (4, 1408, 1024), (2, 2816, 1024),
+                        (32, 1408, 1024), (4, 7168, 3584)]
+# conv_window and qmatmul shapes the ablations time (qmatmul's LM ones)
+QMM_TIME_SHAPES = [(4, 1024, 2816), (4, 1024, 704), (8, 4608, 10),
+                   (64, 1024, 2816), (512, 14336, 3584)]
 
 
 def time_rows(dev) -> dict[str, float]:
@@ -80,6 +113,9 @@ def time_rows(dev) -> dict[str, float]:
                 lambda: conv_window(x, w, b))[0]
         args = qmatmul_inputs(gen, bsz, *FC, dev)
         rows[f"qmatmul fc B={bsz}"] = device_ms(lambda: qmatmul(*args))[0]
+    for m, k, n in QMM_TIME_SHAPES:
+        args = qmatmul_inputs(gen, m, k, n, dev)
+        rows[f"qmatmul {m}x{k}x{n}"] = device_ms(lambda: qmatmul(*args))[0]
     rows["empty kernel"] = device_ms(lambda: torch.cuda._sleep(0))[0]
     return rows
 
@@ -107,6 +143,40 @@ def ablate() -> None:
     emit({"ablate": out})
 
 
+# SASS opcodes that show qmatmul's design: int8 tensor-core products,
+# cp.async copies into shared memory, ldmatrix fragment loads, byte
+# permutations, dp4a, atomics, and any use of local memory
+SASS_OPS = ("IMMA", "LDGSTS", "LDSM", "PRMT", "IDP", "RED", "ATOM", "LDL",
+            "STL")
+
+
+def sass_counts() -> dict:
+    """Build the qmatmul library and count SASS_OPS in each of its
+    kernels (``cuobjdump -sass``, from the CUDA toolkit beside nvcc)."""
+    import re
+    from repro_torch.kernels.build import build, library_path, nvcc
+    build(["qmatmul"])
+    tool = Path(nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(library_path("qmatmul"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {op: 0 for op in SASS_OPS}
+            out[name]["instructions"] = 0
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      line)
+        if name and m:
+            out[name]["instructions"] += 1
+            if m.group(1) in SASS_OPS:
+                out[name][m.group(1)] += 1
+    return {"sass": out}
+
+
 def tree_shape(stage, bsz):
     n, h, w, m, k = stage
     return bsz * (h - k + 1) * (w - k + 1) * m, n * k * k
@@ -116,6 +186,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--sass", action="store_true",
+                    help="only build and count, in each kernel of the "
+                         "qmatmul library, the instructions that show its "
+                         "design (cuobjdump -sass)")
     ap.add_argument("--time", action="store_true",
                     help="only print time_rows() as one JSON line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
@@ -131,6 +205,9 @@ def main() -> int:
         return 0
     if args.ablate:
         ablate()
+        return 0
+    if args.sass:
+        emit(sass_counts())
         return 0
     from repro_torch.kernels.addtree.ops import tree_reduce_sum
     from repro_torch.kernels.addtree.ref import tree_reduce_sum_ref
@@ -192,7 +269,7 @@ def main() -> int:
         ok &= agree("qmatmul", "int8", qmatmul(xc, wc, xs, ws),
                     qmatmul_ref(xc, wc, xs, ws), shape=[bsz, *FC])
         if args.sweep:
-            sweep_qmatmul(qmatmul, (xc, wc, xs, ws), bsz, ExecPolicy)
+            ok &= sweep_qmatmul(qmatmul, (xc, wc, xs, ws), bsz, ExecPolicy)
     for case, (stage, stride, tiling) in CONV_SHAPES.items():
         for mode in ("none", "qformat", "int8"):
             x, w, b, _ = conv_inputs(gen, 2, stage, mode, dev)
@@ -208,6 +285,15 @@ def main() -> int:
                     qmatmul(xc, wc, xs, ws, policy=ExecPolicy(tiling=tiling)),
                     qmatmul_ref(xc, wc, xs, ws), shape=[m, k, n],
                     tiling=tiling)
+    if args.sweep:
+        from repro_torch.kernels.qmatmul.ops import qmatmul_acc
+        for m, k, n in QMM_SWEEP_SHAPES:
+            ok &= sweep_qmatmul(qmatmul, qmatmul_inputs(gen, m, k, n, dev),
+                                m, ExecPolicy)
+        for m, k, n in QMM_ACC_SWEEP_SHAPES:
+            ok &= sweep_qmatmul(qmatmul_acc,
+                                qmatmul_inputs(gen, m, k, n, dev)[:2], m,
+                                ExecPolicy)
     emit({"ok": bool(ok)})
     return 0 if ok else 1
 
@@ -264,12 +350,43 @@ def sweep_conv(kern, x, w, b, name, bsz, pol_cls):
 
 
 def sweep_qmatmul(kern, args, bsz, pol_cls):
-    variants = [{}, {"threads": 128, "rows": 4}, {"threads": 64, "rows": 2},
-                {"rows": 16}, {"threads": 512, "rows": 16}]
-    rows = [_time(lambda p: kern(*args, policy=p), pol_cls,
-                  {f"qmatmul.{k}": v for k, v in t.items()})
-            for t in variants]
-    emit({"sweep": "qmatmul", "B": bsz, "rows": rows})
+    """The heuristic beside either body and each body's other keys, every
+    variant first held bitwise against the plain version (``kern`` is
+    qmatmul on four arguments, or qmatmul_acc on two)."""
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref, qmatmul_ref
+    from repro_torch.ops.tiling import qmatmul_tiles
+    m, k = args[0].shape
+    n = args[1].shape[1]
+    heur = qmatmul_tiles(m, k, n)
+    variants = [{}, {"body": 0}, {"body": 1}, {"body": 0, "tile_n": 64},
+                {"body": 0, "ksplit": 4 * -(-k // 4)},
+                {"body": 1, "tile_m": 64},
+                {"body": 1, "tile_m": 128},
+                {"body": 1, "ksplit": 64 * -(-k // 64)}]
+    if heur["splits"] > 1:
+        step = 64 if heur["body"] == 1 else 4
+        variants.append({"ksplit": max(step, heur["ksplit"] // 2 // step
+                                       * step)})
+    want = qmatmul_ref(*args) if len(args) == 4 else qmatmul_acc_ref(*args)
+    rows = []
+    for t in variants:
+        tiling = {f"qmatmul.{key}": v for key, v in t.items()}
+        try:
+            tiles = qmatmul_tiles(m, k, n, tiling)
+        except ValueError as e:
+            rows.append({"tiling": tiling, "refused": str(e)})
+            continue
+        got = kern(*args, policy=pol_cls(tiling=tiling))
+        torch.cuda.synchronize()
+        row = _time(lambda p: kern(*args, policy=p), pol_cls, tiling)
+        row["tiles"] = {key: tiles[key] for key in
+                        ("body", "tile_m", "tile_n", "ksplit", "splits")
+                        if key in tiles}
+        row["bitwise"] = bool(torch.equal(got, want))
+        rows.append(row)
+    emit({"sweep": "qmatmul" if len(args) == 4 else "qmatmul_acc",
+          "shape": [m, k, n], "B": bsz, "rows": rows})
+    return all(r.get("bitwise", True) for r in rows)
 
 
 if __name__ == "__main__":

@@ -6,13 +6,17 @@ launches ``csrc/qmatmul.cu`` on the current stream, or raises; on a CPU
 tensor it runs the plain version (``ref.py``); on a meta tensor it
 returns an empty output and charges the kernel's work (``charge_meta``:
 2·M·K·N int8 operations; M·K + K·N + 4·(M + N) + 4·M·N bytes).
+The kernel has two bodies, tensor-core tiles and split-K weight
+streaming, chosen by shape (``repro_torch.ops.tiling.qmatmul_tiles``); a
+call whose K is split across blocks zeroes a buffer for their sums
+first (``torch.zeros`` on the current stream: a graph captures it).
 ``qmatmul_acc`` is the same kernel without its epilogue: the int32
 accumulator itself, which a row-parallel shard's partial product is
 until the ranks' partials are summed (exactly, in int32) and the scales
-applied once. ``launches`` counts kernel launches of either, and nothing
-else; inside ``record_shapes()`` each launch also adds its (mode, M, K, N)
-to the yielded set ("epilogue" for ``qmatmul``, "acc" for
-``qmatmul_acc``).
+applied once. ``launches`` counts kernel launches of either (one a
+call, however many blocks share its K), and nothing else; inside
+``record_shapes()`` each launch also adds its (mode, M, K, N) to the
+yielded set ("epilogue" for ``qmatmul``, "acc" for ``qmatmul_acc``).
 """
 from __future__ import annotations
 
@@ -60,9 +64,23 @@ def _launched(mode: str, m: int, k: int, n: int) -> None:
 @functools.cache
 def _launcher():
     fn = load("qmatmul").qmatmul_launch
-    fn.argtypes = launch_args(5, 10)
+    fn.argtypes = launch_args(6, 9)
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(t: dict, x_codes, w_codes, xs, ws, out, m: int, n: int,
+            k: int, *, raw: bool) -> None:
+    """One launch of the body ``t`` names. A split K with the epilogue
+    takes a buffer of ``t["scratch"]`` bytes, zeroed on the current
+    stream."""
+    scratch = None
+    if t["scratch"] and not raw:
+        scratch = torch.zeros(t["scratch"] // 4, dtype=torch.int32,
+                              device=out.device)
+    launch(_launcher(), "qmatmul", out.device, ptr(x_codes), ptr(w_codes),
+           ptr(xs), ptr(ws), ptr(out), ptr(scratch), m, n, k, t["body"],
+           t["tile_m"], t.get("tile_n", 0), t["ksplit"], t["smem"], int(raw))
 
 
 def _scale(s, shape: tuple[int, int], dev: torch.device) -> torch.Tensor:
@@ -113,9 +131,7 @@ def qmatmul(x_codes: torch.Tensor, w_codes: torch.Tensor, x_scale,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out.to(out_dtype)
-    launch(_launcher(), "qmatmul", dev, ptr(x_codes), ptr(w_codes), ptr(xs),
-           ptr(ws), ptr(out), m, n, k, t["threads"], t["rows"], t["cols"],
-           t["kslice"], t["ld"], t["smem"], 0)
+    _launch(t, x_codes, w_codes, xs, ws, out, m, n, k, raw=False)
     _launched("epilogue", m, k, n)
     return out.to(out_dtype)
 
@@ -141,11 +157,11 @@ def qmatmul_acc(x_codes: torch.Tensor, w_codes: torch.Tensor, *,
     pol = policy if policy is not None else current_policy()
     t = qmatmul_tiles(m, k, n, pol.tile_overrides,
                       platform=platform_key(dev))
-    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    # a split K adds every block's sums into the output itself: zeroed
+    alloc = torch.zeros if t["splits"] > 1 else torch.empty
+    out = alloc((m, n), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    launch(_launcher(), "qmatmul", dev, ptr(x_codes), ptr(w_codes), None,
-           None, ptr(out), m, n, k, t["threads"], t["rows"], t["cols"],
-           t["kslice"], t["ld"], t["smem"], 1)
+    _launch(t, x_codes, w_codes, None, None, out, m, n, k, raw=True)
     _launched("acc", m, k, n)
     return out

@@ -18,7 +18,10 @@ not chase noise. The axes are the port's own launch keys
     ``ipb`` (images a block), ``band`` (tile rows a block), ``cpb``
     (output channels a block), ``split`` (lanes sharing a tile's
     contraction) and ``threads``;
-  * ``qmatmul``: ``rows``, ``cols``, ``kslice`` and ``threads``;
+  * ``qmatmul``: ``body`` (the heuristic of each body is measured, the
+    faster by ``MIN_GAIN`` starts the descent), then within that body
+    ``tile_m`` (tensor-core tiles) or ``tile_m`` and ``tile_n`` (weight
+    streaming), and ``ksplit``; a candidate the tiler refuses is skipped;
   * a streamed stage (``stream_conv2d``, ``stream_fused_conv_block``):
     its band height ``th``.
 
@@ -50,10 +53,10 @@ from typing import Callable, Mapping
 import torch
 
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import (CONV_CHANNELS, QMATMUL_COLS, TUNING_CACHE,
+from repro_torch.ops.tiling import (CONV_CHANNELS, TUNING_CACHE,
                                     choose_fused_blocks,
                                     choose_qmatmul_blocks, conv_signature,
-                                    platform_key)
+                                    fits_keys, platform_key, qmatmul_tiles)
 
 __all__ = ["ensure_tuned", "tune_conv2d", "tune_fused_conv_block",
            "tune_qmatmul", "tune_stream_conv2d",
@@ -80,15 +83,15 @@ BAND_ROWS = (1, 2, 4, 8)
 CHANNEL_BLOCKS = (4, 8, 16, 32)
 SPLITS = (1, 2, 4, 8, 16, 32)
 THREADS = (64, 128, 256, 512)
-QMM_ROWS = (4, 8, 16, 32)
-QMM_COLS = (16, 32, 64, 128)
-QMM_THREADS = (128, 256, 512)
+QMM_TC_ROWS = (64, 128)
+QMM_STREAM_ROWS = (4, 8, 16)
+QMM_STREAM_COLS = (16, 32, 64, 128)
 # streamed-stage band heights; the budget-derived one, half and the whole
 # map join the set
 STREAM_TILE_ROWS = (4, 8, 16, 32, 64)
 
 _CONV_KEYS = ("threads", "cpb", "band", "split", "ipb")
-_QMM_KEYS = ("threads", "rows", "cols", "kslice")
+_QMM_KEYS = ("body", "tile_m", "tile_n", "ksplit")   # both bodies' keys
 
 
 def _measure(fn: Callable[[], object], *, warmup: int | None = None,
@@ -115,21 +118,23 @@ def _measure(fn: Callable[[], object], *, warmup: int | None = None,
 
 
 def _descend(axes: dict[str, list[int]], start: dict[str, int],
-             launch: Callable[..., Callable], *,
+             launch: Callable[..., Callable | None], *,
              on_point: Callable[[dict, float], None] | None = None
              ) -> dict[str, int]:
     """Coordinate descent: sweep each axis in insertion order holding the
     others at the current best. A candidate displaces the incumbent only
     when it measures at least ``MIN_GAIN`` faster. ``launch(**tiles)``
-    returns a zero-arg timed callable."""
+    returns a zero-arg timed callable, or None for a point the kernel
+    does not take (never measured, never chosen)."""
     measured: dict[tuple, float] = {}
 
     def probe(cand: dict[str, int]) -> float:
         key = tuple(sorted(cand.items()))
         if key not in measured:
-            us = _measure(launch(**cand))
+            fn = launch(**cand)
+            us = float("inf") if fn is None else _measure(fn)
             measured[key] = us
-            if on_point is not None:
+            if on_point is not None and fn is not None:
                 on_point(dict(cand), us)
         return measured[key]
 
@@ -248,32 +253,56 @@ def tune_fused_conv_block(x, w, b=None, *, stride=(1, 1), odd="raise",
         x, w, stride, True, odd, on_point)
 
 
+def _qmatmul_axes(k: int, heur: Mapping[str, int]) -> dict[str, list]:
+    """One body's axes: tensor-core tiles' rows a block, or the
+    streaming body's rows and columns a block; then the K slice a
+    block (the heuristic's, half and twice it, and all of K)."""
+    step = 64 if heur["body"] == 1 else 4
+    whole = max(-(-k // step), 1) * step
+    ks = heur["ksplit"]
+    ksplits = {ks, whole, min(whole, 2 * ks),
+               max(step, ks // 2 // step * step)}
+    if heur["body"] == 1:
+        axes = {"tile_m": _values(QMM_TC_ROWS, 128, heur["tile_m"])}
+    else:
+        axes = {"tile_m": _values(QMM_STREAM_ROWS, 16, heur["tile_m"]),
+                "tile_n": _values(QMM_STREAM_COLS, 128, heur["tile_n"])}
+    return {**axes, "ksplit": sorted(ksplits)}
+
+
 def tune_qmatmul(x_codes, w_codes, x_scale, w_scale, *,
                  policy: ExecPolicy | None = None,
                  on_point=None) -> dict[str, int]:
-    """Search ``qmatmul``'s keys (rows a block, columns a slice, the K
-    slice, threads); cache and return the winner."""
+    """Search ``qmatmul``'s keys: the body (each body's heuristic is
+    measured; the other body's displaces the shape's own only when
+    ``MIN_GAIN`` faster), then that body's axes; cache and return the
+    winner."""
     from repro_torch.kernels.qmatmul.ops import qmatmul
     pol = _no_autotune(policy)
     m, k = x_codes.shape
     n = w_codes.shape[1]
-    heur = choose_qmatmul_blocks(m, k, n)
-    kw = max(-(-k // 4), 1)
-    axes = {
-        "rows": _values(QMM_ROWS, max(m, 1), heur["rows"]),
-        "cols": _values(QMM_COLS, -(-n // QMATMUL_COLS) * QMATMUL_COLS,
-                        heur["cols"]),
-        "kslice": _values((kw, -(-kw // 2), -(-kw // 4)), kw,
-                          heur["kslice"]),
-        "threads": _values(QMM_THREADS, 1024, heur["threads"]),
-    }
 
     def launch(**tiles):
+        try:
+            qmatmul_tiles(m, k, n, {f"qmatmul.{a}": v
+                                    for a, v in tiles.items()})
+        except ValueError:
+            return None
         pol_t = _with_tiles(pol, "qmatmul", tiles)
         return lambda: qmatmul(x_codes, w_codes, x_scale, w_scale,
                                policy=pol_t)
 
-    best = _descend(axes, heur, launch, on_point=on_point)
+    heur = choose_qmatmul_blocks(m, k, n)
+    other = choose_qmatmul_blocks(m, k, n, 1 - heur["body"])
+    timed = []
+    for point in (heur, other):
+        fn = launch(**point)
+        timed.append(float("inf") if fn is None else _measure(fn))
+        if on_point is not None and fn is not None:
+            on_point(dict(point), timed[-1])
+    start = other if timed[1] < timed[0] * (1.0 - MIN_GAIN) else heur
+    best = _descend(_qmatmul_axes(k, start), start, launch,
+                    on_point=on_point)
     TUNING_CACHE.put("qmatmul", (m, k, n), x_codes.dtype, best,
                      platform=platform_key(x_codes.device))
     return best
@@ -369,6 +398,13 @@ def heuristic_tiles(op: str, *args, **kwargs) -> dict[str, int] | None:
                            kwargs.get("odd", "raise"))
 
 
+def _known_keys(op: str) -> tuple[str, ...]:
+    """The launch keys a tuned entry of ``op`` may hold."""
+    if op == "qmatmul":
+        return _QMM_KEYS
+    return ("th",) if op in _STREAM_INNER else _CONV_KEYS
+
+
 def signature_of(op: str, args, kwargs) -> tuple:
     """The tuning-cache shape signature of a tunable call."""
     if op == "qmatmul":
@@ -389,7 +425,7 @@ def ensure_tuned(op: str, *args, policy: ExecPolicy | None = None,
     x = args[0]
     hit = TUNING_CACHE.get(op, signature_of(op, args, kwargs), x.dtype,
                            platform_key(x.device))
-    if hit is not None:
+    if fits_keys(hit, _known_keys(op)):
         return hit
     inner = _STREAM_INNER.get(op, op)
     ikw = {k: v for k, v in kwargs.items() if k not in _STREAM_KWARGS}

@@ -11,10 +11,12 @@ constraint is filling an H100's 132 streaming multiprocessors with whole
     4 channels (one pooled output under ``pool``), and ``split``
     adjacent lanes share it along the contraction where the tiles alone
     cannot fill the card.
-  * ``qmatmul`` (``choose_qmatmul_blocks``): a block of 8 warps takes
-    ``rows`` rows of x, a warp a row at a time, against a slice of
-    ``cols`` columns of w staged in shared memory ``kslice`` words of K
-    at a time.
+  * ``qmatmul`` (``choose_qmatmul_blocks``): ``body`` 1, tensor-core
+    tiles of ``tile_m`` × 128 outputs over ``ksplit`` bytes of K, from 8
+    rows and 64 columns; else ``body`` 0, split-K weight streaming:
+    ``tile_m`` rows, ``tile_n`` columns and a ``ksplit``-row slice of K a
+    block, K split until the grid fills the card twice over. Each body
+    has only the keys it varies.
   * the addition tree (``choose_tree_blocks``): ``rows`` rows a block;
     rows up to ``short_eta`` wide take one thread each, wider rows half
     a warp or a warp each (``row_lanes``).
@@ -44,12 +46,14 @@ import warnings
 from typing import Mapping
 
 __all__ = ["H100_SMS", "WARP", "MAX_THREADS", "SMEM_MAX", "TREE_MAX_ETA",
-           "TREE_SHORT_ETA", "CONV_CHANNELS", "QMATMUL_COLS",
-           "choose_fused_blocks", "fused_ld", "fused_smem_bytes",
-           "fused_tiles", "choose_qmatmul_blocks", "qmatmul_smem_bytes",
-           "qmatmul_tiles", "choose_tree_blocks", "tree_smem_bytes",
-           "tree_tiles", "tile_params", "block_threads", "conv_signature",
-           "platform_key", "TuningCache", "TUNING_CACHE", "SCHEMA_VERSION"]
+           "TREE_SHORT_ETA", "CONV_CHANNELS", "QMATMUL_TC_MIN_M",
+           "QMATMUL_TC_MIN_N", "choose_fused_blocks", "fused_ld",
+           "fused_smem_bytes", "fused_tiles", "qmatmul_body",
+           "choose_qmatmul_blocks", "qmatmul_smem_bytes",
+           "qmatmul_scratch_bytes", "qmatmul_tiles", "choose_tree_blocks",
+           "tree_smem_bytes", "tree_tiles", "tile_params", "fits_keys",
+           "block_threads", "conv_signature", "platform_key", "TuningCache",
+           "TUNING_CACHE", "SCHEMA_VERSION"]
 
 H100_SMS = 132
 WARP = 32
@@ -65,8 +69,19 @@ CONV_CHANNELS = 4               # output channels in a conv thread's tile
 # (two blocks an SM); anything up to SMEM_MAX is staged when asked for
 FUSED_SMEM_TARGET = SMEM_MAX // 2
 FUSED_MAX_THREADS = 320         # a block of several images: 10 warps
-QMATMUL_COLS = 16               # columns a qmatmul lane holds in one pass
-QMATMUL_SMEM_TARGET = SMEM_MAX // 2
+# qmatmul: the tensor-core body (1) takes M >= 8 and N >= 64; below
+# either, the split-K weight-streaming body (0). Measured on an H100 at
+# two LM weights (scripts/torch_kernel_probe.py --sweep): streaming ahead
+# at M = 4, even at M = 8, the tiles ahead from M = 12
+QMATMUL_TC_MIN_M = 8
+QMATMUL_TC_MIN_N = 64
+QMATMUL_TC_BN = 128             # body 1: output columns a block
+QMATMUL_TC_BK = 64              # body 1: K bytes a cp.async stage
+QMATMUL_TC_LD = QMATMUL_TC_BK + 16  # body 1: staged row stride (bytes)
+QMATMUL_TC_STAGES = 4           # body 1: cp.async stages in the ring
+QMATMUL_STREAM_MIN_N = 16       # body 0: the narrowest column slice
+QMATMUL_XSLICE = 48 * 1024      # body 0: bytes of x a block stages
+QMATMUL_SPLIT_BYTES = 32 * 1024     # body 0: weights this large split K
 # version of the persisted tuning-cache JSON schema; other versions fall
 # back to the heuristics on load
 SCHEMA_VERSION = 1
@@ -209,34 +224,92 @@ def fused_tiles(bsz: int, n: int, h: int, w: int, m: int, kh: int, kw: int,
     return t
 
 
-def qmatmul_smem_bytes(cols: int, kslice: int) -> int:
-    """Shared memory of one qmatmul block: the column slice rounded up to
-    whole 16-column passes × one K slice of packed 4-byte words, at the
-    odd word stride ``kslice | 1`` (adjacent columns in distinct banks)."""
-    return 4 * _cdiv(cols, QMATMUL_COLS) * QMATMUL_COLS * (kslice | 1)
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
 
 
-def choose_qmatmul_blocks(m: int, k: int, n: int) -> dict[str, int]:
-    """qmatmul: 8 warps a block, a row a warp (``rows`` = 8). The column
-    slice ``cols`` is the least multiple of 16 that still gives 132
-    blocks where N allows it, halved (to multiples of 16) while the
-    staged slice of the whole K exceeds ``QMATMUL_SMEM_TARGET``; where
-    even 16 columns of K exceed it, ``kslice`` cuts K into slices that
-    fit. ``kslice`` is in 4-byte words (⌈K/4⌉ when K fits)."""
-    kw = max(_cdiv(k, 4), 1)
-    rows = MAX_THREADS // WARP
-    slices = max(1, _cdiv(H100_SMS, _cdiv(max(m, 1), rows)))
-    full = _cdiv(max(n, 1), QMATMUL_COLS) * QMATMUL_COLS
-    cols = min(full, _cdiv(_cdiv(max(n, 1), slices), QMATMUL_COLS)
-               * QMATMUL_COLS)
-    while (cols > QMATMUL_COLS
-           and qmatmul_smem_bytes(cols, kw) > QMATMUL_SMEM_TARGET):
-        cols = max(QMATMUL_COLS, cols // 2 // QMATMUL_COLS * QMATMUL_COLS)
-    kslice = kw
-    if qmatmul_smem_bytes(cols, kw) > QMATMUL_SMEM_TARGET:
-        kslice = QMATMUL_SMEM_TARGET // (4 * cols) - 1
-    return {"threads": MAX_THREADS, "rows": rows, "cols": cols,
-            "kslice": kslice}
+def qmatmul_body(m: int, k: int, n: int) -> int:
+    """The qmatmul body a shape takes: 1 (tensor-core tiles) from
+    ``QMATMUL_TC_MIN_M`` rows and ``QMATMUL_TC_MIN_N`` columns, else 0
+    (split-K weight streaming: decode's few rows, the CNN's narrow fc)."""
+    return int(m >= QMATMUL_TC_MIN_M and n >= QMATMUL_TC_MIN_N)
+
+
+def qmatmul_smem_bytes(body: int, tile_m: int, tile_n: int,
+                       ksplit: int) -> int:
+    """Shared memory of one qmatmul block. Body 1: 4 stages × (x's
+    ``tile_m`` rows of 64 bytes at the 80-byte stride + a 64 × 128 stage
+    of w as it lies) + w's 128 × 64 K-major tile at the 80-byte stride.
+    Body 0: the x slice (``tile_m`` × ``ksplit`` bytes) + the block's int32
+    sums (``tile_m`` × ``tile_n``)."""
+    if body == 1:
+        return (QMATMUL_TC_STAGES * (tile_m * QMATMUL_TC_LD + QMATMUL_TC_BK
+                                     * QMATMUL_TC_BN)
+                + QMATMUL_TC_BN * QMATMUL_TC_LD)
+    return tile_m * _cdiv(ksplit, 4) * 4 + 4 * tile_m * tile_n
+
+
+def qmatmul_scratch_bytes(body: int, m: int, n: int,
+                          grid: tuple[int, int, int]) -> int:
+    """The zeroed buffer a split-K call with the epilogue takes: body 1,
+    M × N int32 sums and an arrival counter an output tile; body 0, a
+    64-bit slot an output entry (its blocks' count beside their exact
+    sum). 0 when K is not split."""
+    gx, gy, gz = grid
+    if gz == 1:
+        return 0
+    return 4 * (m * n + gx * gy) if body == 1 else 8 * m * n
+
+
+def _qmatmul_stream_blocks(m: int, k: int, n: int) -> dict[str, int]:
+    mr = 4 if m <= 4 else 8 if m <= 8 else 16
+    cw = 64 // mr
+    tile_n = max(QMATMUL_STREAM_MIN_N,
+                 min(QMATMUL_TC_BN, cw * _pow2_at_least(_cdiv(max(n, 1),
+                                                              cw))))
+    ksplit = min(_cdiv(max(k, 1), 4) * 4, QMATMUL_XSLICE // mr)
+    if k * n >= QMATMUL_SPLIT_BYTES:
+        blocks = _cdiv(max(n, 1), tile_n) * _cdiv(max(m, 1), mr)
+        want = _cdiv(2 * H100_SMS, blocks)
+        ksplit = min(ksplit, max(16, k // want // 16 * 16))
+    return {"body": 0, "tile_m": mr, "tile_n": tile_n, "ksplit": ksplit}
+
+
+def _qmatmul_tc_blocks(m: int, k: int, n: int) -> dict[str, int]:
+    tile_m = 64 if m <= 64 else 128
+    tiles = _cdiv(max(m, 1), tile_m) * _cdiv(max(n, 1), QMATMUL_TC_BN)
+    ktiles = max(_cdiv(k, QMATMUL_TC_BK), 1)
+    kps = ktiles
+    if tiles < H100_SMS:
+        splits = min(_cdiv(2 * H100_SMS, tiles), max(1, ktiles // 4))
+        kps = _cdiv(ktiles, splits)
+    return {"body": 1, "tile_m": tile_m, "ksplit": QMATMUL_TC_BK * kps}
+
+
+def choose_qmatmul_blocks(m: int, k: int, n: int,
+                          body: int | None = None) -> dict[str, int]:
+    """qmatmul's launch keys for ``body`` (default ``qmatmul_body``).
+
+    Body 1 (tensor-core tiles): a block owns ``tile_m`` (64 up to M = 64,
+    else 128) × 128 outputs and walks ``ksplit`` bytes of K in 64-byte
+    steps through 4 cp.async stages; where the tiles
+    number fewer than the card's SMs, K is split (``ksplit`` < K) until
+    there are about 2 × 132 blocks, keeping at least 4 steps a block.
+
+    Body 0 (split-K weight streaming): a block takes ``tile_m`` rows (4,
+    8 or 16: the least that holds M, so 64 / tile_m columns a thread) and
+    ``tile_n`` columns (16 to 128: 128 bytes of a w row, or the least
+    power-of-two count of thread words that covers a narrow N) over a
+    ``ksplit``-row slice of K (a multiple of 4; the x slice at most
+    ``QMATMUL_XSLICE`` bytes). Where the weight holds at least
+    ``QMATMUL_SPLIT_BYTES``, ``ksplit`` is cut (to a multiple of 16, so
+    that x's slices stay 16-byte aligned) until the grid holds at least
+    2 × 132 blocks; a smaller weight takes one block a column slice and
+    writes its epilogue without the zeroed buffer."""
+    if body is None:
+        body = qmatmul_body(m, k, n)
+    return (_qmatmul_tc_blocks(m, k, n) if body == 1
+            else _qmatmul_stream_blocks(m, k, n))
 
 
 def qmatmul_tiles(m: int, k: int, n: int,
@@ -244,25 +317,51 @@ def qmatmul_tiles(m: int, k: int, n: int,
                   platform: str | None = None) -> dict[str, int]:
     """``choose_qmatmul_blocks`` with ``qmatmul`` overrides (and a
     ``TUNING_CACHE`` entry of (M, K, N), int8, ``platform``) applied and
-    checked, ``kslice`` clipped to ⌈K/4⌉, plus the staged slice's word
-    stride ``ld`` and its bytes ``smem``."""
-    defaults = choose_qmatmul_blocks(m, k, n)
+    checked, ``ksplit`` clipped to K, plus the launch's ``grid``,
+    ``splits`` (blocks a tile shares K among), shared memory ``smem`` and
+    the zeroed buffer's ``scratch`` bytes. An overridden or cached
+    ``body`` takes that body's heuristic for the keys not given; a key
+    the body does not take (body 1's ``tile_n``) is ignored, as any key
+    the op does not know, and a cached entry of the other body is a
+    miss."""
     key = {"signature": (m, k, n), "dtype": "int8", "platform": platform}
-    t = tile_params("qmatmul", defaults, overrides, **key)
-    t["threads"] = block_threads("qmatmul", defaults, overrides, **key)
-    for key in ("rows", "cols", "kslice"):
-        if t[key] < 1:
-            raise ValueError(f"qmatmul: {key} {t[key]} must be >= 1")
-    t["kslice"] = min(t["kslice"], max(_cdiv(k, 4), 1))
-    grid = _cdiv(m, t["rows"]) * _cdiv(n, t["cols"])
-    if grid > 2 ** 31 - 1:
-        raise ValueError(f"qmatmul: {grid} blocks; CUDA's grid holds at "
-                         f"most 2**31 - 1")
-    t["ld"] = t["kslice"] | 1
-    t["smem"] = qmatmul_smem_bytes(t["cols"], t["kslice"])
+    both = {**choose_qmatmul_blocks(m, k, n, 0),
+            **choose_qmatmul_blocks(m, k, n)}   # every key, this body's
+    body = tile_params("qmatmul", both, overrides, **key)["body"]
+    if body not in (0, 1):
+        raise ValueError(f"qmatmul: body {body} must be 0 (weight "
+                         f"streaming) or 1 (tensor-core tiles)")
+    hit = TUNING_CACHE.get("qmatmul", (m, k, n), "int8", platform) or {}
+    t = tile_params("qmatmul", choose_qmatmul_blocks(m, k, n, body),
+                    overrides, **(key if hit.get("body", body) == body
+                                  else {}))
+    t["body"] = body
+    if body == 1:
+        ok = {"tile_m": (64, 128)}
+        step = QMATMUL_TC_BK
+    else:
+        ok = {"tile_m": (4, 8, 16), "tile_n": (16, 32, 64, 128)}
+        step = 4
+    for name, values in ok.items():
+        if t[name] not in values:
+            raise ValueError(f"qmatmul: {name} {t[name]} must be one of "
+                             f"{values} for body {body}")
+    if t["ksplit"] < step or t["ksplit"] % step:
+        raise ValueError(f"qmatmul: ksplit {t['ksplit']} must be a "
+                         f"positive multiple of {step} for body {body}")
+    t["ksplit"] = min(t["ksplit"], max(_cdiv(k, step), 1) * step)
+    t["splits"] = max(1, _cdiv(k, t["ksplit"]))   # blocks sharing a K
+    cols = QMATMUL_TC_BN if body == 1 else t["tile_n"]
+    grid = (_cdiv(n, cols), _cdiv(m, t["tile_m"]), t["splits"])
+    if grid[0] > 2 ** 31 - 1 or max(grid[1:]) > 65535:
+        raise ValueError(f"qmatmul: grid {grid}; CUDA's grid holds at most "
+                         f"(2**31 - 1, 65535, 65535)")
+    t["grid"] = grid
+    t["smem"] = qmatmul_smem_bytes(body, t["tile_m"], cols, t["ksplit"])
     if t["smem"] > SMEM_MAX:
         raise ValueError(f"qmatmul: {t['smem']} bytes of shared memory a "
                          f"block; at most {SMEM_MAX}")
+    t["scratch"] = qmatmul_scratch_bytes(body, m, n, grid)
     return t
 
 
@@ -317,14 +416,16 @@ def tile_params(op: str, defaults: Mapping[str, int],
                 platform: str | None = None) -> dict[str, int]:
     """Heuristic ``defaults``, refined by the ``TUNING_CACHE`` entry of
     (``op``, ``signature``, ``dtype``, ``platform``) when a signature is
-    given, with ``overrides`` applied last: bare keys apply to any op
-    that knows them, ``"<op>.<key>"`` keys to one op and win. Unknown
-    keys are ignored, so one policy can carry tiles for several ops."""
+    given (and only if every key of the entry is one of ``defaults``':
+    ``fits_keys``), with ``overrides`` applied last: bare keys apply to any
+    op that knows them, ``"<op>.<key>"`` keys to one op and win. Unknown
+    override keys are ignored, so one policy can carry tiles for several
+    ops."""
     merged = dict(defaults)
     if signature is not None:
         hit = TUNING_CACHE.get(op, signature, dtype, platform)
-        if hit:
-            merged.update({k: v for k, v in hit.items() if k in defaults})
+        if fits_keys(hit, defaults):
+            merged.update(hit)
     ov = dict(overrides or {})
     for k, v in ov.items():
         if "." not in k and k in defaults:
@@ -334,6 +435,15 @@ def tile_params(op: str, defaults: Mapping[str, int],
         if len(name) == 2 and name[0] == op and name[1] in defaults:
             merged[name[1]] = int(v)
     return merged
+
+
+def fits_keys(hit: Mapping[str, int] | None,
+              known: Mapping[str, int] | set) -> bool:
+    """Whether a cached entry speaks this build's launch keys: a
+    non-empty entry none of whose keys is unknown to the op. An entry
+    measured under keys the op no longer has (an older kernel's) is a
+    miss, never an error."""
+    return bool(hit) and set(hit) <= set(known)
 
 
 def block_threads(op: str, defaults: Mapping[str, int],

@@ -94,7 +94,7 @@ class TestPersistence:
                   {"threads": 128, "cpb": 8, "band": 2, "split": 4,
                    "ipb": 2})
         cache.put("qmatmul", (64, 32, 16), torch.int8,
-                  {"threads": 256, "rows": 8, "cols": 16, "kslice": 8},
+                  {"body": 0, "tile_m": 8, "tile_n": 16, "ksplit": 8},
                   platform=CARD)
         path = tmp_path / "cache.json"
         cache.save(path)
@@ -115,7 +115,7 @@ class TestPersistence:
         assert fresh.get("fused_conv_block", SIG1, torch.float32) == \
             cache.get("fused_conv_block", SIG1, torch.float32)
         assert fresh.get("qmatmul", (64, 32, 16), torch.int8,
-                         platform=CARD)["kslice"] == 8
+                         platform=CARD)["ksplit"] == 8
         assert fresh.export_rows() == cache.export_rows()
 
     @pytest.mark.parametrize("text,match", [
@@ -181,7 +181,7 @@ class TestCacheScoping:
         TUNING_CACHE.put("fused_conv_block", SIG1, torch.float32,
                          {"cpb": 16, "ipb": 3})
         TUNING_CACHE.put("qmatmul", (8, 320, 10), torch.int8,
-                         {"rows": 4, "kslice": 16})
+                         {"tile_m": 4, "ksplit": 16})
         t = tiling.fused_tiles(*SIG1, {"fused_conv_block.ipb": 2},
                                platform="cpu")
         assert (t["cpb"], t["ipb"]) == (16, 2)
@@ -190,8 +190,8 @@ class TestCacheScoping:
         conv = tiling.fused_tiles(*SIG1, pool=False, platform="cpu")
         assert conv["cpb"] == tiling.choose_fused_blocks(
             *SIG1, pool=False)["cpb"]
-        q = tiling.qmatmul_tiles(8, 320, 10, {"rows": 8}, platform="cpu")
-        assert (q["rows"], q["kslice"], q["ld"]) == (8, 16, 17)
+        q = tiling.qmatmul_tiles(8, 320, 10, {"tile_m": 16}, platform="cpu")
+        assert (q["tile_m"], q["ksplit"], q["splits"]) == (16, 16, 20)
 
     @pytest.mark.parametrize("op,fused", [("stream_conv2d", False),
                                           ("stream_fused_conv_block", True)])
@@ -326,6 +326,96 @@ class TestSearch:
                                 "cpu") == best
 
 
+    def test_qmatmul_search_takes_the_faster_body(self, monkeypatch):
+        """Both bodies' heuristics are measured; the other body's, 50%
+        faster here, starts the descent, whose axes are that body's own,
+        and the winner (that body's keys) lands in the cache."""
+        seen = []
+        real = autotune._with_tiles
+
+        def with_tiles(pol, op, tiles):
+            seen.append(dict(tiles))
+            return real(pol, op, tiles)
+
+        def measure(fn, **_):
+            fn()                        # the plain version on the CPU
+            return 50.0 if seen[-1]["body"] == 1 else 100.0
+
+        monkeypatch.setattr(autotune, "_with_tiles", with_tiles)
+        monkeypatch.setattr(autotune, "_measure", measure)
+        xc = torch.ones(4, 320, dtype=torch.int8)
+        wc = torch.ones(320, 10, dtype=torch.int8)
+        heur = autotune.heuristic_tiles("qmatmul", xc, wc)
+        best = autotune.tune_qmatmul(xc, wc, torch.ones(4, 1),
+                                     torch.ones(1, 10))
+        assert heur["body"] == 0 and best["body"] == 1
+        assert set(best) == {"body", "tile_m", "ksplit"}
+        assert all(set(p) == set(best) for p in seen[2:])
+        assert {p["tile_m"] for p in seen[2:]} == {64, 128}
+        assert TUNING_CACHE.get("qmatmul", (4, 320, 10), torch.int8,
+                                "cpu") == best
+
+    def test_descend_never_measures_a_refused_point(self, monkeypatch):
+        monkeypatch.setattr(autotune, "_measure", lambda fn, **_: fn())
+        costs = {1: 100.0, 2: 90.0, 3: 10.0}
+        best = autotune._descend(
+            {"a": [1, 2, 3]}, {"a": 1},
+            lambda a: None if a == 3 else (lambda: costs[a]))
+        assert best == {"a": 2}
+
+    def test_cached_qmatmul_body_steers_and_the_other_body_misses(self):
+        """A tuned entry of the streaming body steers a shape whose
+        heuristic is the tensor-core body (its ``tile_n`` is a key of the
+        op, not of the heuristic's body); under an overridden body the
+        other body's entry is a miss, never a mix of the two."""
+        TUNING_CACHE.put("qmatmul", (64, 1024, 2816), torch.int8,
+                         {"body": 0, "tile_m": 16, "tile_n": 64,
+                          "ksplit": 256}, platform="cpu")
+        assert tiling.qmatmul_body(64, 1024, 2816) == 1
+        t = tiling.qmatmul_tiles(64, 1024, 2816, platform="cpu")
+        assert (t["body"], t["tile_m"], t["tile_n"], t["ksplit"]) == \
+            (0, 16, 64, 256)
+        t = tiling.qmatmul_tiles(64, 1024, 2816, {"qmatmul.body": 1},
+                                 platform="cpu")
+        heur = tiling.choose_qmatmul_blocks(64, 1024, 2816, 1)
+        assert {k: t[k] for k in heur} == heur and "tile_n" not in t
+        TUNING_CACHE.put("qmatmul", (64, 1024, 2816), torch.int8,
+                         {"body": 1, "tile_m": 128, "ksplit": 128},
+                         platform="cpu")
+        t = tiling.qmatmul_tiles(64, 1024, 2816, {"qmatmul.body": 0},
+                                 platform="cpu")
+        heur = tiling.choose_qmatmul_blocks(64, 1024, 2816, 0)
+        assert {k: t[k] for k in heur} == heur
+
+    def test_stale_qmatmul_entry_is_a_miss(self, tmp_path):
+        """An entry in the launch keys of an older qmatmul (threads, rows,
+        cols, kslice) loads without error and steers nothing: the tiles
+        are the heuristic's, and ``ensure_tuned`` does not return it."""
+        old = {"threads": 256, "rows": 4, "cols": 16, "kslice": 20}
+        path = tmp_path / "old.json"
+        path.write_text(json.dumps({
+            "version": SCHEMA_VERSION,
+            "entries": [{"op": "qmatmul", "shape": [4, 320, 10],
+                         "dtype": "int8", "platform": "cpu",
+                         "params": old}]}))
+        assert TUNING_CACHE.load(path) == 1
+        assert TUNING_CACHE.get("qmatmul", (4, 320, 10), torch.int8) == old
+        assert not tiling.fits_keys(old, tiling.choose_qmatmul_blocks(
+            4, 320, 10))
+        t = tiling.qmatmul_tiles(4, 320, 10, platform="cpu")
+        heur = tiling.choose_qmatmul_blocks(4, 320, 10)
+        assert {k: t[k] for k in heur} == heur
+        xc = torch.ones(4, 320, dtype=torch.int8)
+        wc = torch.ones(320, 10, dtype=torch.int8)
+        assert ensure_tuned("qmatmul", xc, wc, torch.ones(4, 1),
+                            torch.ones(1, 10)) is None
+        # the same shape's entry in this build's keys is a hit
+        TUNING_CACHE.put("qmatmul", (4, 320, 10), torch.int8,
+                         {"ksplit": 20})
+        assert ensure_tuned("qmatmul", xc, wc, torch.ones(4, 1),
+                            torch.ones(1, 10)) == {"ksplit": 20}
+
+
 class TestStreamAutotune:
     """The reference's ``TestStreamAutotune``, on the CPU with scripted
     timings: the tuner's search and cache writes do not need the card."""
@@ -427,7 +517,7 @@ class TestPlanAutotune:
                        (SIG2, {"band": 1, "threads": 64})):
             TUNING_CACHE.put("fused_conv_block", sig, torch.float32, t)
         TUNING_CACHE.put("qmatmul", (4, 320, 10), torch.int8,
-                         {"rows": 4, "kslice": 20})
+                         {"tile_n": 32, "ksplit": 20})
         J_CACHE.put("fused_conv_block", SIG1, jnp.float32,
                     {"pb": 2, "mb": 5, "bb": 4})
         J_CACHE.put("fused_conv_block", SIG2, jnp.float32,
@@ -441,7 +531,7 @@ class TestPlanAutotune:
         baked = {k: v for t in bound.tuned.values() for k, v in t.items()}
         assert baked["fused_conv_block.split"] == 4
         if quant == "int8":
-            assert baked["qmatmul.kslice"] == 20
+            assert baked["qmatmul.ksplit"] == 20
         got = bound(torch.from_numpy(x)).numpy()
         np.testing.assert_array_equal(
             got, _port_plan(quant).bind(tparams)(torch.from_numpy(x)))

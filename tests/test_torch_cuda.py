@@ -126,9 +126,10 @@ def test_qmatmul_matches_plain(card, bsz):
     _agree("int8", qm_ops.qmatmul(*args), qmatmul_ref(*args))
 
 
-def _qmatmul_operands(m, k, n, device):
+def _qmatmul_operands(m, k, n, device, seed=None):
     """int8 codes over the full range and positive f32 scales."""
-    g = torch.Generator().manual_seed(m * 7 + k * 3 + n)
+    g = torch.Generator().manual_seed(m * 7 + k * 3 + n if seed is None
+                                      else seed)
     xc = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
     wc = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
     xs = torch.rand((m, 1), generator=g) * 0.05
@@ -138,10 +139,16 @@ def _qmatmul_operands(m, k, n, device):
 
 @pytest.mark.parametrize("m,k,n", [
     (1, 37, 1), (8, 320, 10), (1000, 4099, 33), (4097, 320, 300),
-    (8, 4099, 300), (4097, 37, 10), (1, 4099, 33), (1000, 37, 1)])
+    (8, 4099, 300), (4097, 37, 10), (1, 4099, 33), (1000, 37, 1)]
+    # both sides of the body boundary (tensor-core tiles from M = 8 at
+    # N >= 64), K in {37, 320, 4,099, 14,336}, N in {10, 16, 1,408, 3,584}
+    + [(m, k, n) for m in (1, 7, 8, 15, 16, 17, 64, 512)
+       for k, n in ((37, 3584), (320, 1408), (4099, 16), (14336, 10),
+                    (14336, 3584))])
 def test_qmatmul_shapes_match_plain_bitwise(card, m, k, n):
-    """K off a multiple of 4 (37, 4099) takes byte loads; N past one
-    16-column pass and past one column slice; M off a block's 8 rows."""
+    """K off a multiple of 16 (37, 4099) takes byte loads; N past one
+    column tile and narrow N; M off a block's rows; decode shapes split
+    K across blocks."""
     args = _qmatmul_operands(m, k, n, card)
     before = qm_ops.launches
     with qm_ops.record_shapes() as seen:
@@ -152,10 +159,13 @@ def test_qmatmul_shapes_match_plain_bitwise(card, m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 1408, 1024), (64, 704, 1024),
-                                   (37, 4099, 33), (1, 37, 1)])
+                                   (37, 4099, 33), (1, 37, 1),
+                                   (2, 2816, 1024), (32, 1408, 1024),
+                                   (4, 7168, 3584), (512, 7168, 3584)])
 def test_qmatmul_accumulator_matches_plain_bitwise(card, m, k, n):
     """The raw mode (no epilogue): the int32 accumulator a row-parallel
-    shard hands to the exact sum across ranks."""
+    shard hands to the exact sum across ranks, at the LM mesh shard
+    shapes too (a split K adds into the zeroed output)."""
     from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref
     xc, wc, _, _ = _qmatmul_operands(m, k, n, card)
     with qm_ops.record_shapes() as seen:
@@ -185,14 +195,56 @@ def test_qmatmul_scalar_scales_match_plain_bitwise(card):
 
 
 @pytest.mark.parametrize("tiling", [
-    {"qmatmul.kslice": 100},                        # K in 11 slices
-    {"qmatmul.kslice": 7, "qmatmul.rows": 24},      # 3 rows a warp
-    {"qmatmul.cols": 48, "qmatmul.threads": 64},    # 3 passes, 2 warps
-    {"qmatmul.cols": 5, "qmatmul.rows": 1}])
+    {"qmatmul.body": 1},                            # tiles at N = 33
+    {"qmatmul.body": 1, "qmatmul.tile_m": 128,
+     "qmatmul.ksplit": 128},                        # K in 33 slices
+    {"qmatmul.body": 0, "qmatmul.tile_m": 4,
+     "qmatmul.ksplit": 100},                        # 17 x 41 blocks
+    {"qmatmul.body": 0, "qmatmul.tile_m": 16, "qmatmul.tile_n": 128,
+     "qmatmul.ksplit": 4100}])                      # K whole, 8 bytes a word
 def test_qmatmul_overrides_match_plain_bitwise(card, tiling):
     args = _qmatmul_operands(67, 4099, 33, card)
     got = qm_ops.qmatmul(*args, policy=ExecPolicy(tiling=tiling))
     _agree("int8", got, qmatmul_ref(*args))
+
+
+@pytest.mark.parametrize("m,k,n,raw", [(4, 1024, 2816, False),
+                                       (64, 2816, 1024, False),
+                                       (4, 1408, 1024, True),
+                                       (512, 7168, 3584, True)])
+def test_qmatmul_graph_replays_match_plain_bitwise(card, m, k, n, raw):
+    """One launch captured in a CUDA graph, with a split K's zeroed
+    buffer, replayed on new inputs copied in: bitwise each time, one
+    counted launch (the capture's)."""
+    args = _qmatmul_operands(m, k, n, card)
+    call = ((lambda: qm_ops.qmatmul_acc(args[0], args[1])) if raw
+            else (lambda: qm_ops.qmatmul(*args)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = qm_ops.launches
+    with torch.cuda.graph(graph):
+        got = call()
+    assert qm_ops.launches == before + 1
+    for rep in range(2):
+        for dst, src in zip(args, _qmatmul_operands(m, k, n, card,
+                                                    seed=rep)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = (qm_ops.qmatmul_acc(args[0], args[1]) if raw
+                else qm_ops.qmatmul(*args))
+        assert torch.equal(got, qmatmul_ref(*args) if not raw else
+                           _acc_ref(args[0], args[1]))
+        assert torch.equal(got, want)
+
+
+def _acc_ref(xc, wc):
+    from repro_torch.kernels.qmatmul.ref import qmatmul_acc_ref
+    return qmatmul_acc_ref(xc, wc)
 
 
 def test_auto_dispatch_reaches_the_kernels(card):

@@ -421,38 +421,169 @@ def test_unpooled_smem_covers_the_ragged_rows(case, bsz, tiles):
 
 
 @pytest.mark.parametrize("mkn,want", [
-    # the paper's fc at a served batch and at 1024: one 16-column slice,
-    # the whole K (80 words) staged once
-    ((8, 320, 10), {"threads": 256, "rows": 8, "cols": 16, "kslice": 80}),
-    ((1024, 320, 10), {"threads": 256, "rows": 8, "cols": 16,
-                       "kslice": 80}),
-    # K off a word multiple: ⌈37/4⌉ = 10 words, the tail zero-padded
-    ((3, 37, 5), {"threads": 256, "rows": 8, "cols": 16, "kslice": 10}),
-    # 32 columns of 4,096 bytes would take 131 KB: 16 columns a slice
-    ((64, 4096, 300), {"threads": 256, "rows": 8, "cols": 16,
-                       "kslice": 1024}),
+    # the paper's fc at a served batch and at 1024: N = 10 takes the
+    # streaming body, 16 columns a block (8 rows a block, so 8 columns a
+    # thread word, two words), the whole K in one slice: no split
+    ((8, 320, 10), {"body": 0, "tile_m": 8, "tile_n": 16, "ksplit": 320}),
+    ((1024, 320, 10), {"body": 0, "tile_m": 16, "tile_n": 16,
+                       "ksplit": 320}),
+    # K off a word multiple: the slice rounds up to 40, zero past K
+    ((3, 37, 5), {"body": 0, "tile_m": 4, "tile_n": 16, "ksplit": 40}),
+    # tensor-core tiles: 3 tiles of 64 x 128 split K 16 ways (4 steps of
+    # 64 bytes a block) toward 2 x 132 blocks; a tile is 128 columns
+    # through 4 stages, so the body has no tile_n or stages key
+    ((64, 4096, 300), {"body": 1, "tile_m": 64, "ksplit": 256}),
 ])
 def test_choose_qmatmul_blocks(mkn, want):
     assert tiling.choose_qmatmul_blocks(*mkn) == want
     t = tiling.qmatmul_tiles(*mkn)
-    assert t["ld"] == want["kslice"] | 1
-    assert t["smem"] == 4 * 16 * t["ld"] <= tiling.QMATMUL_SMEM_TARGET
+    assert {k: t[k] for k in want} == want
+    assert t["splits"] == -(-mkn[1] // want["ksplit"])
+    cols = want.get("tile_n", tiling.QMATMUL_TC_BN)
+    assert t["grid"][0] == -(-mkn[2] // cols)
+    assert t["smem"] == tiling.qmatmul_smem_bytes(
+        want["body"], want["tile_m"], cols, want["ksplit"]) <= \
+        tiling.SMEM_MAX
 
 
 def test_qmatmul_tiles_slices_long_k_and_refuses_bad_overrides():
+    # a 1 MB weight splits K; the x slice stays within its cap
     t = tiling.qmatmul_tiles(8, 100_000, 10)
-    assert t["cols"] == 16 and t["kslice"] < 25_000
-    assert t["smem"] <= tiling.QMATMUL_SMEM_TARGET
-    # a slice longer than K is K; namespaced keys win over bare ones
-    t = tiling.qmatmul_tiles(8, 37, 10, {"kslice": 99, "rows": 3,
-                                         "qmatmul.rows": 5,
-                                         "conv2d.rows": 7})
-    assert (t["kslice"], t["rows"]) == (10, 5)
-    for bad in ({"rows": 0}, {"cols": 0}, {"kslice": 0},
-                {"qmatmul.threads": 40}, {"threads": 2048},
-                {"cols": 4000, "kslice": 80}):
+    assert t["body"] == 0 and t["splits"] > 1
+    assert t["ksplit"] * t["tile_m"] <= tiling.QMATMUL_XSLICE
+    assert t["grid"][0] * t["grid"][1] * t["splits"] >= 2 * tiling.H100_SMS
+    # a slice longer than K is K; namespaced keys win over bare ones, and
+    # an overridden body takes that body's heuristic for the other keys
+    t = tiling.qmatmul_tiles(8, 37, 10, {"ksplit": 96, "tile_m": 4,
+                                         "qmatmul.tile_m": 16,
+                                         "conv2d.tile_m": 8})
+    assert (t["ksplit"], t["tile_m"], t["splits"]) == (40, 16, 1)
+    t = tiling.qmatmul_tiles(8, 320, 300, {"qmatmul.body": 1})
+    assert (t["body"], t["tile_m"], t["ksplit"]) == (1, 64, 320)
+    # a key the body does not take is ignored, as any key the op does not
+    # know: tiles stay 128 columns, and the stages key is gone
+    for extra in ({"qmatmul.tile_n": 64}, {"qmatmul.stages": 3}):
+        assert tiling.qmatmul_tiles(8, 320, 300, {"qmatmul.body": 1,
+                                                  **extra}) == t
+    for bad in ({"body": 2}, {"tile_m": 32}, {"body": 0, "tile_n": 48},
+                {"body": 0, "tile_n": 8}, {"ksplit": 0}, {"ksplit": 6},
+                {"body": 1, "tile_m": 16}, {"body": 1, "ksplit": 96},
+                {"body": 1, "tile_m": 256}, {"body": 0, "tile_m": 64}):
         with pytest.raises(ValueError, match="qmatmul"):
-            tiling.qmatmul_tiles(8, 320, 10, bad)
+            tiling.qmatmul_tiles(8, 320, 300, bad)
+    # the x slice past the shared memory a block may take
+    with pytest.raises(ValueError, match="shared memory"):
+        tiling.qmatmul_tiles(16, 20_000, 10, {"ksplit": 16_000})
+
+
+@pytest.mark.parametrize("m,body", [(1, 0), (4, 0), (7, 0), (8, 1),
+                                    (15, 1), (16, 1), (17, 1), (64, 1),
+                                    (512, 1)])
+def test_qmatmul_body_boundary(m, body):
+    """Tensor-core tiles from M = 8 (at N >= 64; the card's measurement
+    put the crossover between 8 and 12 rows), streaming below, and
+    streaming at a narrow N whatever M is."""
+    assert tiling.QMATMUL_TC_MIN_M == 8
+    assert tiling.qmatmul_tiles(m, 1024, 1408)["body"] == body
+    assert tiling.qmatmul_tiles(m, 1024, 16)["body"] == 0
+    assert tiling.qmatmul_tiles(m, 320, 10)["body"] == 0
+
+
+# every LM decode launch of qmatmul (M = capacity 4 or a pod rank's 2):
+# qwen1.5-0.5b's MLP and its model-2 and -4 shards, the four dense
+# configs, zamba2-7b's shared MLP and its model-2 shard
+LM_DECODE = [(1024, 2816), (2816, 1024), (1024, 1408), (1408, 1024),
+             (1024, 704), (704, 1024), (5120, 17408), (17408, 5120),
+             (2304, 9216), (9216, 2304), (8192, 22528), (22528, 8192),
+             (6144, 16384), (16384, 6144), (3584, 14336), (14336, 3584),
+             (3584, 7168), (7168, 3584)]
+
+
+@pytest.mark.parametrize("k,n", LM_DECODE)
+@pytest.mark.parametrize("m", [2, 4])
+def test_qmatmul_decode_fills_the_card_twice(m, k, n):
+    """The weight is streamed once over at least 2 x 132 blocks: K is cut
+    into whole 4-row groups, the last slice holds the rest, and the split
+    takes the zeroed buffer of one 64-bit slot an output entry."""
+    t = tiling.qmatmul_tiles(m, k, n)
+    gx, gy, gz = t["grid"]
+    assert t["body"] == 0 and t["tile_m"] == 4 and t["tile_n"] == 128
+    assert gx * gy * gz >= 2 * tiling.H100_SMS
+    assert t["ksplit"] % 4 == 0 and (gz - 1) * t["ksplit"] < k <= \
+        gz * t["ksplit"]
+    assert t["scratch"] == 8 * m * n
+    assert t["smem"] == 4 * t["ksplit"] + 4 * 4 * 128
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (64, 1024, 2816, 4), (64, 2816, 1024, 11), (512, 14336, 3584, 3),
+    (512, 3584, 14336, 1), (64, 8192, 22528, 1), (8, 320, 10, 1),
+    (8, 4608, 10, 288), (1, 37, 1, 1)])
+def test_qmatmul_scratch_sizing(m, k, n, splits):
+    """An unsplit call takes no buffer. A split one of the tensor-core
+    body takes M x N int32 sums and an arrival counter an output tile;
+    of the streaming body, a 64-bit slot an output entry: its blocks'
+    count in the top 16 bits (so at most 65,535 blocks share a K, CUDA's
+    grid z), their exact sum in the low 48."""
+    t = tiling.qmatmul_tiles(m, k, n)
+    gx, gy, _ = t["grid"]
+    assert t["splits"] == splits <= 65535
+    if splits == 1:
+        assert t["scratch"] == 0
+    elif t["body"] == 1:
+        assert t["scratch"] == 4 * (m * n + gx * gy)
+    else:
+        assert t["scratch"] == 8 * m * n
+
+
+def test_qmatmul_staged_k_major_layout_is_the_transpose():
+    """The tensor-core body's staging of a step of w, restated in plain
+    PyTorch: the [n][k] tile holds w's transpose, and every lane of a
+    warp's loads and stores of the transposition pass hits its own bank."""
+    from repro_torch.kernels.qmatmul.ref import TC_BK, tc_stage_w
+    w = np.random.RandomState(5).randint(-128, 128, (64, 128)).astype(
+        np.int8)
+    kmajor, reads, writes = tc_stage_w(torch.from_numpy(w))
+    np.testing.assert_array_equal(kmajor[:, :TC_BK].numpy(),
+                                  w.view(np.uint8).T)
+    for addrs in (reads, writes):
+        banks = (addrs // 4) % 32
+        assert all(len(set(b.tolist())) == 32
+                   for b in banks.reshape(-1, 32))
+    # every byte of the tile written once: 128 rows x 16 words
+    words = writes.reshape(-1) // 4
+    assert len(set(words.tolist())) == 128 * 16
+
+
+@pytest.mark.parametrize("splits", [2, 7, 300, 65535])
+def test_qmatmul_split_slot_counts_and_sums_exactly(splits):
+    """Blocks add their int32 sums of one entry into its 64-bit slot in
+    any order: after each add the slot counts the adds so far, and its
+    low 32 bits are the int32 (wrapped) sum the plain version gives,
+    with every sum at int32's extremes too."""
+    from repro_torch.kernels.qmatmul.ref import add_split
+    rng = np.random.RandomState(splits)
+    for parts in (rng.randint(-2 ** 31, 2 ** 31, splits, dtype=np.int64),
+                  np.full(splits, 2 ** 31 - 1, np.int64),
+                  np.full(splits, -2 ** 31, np.int64)):
+        slot, total = 0, 0
+        for i, v in enumerate(parts[rng.permutation(splits)]):
+            slot, count, low = add_split(slot, int(v))
+            total += int(v)
+            assert count == i + 1
+        want = int(torch.tensor(parts).to(torch.int32).sum(
+            dtype=torch.int32))
+        assert low == want == (total + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def test_qmatmul_transpose4_is_a_byte_transpose():
+    from repro_torch.kernels.qmatmul.ref import transpose4
+    blocks = np.random.RandomState(6).randint(0, 256, (50, 4, 4)).astype(
+        np.uint8)
+    r = torch.from_numpy(blocks.view("<u4").astype(np.int64)).squeeze(-1)
+    o = torch.stack(transpose4(*r.unbind(1)), dim=1)
+    got = o.numpy().astype("<u4").view(np.uint8).reshape(50, 4, 4)
+    np.testing.assert_array_equal(got, blocks.transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("args,ld", [
