@@ -34,6 +34,29 @@ Phases, each printing one JSON line:
            on the card, every request held against the same engine on the
            CPU; each bucket is served by its CUDA graph, whose captured
            launches times its replays must match the batches served;
+  open_loop  ``OpenLoopDriver`` on the card under the wall clock, through
+           the normal engines under int8: VisionEngine for mnist_cnn and
+           highres_cnn (224², streamed; batch 8, the bucket ladder, a CUDA
+           graph a bucket) and the LM Engine for qwen1.5-0.5b at full
+           width and OPEN_LOOP_LM_LAYERS layers (capacity 4, its step
+           graphs). Each serves its seeded payloads closed loop
+           (``run_until_drained``: the reference results and the
+           throughput), then open loop at seeded Poisson arrivals of 0.5x
+           and 2x that throughput (the 2x run's queue 2 x the lanes):
+           every arrival submitted or shed, shed = rejected, completed =
+           submitted, no shed at 0.5x and some at 2x, every result equal
+           to the closed loop's for the same payload (tokens equal; int8
+           logits bitwise to the closed loop of the same batch, since an
+           int8 batch shares one activation scale), fused_cwp and qmatmul
+           launched; then the 2x schedule under a ``VirtualClock`` on the
+           card and on the CPU with the same weights (the CPU's a host
+           job; the LM cut to OPEN_LOOP_REPLAY_LAYERS, since the CPU
+           quantizes every int8 weight at every call): shed lists,
+           dispatch order, steps and latencies equal.
+           Latency p50/p99 from submit (the front-end's; an arrival that
+           falls due during a step is stamped when it ends, as the
+           reference stamps it) and from the scheduled arrival, goodput,
+           shed and lane utilization, beside ``nvidia-smi``;
   eager    PaperCNN.forward (conv_window) against the compiled plan
            (fused_cwp) on the card, and against the CPU, in all 3 modes;
   tree     the paper-dataflow conv on the card: each conv stage's product
@@ -301,9 +324,9 @@ Phases, each printing one JSON line:
            ``src/repro_torch`` and this script) and ``verify <plan>: ok``
            for ANALYSIS_PLANS; its seconds. It launches nothing.
 
-The card-vs-CPU checks' CPU sides, the dry-run sweep, the mesh dry
-run's sweep and zamba2's count run in worker processes started with the
-script (``start_host_jobs``), the static gate in a subprocess beside
+The card-vs-CPU checks' CPU sides (the open_loop replays' too), the
+dry-run sweep, the mesh dry run's sweep and zamba2's count run in worker
+processes started with the script (``start_host_jobs``), the static gate in a subprocess beside
 them, and the train
 launchers start before the mesh phase, beside the card's phases; each
 is taken where its phase needs it.
@@ -311,10 +334,12 @@ is taken where its phase needs it.
 Then one compact line a model of step times (eager and graph wall, busy
 and event ms; capture ms and pool MiB), the launch phase's compact lines
 (one an arch of the dry run, the sweep's seconds, one a measured
-roofline, the train peak), the kernels line (one JSON
+roofline, the train peak), one line an open-loop run (its latencies,
+goodput, shed and lane utilization beside ``nvidia-smi``), the kernels
+line (one JSON
 object; its times are the paper CNN's served batch at B = 8, its
-launches the wrapper launches of the serve, eager, tree and stream
-phases, of the boot phase, of the lm phase's int8 engine runs
+launches the wrapper launches of the serve, open_loop, eager, tree and
+stream phases, of the boot phase, of the lm phase's int8 engine runs
 (qwen1.5-0.5b and the four dense configs), of the moe phase (none), of
 the ssm phase's int8 zamba2 engine runs through the kernel, of the
 train phase's MNIST run, of the launch phase's int8 engine and of the
@@ -449,6 +474,37 @@ LM_FULL_ARCHS = ["gemma2-2b", "qwen3-14b"]
 # at full width cut to LM_STEP_LAYERS layers (from 24, to keep the script
 # in its time; the int8 engine and the launchers serve all 24)
 LM_STEP_LAYERS = 6
+# the open_loop phase: each engine (VisionEngine for mnist_cnn and
+# highres_cnn at OPEN_LOOP_BATCH, the LM Engine for qwen1.5-0.5b at
+# OPEN_LOOP_CAPACITY, cut to OPEN_LOOP_LM_LAYERS, all int8) serves its
+# payloads closed loop, then open loop at seeded Poisson arrival rates of
+# OPEN_LOOP_LOADS times that throughput; prompt lengths are a few, since
+# the engine captures a prefill graph a length. 32 prompts, not 16: with 4
+# requests in flight, the 2x run's queue of 8 fills only once arrivals
+# outrun service by 12, which 16 arrivals at twice the closed loop's rate
+# seldom do
+OPEN_LOOP_IMAGES = 64
+OPEN_LOOP_PROMPTS = 32
+OPEN_LOOP_PROMPT_LENS = (16, 32, 48, 64)
+OPEN_LOOP_NEW = (8, 32)
+OPEN_LOOP_LOADS = (0.5, 2.0)
+OPEN_LOOP_BATCH = 8
+OPEN_LOOP_CAPACITY = 4
+OPEN_LOOP_LM_LAYERS = 24
+# the LM's virtual replays (card and CPU, the same weights) at full width
+# cut to this depth: the CPU's int8 path quantizes every weight at every
+# call, and with the CPU replay at 24 layers the LM's part of the phase
+# took 682 s on an H100 machine; no scheduling decision depends on depth
+# (a request ends at its max_new_tokens: the engine has no eos token)
+OPEN_LOOP_REPLAY_LAYERS = 1
+OPEN_LOOP_MAX_STEPS = 100_000
+OPEN_LOOP_KEYS = ("offered_rps", "shed", "latency_p50_s", "latency_p99_s",
+                  "sched_latency_p50_s", "sched_latency_p99_s",
+                  "goodput_rps", "lane_utilization")
+# the card's virtual replays, held against the CPU's by
+# open_loop_replays_held; the compact lines printed after LAUNCH_LINES
+OPEN_LOOP_CARD: dict = {}
+OPEN_LOOP_LINES: list[dict] = []
 # the moe phase: both MoE models at full width cut to MOE_LAYERS layers
 # (deeper cuts fit the card, 3 and 4 layers, but not the script's time)
 MOE_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e"]
@@ -803,17 +859,21 @@ def hold(label, mode, got, want) -> dict:
 
 # ------------------------------------------------------------------- phases
 
-def phase_device():
-    import torch
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0 and smi.stdout.strip(),
           f"nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0].strip()
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
+def phase_device():
+    import torch
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
+            "count": torch.cuda.device_count(), "nvidia_smi": smi_line(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "capability": list(torch.cuda.get_device_capability(0))}
     emit(info)
@@ -1222,6 +1282,404 @@ def phase_serve(device):
               for _ in range(32)]
     out += serve_engines(model, params, images)
     emit({"phase": "serve", "runs": out})
+
+
+# ---------------------------------------------------------------- open_loop
+
+class Recorder:
+    """An engine adapter's stand-in that passes every call through and
+    records the dispatch order (rids as injected) and the rids each engine
+    step was handed."""
+
+    def __init__(self, adapter):
+        self.adapter = adapter
+        self.kind = adapter.kind
+        self.forms_buckets = adapter.forms_buckets
+        self.injected: list[int] = []
+        self.batches: list[list[int]] = []
+        self._since: list[int] = []
+
+    @property
+    def stats(self):
+        return self.adapter.stats
+
+    @property
+    def preferred_batch(self) -> int:
+        return self.adapter.preferred_batch
+
+    def free_lanes(self) -> int:
+        return self.adapter.free_lanes()
+
+    def inject(self, req) -> None:
+        self.adapter.inject(req)
+        self.injected.append(req.rid)
+        self._since.append(req.rid)
+
+    def step(self) -> None:
+        self.adapter.step()
+        self.batches.append(self._since)
+        self._since = []
+
+    def drain(self):
+        return self.adapter.drain()
+
+    def has_inflight(self) -> bool:
+        return self.adapter.has_inflight()
+
+
+class StartClock:
+    """The wall clock (``MonotonicClock``) that keeps its first reading
+    after ``arm()``: the one ``OpenLoopDriver.run`` takes as its start, to
+    which the schedule's times are relative."""
+
+    def __init__(self):
+        from repro_torch.serve import MonotonicClock
+        self._clock = MonotonicClock()
+        self.start = None
+        self._armed = False
+
+    def arm(self) -> None:
+        self._armed = True
+
+    def now(self) -> float:
+        t = self._clock.now()
+        if self._armed:
+            self.start, self._armed = t, False
+        return t
+
+    def sleep(self, dt: float) -> None:
+        self._clock.sleep(dt)
+
+
+def open_loop_workload(name: str, layers: int = OPEN_LOOP_LM_LAYERS):
+    """(model, payloads, options, lanes) of one open_loop engine, all from
+    numpy seeds: OPEN_LOOP_IMAGES images of the CNN's input shape, or
+    OPEN_LOOP_PROMPTS prompts of OPEN_LOOP_PROMPT_LENS tokens (one prefill
+    graph a length, within the engine's 8) asking OPEN_LOOP_NEW tokens,
+    the LM cut to ``layers``."""
+    import numpy as np
+    if name == LM_ARCH:
+        from repro_torch.configs import get_arch
+        full = get_arch(LM_ARCH).model()
+        model = type(full)(dataclasses.replace(
+            full.cfg, n_layers=layers, name=f"{LM_ARCH} {layers}L"))
+        rng = np.random.RandomState(23)
+        lens = rng.choice(OPEN_LOOP_PROMPT_LENS, size=OPEN_LOOP_PROMPTS)
+        payloads = [rng.randint(0, model.cfg.vocab, size=int(p))
+                    .astype(np.int32) for p in lens]
+        lo, hi = OPEN_LOOP_NEW
+        options = [{"max_new_tokens": int(rng.randint(lo, hi + 1))}
+                   for _ in payloads]
+        return model, payloads, options, OPEN_LOOP_CAPACITY
+    if name == "mnist_cnn":
+        from repro_torch.models.cnn import PaperCNN
+        model, seed = PaperCNN(), 21
+    else:
+        from repro_torch.models.vgg import VGGStyleCNN
+        model, seed = VGGStyleCNN(), 22
+    rng = np.random.RandomState(seed)
+    payloads = [rng.randn(*model.input_shape()[1:]).astype(np.float32)
+                for _ in range(OPEN_LOOP_IMAGES)]
+    return model, payloads, [{} for _ in payloads], OPEN_LOOP_BATCH
+
+
+def open_loop_params(name: str, model, device):
+    """The engine's weights on ``device``: the CNNs' drawn on the CPU from
+    seed 0, the LM's on the card from seed 0 (then copied), so every
+    process and device serves the same values."""
+    import torch
+    if name == LM_ARCH:
+        params = model.init(0, device=torch.device("cuda", 0))
+    else:
+        params = model.init(0, device="cpu")
+    return to_device(params, device)
+
+
+def open_loop_engine(name: str, model, params, device, clock):
+    """A fresh engine under int8 on ``device`` behind its adapter: the
+    VisionEngine at batch OPEN_LOOP_BATCH with the bucket ladder (a CUDA
+    graph a bucket on the card), or the LM Engine at capacity
+    OPEN_LOOP_CAPACITY whose step graphs are captured before it serves."""
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.serve import (Engine, EngineConfig, LMAdapter,
+                                   VisionAdapter, VisionEngine,
+                                   VisionEngineConfig)
+    policy = ExecPolicy(quant="int8")
+    if name != LM_ARCH:
+        eng = VisionEngine(model, params, VisionEngineConfig(
+            batch=OPEN_LOOP_BATCH, buckets="auto", policy=policy,
+            device=str(device)), clock=clock)
+        return eng, VisionAdapter(eng)
+    eng = Engine(model, params, EngineConfig(
+        capacity=OPEN_LOOP_CAPACITY,
+        max_seq=max(OPEN_LOOP_PROMPT_LENS) + OPEN_LOOP_NEW[1],
+        policy=policy, device=str(device)), clock=clock)
+    for length in OPEN_LOOP_PROMPT_LENS:
+        eng.warm_prefill(length)
+    eng.warm_decode()
+    return eng, LMAdapter(eng)
+
+
+def open_loop_schedule(seed: int, n: int, rate: float) -> list[float]:
+    """``n`` Poisson arrival times at ``rate`` a second."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [float(t) for t in np.cumsum(rng.exponential(1.0 / rate, size=n))]
+
+
+def open_loop_replay(name: str, device, times: list[float], step_s: float,
+                     max_queue: int, threads: int | None = None) -> dict:
+    """One engine's schedule (payload i at ``times[i]``) replayed under a
+    ``VirtualClock`` that charges ``step_s`` an engine step, on
+    ``device`` (the LM cut to OPEN_LOOP_REPLAY_LAYERS); run in place for
+    the card and in a host process for the CPU. Returns what decides
+    every latency: the shed list, the dispatch order, each step's rids,
+    the latencies and the counts."""
+    import torch
+    from repro_torch.serve import (Frontend, FrontendConfig, OpenLoopDriver,
+                                   VirtualClock)
+    if threads:
+        torch.set_num_threads(threads)
+    model, payloads, options, _ = open_loop_workload(
+        name, OPEN_LOOP_REPLAY_LAYERS)
+    params = open_loop_params(name, model, device)
+    clock = VirtualClock()
+    eng, adapter = open_loop_engine(name, model, params, device, clock)
+    rec = Recorder(adapter)
+    fe = Frontend(rec, FrontendConfig(max_queue=max_queue,
+                                      step_cost_s=step_s), clock)
+    driver = OpenLoopDriver(fe, [(t, p, o) for t, p, o
+                                 in zip(times, payloads, options)])
+    driver.run(max_steps=OPEN_LOOP_MAX_STEPS)
+    s = fe.stats
+    return {"shed": driver.shed, "injected": rec.injected,
+            "batches": rec.batches, "latencies": s.latencies,
+            "steps": s.steps, "submitted": s.submitted,
+            "completed": s.completed, "rejected": s.rejected}
+
+
+def open_loop_run(name, model, params, payloads, options, device, times,
+                  max_queue) -> tuple[dict, dict, list[list[int]]]:
+    """One open-loop run on a fresh card engine under the wall clock:
+    payload i arrives ``times[i]`` seconds after the driver starts.
+    Returns (its metrics, {payload index: result}, the payload indices
+    each engine step was handed)."""
+    from repro_torch.serve import (Frontend, FrontendConfig, OpenLoopDriver,
+                                   percentile)
+    clock = StartClock()
+    eng, adapter = open_loop_engine(name, model, params, device, clock)
+    rec = Recorder(adapter)
+    fe = Frontend(rec, FrontendConfig(max_queue=max_queue), clock)
+    index = {id(p): i for i, p in enumerate(payloads)}
+    driver = OpenLoopDriver(fe, [(t, p, o) for t, p, o
+                                 in zip(times, payloads, options)])
+    clock.arm()
+    res = driver.run(max_steps=OPEN_LOOP_MAX_STEPS)
+    wall = clock.now() - clock.start
+    s = fe.stats
+    n = len(times)
+    check(s.submitted + len(driver.shed) == n,
+          f"open_loop {name}: {s.submitted} submitted + {len(driver.shed)} "
+          f"shed of {n} arrivals")
+    check(s.rejected == len(driver.shed),
+          f"open_loop {name}: {s.rejected} rejected, {len(driver.shed)} shed")
+    check(s.completed == s.submitted == len(res),
+          f"open_loop {name}: {s.completed} completed, {s.submitted} "
+          f"submitted, {len(res)} results")
+    of = {rid: index[id(req.payload)] for rid, req in fe.requests.items()}
+    sched = [fe.requests[rid].finish_t - clock.start - times[of[rid]]
+             for rid in res]
+    row = {"arrivals": n, "offered_rps": n / times[-1],
+           "max_queue": max_queue, "submitted": s.submitted,
+           "shed": len(driver.shed), "completed": s.completed,
+           "steps": s.steps, "wall_s": wall,
+           "latency_p50_s": s.p50_s, "latency_p99_s": s.p99_s,
+           "sched_latency_p50_s": percentile(sched, 50),
+           "sched_latency_p99_s": percentile(sched, 99),
+           "goodput_rps": s.goodput_rps,
+           "lane_utilization": s.lane_utilization}
+    del eng
+    return (row, {of[rid]: r for rid, r in res.items()},
+            [[of[rid] for rid in b] for b in rec.batches])
+
+
+def open_loop_same_batches(name, model, params, payloads, device,
+                           batches: list[list[int]]) -> dict:
+    """Each of ``batches`` (payload indices) served closed-loop by a fresh
+    card engine, one step a batch: the closed loop's results for the
+    batches an open-loop run formed."""
+    from repro_torch.serve import Frontend, FrontendConfig, MonotonicClock
+    clock = MonotonicClock()
+    eng, adapter = open_loop_engine(name, model, params, device, clock)
+    fe = Frontend(adapter, FrontendConfig(max_queue=OPEN_LOOP_BATCH), clock)
+    out = {}
+    for batch in batches:
+        rids = [fe.submit(payloads[i]) for i in batch]
+        steps = fe.stats.steps
+        res = fe.run_until_drained()
+        check(fe.stats.steps == steps + 1,
+              f"open_loop {name}: a batch of {len(batch)} took "
+              f"{fe.stats.steps - steps} steps")
+        out.update({i: res[r] for i, r in zip(batch, rids)})
+    del eng
+    return out
+
+
+def open_loop_hold(name: str, label: str, got: dict, want: dict) -> int:
+    """Results by payload index against ``want``'s: int8 logits bitwise,
+    LM tokens equal. Returns how many were held."""
+    import numpy as np
+    for i, r in got.items():
+        if name == LM_ARCH:
+            ok = r.generated == want[i].generated
+            what = f"tokens {r.generated} vs {want[i].generated}"
+        else:
+            ok = (np.isfinite(r["logits"]).all() and np.array_equal(
+                r["logits"], want[i]["logits"]))
+            what = (f"logits max_abs "
+                    f"{float(np.abs(r['logits'] - want[i]['logits']).max())}")
+        check(ok, f"open_loop {name} {label}: payload {i}: {what}")
+    return len(got)
+
+
+def open_loop_engine_runs(name: str, device, smi: str) -> list[dict]:
+    """One engine: the payloads served closed loop (the results and the
+    throughput the open-loop rates are set from), then open loop at each
+    OPEN_LOOP_LOADS multiple of that throughput (the 2x run's queue 2 x
+    the engine's lanes, so that it sheds), every result held against the
+    closed loop's for the same payload (int8 logits, whose activation
+    scale spans the batch, against the closed loop of the same batch),
+    and the card's virtual replay of the 2x schedule (the LM's at
+    OPEN_LOOP_REPLAY_LAYERS). The CPU's replay is
+    started here (a host job, or in place under --phases) and held by
+    ``open_loop_replays_held``."""
+    from repro_torch.serve import Frontend, FrontendConfig, MonotonicClock
+    model, payloads, options, lanes = open_loop_workload(name)
+    params = open_loop_params(name, model, device)
+    n = len(payloads)
+    clock = MonotonicClock()
+    eng, adapter = open_loop_engine(name, model, params, device, clock)
+    rec = Recorder(adapter)
+    fe = Frontend(rec, FrontendConfig(max_queue=n), clock)
+    for p, o in zip(payloads, options):
+        fe.submit(p, **o)
+    t0 = clock.now()
+    closed = dict(fe.run_until_drained(max_steps=OPEN_LOOP_MAX_STEPS))
+    wall = clock.now() - t0
+    check(sorted(closed) == list(range(n)),
+          f"open_loop {name}: closed loop served {sorted(closed)}")
+    closed_batches = {tuple(b) for b in rec.batches}
+    step_s = wall / fe.stats.steps
+    rate = n / wall
+    rows = [{"engine": name, "run": "closed", "arrivals": n,
+             "steps": fe.stats.steps, "wall_s": wall, "throughput_rps": rate,
+             "step_s": step_s, "latency_p50_s": fe.stats.p50_s,
+             "latency_p99_s": fe.stats.p99_s,
+             "lane_utilization": fe.stats.lane_utilization,
+             "nvidia_smi": smi}]
+    del eng, fe, rec
+    schedules = {}
+    for k, load in enumerate(OPEN_LOOP_LOADS):
+        times = open_loop_schedule(31 + k, n, load * rate)
+        max_queue = (2 * lanes if load > 1
+                     else FrontendConfig().max_queue)
+        schedules[load] = (times, max_queue)
+        row, got, batches = open_loop_run(name, model, params, payloads,
+                                          options, device, times, max_queue)
+        if load < 1:
+            check(row["shed"] == 0,
+                  f"open_loop {name} {load}x: shed {row['shed']} arrivals")
+        else:
+            check(row["shed"] > 0,
+                  f"open_loop {name} {load}x: shed nothing at queue "
+                  f"{max_queue}")
+        same, other = {}, []
+        for batch in batches:
+            if name == LM_ARCH or tuple(batch) in closed_batches:
+                same.update({i: closed[i] for i in batch})
+            else:
+                other.append(batch)
+        if other:
+            same.update(open_loop_same_batches(name, model, params,
+                                               payloads, device, other))
+        row.update(engine=name, run=f"{load}x", load=load,
+                   held=open_loop_hold(name, f"{load}x", got, same),
+                   nvidia_smi=smi)
+        if name != LM_ARCH:
+            row.update(batches_as_closed=len(batches) - len(other),
+                       batches_replayed=len(other))
+        rows.append(row)
+    times, max_queue = schedules[max(OPEN_LOOP_LOADS)]
+    del params
+    free_card()
+    card = open_loop_replay(name, device, times, step_s, max_queue)
+    lap(f"open_loop {name} on the card")
+    key = ("open_loop_replay", name)
+    job = (name, "cpu", times, step_s, max_queue)
+    if CPU_POOL:
+        HOST_JOBS[key] = CPU_POOL[0].submit(open_loop_replay, *job,
+                                            threads=HOST_THREADS)
+    else:
+        from concurrent.futures import Future
+        HOST_JOBS[key] = Future()
+        HOST_JOBS[key].set_result(open_loop_replay(*job))
+        lap(f"open_loop {name} its CPU replay")
+    OPEN_LOOP_CARD[name] = card
+    rows.append({"engine": name, "run": "virtual 2x (card)",
+                 "step_cost_s": step_s, "shed": len(card["shed"]),
+                 "steps": card["steps"], "completed": card["completed"]})
+    free_card()
+    return rows
+
+
+def open_loop_replays_held() -> dict:
+    """Every engine's virtual replay of its 2x schedule, card against CPU:
+    the shed lists, the dispatch order, each step's rids and the latencies
+    equal exactly."""
+    out = {}
+    for name, card in sorted(OPEN_LOOP_CARD.items()):
+        cpu = HOST_JOBS.pop(("open_loop_replay", name)).result()
+        for key in ("shed", "injected", "batches", "latencies", "steps",
+                    "submitted", "completed", "rejected"):
+            check(card[key] == cpu[key],
+                  f"open_loop {name} virtual replay: {key} card "
+                  f"{card[key]} vs cpu {cpu[key]}")
+        out[name] = {"shed": len(card["shed"]), "steps": card["steps"],
+                     "completed": card["completed"],
+                     "card_vs_cpu": "equal"}
+    OPEN_LOOP_CARD.clear()
+    emit({"phase": "open_loop_replay", "engines": out})
+    return out
+
+
+def phase_open_loop(device) -> list[dict]:
+    """Open-loop serving through the normal engines on the card:
+    mnist_cnn and highres_cnn (224², streamed) on VisionEngine and
+    qwen1.5-0.5b at full width on the LM Engine, all under int8
+    (``open_loop_engine_runs``); fused_cwp and qmatmul must launch."""
+    import torch
+    from repro_torch.artifact import clear_graph_cache
+    check(torch.cuda.is_available(), "open_loop needs the card")
+    clear_graph_cache()
+    before = counts()
+    smi = smi_line()
+    rows = []
+    for name in ("mnist_cnn", "highres_cnn", LM_ARCH):
+        rows += open_loop_engine_runs(name, device, smi)
+    grew = {k: counts()[k] - before[k] for k in before}
+    check(grew["fused_cwp"] and grew["qmatmul"],
+          f"open_loop: a kernel of its path never launched: {grew}")
+    if not CPU_POOL:                        # --phases: the replays ran here
+        open_loop_replays_held()
+    for r in rows:
+        if "latency_p50_s" in r and r["run"] != "closed":
+            OPEN_LOOP_LINES.append({"open_loop": f"{r['engine']} {r['run']}",
+                                    **{k: r[k] for k in OPEN_LOOP_KEYS},
+                                    "nvidia_smi": smi})
+    emit({"phase": "open_loop", "lm_layers": OPEN_LOOP_LM_LAYERS,
+          "lm_replay_layers": OPEN_LOOP_REPLAY_LAYERS, "launches": grew,
+          "runs": rows})
+    return rows
 
 
 def phase_eager(device):
@@ -6012,6 +6470,7 @@ def kernels_line(launches, max_err, rows) -> dict:
 # phase, whose gloo worlds time-share the card anyway
 HOST_JOBS: dict = {}
 HOST_POOLS: list = []
+CPU_POOL: list = []                 # the process of the CPU sides
 HOST_WORKERS = 2
 HOST_THREADS = 3
 
@@ -6056,6 +6515,7 @@ def start_host_jobs() -> None:
     cpu = ProcessPoolExecutor(1, mp_context=ctx)
     sweep = ProcessPoolExecutor(HOST_WORKERS, mp_context=ctx)
     HOST_POOLS.extend([cpu, sweep])
+    CPU_POOL.append(cpu)
     jobs = card_vs_cpu_jobs()
     for key in jobs[:1 + len(LM_DENSE_ARCHS)]:      # the lm phase's
         HOST_JOBS[("card_vs_cpu",) + key] = cpu.submit(
@@ -6100,6 +6560,7 @@ def stop_host_jobs(failed: bool) -> None:
     their work is taken (none may be left untaken)."""
     left = sorted(str(k) for k in HOST_JOBS)
     HOST_JOBS.clear()
+    CPU_POOL.clear()
     for pool in HOST_POOLS:
         if failed:
             for proc in list((getattr(pool, "_processes", None) or {})
@@ -6138,7 +6599,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after device and "
-                         "build (kernels, serve, eager, tree, stream, boot, "
+                         "build (kernels, serve, open_loop, eager, tree, "
+                         "stream, boot, "
                          "lm, moe, ssm, train, launch, mesh, lm_mesh, "
                          "family_mesh, mesh_dryrun, analysis, times, "
                          "plans); "
@@ -6160,7 +6622,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     phases = {"kernels": phase_kernels, "serve": phase_serve,
-              "eager": phase_eager, "tree": phase_tree,
+              "open_loop": phase_open_loop, "eager": phase_eager, "tree": phase_tree,
               "stream": phase_stream, "boot": phase_boot,
               "lm": phase_lm, "moe": phase_moe, "ssm": phase_ssm,
               "train": phase_train, "launch": phase_launch,
@@ -6180,13 +6642,14 @@ def main(argv=None) -> int:
         if args.phases is not None:
             for name in args.phases.split(","):
                 phases[name](device)
-            for line in STEP_LINES + LAUNCH_LINES:
+            for line in STEP_LINES + LAUNCH_LINES + OPEN_LOOP_LINES:
                 emit(line)
             print("chip_smoke: ran only --phases; no result", file=sys.stderr)
             return 4
         max_err = phases["kernels"](device)
         reset_counts()                      # the main path starts here
         phases["serve"](device)
+        phases["open_loop"](device)         # its CPU replays: a host job
         phases["eager"](device)
         phases["tree"](device)
         phases["stream"](device)
@@ -6222,6 +6685,7 @@ def main(argv=None) -> int:
               f"qmatmul never launched on the family mesh path: {family}")
         phases["mesh_dryrun"](device)           # meta only: no launches
         phases["analysis"](device)              # the host's: no launches
+        open_loop_replays_held()                # the host's replays
         emit({"phase": "launches", "main": launches, "boot": boot,
               "lm": lm, "moe": moe, "ssm": ssm, "train": train,
               "launch": launch, "mesh": mesh, "lm_mesh": lm_mesh,
@@ -6244,6 +6708,8 @@ def main(argv=None) -> int:
     for line in STEP_LINES:             # eager and graph step ms, compact
         emit(line)
     for line in LAUNCH_LINES:           # the dry run and the rooflines
+        emit(line)
+    for line in OPEN_LOOP_LINES:        # open-loop latencies, the card's
         emit(line)
     emit(kernels_line(launches, max_err, rows))
     print(info["nvidia_smi"])

@@ -6,8 +6,9 @@ from repro_torch.serve.cache import SlotKVCache
 from repro_torch.serve.clock import Clock, MonotonicClock, VirtualClock
 from repro_torch.serve.engine import Engine, EngineConfig, EngineStats
 from repro_torch.serve.frontend import (Frontend, FrontendConfig, LMAdapter,
-                                        SchedulerCore, ServeRequest,
-                                        ServeRequestState, VisionAdapter)
+                                        OpenLoopDriver, SchedulerCore,
+                                        ServeRequest, ServeRequestState,
+                                        VisionAdapter)
 from repro_torch.serve.queue import QueueFullError, RequestQueue
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import Scheduler, SchedulerStats
@@ -19,8 +20,9 @@ from repro_torch.serve.vision import (VisionEngine, VisionEngineConfig,
 
 __all__ = ["SlotKVCache", "Clock", "MonotonicClock", "VirtualClock",
            "Engine", "EngineConfig", "EngineStats", "Frontend",
-           "FrontendConfig", "LMAdapter", "SchedulerCore", "ServeRequest",
-           "ServeRequestState", "VisionAdapter", "QueueFullError",
+           "FrontendConfig", "LMAdapter", "OpenLoopDriver",
+           "SchedulerCore", "ServeRequest", "ServeRequestState",
+           "VisionAdapter", "QueueFullError",
            "RequestQueue", "Request", "RequestState", "Scheduler",
            "SchedulerStats", "ServeStats", "percentile", "greedy_sample",
            "make_decode_step", "make_prefill_step", "VisionEngine",

@@ -15,8 +15,14 @@ Port of ``repro.serve.frontend``:
   under the SLO top-up policy (hold a partial bucket while the earliest
   deadline still affords another step), run one engine step, account
   per-request latency into the engine's ``ServeStats``.
-
-``OpenLoopDriver`` waits for the port's benchmark (ROADMAP §A.13).
+* **``OpenLoopDriver``** — replays a predetermined arrival schedule
+  (e.g. a seeded Poisson process) against a front-end: submit what has
+  arrived, step, and otherwise advance the clock to the next arrival.
+  Under a ``VirtualClock`` with a configured ``step_cost_s`` this is a
+  deterministic discrete-event simulation of the whole serving stack.
+  A request's ``arrival_t`` is stamped when the driver submits it, which
+  is between engine steps: on a wall clock the latency leaves out the
+  wait of an arrival that fell due during a step, as the reference's does.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from repro_torch.serve.stats import ServeStats
 
 __all__ = ["QueueFullError", "ServeRequestState", "ServeRequest",
            "SchedulerCore", "FrontendConfig", "Frontend",
-           "LMAdapter", "VisionAdapter"]
+           "LMAdapter", "VisionAdapter", "OpenLoopDriver"]
 
 
 class ServeRequestState(enum.Enum):
@@ -362,3 +368,50 @@ class Frontend:
 
     def has_work(self) -> bool:
         return bool(self.core) or self.adapter.has_inflight()
+
+
+# ---------------------------------------------------------------- driver
+
+class OpenLoopDriver:
+    """Replay a fixed arrival schedule against a front-end (open loop:
+    arrivals do not wait for completions).
+
+    ``arrivals`` is a list of ``(t, payload, options)`` (clock-relative
+    seconds), sorted stably by ``t``. Queue-full rejections are counted
+    (typed, via ``ServeStats.rejected``) and the arrival is shed — open
+    loop load does not retry. Returns the front-end's results dict.
+    """
+
+    def __init__(self, frontend: Frontend,
+                 arrivals: list[tuple[float, Any, dict]]):
+        self.frontend = frontend
+        self.arrivals = sorted(arrivals, key=lambda a: a[0])
+        self.shed: list[float] = []          # arrival times refused at intake
+
+    def run(self, max_steps: int | None = None) -> dict[int, Any]:
+        fe = self.frontend
+        clock = fe.clock
+        t_start = clock.now()
+        i, n = 0, len(self.arrivals)
+        steps = 0
+        while i < n or fe.has_work():
+            now = clock.now() - t_start
+            while i < n and self.arrivals[i][0] <= now:
+                t, payload, options = self.arrivals[i]
+                try:
+                    fe.submit(payload, **options)
+                except QueueFullError:
+                    self.shed.append(t)
+                i += 1
+            ran = fe.step(flush=(i == n))
+            if not ran:
+                if i < n:                    # idle: jump to the next arrival
+                    clock.sleep(self.arrivals[i][0] - (clock.now() - t_start))
+                elif fe.has_work():
+                    raise RuntimeError("open-loop driver stalled with "
+                                       "work remaining")
+            steps += 1
+            if max_steps is not None and steps > max_steps:
+                raise RuntimeError(f"open-loop driver exceeded "
+                                   f"max_steps={max_steps}")
+        return fe.results
