@@ -29,7 +29,17 @@ Phases, each printing one JSON line:
            fused_cwp at odd conv maps (a 9x9 map, a 224-wide band with an
            odd row count; odd='drop' and 'pad'; B in {1, 8}), and the
            addition tree bitwise at (R, η) shapes up to its η cap that
-           reach each of its paths, plus calls that must raise;
+           reach each of its paths, plus calls that must raise. Under
+           int8 both conv kernels take int8 codes (the served path's
+           operands) through their int8 route, counted as such, bitwise
+           to the plain version and to the fp32 route on the same codes
+           as fp32, at every conv shape above and at S8_SHAPES (depth off
+           a multiple of 32, M off a multiple of 8, stride 2 with 2 items
+           a block; B in {1, 8, 1024}), on views 1 and 3 bytes into their
+           storage, and replayed from a CUDA graph. Every phase below
+           counts the int8-route launches apart (``<kernel>_int8``) and
+           holds each conv launch under int8 to that route, none under
+           the other formats;
   serve    the launcher's CNN path and VisionEngine under qformat and int8
            on the card, every request held against the same engine on the
            CPU; each bucket is served by its CUDA graph, whose captured
@@ -91,8 +101,10 @@ Phases, each printing one JSON line:
            kernel (``torch.cuda._sleep(0)``) timed the same way is the
            launch floor, a copy of 16 floats the floor of a kernel that
            loads and stores. Rows tagged ``highres_cnn``: every distinct
-           launch shape of its served 224x224 plan at B = 8 (each band
-           shape of the streamed blocks, blocks 2 and 3, the K = 4,608 fc);
+           conv launch shape of its 224x224 plans at B = 8 (fused_cwp at
+           each band shape of the served plan's streamed blocks and at
+           blocks 2 and 3; conv_window at the fuse=False plan's bands and
+           the eager forward's blocks) and the K = 4,608 fc;
            one row tagged ``odd_pool``: fused_cwp on an odd-row 224-wide
            band under odd='pad', beside cuDNN's conv + relu + ceil-mode
            pool; rows tagged with an LM arch (qwen1.5-0.5b and the four
@@ -111,7 +123,15 @@ Phases, each printing one JSON line:
            512), column-parallel wi and the row-parallel wo's int32
            accumulator; a decode row (M <= 4) whose weight fits in the
            50 MB L2 also takes ``cold_ms``, over copies of its weight in
-           turn that exceed twice the L2;
+           turn that exceed twice the L2. Each conv row of the paper CNN,
+           of highres_cnn and of the odd band has an int8-route row beside
+           it (``route`` int8, stage tagged ``int8``): the kernel on int8
+           codes, bitwise to its plain version first, its bound counting
+           1-byte codes and int8 operations (the fp32 route's time at the
+           shape is the fp32 row's ``ms``), and cuDNN's fp32 conv (+ relu
+           + pool, TF32 off) on the codes as fp32 as the library
+           yardstick; the int8 rows stay out of the kernels line's sums,
+           summed there in ``int8_*`` fields of their own;
   plans    ``highres_cnn``'s whole bound plan per batch at B = 1 and 8
            under three stream budgets (untiled, the default 1 MiB,
            256 KiB): device time between CUDA events, and wall time;
@@ -427,6 +447,16 @@ CONV_SHAPES = {
 # 13x13 input (a 9x9 map) and a 224-wide band with an odd row count
 # (91x220)
 ODD_POOL_SHAPES = {"9x9": (15, 13, 13, 20, 5), "band": (3, 95, 224, 8, 5)}
+# the conv kernels' int8 route at its edges, (N, H, W, M, K), stride and
+# launch keys: depth off a multiple of 32 (5 x 7 x 7 = 245) with M = 13
+# (off a multiple of 8) and 24 output channels a block; stride 2 on an
+# odd map with 3-row items, 2 a block; a 2 x 2 kernel (Kw padded to 4)
+# over 9 channels at 32 channels a block
+S8_SHAPES = {
+    "eta245 M13": ((5, 17, 19, 13, 7), (1, 1), {"cpb": 24}),
+    "stride2 items": ((3, 35, 43, 5, 3), (2, 2), {"band": 3, "items": 2}),
+    "k2 cpb32": ((9, 12, 14, 40, 2), (1, 1), {"cpb": 32}),
+}
 # qmatmul (M, K, N), tiling overrides: K in {37, 320, 4099} (4099 and 37
 # are not word multiples), N from 1 to 300, M from 1 to 4097; the
 # tensor-core body on a ragged shape with K split in 128-byte slices, and
@@ -703,13 +733,36 @@ def plain_policy(**kw):
         **kw)
 
 
+# the conv kernels' int8-route launches, counted apart beside each
+# kernel's total (which counts both routes)
+INT8_ROUTES = ("fused_cwp", "conv_window")
+
+
 def reset_counts() -> None:
     for mod in kernel_modules().values():
         mod.launches = 0
+    for name in INT8_ROUTES:
+        kernel_modules()[name].launches_int8 = 0
 
 
 def counts() -> dict[str, int]:
-    return {k: mod.launches for k, mod in kernel_modules().items()}
+    """Every kernel's launches, and ``<kernel>_int8`` the int8-route
+    launches of the two conv kernels (included in the kernel's own)."""
+    mods = kernel_modules()
+    out = {k: mod.launches for k, mod in mods.items()}
+    out.update({f"{k}_int8": mods[k].launches_int8 for k in INT8_ROUTES})
+    return out
+
+
+def int8_routes_held(label: str, mode: str, grew: dict) -> None:
+    """Under int8 every conv launch in ``grew`` took the kernels' int8
+    route (no conv call cast its codes to fp32); under the other formats
+    none did."""
+    for k in INT8_ROUTES:
+        want = grew[k] if mode == "int8" else 0
+        check(grew[f"{k}_int8"] == want,
+              f"{label}: {grew[f'{k}_int8']} of {grew[k]} {k} launches "
+              f"took the int8 route under {mode}, expected {want}")
 
 
 def max_abs(a, b) -> float:
@@ -721,11 +774,14 @@ def bitwise(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def conv_inputs(gen, bsz, stage, mode, device):
-    """(x, w, b, scale) for one conv stage in one number format."""
+def conv_inputs(gen, bsz, stage, mode, device, codes: bool = False):
+    """(x, w, b, scale) for one conv stage in one number format; under
+    int8 the codes as fp32 (``split_requant``), or with ``codes`` as the
+    int8 codes the served path hands the kernels (``split_int8``)."""
     import torch
     from repro_torch.core.quantize import QFormat
-    from repro_torch.ops.impls import quantize_conv_int8, split_requant
+    from repro_torch.ops.impls import (quantize_conv_int8, split_int8,
+                                       split_requant)
     n, h, w_, m, k = stage
     x = torch.randn((bsz, n, h, w_), generator=gen)
     w = torch.randn((m, n, k, k), generator=gen) * (n * k * k) ** -0.5
@@ -735,7 +791,8 @@ def conv_inputs(gen, bsz, stage, mode, device):
         q = QFormat()
         x, w, b = q.quantize(x), q.quantize(w), q.quantize(b)
     elif mode == "int8":
-        x, w, scale = split_requant(*quantize_conv_int8(x, w))
+        split = split_int8 if codes else split_requant
+        x, w, scale = split(*quantize_conv_int8(x, w))
     return tuple(None if t is None else t.to(device) for t in (x, w, b, scale))
 
 
@@ -835,6 +892,9 @@ def plan_launches(plan) -> dict[str, int]:
     n = {k: 0 for k in KERNELS}
     for kern, _, _ in launch_shapes(plan):
         n[kern] += 1
+    # under int8 every conv launch takes the kernels' int8 route
+    n.update({f"{k}_int8": n[k] if plan.quant == "int8" else 0
+              for k in INT8_ROUTES})
     if plan.quant == "int8":
         n["qmatmul"] = sum(isinstance(v, DenseNode) for v in plan.graph)
     return n
@@ -890,7 +950,8 @@ def phase_build():
     for name in SOURCES:
         r = report[name]
         regs = [ln.strip() for ln in r["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Function properties" in ln]
         for ln in regs:
             local += sum(int(n) for n in re.findall(
                 r"(\d+) bytes (?:spill stores|spill loads|stack frame)", ln))
@@ -936,52 +997,90 @@ def phase_kernels(device):
         check(ok, f"{name} {stage} B={bsz} {mode}: kernel vs plain max_abs "
                   f"{err} (bitwise={exact}, tolerance {tol})")
 
+    mods = kernel_modules()
+
+    def conv_check(name, stage, bsz, mode, shape, stride=(1, 1),
+                   odd="raise", tiling=None):
+        """``name`` (fused_cwp or conv_window) against its plain version
+        on seeded inputs of ``shape``. int8 codes take the int8 route
+        (its launch counted as such) and are held bitwise to the plain
+        version and to the fp32 route on the same codes as fp32."""
+        pol = ExecPolicy(tiling=tiling or {})
+        x, w, b, s = conv_inputs(gen, bsz, shape, mode, device,
+                                 codes=mode == "int8")
+        if name == "fused_cwp":
+            def kern(x, w):
+                return fused_cwp(x, w, b, stride=stride, scale=s, odd=odd,
+                                 policy=pol)
+            want = fused_cwp_ref(x, w, b, stride, odd=odd, scale=s)
+        else:
+            # the eager int8 path passes no bias into the conv (the
+            # requant epilogue runs outside it)
+            cb = None if mode == "int8" else b
+
+            def kern(x, w):
+                return conv_window(x, w, cb, stride=stride, policy=pol)
+            want = conv2d_window_ref(x, w, cb, stride=stride)
+        before = mods[name].launches_int8
+        got = kern(x, w)
+        record(name, stage, bsz, mode, got, want)
+        if mode == "int8":
+            check(mods[name].launches_int8 == before + 1,
+                  f"{name} {stage} B={bsz}: int8 codes did not take the "
+                  f"int8 route")
+            record(name, f"{stage} fp32 route on the codes", bsz, mode,
+                   kern(x.to(torch.float32), w.to(torch.float32)), got)
+
     for bsz in (1, 3, 8):
         for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
-            for mode in ("none", "qformat", "int8"):
-                x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
-                record("fused_cwp", stage, bsz, mode,
-                       fused_cwp(x, w, b, scale=s),
-                       fused_cwp_ref(x, w, b, scale=s))
-                # the eager int8 path passes no bias into the conv (the
-                # requant epilogue runs outside it)
-                cb = None if mode == "int8" else b
-                record("conv_window", stage, bsz, mode,
-                       conv_window(x, w, cb), conv2d_window_ref(x, w, cb))
+            for mode in MODES:
+                conv_check("fused_cwp", stage, bsz, mode, shape)
+                conv_check("conv_window", stage, bsz, mode, shape)
         xc, wc, xs, ws = fc_inputs(gen, bsz, device)
         record("qmatmul", "fc", bsz, "int8", qmatmul(xc, wc, xs, ws),
                qmatmul_ref(xc, wc, xs, ws))
-    for mode in ("none", "qformat", "int8"):
+    for mode in MODES:
         for stage, shape in (("conv1", CONV1), ("conv2", CONV2)):
-            x, w, b, s = conv_inputs(gen, 1024, shape, mode, device)
-            record("fused_cwp", stage, 1024, mode,
-                   fused_cwp(x, w, b, scale=s),
-                   fused_cwp_ref(x, w, b, scale=s))
-            cb = None if mode == "int8" else b
-            record("conv_window", stage, 1024, mode, conv_window(x, w, cb),
-                   conv2d_window_ref(x, w, cb))
+            conv_check("fused_cwp", stage, 1024, mode, shape)
+            conv_check("conv_window", stage, 1024, mode, shape)
         for case, (shape, stride, tiling) in FUSED_SHAPES.items():
-            x, w, b, s = conv_inputs(gen, 2, shape, mode, device)
-            record("fused_cwp", case, 2, mode,
-                   fused_cwp(x, w, b, stride=stride, scale=s,
-                             policy=ExecPolicy(tiling=tiling)),
-                   fused_cwp_ref(x, w, b, stride, scale=s))
+            conv_check("fused_cwp", case, 2, mode, shape, stride,
+                       tiling=tiling)
         for case, (shape, stride, tiling) in CONV_SHAPES.items():
-            x, w, b, _ = conv_inputs(gen, 2, shape, mode, device)
-            cb = None if mode == "int8" else b
-            record("conv_window", case, 2, mode,
-                   conv_window(x, w, cb, stride=stride,
-                               policy=ExecPolicy(tiling=tiling)),
-                   conv2d_window_ref(x, w, cb, stride=stride))
+            conv_check("conv_window", case, 2, mode, shape, stride,
+                       tiling=tiling)
     # odd conv maps: the last row/column dropped or pooled against -inf
     for name, shape in ODD_POOL_SHAPES.items():
         for bsz in (1, 8):
             for mode in MODES:
                 for odd in ("drop", "pad"):
-                    x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
-                    record("fused_cwp", f"odd {odd} {name}", bsz, mode,
-                           fused_cwp(x, w, b, scale=s, odd=odd),
-                           fused_cwp_ref(x, w, b, scale=s, odd=odd))
+                    conv_check("fused_cwp", f"odd {odd} {name}", bsz, mode,
+                               shape, odd=odd)
+    # the int8 route's own edges: depth off a multiple of 32 and channels
+    # off a multiple of 8 at B = 1, 8, 1024; the item and channel keys
+    for name, (shape, stride, tiling) in S8_SHAPES.items():
+        for bsz in (1, 8, 1024):
+            conv_check("fused_cwp", name, bsz, "int8", shape, stride,
+                       odd="pad", tiling={f"fused_conv_block.{k}": v
+                                          for k, v in tiling.items()})
+            conv_check("conv_window", name, bsz, "int8", shape, stride,
+                       tiling={f"conv2d.{k}": v for k, v in tiling.items()})
+    # int8 codes one byte into their storage (and weights three): no
+    # 4-byte alignment anywhere, each route against the plain version
+    x, w, b, s = conv_inputs(gen, 8, CONV2, "int8", device, codes=True)
+    xu = torch.empty(x.numel() + 1, dtype=torch.int8, device=device)
+    xu = xu[1:].view(x.shape)
+    xu.copy_(x)
+    wu = torch.empty(w.numel() + 3, dtype=torch.int8, device=device)
+    wu = wu[3:].view(w.shape)
+    wu.copy_(w)
+    record("fused_cwp", "conv2 +1B x +3B w", 8, "int8",
+           fused_cwp(xu, wu, b, scale=s), fused_cwp_ref(x, w, b, scale=s))
+    record("conv_window", "conv2 +1B x +3B w", 8, "int8",
+           conv_window(xu, wu), conv2d_window_ref(x, w))
+    # both routes replayed from a CUDA graph: the captured launches read
+    # the static inputs' new values
+    cases["fused_cwp"] += conv_graph_cases(device)
     # odd='raise' refuses an odd map before any launch
     x, w, b, _ = conv_inputs(gen, 2, ODD_POOL_SHAPES["9x9"], "none", device)
     before = counts()["fused_cwp"]
@@ -1025,16 +1124,8 @@ def phase_kernels(device):
     for kern, stage, shape in highres_shapes():
         for bsz in (2, 8):
             for mode in MODES:
-                x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
-                label = f"highres {stage} {shape[1]}x{shape[2]}"
-                if kern == "fused_cwp":
-                    record(kern, label, bsz, mode,
-                           fused_cwp(x, w, b, scale=s),
-                           fused_cwp_ref(x, w, b, scale=s))
-                else:
-                    cb = None if mode == "int8" else b
-                    record(kern, label, bsz, mode, conv_window(x, w, cb),
-                           conv2d_window_ref(x, w, cb))
+                conv_check(kern, f"highres {stage} {shape[1]}x{shape[2]}",
+                           bsz, mode, shape)
     for bsz in (1, 2, 8):
         xc, wc, xs, ws = fc_inputs(gen, bsz, device, highres_fc())
         record("qmatmul", "highres fc", bsz, "int8", qmatmul(xc, wc, xs, ws),
@@ -1085,6 +1176,54 @@ def phase_kernels(device):
                "cases": v} for k, v in cases.items()]
     emit({"phase": "kernels", "parity": parity})
     return {p["name"]: p["max_abs"] for p in parity}
+
+
+def conv_graph_cases(device) -> list[dict]:
+    """fused_cwp's fp32 and int8 routes captured in one CUDA graph at
+    conv2's shape (B = 8), replayed on new inputs copied into the static
+    ones: each replay bitwise to the plain version (int8) or within
+    TOL_FP32 (fp32), and the wrapper counting the launches at capture
+    only."""
+    import torch
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    mods = kernel_modules()
+    gen = torch.Generator().manual_seed(14)
+    rows = []
+    for mode in ("none", "int8"):
+        x, w, b, s = conv_inputs(gen, 8, CONV2, mode, device,
+                                 codes=mode == "int8")
+        static = x.clone()
+        fused_cwp(static, w, b, scale=s)            # warm: build and opt in
+        torch.cuda.synchronize()
+        before = counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused_cwp(static, w, b, scale=s)
+        grew = {k: counts()[k] - before[k] for k in before}
+        check(grew["fused_cwp"] == 1
+              and grew["fused_cwp_int8"] == int(mode == "int8"),
+              f"fused_cwp graph {mode}: capture counted {grew}")
+        for rep in range(3):
+            xn, _, _, _ = conv_inputs(gen, 8, CONV2, mode, device,
+                                      codes=mode == "int8")
+            static.copy_(xn)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = fused_cwp_ref(xn, w, b, scale=s)
+            err = max_abs(out, want)
+            tol = (0.0 if mode == "int8"
+                   else TOL_FP32 * (1 + float(want.abs().max())))
+            ok = bitwise(out, want) if mode == "int8" else err <= tol
+            check(ok, f"fused_cwp graph {mode} replay {rep}: max_abs {err}")
+            rows.append({"stage": f"graph replay {rep}", "B": 8,
+                         "mode": mode, "max_abs": err,
+                         "bitwise": bitwise(out, want), "tolerance": tol,
+                         "ok": ok})
+        check(mods["fused_cwp"].launches == before["fused_cwp"] + 1,
+              "fused_cwp graph: a replay counted a launch")
+        del graph
+    return rows
 
 
 def qmatmul_graph_cases(device) -> list[dict]:
@@ -1669,6 +1808,7 @@ def phase_open_loop(device) -> list[dict]:
     grew = {k: counts()[k] - before[k] for k in before}
     check(grew["fused_cwp"] and grew["qmatmul"],
           f"open_loop: a kernel of its path never launched: {grew}")
+    int8_routes_held("open_loop", "int8", grew)
     if not CPU_POOL:                        # --phases: the replays ran here
         open_loop_replays_held()
     for r in rows:
@@ -1707,6 +1847,7 @@ def phase_eager(device):
         grew = {k: counts()[k] - before[k] for k in before}
         check(grew["conv_window"] == 2 and grew["fused_cwp"] == 2,
               f"eager {mode}: launches {grew}")
+        int8_routes_held(f"eager {mode}", mode, grew)
         e_vs_p, e_vs_cpu = max_abs(eager, plan), max_abs(eager.cpu(), cpu)
         tol = {"none": TOL_FP32 * (1 + float(cpu.abs().max())),
                "qformat": QSTEP, "int8": 0.0}[mode]
@@ -1799,6 +1940,7 @@ def phase_stream(device):
         check(launches["eager"]["conv_window"] == len(model.cfg.blocks)
               and launches["eager"]["fused_cwp"] == 0,
               f"stream {mode} eager: launches {launches['eager']}")
+        int8_routes_held(f"stream {mode} eager", mode, launches["eager"])
         with torch.inference_mode():
             card2 = plans["streamed"].bind(params)(x[:2].to(device))
             cpu2 = plans["streamed"].bind(cpu_params)(x[:2])
@@ -3025,6 +3167,7 @@ def eval_logits_kernel_vs_plain(params, device) -> dict:
             want = {"conv_window": 2, "qmatmul": int(fmt == "int8")}
             check(all(grew[k] == n for k, n in want.items()),
                   f"train mnist eval {fmt}: launched {grew}, want {want}")
+            int8_routes_held(f"train mnist eval {fmt}", quant, grew)
             out[fmt] = hold(f"train mnist eval {fmt}", quant, got,
                             plain.forward(params, images))
     return out
@@ -4266,7 +4409,13 @@ def phase_boot(device):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_boot_") as tmp:
             work = Path(tmp)
             for name in BOOT_CONFIGS:
-                runs = [boot_one(name, mode, work, device) for mode in MODES]
+                runs = []
+                for mode in MODES:
+                    before = counts()
+                    runs.append(boot_one(name, mode, work, device))
+                    int8_routes_held(f"boot {name} {mode}", mode,
+                                     {k: counts()[k] - before[k]
+                                      for k in before})
                 check(sum(r["fresh_measured"] for r in runs) > 0,
                       f"boot {name}: the fresh autotuned boots measured "
                       f"no candidate (autotune.measurements)")
@@ -4389,8 +4538,9 @@ def mesh_shard_shapes(plan) -> list[tuple[str, tuple]]:
 
 def mesh_kernel_vs_plain(shapes, bsz, fc, device) -> list[dict]:
     """Each per-shard shape's kernel against its plain version on the
-    card, in the three number formats (int8 and qformat bitwise, fp32
-    TOL_FP32 of 1 + max|y|), and qmatmul at the rank's fc shape."""
+    card, in the three number formats (int8 codes on the int8 route and
+    qformat bitwise, fp32 TOL_FP32 of 1 + max|y|), and qmatmul at the
+    rank's fc shape."""
     import torch
     from repro_torch.kernels.conv_window.ops import conv_window
     from repro_torch.kernels.conv_window.ref import conv2d_window_ref
@@ -4402,7 +4552,8 @@ def mesh_kernel_vs_plain(shapes, bsz, fc, device) -> list[dict]:
     rows = []
     for kern, shape in shapes:
         for mode in MODES:
-            x, w, b, s = conv_inputs(gen, bsz, shape, mode, device)
+            x, w, b, s = conv_inputs(gen, bsz, shape, mode, device,
+                                     codes=mode == "int8")
             if kern == "fused_cwp":
                 got, want = (fused_cwp(x, w, b, scale=s),
                              fused_cwp_ref(x, w, b, scale=s))
@@ -4492,9 +4643,12 @@ def mesh_rank(rank, world, shape) -> dict:
             continue
         placements = [str(n.sharding) for n in plan.graph
                       if getattr(n, "sharding", None) is not None]
+        before = counts()
         bound = plan.bind(params)
         with torch.inference_mode():
             got = bound(x)
+        int8_routes_held(label, mode, {k: counts()[k] - before[k]
+                                       for k in before})
         try:                            # every case runs; all misses named
             row = mesh_hold(label, arch, mode, data, got,
                             plains[(arch, data, mode)])
@@ -4602,6 +4756,7 @@ def mesh_nccl_world1(device) -> tuple[list[dict], dict[str, int]]:
                   for _ in range(19)]
         def serve(label, m, mode):
             clear_graph_cache()
+            before = counts()
             eng = VisionEngine(model, params, VisionEngineConfig(
                 batch=8, buckets="auto", policy=ExecPolicy(quant=mode),
                 device="cuda", mesh=m))
@@ -4609,7 +4764,10 @@ def mesh_nccl_world1(device) -> tuple[list[dict], dict[str, int]]:
                                       f"{eng.graphs}")
             for img in images:
                 eng.submit(img)
-            return eng.run()
+            res = eng.run()
+            int8_routes_held(f"nccl world 1 {label} {mode}", mode,
+                             {k: counts()[k] - before[k] for k in before})
+            return res
 
         plain = {mode: serve("plain", None, mode) for mode in MODES}
         mesh_sync(device)
@@ -4714,6 +4872,8 @@ def mesh_shard_times(device) -> list[dict]:
                    lambda: F.conv2d(x, w))
         rows.append(_time_row(kern, label, 8, *fns, nbytes, ops / PEAK_FP32,
                               exact=False, model="mesh shard"))
+        rows.append(int8_time_row(gen, device, kern, label, 8, shape,
+                                  model="mesh shard", bias=pooled))
     return rows
 
 
@@ -6050,6 +6210,72 @@ def conv_work(bsz, stage, pooled: bool, odd: str = "raise"
     return nbytes, 2.0 * bsz * m * ho * wo * n * k * k
 
 
+def conv_work_int8(bsz, stage, pooled: bool, odd: str = "raise",
+                   vectors: int = 2) -> tuple[float, float]:
+    """(bytes, int8 operations) of a conv stage call on the int8 route:
+    the codes read once (1 byte each), ``vectors`` fp32 vectors of M
+    (scale, bias) and the fp32 output written once."""
+    n, h, w, m, k = stage
+    ho, wo = h - k + 1, w - k + 1
+    pad = int(odd == "pad")
+    out = (bsz * m * ((ho + pad) // 2) * ((wo + pad) // 2) if pooled
+           else bsz * m * ho * wo)
+    nbytes = bsz * n * h * w + m * n * k * k + 4 * (vectors * m + out)
+    return nbytes, 2.0 * bsz * m * ho * wo * n * k * k
+
+
+def int8_time_row(gen, device, name, stage, bsz, shape, *, model,
+                  odd="raise", bias=True) -> dict:
+    """One int8-route row: ``name`` (fused_cwp or conv_window) on int8
+    codes of ``shape``, held bitwise to its plain version first; beside it,
+    as the library yardstick, cuDNN's fp32 conv (+ relu + pool) on the
+    codes as fp32, TF32 off. The bound counts 1-byte codes and int8
+    operations. The fp32 route at the same shape (the route every int8
+    call took before the int8 route) is the fp32 row beside this one."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    x, w, b, sc = conv_inputs(gen, bsz, shape, "int8", device, codes=True)
+    xf, wf = x.to(torch.float32), w.to(torch.float32)
+    pooled = name == "fused_cwp"
+    if pooled:
+        def kern():
+            return fused_cwp(x, w, b, scale=sc, odd=odd)
+
+        def plain():
+            return fused_cwp_ref(x, w, b, scale=sc, odd=odd)
+
+        def lib():
+            return F.max_pool2d(F.relu(F.conv2d(xf, wf, b)), 2,
+                                ceil_mode=odd == "pad")
+    else:
+        b = b if bias else None
+
+        def kern():
+            return conv_window(x, w, b)
+
+        def plain():
+            return conv2d_window_ref(x, w, b)
+
+        def lib():
+            return F.conv2d(xf, wf, b)
+    got, want = kern(), plain()
+    check(bitwise(got, want), f"times {name} {stage} int8 B={bsz}: kernel "
+                              f"vs plain max_abs {max_abs(got, want)}")
+    del got, want
+    nbytes, ops = conv_work_int8(bsz, shape, pooled, odd,
+                                 (2 if pooled else 1) if bias else 0)
+    row = _time_row(name, f"{stage} int8", bsz, kern, plain, lib, nbytes,
+                    ops / PEAK_INT8, exact=True, model=model)
+    row["route"] = "int8"
+    row["library_note"] = ("cuDNN fp32 conv (+ relu + pool) on the codes "
+                           "as fp32, TF32 off")
+    return row
+
+
 def phase_times(device):
     import torch
     import torch.nn.functional as F
@@ -6083,6 +6309,13 @@ def phase_times(device):
                 rows.append(_time_row(name, stage, bsz, kern, plain, lib,
                                       nbytes, ops / PEAK_FP32,
                                       exact=False))
+            # the int8 route, as the served int8 path calls it (the eager
+            # conv_window without the bias: the epilogue runs outside)
+            rows.append(int8_time_row(gen, device, "fused_cwp", stage, bsz,
+                                      shape, model="mnist_cnn"))
+            rows.append(int8_time_row(gen, device, "conv_window", stage,
+                                      bsz, shape, model="mnist_cnn",
+                                      bias=False))
         xc, wc, xs, ws = fc_inputs(gen, bsz, device)
         k, n = FC
         nbytes = bsz * k + k * n + 4 * (bsz + n + bsz * n)
@@ -6102,7 +6335,7 @@ def phase_times(device):
                 exact=True))
             del x
     rows += highres_time_rows(gen, device)
-    rows.append(odd_time_row(gen, device))
+    rows += odd_time_row(gen, device)
     rows += lm_time_rows(gen, device)
     emit({"phase": "times", "launch_floor_ms": floor_ms,
           "load_store_floor_ms": rw_ms,
@@ -6123,28 +6356,38 @@ def phase_times(device):
 
 
 def highres_time_rows(gen, device) -> list[dict]:
-    """At B = 8, every distinct launch shape of highres_cnn's served
-    224x224 plan: each band shape of the streamed blocks, blocks 2 and 3
-    (fused_cwp, beside cuDNN's conv + relu + pool), and the int8 fc."""
+    """At B = 8, every distinct conv launch shape of highres_cnn's 224x224
+    plans (``highres_shapes``): fused_cwp at each band shape of the
+    served plan's streamed blocks and at blocks 2 and 3, beside cuDNN's
+    conv + relu + pool; conv_window at the streamed fuse=False plan's
+    bands and the eager forward's blocks, beside cuDNN's conv; each with
+    its int8-route row; then the int8 fc."""
     import torch.nn.functional as F
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.conv_window.ref import conv2d_window_ref
     from repro_torch.kernels.fused_cwp.ops import fused_cwp
     from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
-    from repro_torch.models.vgg import VGGStyleCNN
 
-    rows, seen = [], []
-    for kern, stage, shape in launch_shapes(VGGStyleCNN().compile(batch=8)):
-        if shape in seen:
-            continue
-        seen.append(shape)
+    rows = []
+    for kern, stage, shape in highres_shapes():
         x, w, b, _ = conv_inputs(gen, 8, shape, "none", device)
-        nbytes, ops = conv_work(8, shape, True)
-        rows.append(_time_row(
-            kern, f"{stage} {shape[1]}x{shape[2]}", 8,
-            lambda: fused_cwp(x, w, b), lambda: fused_cwp_ref(x, w, b),
-            lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2), nbytes,
-            ops / PEAK_FP32, exact=False, model="highres_cnn"))
+        pooled = kern == "fused_cwp"
+        nbytes, ops = conv_work(8, shape, pooled)
+        label = f"{stage} {shape[1]}x{shape[2]}"
+        if pooled:
+            fns = (lambda: fused_cwp(x, w, b), lambda: fused_cwp_ref(x, w, b),
+                   lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2))
+        else:
+            fns = (lambda: conv_window(x, w, b),
+                   lambda: conv2d_window_ref(x, w, b),
+                   lambda: F.conv2d(x, w, b))
+        rows.append(_time_row(kern, label, 8, *fns, nbytes, ops / PEAK_FP32,
+                              exact=False, model="highres_cnn"))
+        # the int8 conv_window takes no bias (the epilogue runs outside)
+        rows.append(int8_time_row(gen, device, kern, label, 8, shape,
+                                  model="highres_cnn", bias=pooled))
     k, n = highres_fc()
     xc, wc, xs, ws = fc_inputs(gen, 8, device, (k, n))
     rows.append(_time_row(
@@ -6155,21 +6398,25 @@ def highres_time_rows(gen, device) -> list[dict]:
     return rows
 
 
-def odd_time_row(gen, device) -> dict:
+def odd_time_row(gen, device) -> list[dict]:
     """fused_cwp on a 224-wide band with an odd conv row count (91 rows)
-    under odd='pad', B = 8, beside cuDNN's conv + relu + ceil-mode pool."""
+    under odd='pad', B = 8, beside cuDNN's conv + relu + ceil-mode pool;
+    then its int8 route."""
     import torch.nn.functional as F
     from repro_torch.kernels.fused_cwp.ops import fused_cwp
     from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
     shape = ODD_POOL_SHAPES["band"]
     x, w, b, _ = conv_inputs(gen, 8, shape, "none", device)
     nbytes, ops = conv_work(8, shape, True, "pad")
-    return _time_row(
-        "fused_cwp", f"odd pad {shape[1]}x{shape[2]}", 8,
+    label = f"odd pad {shape[1]}x{shape[2]}"
+    return [_time_row(
+        "fused_cwp", label, 8,
         lambda: fused_cwp(x, w, b, odd="pad"),
         lambda: fused_cwp_ref(x, w, b, odd="pad"),
         lambda: F.max_pool2d(F.relu(F.conv2d(x, w, b)), 2, ceil_mode=True),
-        nbytes, ops / PEAK_FP32, exact=False, model="odd_pool")
+        nbytes, ops / PEAK_FP32, exact=False, model="odd_pool"),
+        int8_time_row(gen, device, "fused_cwp", label, 8, shape,
+                      model="odd_pool", odd="pad")]
 
 
 def lm_time_rows(gen, device) -> list[dict]:
@@ -6441,11 +6688,15 @@ def kernels_line(launches, max_err, rows) -> dict:
     parity error, and its time beside the bound for one served batch
     (B = 8: both conv stages for the conv kernels and for the tree's
     product matrices, the fc for qmatmul). The highres_cnn rows of the
-    times phase stay out of it."""
+    times phase stay out of it, and so do the conv kernels' int8-route
+    rows, summed in fields of their own (``int8_*``, with the main path's
+    int8-route launches)."""
     out = []
     for name, (source, replaces) in KERNELS.items():
-        mine = [r for r in rows if r["name"] == name and r["B"] == 8
-                and r["model"] == "mnist_cnn"]
+        rows8 = [r for r in rows if r["name"] == name and r["B"] == 8
+                 and r["model"] == "mnist_cnn"]
+        mine = [r for r in rows8 if r.get("route") != "int8"]
+        int8 = [r for r in rows8 if r.get("route") == "int8"]
         libs = [r["library_ms"] for r in mine]
         bytes_ms = sum(r["bytes_ms"] for r in mine)
         ops_ms = sum(r["operations_ms"] for r in mine)
@@ -6458,6 +6709,16 @@ def kernels_line(launches, max_err, rows) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if None in libs else sum(libs)})
+        if int8:
+            b8 = sum(r["bytes_ms"] for r in int8)
+            o8 = sum(r["operations_ms"] for r in int8)
+            out[-1].update({
+                "int8_launches": launches[f"{name}_int8"],
+                "int8_ms": sum(r["ms"] for r in int8),
+                "int8_plain_ms": sum(r["plain_ms"] for r in int8),
+                "int8_bound_ms": max(b8, o8),
+                "int8_bound_by": "bytes" if b8 >= o8 else "operations",
+                "int8_library_ms": sum(r["library_ms"] for r in int8)})
     return {"kernels": out}
 
 

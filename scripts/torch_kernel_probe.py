@@ -7,7 +7,15 @@ each against the heuristic's (qmatmul's also at LM shapes on both sides
 of its body boundary, each variant bitwise to the plain version).
 
     python3 scripts/torch_kernel_probe.py [--sweep]
-    python3 scripts/torch_kernel_probe.py --ablate
+    python3 scripts/torch_kernel_probe.py --ablate [--only conv,qmatmul]
+    python3 scripts/torch_kernel_probe.py --conv-sweep
+
+``--conv-sweep`` instead times both routes of the conv kernels at the
+main path's shapes (the paper CNN's convs at B = 8 and 1024, every launch
+shape of highres_cnn's 224² plan at B = 8): from each route's heuristic,
+one axis of the autotuner's at a time (``repro_torch.ops.autotune``), each
+point first held against the plain version (int8 bitwise, fp32 within
+1e-5), and cuDNN's fp32 conv (+ relu + pool, TF32 off) beside them.
 
 Prints one JSON line per check, then ``{"ok": true}`` when every check
 passed; exits non-zero on the first failure. ``--ablate`` instead times
@@ -79,6 +87,22 @@ ABLATIONS = {
         "qmatmul.cu",
         "  constexpr int MT = BM / 32;  // m16 tiles a warp: its BM / 2 rows\n",
         "  constexpr int MT = BM / 32;\n  if (M > 0) return;\n"),
+    # the conv template's fp32 route at highres_cnn's blocks 2 and 3:
+    # without its FMA loop (staging, waits and epilogue left), and without
+    # the input slab's copies (the FMAs on whatever shared memory holds)
+    "conv fp32 without the FMA loop": (
+        "conv_tile.cuh",
+        "    for (int kr = part; live && kr < s.N * s.Kh; kr += split) {\n",
+        "    for (int kr = s.N * s.Kh; live && kr < s.N * s.Kh; "
+        "kr += split) {\n"),
+    "conv fp32 without the slab copies": (
+        "conv_tile.cuh", "          cp_async4(dst + col, src + col);\n",
+        "          ;\n"),
+    # the int8 route without its MMA k-loop (staging, expansion, epilogue)
+    "conv int8 without the k-loop": (
+        "conv_tile.cuh",
+        "    for (int ks = part; on && ks < ksteps; ks += kparts) {\n",
+        "    for (int ks = ksteps; on && ks < ksteps; ks += kparts) {\n"),
     # the streaming body's fold of its threads' sums
     "qmatmul stream without the fold": (
         "qmatmul.cu", """        a[m][j] += __shfl_xor_sync(FULL, a[m][j], o);""",
@@ -116,11 +140,20 @@ def time_rows(dev) -> dict[str, float]:
     for m, k, n in QMM_TIME_SHAPES:
         args = qmatmul_inputs(gen, m, k, n, dev)
         rows[f"qmatmul {m}x{k}x{n}"] = device_ms(lambda: qmatmul(*args))[0]
+    # fused_cwp at highres_cnn's blocks 2 and 3, B = 8, both routes
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    for name, stage in (("block2", (16, 54, 54, 32, 3)),
+                        ("block3", (32, 26, 26, 32, 3))):
+        for mode in ("none", "int8"):
+            x, w, b, s = conv_inputs(gen, 8, stage, mode, dev,
+                                     codes=mode == "int8")
+            rows[f"fused_cwp {name} {mode} B=8"] = device_ms(
+                lambda: fused_cwp(x, w, b, scale=s))[0]
     rows["empty kernel"] = device_ms(lambda: torch.cuda._sleep(0))[0]
     return rows
 
 
-def ablate() -> None:
+def ablate(only: list[str]) -> None:
     def timed(src: Path) -> dict[str, float]:
         r = subprocess.run([sys.executable, __file__, "--time", "--src",
                             str(src)], capture_output=True, text=True,
@@ -129,6 +162,8 @@ def ablate() -> None:
 
     out = {"unchanged": timed(ROOT / "src")}
     for name, (source, old, new) in ABLATIONS.items():
+        if only and not any(w in name for w in only):
+            continue
         pkg = ROOT / "build" / "ablate" / name.replace(" ", "_") / "src"
         shutil.rmtree(pkg.parent, ignore_errors=True)
         shutil.copytree(ROOT / "src" / "repro_torch", pkg / "repro_torch")
@@ -186,10 +221,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--only", default="",
+                    help="with --ablate (--conv-sweep): only the ablations "
+                         "(shapes) whose names hold one of these "
+                         "comma-separated words")
     ap.add_argument("--sass", action="store_true",
                     help="only build and count, in each kernel of the "
                          "qmatmul library, the instructions that show its "
                          "design (cuobjdump -sass)")
+    ap.add_argument("--conv-sweep", action="store_true",
+                    help="only time both conv routes' launch keys, one "
+                         "axis at a time, at the main path's shapes")
     ap.add_argument("--time", action="store_true",
                     help="only print time_rows() as one JSON line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
@@ -203,8 +245,11 @@ def main() -> int:
     if args.time:
         emit(time_rows(torch.device("cuda", 0)))
         return 0
+    if args.conv_sweep:
+        return conv_sweep(torch.device("cuda", 0),
+                          [w for w in args.only.split(",") if w])
     if args.ablate:
-        ablate()
+        ablate([w for w in args.only.split(",") if w])
         return 0
     if args.sass:
         emit(sass_counts())
@@ -294,6 +339,104 @@ def main() -> int:
             ok &= sweep_qmatmul(qmatmul_acc,
                                 qmatmul_inputs(gen, m, k, n, dev)[:2], m,
                                 ExecPolicy)
+    emit({"ok": bool(ok)})
+    return 0 if ok else 1
+
+
+def conv_sweep(dev, only: list[str]) -> int:
+    """Both conv routes' launch keys at the main path's shapes and the
+    mesh's per-shard shapes (MESH_TIMED_SHAPES, B = 8): one JSON line a
+    (kernel, route, shape, B) with every point's ms beside the
+    heuristic's and cuDNN's; ``only`` keeps the shapes whose labels hold
+    one of its words."""
+    import torch.nn.functional as F
+    from chip_smoke import MESH_TIMED_SHAPES, highres_shapes, smi_line
+    from repro_torch.kernels.conv_window.ops import conv_window
+    from repro_torch.kernels.conv_window.ref import conv2d_window_ref
+    from repro_torch.kernels.fused_cwp.ops import fused_cwp
+    from repro_torch.kernels.fused_cwp.ref import fused_cwp_ref
+    from repro_torch.ops import ExecPolicy
+    from repro_torch.ops.autotune import _conv_axes, heuristic_tiles
+    gen = torch.Generator().manual_seed(21)
+    cases = [(kern, f"mnist {stage}", shape, bsz)
+             for bsz in (8, 1024)
+             for stage, shape in (("conv1", CONV1), ("conv2", CONV2))
+             for kern in ("fused_cwp", "conv_window")]
+    cases += [(kern, f"highres {stage} {shape[1]}x{shape[2]}", shape, 8)
+              for kern, stage, shape in highres_shapes()]
+    cases += [(kern, f"mesh {label}", shape, 8)
+              for label, kern, shape in MESH_TIMED_SHAPES]
+    if only:
+        cases = [c for c in cases if any(w in c[1] for w in only)]
+    ok = True
+    for kern, label, shape, bsz in cases:
+        for mode in ("none", "int8"):
+            x, w, b, s = conv_inputs(gen, bsz, shape, mode, dev,
+                                     codes=mode == "int8")
+            pooled = kern == "fused_cwp"
+            ns = "fused_conv_block" if pooled else "conv2d"
+            if pooled:
+                def call(pol):
+                    return fused_cwp(x, w, b, scale=s, policy=pol)
+                want = fused_cwp_ref(x, w, b, scale=s)
+            else:
+                cb = None if mode == "int8" else b
+
+                def call(pol):
+                    return conv_window(x, w, cb, policy=pol)
+                want = conv2d_window_ref(x, w, cb)
+            xf, wf = x.float(), w.float()
+            if pooled:
+                def lib():
+                    return F.max_pool2d(F.relu(F.conv2d(xf, wf, b)), 2)
+            else:
+                def lib():
+                    return F.conv2d(xf, wf, b)
+            heur = heuristic_tiles(ns, x, w, b, stride=(1, 1))
+            points = [dict(heur)]
+            for axis, values in _conv_axes(x, w, (1, 1), heur).items():
+                points += [{**heur, axis: v} for v in values
+                           if v != heur[axis]]
+            if mode == "none":
+                # fp32: lanes sharing a tile with the threads to hold them
+                # (one round), at the heuristic's channel group and at
+                # half and a quarter of it
+                n_, h_, w_, m_, k_ = shape
+                qo = (w_ - k_ + 1) // 2
+                for cpb in sorted({heur["cpb"], max(4, heur["cpb"] // 2),
+                                   max(4, heur["cpb"] // 4)}):
+                    for split in (1, 2, 4, 8):
+                        tiles = (heur["ipb"] * cpb // 4 * heur["band"]
+                                 * qo)
+                        threads = -(-tiles * split // 32) * 32
+                        if threads <= 1024:
+                            points.append({**heur, "cpb": cpb,
+                                           "split": split,
+                                           "threads": threads})
+            rows = []
+            for t in points:
+                pol = ExecPolicy(tiling={f"{ns}.{k}": v
+                                         for k, v in t.items()})
+                try:
+                    got = call(pol)
+                except (ValueError, RuntimeError) as e:
+                    rows.append({"tiles": t, "refused": str(e)[:80]})
+                    continue
+                torch.cuda.synchronize()
+                err = float((got.double() - want.double()).abs().max())
+                good = (torch.equal(got, want) if mode == "int8" else
+                        err <= TOL_FP32 * (1 + float(want.abs().max())))
+                ok &= good
+                ms, _ = device_ms(lambda: call(pol), reps=50)
+                rows.append({"tiles": t, "ms": ms, "ok": good})
+            timed = [r for r in rows if "ms" in r]
+            best = min(timed, key=lambda r: r["ms"])
+            emit({"sweep": kern, "route": "int8" if mode == "int8"
+                  else "fp32", "shape": label, "B": bsz,
+                  "heuristic_ms": timed[0]["ms"], "best": best,
+                  "library_ms": device_ms(lib, reps=50)[0], "rows": rows,
+                  "device": smi_line()})
+            del x, w, want
     emit({"ok": bool(ok)})
     return 0 if ok else 1
 

@@ -36,13 +36,17 @@ __all__ = ["BucketGraph", "capture_graph", "executable_key",
 
 
 def kernel_launch_counts() -> dict[str, int]:
-    """Every kernel wrapper's launch counter, by kernel name."""
+    """Every kernel wrapper's launch counter, by kernel name, and the conv
+    kernels' int8-route launches (``<kernel>_int8``, included in the
+    kernel's own)."""
     import repro_torch.kernels.addtree.ops as at
     import repro_torch.kernels.conv_window.ops as cw
     import repro_torch.kernels.fused_cwp.ops as fc
     import repro_torch.kernels.qmatmul.ops as qm
     return {"fused_cwp": fc.launches, "conv_window": cw.launches,
-            "qmatmul": qm.launches, "addtree": at.launches}
+            "qmatmul": qm.launches, "addtree": at.launches,
+            "fused_cwp_int8": fc.launches_int8,
+            "conv_window_int8": cw.launches_int8}
 
 
 class BucketGraph:

@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["QFormat", "QTensor", "quantize_int8", "dequantize_int8",
            "fake_quant_int8", "quantize_tree", "requant_epilogue",
-           "conv_epilogue"]
+           "conv_epilogue", "f32_codes"]
 
 # fp32(1 / 127), the constant ``quantize_int8`` multiplies by
 _INV127 = torch.tensor(1.0, dtype=torch.float32) / 127.0
@@ -100,6 +100,15 @@ def quantize_int8(x: torch.Tensor, axis: int | None = -1,
     scale = torch.clamp(amax, min=1e-8) * _INV127
     codes = torch.clamp(torch.round(xf / scale), -127, 127)
     return QTensor(codes.to(torch.int8), scale)
+
+
+def f32_codes(t: torch.Tensor | None) -> torch.Tensor | None:
+    """int8 codes as the integer-valued fp32 the reference contracts
+    (exact: the η·127² < 2²⁴ sums of a conv are exact in fp32); any other
+    tensor, or None, as it is."""
+    if t is not None and t.dtype == torch.int8:
+        return t.to(torch.float32)
+    return t
 
 
 def dequantize_int8(q: QTensor, dtype: torch.dtype = torch.float32

@@ -314,7 +314,7 @@ class ExecutionPlan:
         must split."""
         from repro_torch.core.parallelism import (axis_size, conv2d_shard,
                                                   fused_conv_block_shard)
-        from repro_torch.ops.impls import split_requant
+        from repro_torch.ops.impls import split_int8
         spec, grid = node.sharding, self.grids[node.id]
         dsize = axis_size(self.mesh, "data")
         if spec.data and batch % dsize:
@@ -327,7 +327,7 @@ class ExecutionPlan:
         wv, bv = weight(node, 1, "w"), weight(node, 2, "b")
         if not blocked:
             wv, bv = _w_block(wv, grid), grid.v_block(bv)
-        x_arr, w_arr, scale = split_requant(xin, wv)
+        x_arr, w_arr, scale = split_int8(xin, wv)
         if isinstance(node, FusedConvBlockNode):
             return fused_conv_block_shard(x_arr, w_arr, bv, scale, grid=grid,
                                           stride=node.stride, odd=node.odd,
@@ -354,9 +354,11 @@ class ExecutionPlan:
         """Yield (node, op, args, kwargs) for every tunable stage: the
         concrete call the autotuner measures, with a representative
         activation from the graph's static specs (seeded, on the params'
-        device) and the real bound weights (int8 stages get codes as f32
-        plus the requant scale operand)."""
-        from repro_torch.ops.impls import split_requant
+        device) and the real bound weights (int8 stages get the
+        activation's and the weights' int8 codes plus the requant scale
+        operand, as the served stage hands them to the kernels' int8
+        route)."""
+        from repro_torch.ops.impls import split_int8
         dev = _params_device(params)
         rng = np.random.RandomState(0)
         for node in tunable_stages(self.graph):
@@ -382,8 +384,8 @@ class ExecutionPlan:
                   else (None if node.b is None else node.b.fetch(params)))
             scale = None
             if isinstance(wv, QTensor):
-                _, w_arr, scale = split_requant(
-                    QTensor(x, torch.ones((), device=dev)), wv)
+                x, w_arr, scale = split_int8(quantize_int8(x, axis=None),
+                                             wv)
             else:
                 w_arr = wv
             kw = dict(stride=tuple(node.stride))

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-__all__ = ["check_tensor", "refuse_grad", "ptr", "launch_args", "launch",
+__all__ = ["check_tensor", "check_conv_operands", "refuse_grad", "ptr", "launch_args", "launch",
            "charge_meta"]
 
 
@@ -35,6 +35,26 @@ def check_tensor(t: torch.Tensor, name: str, *, dtype: torch.dtype,
                          f"rank {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous; pass .contiguous()")
+
+
+def check_conv_operands(name: str, x, w, scale=None, *,
+                        needs_scale: bool) -> None:
+    """Raise unless ``x`` and ``w`` are both fp32 or both int8 codes (a
+    kernel route each) and, where ``needs_scale``, int8 codes come with
+    their requant scale."""
+    if not (isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor)):
+        return                      # check_tensor names the bad argument
+    if x.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"{name}: x has dtype {x.dtype}; the kernel takes "
+                        f"torch.float32 or torch.int8 codes")
+    if w.dtype != x.dtype:
+        raise TypeError(f"{name}: mixed operands x {x.dtype} and w "
+                        f"{w.dtype}; pass both as int8 codes or both as "
+                        f"float32")
+    if needs_scale and x.dtype == torch.int8 and scale is None:
+        raise ValueError(f"{name}: int8 codes need their requant scale "
+                         f"(scale=, shape (M,)): the epilogue applies it "
+                         f"before the bias, relu and pool")
 
 
 def refuse_grad(name: str, *ts: torch.Tensor | None) -> None:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantize import f32_codes
 from repro_torch.core.window import conv2d_im2col
 
 __all__ = ["conv2d_window_ref"]
@@ -18,5 +19,6 @@ __all__ = ["conv2d_window_ref"]
 def conv2d_window_ref(x: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor | None = None, *,
                       stride: tuple[int, int] = (1, 1)) -> torch.Tensor:
-    """x: (B, N, H, W), w: (M, N, Kh, Kw), b: (M,)|None -> (B, M, Ho, Wo)."""
-    return conv2d_im2col(x, w, b, tuple(stride))
+    """x: (B, N, H, W), w: (M, N, Kh, Kw), b: (M,)|None -> (B, M, Ho, Wo);
+    int8 codes contract as their integer-valued fp32 (``f32_codes``)."""
+    return conv2d_im2col(f32_codes(x), f32_codes(w), b, tuple(stride))

@@ -15,9 +15,11 @@ not chase noise. The axes are the port's own launch keys
 (``repro_torch.ops.tiling``):
 
   * the conv template (``conv2d`` and ``fused_conv_block``, one search):
-    ``ipb`` (images a block), ``band`` (tile rows a block), ``cpb``
-    (output channels a block), ``split`` (lanes sharing a tile's
-    contraction) and ``threads``;
+    on f32 operands (the fp32 route) ``ipb`` (images a block), ``band``
+    (tile rows a block), ``cpb`` (output channels a block), ``split``
+    (lanes sharing a tile's contraction) and ``threads``; on int8 codes
+    (the int8 route, cached under dtype int8) ``items`` (items a block),
+    ``band`` and ``cpb``; a point the tiler refuses is skipped;
   * ``qmatmul``: ``body`` (the heuristic of each body is measured, the
     faster by ``MIN_GAIN`` starts the descent), then within that body
     ``tile_m`` (tensor-core tiles) or ``tile_m`` and ``tile_n`` (weight
@@ -53,10 +55,13 @@ from typing import Callable, Mapping
 import torch
 
 from repro_torch.ops.policy import ExecPolicy, current_policy
-from repro_torch.ops.tiling import (CONV_CHANNELS, TUNING_CACHE,
+from repro_torch.ops.tiling import (CONV_CHANNELS, CONV_S8_CHANNELS,
+                                    CONV_S8_MAX_CPB, TUNING_CACHE,
+                                    choose_conv_s8_blocks,
                                     choose_fused_blocks,
-                                    choose_qmatmul_blocks, conv_signature,
-                                    fits_keys, platform_key, qmatmul_tiles)
+                                    choose_qmatmul_blocks, conv_s8_tiles,
+                                    conv_signature, fits_keys, platform_key,
+                                    qmatmul_tiles)
 
 __all__ = ["ensure_tuned", "tune_conv2d", "tune_fused_conv_block",
            "tune_qmatmul", "tune_stream_conv2d",
@@ -83,6 +88,8 @@ BAND_ROWS = (1, 2, 4, 8)
 CHANNEL_BLOCKS = (4, 8, 16, 32)
 SPLITS = (1, 2, 4, 8, 16, 32)
 THREADS = (64, 128, 256, 512)
+# the conv template's int8 route: items a block
+S8_ITEMS = (1, 2, 4, 8)
 QMM_TC_ROWS = (64, 128)
 QMM_STREAM_ROWS = (4, 8, 16)
 QMM_STREAM_COLS = (16, 32, 64, 128)
@@ -91,6 +98,7 @@ QMM_STREAM_COLS = (16, 32, 64, 128)
 STREAM_TILE_ROWS = (4, 8, 16, 32, 64)
 
 _CONV_KEYS = ("threads", "cpb", "band", "split", "ipb")
+_CONV_S8_KEYS = ("cpb", "band", "items")
 _QMM_KEYS = ("body", "tile_m", "tile_n", "ksplit")   # both bodies' keys
 
 
@@ -190,19 +198,33 @@ def _values(cands, cap: int, heur: int) -> list[int]:
 def _conv_heuristic(x, w, stride, pool: bool, odd: str) -> dict[str, int]:
     bsz, n, h, wd = x.shape
     m, _, kh, kw = w.shape
+    if x.dtype == torch.int8:
+        heur = choose_conv_s8_blocks(bsz, n, h, wd, m, kh, kw, *stride,
+                                     pool=pool, odd=odd)
+        return {k: heur[k] for k in _CONV_S8_KEYS}
     heur = choose_fused_blocks(bsz, n, h, wd, m, kh, kw, *stride, pool=pool,
                                odd=odd)
     return {k: heur[k] for k in _CONV_KEYS}
 
 
 def _conv_axes(x, w, stride, heur: Mapping[str, int]) -> dict[str, list]:
-    """The conv template's axes in impact order: weight reuse across
-    images, the rows a block stages, its channel group, the lanes sharing
-    a contraction, the block's threads."""
+    """The conv template's axes in impact order. fp32 route: weight reuse
+    across images, the rows a block stages, its channel group, the lanes
+    sharing a contraction, the block's threads. int8 route: the items a
+    block, the rows an item, the channel group."""
     bsz, n, h, _ = x.shape
     m, _, kh, _ = w.shape
     ho = (h - kh) // stride[0] + 1
     po = max(-(-ho // 2), 1)
+    if x.dtype == torch.int8:
+        cpb_cap = min(-(-m // CONV_S8_CHANNELS) * CONV_S8_CHANNELS,
+                      CONV_S8_MAX_CPB)
+        return {
+            "items": _values(S8_ITEMS, bsz * po, heur["items"]),
+            "band": _values((*BAND_ROWS, po), po, heur["band"]),
+            "cpb": _values(range(CONV_S8_CHANNELS, CONV_S8_MAX_CPB + 1,
+                                 CONV_S8_CHANNELS), cpb_cap, heur["cpb"]),
+        }
     cpb_cap = -(-m // CONV_CHANNELS) * CONV_CHANNELS
     return {
         "ipb": _values(IMAGE_BLOCKS, bsz, heur["ipb"]),
@@ -216,8 +238,22 @@ def _conv_axes(x, w, stride, heur: Mapping[str, int]) -> dict[str, list]:
 def _tune_conv(op: str, call, x, w, stride, pool: bool, odd: str,
                on_point) -> dict[str, int]:
     heur = _conv_heuristic(x, w, stride, pool, odd)
-    best = _descend(_conv_axes(x, w, stride, heur), heur,
-                    lambda **tiles: lambda: call(tiles), on_point=on_point)
+
+    def launch(**tiles):
+        if x.dtype == torch.int8:
+            bsz, n, h, wd = x.shape
+            m, _, kh, kw = w.shape
+            try:
+                t = conv_s8_tiles(bsz, n, h, wd, m, kh, kw, *stride,
+                                  {f"{op}.{a}": v for a, v in tiles.items()},
+                                  pool=pool, odd=odd,
+                                  platform=platform_key(x.device))
+            except ValueError:
+                return None
+        return lambda: call(tiles)
+
+    best = _descend(_conv_axes(x, w, stride, heur), heur, launch,
+                    on_point=on_point)
     TUNING_CACHE.put(op, conv_signature(x.shape, w.shape, stride), x.dtype,
                      best, platform=platform_key(x.device))
     return best
@@ -398,11 +434,14 @@ def heuristic_tiles(op: str, *args, **kwargs) -> dict[str, int] | None:
                            kwargs.get("odd", "raise"))
 
 
-def _known_keys(op: str) -> tuple[str, ...]:
-    """The launch keys a tuned entry of ``op`` may hold."""
+def _known_keys(op: str, dtype=torch.float32) -> tuple[str, ...]:
+    """The launch keys a tuned entry of ``op`` on ``dtype`` operands may
+    hold."""
     if op == "qmatmul":
         return _QMM_KEYS
-    return ("th",) if op in _STREAM_INNER else _CONV_KEYS
+    if op in _STREAM_INNER:
+        return ("th",)
+    return _CONV_S8_KEYS if dtype == torch.int8 else _CONV_KEYS
 
 
 def signature_of(op: str, args, kwargs) -> tuple:
@@ -425,7 +464,7 @@ def ensure_tuned(op: str, *args, policy: ExecPolicy | None = None,
     x = args[0]
     hit = TUNING_CACHE.get(op, signature_of(op, args, kwargs), x.dtype,
                            platform_key(x.device))
-    if fits_keys(hit, _known_keys(op)):
+    if fits_keys(hit, _known_keys(op, x.dtype)):
         return hit
     inner = _STREAM_INNER.get(op, op)
     ikw = {k: v for k, v in kwargs.items() if k not in _STREAM_KWARGS}

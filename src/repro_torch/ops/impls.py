@@ -21,9 +21,13 @@ adds are its design on every device and carry a ``cuda`` priority.
 
 Quantization (paper C4) is applied here, once, per ``ExecPolicy.quant``,
 exactly as in the reference: ``qformat`` snaps operands and results to
-the Qm.n lattice; ``int8`` contracts integer-valued f32 codes and applies
-the per-output-channel requant scale after the reduction; dense layers
-take the int8 datapath through ``qdense`` → ``qmatmul``.
+the Qm.n lattice; ``int8`` contracts the codes and applies the
+per-output-channel requant scale after the reduction; dense layers take
+the int8 datapath through ``qdense`` → ``qmatmul``. The conv backends
+take the int8 codes as they are (``split_int8``): the ``cuda`` kernels
+contract them on the int8 tensor cores, the ``ref`` and ``torch``
+backends cast them to the integer-valued f32 the reference contracts
+(``f32_codes``), bitwise to ``split_requant``'s.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.addtree import pairwise_sum
-from repro_torch.core.quantize import QTensor, conv_epilogue, quantize_int8
+from repro_torch.core.quantize import (QTensor, conv_epilogue, f32_codes,
+                                       quantize_int8)
 from repro_torch.core.window import conv2d_im2col, conv2d_ref, maxpool2
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.registry import dispatch, register
@@ -41,7 +46,7 @@ from repro_torch.sharding.logical import (is_dtensor, matmul_rows,
 
 __all__ = ["conv2d", "fused_conv_block", "tree_reduce_sum", "qmatmul",
            "qdense", "dense", "causal_conv1d", "quantize_conv_int8",
-           "split_requant"]
+           "split_requant", "split_int8"]
 
 # the reference pins fp32 matmul precision; the fp32 fc product that stays
 # on torch.matmul must not run in TF32 on the card, nor may the conv
@@ -60,22 +65,28 @@ _KERNEL = {"cuda": 30, "cpu": 5}
 
 @register("conv2d", "ref", priority=_REF_CPU)
 def _conv2d_ref(x, w, b=None, *, stride=(1, 1), policy=None):
-    return conv2d_ref(x, w, b, tuple(stride))
+    return conv2d_ref(f32_codes(x), f32_codes(w), b, tuple(stride))
 
 
 @register("conv2d", "torch", priority=_PLAIN_CPU)
 def _conv2d_torch(x, w, b=None, *, stride=(1, 1), policy=None):
-    return conv2d_im2col(x, w, b, tuple(stride))
+    return conv2d_im2col(f32_codes(x), f32_codes(w), b, tuple(stride))
 
 
 def _f32(*ts) -> bool:
     return all(t is None or t.dtype == torch.float32 for t in ts)
 
 
+def _kernel_operands(x, w) -> bool:
+    """Both f32 (the kernels' fp32 route) or both int8 codes (their int8
+    route)."""
+    return x.dtype == w.dtype and x.dtype in (torch.float32, torch.int8)
+
+
 def _conv2d_cuda_ok(x, w, b=None, *, stride=(1, 1), **_) -> bool:
     return (x.ndim == 4 and w.ndim == 4 and x.shape[1] == w.shape[1]
             and x.shape[2] >= w.shape[2] and x.shape[3] >= w.shape[3]
-            and _f32(x, w, b))
+            and _kernel_operands(x, w) and _f32(b))
 
 
 @register("conv2d", "cuda", priority=_KERNEL, supports=_conv2d_cuda_ok)
@@ -122,6 +133,23 @@ def split_requant(x, w):
     return (x.codes.to(torch.float32), w.codes.to(torch.float32), scale)
 
 
+def split_int8(x, w):
+    """``split_requant`` without the cast: (x_codes, w_codes, scale) with
+    the codes as int8, as the conv backends take them (the kernels' int8
+    route on the card; the plain backends cast them themselves). Every
+    conv entry point splits its operands here, so no conv call under
+    ``int8`` casts codes to f32 on the card. Non-QTensor operands pass
+    through with scale None; one QTensor alone raises TypeError."""
+    if not (isinstance(x, QTensor) or isinstance(w, QTensor)):
+        return x, w, None
+    if not (isinstance(x, QTensor) and isinstance(w, QTensor)):
+        raise TypeError(
+            "int8 conv needs BOTH operands quantized: got "
+            f"x={type(x).__name__}, w={type(w).__name__}")
+    scale = (x.scale * w.scale).reshape(-1).to(torch.float32)
+    return x.codes, w.codes, scale
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            *, stride: tuple[int, int] = (1, 1),
            policy: ExecPolicy | None = None) -> torch.Tensor:
@@ -132,7 +160,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     as ``conv_epilogue``."""
     pol = policy if policy is not None else current_policy()
     x, w, b = _conv_quant_operands(pol, x, w, b)
-    x, w, scale = split_requant(x, w)
+    x, w, scale = split_int8(x, w)
     out = dispatch("conv2d", x, w, None if scale is not None else b,
                    stride=stride, policy=pol)
     if scale is not None:
@@ -147,6 +175,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
 @register("fused_conv_block", "ref", priority=_REF_CPU)
 def _fused_ref(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
                policy=None):
+    x, w = f32_codes(x), f32_codes(w)
     if scale is None:
         out = conv2d_ref(x, w, b, tuple(stride))
     else:
@@ -157,8 +186,8 @@ def _fused_ref(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
 @register("fused_conv_block", "torch", priority=_PLAIN_CPU)
 def _fused_torch(x, w, b=None, *, stride=(1, 1), odd="raise", scale=None,
                  policy=None):
-    out = conv2d_im2col(x, w, None if scale is not None else b,
-                        tuple(stride))
+    out = conv2d_im2col(f32_codes(x), f32_codes(w),
+                        None if scale is not None else b, tuple(stride))
     if scale is not None:
         out = conv_epilogue(out, scale, b)
     return maxpool2(torch.relu(out), odd=odd)
@@ -169,7 +198,8 @@ def _fused_cuda_ok(x, w, b=None, *, stride=(1, 1), scale=None, **_) -> bool:
     # column as core.window.maxpool2 does, and its wrapper raises
     # ValueError before any launch where pool_output_size does
     # (odd='raise' on an odd map, an unknown mode)
-    return _conv2d_cuda_ok(x, w, b, stride=stride) and _f32(scale)
+    return (_conv2d_cuda_ok(x, w, b, stride=stride) and _f32(scale)
+            and (scale is not None or x.dtype != torch.int8))
 
 
 @register("fused_conv_block", "cuda", priority=_KERNEL,
@@ -195,7 +225,7 @@ def fused_conv_block(x: torch.Tensor, w: torch.Tensor,
     must apply before the in-kernel bias/relu/pool."""
     pol = policy if policy is not None else current_policy()
     x, w, b = _conv_quant_operands(pol, x, w, b)
-    x, w, scale = split_requant(x, w)
+    x, w, scale = split_int8(x, w)
     out = dispatch("fused_conv_block", x, w, b, stride=stride, odd=odd,
                    scale=scale, policy=pol)
     if pol.quant == "qformat":

@@ -4,13 +4,18 @@ The JAX package sizes Pallas blocks against a TPU VMEM budget. Here the
 constraint is filling an H100's 132 streaming multiprocessors with whole
 32-thread warps, inside a block's shared memory.
 
-  * ``conv_window`` and ``fused_cwp`` (``choose_fused_blocks``, one
-    template, ``pool`` tells them apart): a block owns ``ipb`` images, a
-    group of ``cpb`` output channels and a band of ``band`` tile rows,
-    staged in shared memory; a thread holds a tile of 2×2 conv points ×
-    4 channels (one pooled output under ``pool``), and ``split``
-    adjacent lanes share it along the contraction where the tiles alone
-    cannot fill the card.
+  * ``conv_window`` and ``fused_cwp`` (one template, ``pool`` tells them
+    apart), two routes. fp32 operands (``choose_fused_blocks``): a block
+    owns ``ipb`` images, a group of ``cpb`` output channels and a band of
+    ``band`` tile rows, staged in shared memory; a thread holds a tile of
+    2×2 conv points × 4 channels (one pooled output under ``pool``), and
+    ``split`` adjacent lanes share it along the contraction where the
+    tiles alone cannot fill the card. int8 codes
+    (``choose_conv_s8_blocks``): a block of 8 warps owns ``cpb`` output
+    channels (8 an MMA column tile) and ``items`` items (an image's band
+    of ``band`` tile rows), each warp taking 8 tiles; the overrides share
+    the two namespaces below, and the cache keys the route by its
+    dtype.
   * ``qmatmul`` (``choose_qmatmul_blocks``): ``body`` 1, tensor-core
     tiles of ``tile_m`` × 128 outputs over ``ksplit`` bytes of K, from 8
     rows and 64 columns; else ``body`` 0, split-K weight streaming:
@@ -46,9 +51,11 @@ import warnings
 from typing import Mapping
 
 __all__ = ["H100_SMS", "WARP", "MAX_THREADS", "SMEM_MAX", "TREE_MAX_ETA",
-           "TREE_SHORT_ETA", "CONV_CHANNELS", "QMATMUL_TC_MIN_M",
+           "TREE_SHORT_ETA", "CONV_CHANNELS", "CONV_S8_CHANNELS",
+           "CONV_S8_MAX_CPB", "QMATMUL_TC_MIN_M",
            "QMATMUL_TC_MIN_N", "choose_fused_blocks", "fused_ld",
-           "fused_smem_bytes", "fused_tiles", "qmatmul_body",
+           "fused_smem_bytes", "fused_tiles", "conv_s8_smem_bytes",
+           "choose_conv_s8_blocks", "conv_s8_tiles", "qmatmul_body",
            "choose_qmatmul_blocks", "qmatmul_smem_bytes",
            "qmatmul_scratch_bytes", "qmatmul_tiles", "choose_tree_blocks",
            "tree_smem_bytes", "tree_tiles", "tile_params", "fits_keys",
@@ -69,6 +76,17 @@ CONV_CHANNELS = 4               # output channels in a conv thread's tile
 # (two blocks an SM); anything up to SMEM_MAX is staged when asked for
 FUSED_SMEM_TARGET = SMEM_MAX // 2
 FUSED_MAX_THREADS = 320         # a block of several images: 10 warps
+# where lanes split a tile's contraction, they aim at this many threads an
+# SM, and a block may hold this many (the fp32 route's long, latency-bound
+# FMA chains at highres_cnn's blocks 2 and 3, B = 8, ran fastest there)
+FUSED_SPLIT_THREADS = 512
+# a block takes more images only while the grid keeps this many blocks
+FUSED_IPB_BLOCKS = 3 * H100_SMS // 2
+# the conv template's int8 route: output channels an MMA column tile, and
+# at most 4 of them a block (cpb 32); a block is 8 warps (S8_WARPS in
+# csrc/conv_tile.cuh)
+CONV_S8_CHANNELS = 8
+CONV_S8_MAX_CPB = 32
 # qmatmul: the tensor-core body (1) takes M >= 8 and N >= 64; below
 # either, the split-K weight-streaming body (0). Measured on an H100 at
 # two LM weights (scripts/torch_kernel_probe.py --sweep): streaming ahead
@@ -122,12 +140,14 @@ def fused_smem_bytes(n: int, h: int, w: int, kh: int, kw: int, sh: int,
                      sw: int, cpb: int, band: int, ipb: int,
                      pool: bool = True, odd: str = "raise") -> int:
     """Shared memory of one staged conv block: the group's weights
-    (cpb × η) and the input bands (ipb × N × the band's rows × ld), fp32.
+    (η rows of cpb + 4 floats: the 4 past cpb keep the transposing copy
+    free of bank conflicts) and the input bands (ipb × N × the band's
+    rows × ld), fp32.
     A band's rows are its tiles' windows, at most the input's H: a
     ragged last tile row reads its first row's windows again, so the
     kernel clamps the band there too and reads nothing past H."""
     rows = min((2 * band - 1) * sh + kh, h)
-    return 4 * (n * kh * kw * cpb
+    return 4 * (n * kh * kw * (cpb + CONV_CHANNELS)
                 + ipb * n * rows * fused_ld(h, w, kh, kw, sh, sw, pool, odd))
 
 
@@ -136,23 +156,27 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
                         odd: str = "raise") -> dict[str, int]:
     """The conv tile template: ``fused_cwp`` with ``pool``, else
     ``conv_window``, whose tiles cover a ragged last row and column of
-    an odd output (as pooled ones do under ``odd='pad'``). ``split`` is the least power of two (≤ 32 and ≤ the
-    N·Kh kernel rows it divides among lanes) that gives 132 SMs 256
-    threads each. The block starts at one whole image and every channel
-    group and halves its band, then its channel groups, until it holds
-    at most 256 threads, the grid at least one block an SM, and the
-    staged slab ``FUSED_SMEM_TARGET``. Then it takes more images
-    (``ipb``), so the weights are staged once for several, while the grid
-    keeps a block an SM, the slab ``FUSED_SMEM_TARGET``, and the block at
-    most two rounds of ``FUSED_MAX_THREADS``."""
+    an odd output (as pooled ones do under ``odd='pad'``). ``split`` is
+    the least power of two (≤ 32 and ≤ the N·Kh kernel rows it divides
+    among lanes) that gives 132 SMs ``FUSED_SPLIT_THREADS`` threads
+    each. The block starts at one whole image and every channel group and
+    halves its band, then its channel groups, until it holds at most 256
+    threads (``FUSED_SPLIT_THREADS`` where lanes split), the grid at
+    least one block an SM, and the staged slab ``FUSED_SMEM_TARGET``.
+    Then it takes more images (``ipb``), so the weights are staged once
+    for several, while the grid keeps ``FUSED_IPB_BLOCKS`` blocks (1.5 an
+    SM: at highres_cnn's 224-wide bands, B = 8, two images a block ran
+    18% behind one on an H100), the slab ``FUSED_SMEM_TARGET``, and the
+    block at most two rounds of ``FUSED_MAX_THREADS``."""
     po, qo = _conv_grid(h, w, kh, kw, sh, sw, pool, odd)
     po, qo = max(po, 1), max(qo, 1)
     groups = _cdiv(m, CONV_CHANNELS)
     tiles = bsz * groups * po * qo
     split = 1
     while (split < WARP and 2 * split <= n * kh
-           and tiles * split < H100_SMS * MAX_THREADS):
+           and tiles * split < H100_SMS * FUSED_SPLIT_THREADS):
         split *= 2
+    cap = FUSED_SPLIT_THREADS if split > 1 else MAX_THREADS
 
     def smem(cg, band, ipb):
         return fused_smem_bytes(n, h, w, kh, kw, sh, sw, CONV_CHANNELS * cg,
@@ -161,7 +185,7 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
     cg, band = groups, po
     while band > 1 or cg > 1:
         blocks = bsz * _cdiv(groups, cg) * _cdiv(po, band)
-        if (cg * band * qo * split <= MAX_THREADS and blocks >= H100_SMS
+        if (cg * band * qo * split <= cap and blocks >= H100_SMS
                 and smem(cg, band, 1) <= FUSED_SMEM_TARGET):
             break
         if band > 1:
@@ -172,10 +196,10 @@ def choose_fused_blocks(bsz: int, n: int, h: int, w: int, m: int, kh: int,
     ipb = 1
     while ((ipb + 1) * per_img <= 2 * FUSED_MAX_THREADS
            and _cdiv(bsz, ipb + 1) * _cdiv(groups, cg) * _cdiv(po, band)
-           >= H100_SMS
+           >= FUSED_IPB_BLOCKS
            and smem(cg, band, ipb + 1) <= FUSED_SMEM_TARGET):
         ipb += 1
-    threads = min(MAX_THREADS if ipb == 1 else FUSED_MAX_THREADS,
+    threads = min(cap if ipb == 1 else FUSED_MAX_THREADS,
                   _cdiv(ipb * per_img, WARP) * WARP)
     return {"threads": threads, "cpb": CONV_CHANNELS * cg, "band": band,
             "split": split, "ipb": ipb}
@@ -221,6 +245,132 @@ def fused_tiles(bsz: int, n: int, h: int, w: int, m: int, kh: int, kw: int,
     smem = fused_smem_bytes(n, h, w, kh, kw, sh, sw, t["cpb"], t["band"],
                             t["ipb"], pool, odd)
     t["smem"] = smem if smem <= SMEM_MAX else 0
+    return t
+
+
+def conv_s8_smem_bytes(n: int, h: int, w: int, kh: int, kw: int, sh: int,
+                       cpb: int, band: int, items: int) -> int:
+    """Shared memory of one int8-route conv block (``s8_smem`` in
+    ``csrc/conv_tile.cuh``): the expanded weights (cpb rows of the padded
+    depth η' + 16 bytes; η' = 32·⌈N·Kh·Kw'/32⌉, Kw' = 4·⌈Kw/4⌉), the run
+    table (8 bytes a 4-byte run of η'), the raw weights (cpb·η + 4), the
+    slab offsets (4 bytes a channel of each item) and ``items`` slabs of N
+    channel bands (each the band's rows × W + 19 bytes: a shift of up to
+    3 and the reads past a run's last real k), every part rounded to 16.
+    The raw weights' bytes, dead once expanded, then hold the int32
+    partial sums of warps that share a unit's depth: at least 512 × cpb."""
+    kwp = _cdiv(kw, 4) * 4
+    etap = _cdiv(n * kh * kwp, 32) * 32
+    rows = min((2 * band - 1) * sh + kh, h)
+    cst = _cdiv(rows * w + 19, 16) * 16
+    raw = max(_cdiv(cpb * n * kh * kw + 4, 16) * 16, 512 * cpb)
+    return (cpb * (etap + 16) + 2 * etap + raw + _cdiv(4 * items * n, 16) * 16
+            + items * n * cst)
+
+
+def choose_conv_s8_blocks(bsz: int, n: int, h: int, w: int, m: int,
+                          kh: int, kw: int, sh: int, sw: int,
+                          pool: bool = True, odd: str = "raise"
+                          ) -> dict[str, int]:
+    """The int8 route of the conv template (both kernels; ``pool`` as in
+    ``choose_fused_blocks``). A block owns ``cpb`` output channels (8 an
+    MMA column tile, up to 32) and ``items`` items, an item being one
+    image's band of ``band`` tile rows; its 8 warps (which also stage the
+    slabs and expand the weights) take 8 tiles (a unit) × all the block's
+    channels each, and share a unit's depth where a block has fewer units
+    than warps.
+
+    From whole images and ⌈M/8⌉ column tiles (at most 4), the band halves
+    while the blocks number under 132 or the slab exceeds
+    ``FUSED_SMEM_TARGET``, then the column tiles halve while the blocks
+    number under 132. Where the blocks are under 4 × 132, the band halves
+    on while an item has over 8 units (more, smaller blocks), and then
+    doubles while an item has under 8 units, the doubled one at most 8,
+    and the blocks stay at least 66 (fewer blocks, each warp a unit). A
+    block takes items while they keep its units at most 8 and either the
+    blocks stay at least 132 or the depth (η'/32 k-steps) is too shallow
+    for the warps to share it; a pooled block of one item takes 2 where
+    one-item blocks number at least 4 × 132 (an unpooled one is bound by
+    its fp32 output's bytes). Each rule follows ``scripts/torch_kernel_probe.py --conv-sweep`` on an
+    H100 at the main path's shapes."""
+    po, qo = _conv_grid(h, w, kh, kw, sh, sw, pool, odd)
+    po, qo = max(po, 1), max(qo, 1)
+    nt = min(CONV_S8_MAX_CPB // CONV_S8_CHANNELS, _cdiv(m, CONV_S8_CHANNELS))
+    ksteps = _cdiv(n * kh * _cdiv(kw, 4) * 4, 32)
+
+    def smem(nt, band, items):
+        return conv_s8_smem_bytes(n, h, w, kh, kw, sh,
+                                  CONV_S8_CHANNELS * nt, band, items)
+
+    def blocks(nt, band, items):
+        return (_cdiv(bsz * _cdiv(po, band), items)
+                * _cdiv(m, CONV_S8_CHANNELS * nt))
+
+    def upi(band):
+        return _cdiv(min(band, po) * qo, 8)
+
+    band = po
+    while band > 1 and (blocks(nt, band, 1) < H100_SMS
+                        or smem(nt, band, 1) > FUSED_SMEM_TARGET):
+        band = _cdiv(band, 2)
+    while nt > 1 and blocks(nt, band, 1) < H100_SMS:
+        nt = _cdiv(nt, 2)
+    if blocks(nt, band, 1) < 4 * H100_SMS:
+        while band > 1 and upi(band) > 8:
+            band = _cdiv(band, 2)
+        while (band < po and upi(band) < 8 and upi(2 * band) <= 8
+               and blocks(nt, 2 * band, 1) >= H100_SMS // 2
+               and smem(nt, 2 * band, 1) <= FUSED_SMEM_TARGET):
+            band *= 2
+    units = upi(band)
+    items = 1
+    while ((items + 1) * units <= 8
+           and (blocks(nt, band, items + 1) >= H100_SMS
+                or ksteps * items * units < 8)
+           and smem(nt, band, items + 1) <= FUSED_SMEM_TARGET):
+        items += 1
+    if (pool and items == 1 and blocks(nt, band, 1) >= 4 * H100_SMS
+            and smem(nt, band, 2) <= FUSED_SMEM_TARGET):
+        # the pooled output is small: where one-item blocks are plenty,
+        # two items a block stage the weights once for both
+        items = 2
+    return {"cpb": CONV_S8_CHANNELS * nt, "band": band, "items": items}
+
+
+def conv_s8_tiles(bsz: int, n: int, h: int, w: int, m: int, kh: int,
+                  kw: int, sh: int, sw: int,
+                  overrides: Mapping[str, int] | None = None,
+                  pool: bool = True, odd: str = "raise",
+                  platform: str | None = None) -> dict[str, int]:
+    """``choose_conv_s8_blocks`` with the op's overrides
+    (``fused_conv_block.<key>`` with ``pool``, ``conv2d.<key>`` without)
+    and a ``TUNING_CACHE`` entry of this (op, shape, int8, ``platform``)
+    applied and checked, plus ``smem``, the block's shared memory. A
+    block that would exceed ``SMEM_MAX`` raises, the heuristic's own too
+    (a one-row band of a huge N·W: no model of the repo comes near)."""
+    op = "fused_conv_block" if pool else "conv2d"
+    defaults = choose_conv_s8_blocks(bsz, n, h, w, m, kh, kw, sh, sw, pool,
+                                     odd)
+    key = {"signature": (bsz, n, h, w, m, kh, kw, sh, sw), "dtype": "int8",
+           "platform": platform}
+    t = tile_params(op, defaults, overrides, **key)
+    if t["cpb"] not in (8, 16, 24, 32):
+        raise ValueError(f"{op}: int8 cpb {t['cpb']} must be 8, 16, 24 or "
+                         f"32")
+    for name in ("band", "items"):
+        if t[name] < 1:
+            raise ValueError(f"{op}: {name} {t[name]} must be >= 1")
+    po = _conv_grid(h, w, kh, kw, sh, sw, pool, odd)[0]
+    grid = (_cdiv(bsz * _cdiv(po, t["band"]), t["items"])
+            * _cdiv(m, t["cpb"]))
+    if grid > 2 ** 31 - 1:
+        raise ValueError(f"{op}: {grid} blocks; CUDA's grid holds at most "
+                         f"2**31 - 1")
+    t["smem"] = conv_s8_smem_bytes(n, h, w, kh, kw, sh, t["cpb"], t["band"],
+                                   t["items"])
+    if t["smem"] > SMEM_MAX:
+        raise ValueError(f"{op}: the int8 route's {t['smem']} bytes of "
+                         f"shared memory a block; at most {SMEM_MAX}")
     return t
 
 

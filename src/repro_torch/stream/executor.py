@@ -27,7 +27,9 @@ band loop:
     same η-length dot product either way.
 
 So int8 and qformat (integer-valued sums, exact in fp32) are bitwise
-equal to the untiled entry points. In fp32 the CUDA conv template picks
+equal to the untiled entry points. Under int8 the bands slice the int8
+codes themselves (``split_int8``): on the card each band is one launch of
+the kernel's int8 route, with no cast. In fp32 the CUDA conv template picks
 its launch shape from H (``ops/tiling.py``, ``choose_fused_blocks``), so
 a band may sum in another order than the untiled launch.
 
@@ -45,7 +47,7 @@ import torch
 
 from repro_torch.core.quantize import conv_epilogue
 from repro_torch.core.window import pool_output_size
-from repro_torch.ops.impls import _conv_quant_operands, split_requant
+from repro_torch.ops.impls import _conv_quant_operands, split_int8
 from repro_torch.ops.policy import ExecPolicy, current_policy
 from repro_torch.ops.registry import dispatch
 from repro_torch.ops.tiling import conv_signature, platform_key, tile_params
@@ -72,7 +74,7 @@ def stream_conv2d(x, w, b=None, *, stride=(1, 1), scale=None,
     (M, N, Kh, Kw) -> (B, M, Ho, Wo)."""
     pol = policy if policy is not None else current_policy()
     x, w, b = _conv_quant_operands(pol, x, w, b)
-    x, w, s = split_requant(x, w)
+    x, w, s = split_int8(x, w)
     if scale is None:
         scale = s
     kh = w.shape[2]
@@ -103,7 +105,7 @@ def stream_fused_conv_block(x, w, b=None, *, stride=(1, 1), odd="raise",
     last conv row as the untiled call does (``odd='pad'``)."""
     pol = policy if policy is not None else current_policy()
     x, w, b = _conv_quant_operands(pol, x, w, b)
-    x, w, s = split_requant(x, w)
+    x, w, s = split_int8(x, w)
     if scale is None:
         scale = s
     kh = w.shape[2]

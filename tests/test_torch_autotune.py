@@ -513,9 +513,15 @@ class TestPlanAutotune:
         logits stay within the bars of the JAX plan."""
         jparams, tparams = weights
         x = np.random.RandomState(3).randn(4, 1, 28, 28).astype(np.float32)
-        for sig, t in ((SIG1, {"split": 4, "cpb": 16, "ipb": 2}),
-                       (SIG2, {"band": 1, "threads": 64})):
-            TUNING_CACHE.put("fused_conv_block", sig, torch.float32, t)
+        # an int8 plan's conv stages run the kernels' int8 route, tuned
+        # and cached under dtype int8 with that route's keys
+        conv_dt, first, second = (
+            (torch.int8, {"items": 2, "cpb": 16}, {"band": 1, "cpb": 8})
+            if quant == "int8" else
+            (torch.float32, {"split": 4, "cpb": 16, "ipb": 2},
+             {"band": 1, "threads": 64}))
+        for sig, t in ((SIG1, first), (SIG2, second)):
+            TUNING_CACHE.put("fused_conv_block", sig, conv_dt, t)
         TUNING_CACHE.put("qmatmul", (4, 320, 10), torch.int8,
                          {"tile_n": 32, "ksplit": 20})
         J_CACHE.put("fused_conv_block", SIG1, jnp.float32,
@@ -529,9 +535,11 @@ class TestPlanAutotune:
         assert sorted(bound.tuned) == sorted(jbound.tuned)
         assert len(bound.tuned) == (3 if quant == "int8" else 2)
         baked = {k: v for t in bound.tuned.values() for k, v in t.items()}
-        assert baked["fused_conv_block.split"] == 4
         if quant == "int8":
+            assert baked["fused_conv_block.items"] == 2
             assert baked["qmatmul.ksplit"] == 20
+        else:
+            assert baked["fused_conv_block.split"] == 4
         got = bound(torch.from_numpy(x)).numpy()
         np.testing.assert_array_equal(
             got, _port_plan(quant).bind(tparams)(torch.from_numpy(x)))
@@ -586,7 +594,9 @@ class TestPlanAutotune:
         re-banded plans agree by the port's bars."""
         jparams, tparams = weights
         x = np.random.RandomState(4).randn(4, 1, 28, 28).astype(np.float32)
-        TUNING_CACHE.put("stream_fused_conv_block", SIG1, torch.float32,
+        # an int8 stage's bands slice int8 codes: its entry's dtype
+        TUNING_CACHE.put("stream_fused_conv_block", SIG1,
+                         torch.int8 if quant == "int8" else torch.float32,
                          {"th": 3})
         J_CACHE.put("stream_fused_conv_block", SIG1, jnp.float32,
                     {"th": 3})

@@ -633,7 +633,10 @@ def test_graph_replay_matches_direct_call(card, mode, bsz):
     bound = model.compile(batch=bsz).bind(model.init(0, device=card))
     graph = capture_graph(bound, model.input_shape(bsz))
     want = {"fused_cwp": 2, "conv_window": 0, "addtree": 0,
-            "qmatmul": int(mode == "int8")}
+            "qmatmul": int(mode == "int8"),
+            # the int8 route's launches, among the kernel's own
+            "fused_cwp_int8": 2 * int(mode == "int8"),
+            "conv_window_int8": 0}
     assert graph.kernels == want
     x = torch.from_numpy(np.stack(_images(bsz, seed=bsz)))
     before = fc_ops.launches
@@ -1103,3 +1106,116 @@ def test_mnist_train_graph_replays_conv_window(card, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(gl, el))
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(gp),
                                                  tree_leaves(ep)))
+
+
+# ------------------------------------------- the conv kernels' int8 route
+
+# (N, H, W, M, K), stride, launch keys: depth off a multiple of 32 (5 x 7
+# x 7 = 245) and M = 13; stride 2 on an odd map with 2 items a block; a
+# 2 x 2 kernel with 40 channels at 32 a block; the paper's conv2
+S8_CASES = {
+    "eta245 M13": ((5, 17, 19, 13, 7), (1, 1), {"cpb": 24}),
+    "stride2 items": ((3, 35, 43, 5, 3), (2, 2), {"band": 3, "items": 2}),
+    "k2 M40": ((9, 12, 14, 40, 2), (1, 1), {"cpb": 32}),
+    "conv2": ((15, 13, 13, 20, 6), (1, 1), {}),
+}
+
+
+def _s8_operands(card, shape, bsz, seed=0):
+    """int8 codes of x and w as the op layer splits them (split_int8 is
+    split_requant without the cast), the requant scale and a bias."""
+    n, h, w_, m, k = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((bsz, n, h, w_), generator=g)
+    w = torch.randn((m, n, k, k), generator=g) * (n * k * k) ** -0.5
+    b = torch.randn((m,), generator=g) * 0.1
+    xq, wq = quantize_conv_int8(x, w)
+    scale = (xq.scale * wq.scale).reshape(-1)
+    return tuple(t.to(card) for t in (xq.codes, wq.codes, scale, b))
+
+
+@pytest.mark.parametrize("bsz", [1, 8, 1024])
+@pytest.mark.parametrize("case", sorted(S8_CASES))
+def test_int8_route_matches_plain_bitwise(card, case, bsz):
+    """int8 codes take the int8 route (counted in ``launches_int8``) and
+    are bitwise to the plain version and to the fp32 route on the same
+    codes as fp32, pooled under odd='pad' and unpooled."""
+    shape, stride, keys = S8_CASES[case]
+    x, w, s, b = _s8_operands(card, shape, bsz)
+    for mod, ns in ((fc_ops, "fused_conv_block"), (cw_ops, "conv2d")):
+        pol = ExecPolicy(tiling={f"{ns}.{k}": v for k, v in keys.items()})
+        before = (mod.launches, mod.launches_int8)
+        if mod is fc_ops:
+            def run(x, w):
+                return fc_ops.fused_cwp(x, w, b, stride=stride, scale=s,
+                                        odd="pad", policy=pol)
+            want = fused_cwp_ref(x, w, b, stride, odd="pad", scale=s)
+        else:
+            def run(x, w):
+                return cw_ops.conv_window(x, w, b, stride=stride,
+                                          policy=pol)
+            want = conv2d_window_ref(x, w, b, stride=stride)
+        got = run(x, w)
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.launches_int8) == (before[0] + 1,
+                                                     before[1] + 1)
+        assert torch.equal(got, want)
+        assert torch.equal(run(x.float(), w.float()), got)
+
+
+def test_int8_route_unaligned_views_match_plain_bitwise(card):
+    """Codes one byte into their storage, weights three: no word of
+    either is 4-byte aligned."""
+    x, w, s, b = _s8_operands(card, STAGES["conv2"], 8)
+    xu = torch.empty(x.numel() + 1, dtype=torch.int8, device=card)[1:]
+    wu = torch.empty(w.numel() + 3, dtype=torch.int8, device=card)[3:]
+    xu, wu = xu.view(x.shape), wu.view(w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    assert torch.equal(fc_ops.fused_cwp(xu, wu, b, scale=s),
+                       fused_cwp_ref(x, w, b, scale=s))
+    assert torch.equal(cw_ops.conv_window(xu, wu), conv2d_window_ref(x, w))
+
+
+def test_int8_route_graph_replays_match_plain_bitwise(card):
+    """Captured once in a CUDA graph, replayed on new codes copied into
+    the static input: bitwise each time, one launch counted at capture."""
+    x, w, s, b = _s8_operands(card, STAGES["conv2"], 8)
+    static = x.clone()
+    fc_ops.fused_cwp(static, w, b, scale=s)
+    torch.cuda.synchronize()
+    before = fc_ops.launches_int8
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fc_ops.fused_cwp(static, w, b, scale=s)
+    assert fc_ops.launches_int8 == before + 1
+    for seed in (1, 2, 3):
+        xn, _, _, _ = _s8_operands(card, STAGES["conv2"], 8, seed)
+        static.copy_(xn)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fused_cwp_ref(xn, w, b, scale=s))
+    assert fc_ops.launches_int8 == before + 1
+
+
+@pytest.mark.parametrize("arch", ["mnist_cnn", "highres_cnn"])
+def test_int8_plans_take_the_int8_route(card, arch):
+    """Every conv launch of an int8 plan on the card takes the int8 route
+    (no conv call casts its codes), and the logits equal the CPU's."""
+    model = (PaperCNN(PaperCNNConfig(policy=ExecPolicy(quant="int8")))
+             if arch == "mnist_cnn" else
+             VGGStyleCNN(VGGStyleCNNConfig(policy=ExecPolicy(quant="int8"))))
+    params = model.init(0, device="cpu")
+    x = torch.randn(model.input_shape(2), generator=torch.Generator(
+        ).manual_seed(4))
+    plan = model.compile(batch=2)
+    before = {m: (m.launches, m.launches_int8) for m in (fc_ops, cw_ops)}
+    with torch.inference_mode():
+        got = plan.bind({k: (v.to(card) if isinstance(v, torch.Tensor) else
+                             {kk: vv.to(card) for kk, vv in v.items()})
+                         for k, v in params.items()})(x.to(card))
+        want = plan.bind(params)(x)
+    for m, (n0, n8) in before.items():
+        assert m.launches - n0 == m.launches_int8 - n8
+    assert fc_ops.launches > before[fc_ops][0]
+    assert torch.equal(got.cpu(), want)

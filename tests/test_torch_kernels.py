@@ -372,9 +372,10 @@ def test_unpooled_conv_blocks_at_the_paper_shapes(stage, bsz):
     ("odd_output", 8, {"threads": 160, "cpb": 4, "band": 1, "split": 32,
                        "ipb": 1}),
     # 5x5 tiles of 2x2 points over the 9x9 output: the whole image and
-    # every channel a block, five images
+    # every channel a block, four images (a fifth's band would take the
+    # slab, with its weight rows 4 floats past cpb, over the target)
     ("odd_output", 1024, {"threads": 320, "cpb": 20, "band": 5, "split": 1,
-                          "ipb": 5}),
+                          "ipb": 4}),
     ("stride2", 8, {"threads": 96, "cpb": 4, "band": 1, "split": 8,
                     "ipb": 1}),
     ("stride2", 1024, {"threads": 320, "cpb": 8, "band": 9, "split": 1,
@@ -416,7 +417,7 @@ def test_unpooled_smem_covers_the_ragged_rows(case, bsz, tiles):
         assert top <= min(staged, h - row0)
     ld = tiling.fused_ld(h, w, kh, kw, sh, sw, pool=False)
     assert t["ld"] == ld >= w
-    assert t["smem"] == 4 * (n * kh * kw * t["cpb"]
+    assert t["smem"] == 4 * (n * kh * kw * (t["cpb"] + 4)
                              + t["ipb"] * n * staged * ld)
 
 
@@ -601,14 +602,15 @@ def test_fused_ld_pads_rows_apart_in_the_banks(args, ld):
 def test_fused_tiles_overrides_staging_and_checks():
     conv2 = FUSED_ARGS["conv2"]
     t = tiling.fused_tiles(1024, *conv2)
-    # 20 × 540 weights + 4 images × 15 channels × 13 rows × 20 floats
-    assert t["smem"] == 4 * (20 * 540 + 4 * 15 * 13 * 20) and t["ld"] == 20
+    # 540 weight rows of 20 + 4 floats + 4 images × 15 channels × 13 rows
+    # × 20 floats
+    assert t["smem"] == 4 * (24 * 540 + 4 * 15 * 13 * 20) and t["ld"] == 20
     t = tiling.fused_tiles(8, *conv2, {"fused_conv_block.split": 8,
                                        "band": 2, "cpb": 8, "ipb": 2,
                                        "conv2d.threads": 32})
     assert {k: t[k] for k in ("threads", "cpb", "band", "split", "ipb")} == \
         {"threads": 128, "cpb": 8, "band": 2, "split": 8, "ipb": 2}
-    assert t["smem"] == 4 * (8 * 540 + 2 * 15 * 9 * 20)   # 2 pooled rows
+    assert t["smem"] == 4 * (12 * 540 + 2 * 15 * 9 * 20)  # 2 pooled rows
     # a slab over SMEM_MAX is read from device memory, not refused
     wide = tiling.fused_tiles(1, 256, 6, 512, 4, 3, 3, 1, 1)
     assert wide["smem"] == 0
@@ -697,7 +699,7 @@ def test_pad_tiles_cover_the_ragged_rows(shape, bsz):
         if odd == "pad":
             for row0, top in _tile_rows_read(h, k, 1, ho, t["band"], po):
                 assert top <= min(staged, h - row0)
-        assert t["smem"] == 4 * (n * k * k * t["cpb"]
+        assert t["smem"] == 4 * (n * k * k * (t["cpb"] + 4)
                                  + t["ipb"] * n * staged * t["ld"])
     # a padded pool tiles the conv map exactly as the unpooled conv does
     assert tiling.fused_tiles(bsz, *args, odd="pad") == \
